@@ -1,0 +1,130 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+Each `csrc/<name>.cu` is compiled on first use by `nvcc` into a shared
+library with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`,
+Hopper) and loaded with `ctypes`. Libraries live under
+`kubeflow_tpu_torch/_build/<hash>/`, where the hash covers every source
+and header in `csrc/` plus the compiler flags, so an edited source is never
+served by a stale library. `build_all()` compiles every kernel at once, one
+`nvcc` process per source.
+
+Nothing here runs when the module is imported: the CPU tests import every
+module of the port on a machine without `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("quant_matmul", "flash_decode", "flash_prefill")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+#: launches of each kernel wrapper since the last reset: one per call that
+#: runs a kernel on the card (the plain CPU version is not counted)
+LAUNCHES = {name: 0 for name in KERNELS}
+#: the same launches by argument shape, {kernel: {((arg, value), ...): n}},
+#: so a run's kernels can be checked again at exactly the shapes it used
+SHAPES: dict[str, dict[tuple, int]] = {name: {} for name in KERNELS}
+
+
+def count_launch(name: str, **shape) -> None:
+    LAUNCHES[name] += 1
+    key = tuple(shape.items())
+    SHAPES[name][key] = SHAPES[name].get(key, 0) + 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        SHAPES[name].clear()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_ROOT / _source_hash() / f"lib{name}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
+    out = _lib_path(name)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> str:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel that has no library for the current sources,
+    all `nvcc` processes at once; returns each fresh build's compiler log
+    (registers, shared memory and spills per kernel, from -Xptxas -v)."""
+    with _lock:
+        started = {name: _start(name) for name in KERNELS
+                   if not _lib_path(name).exists()}
+        logs = {}
+        try:
+            for name, (proc, tmp, out) in started.items():
+                logs[name] = _finish(name, proc, tmp, out)
+        finally:
+            for proc, _, _ in started.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        path = _lib_path(name)
+        if not path.exists():
+            _finish(name, *_start(name))
+        lib = ctypes.CDLL(str(path))
+        _libs[name] = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

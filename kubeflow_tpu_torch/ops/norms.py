@@ -1,0 +1,14 @@
+"""Normalization: f32 statistics, cast back to the input dtype
+(counterpart of kubeflow_tpu/ops/norms.py)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)
