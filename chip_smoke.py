@@ -5,10 +5,10 @@
 Phases, in order; any failure exits non-zero before the result line:
   (a) device: a CUDA device must be present; prints the card's name and
       power limit as nvidia-smi reports them;
-  (b) build: compiles the three CUDA kernels from kubeflow_tpu_torch/csrc
+  (b) build: compiles the six CUDA kernels from kubeflow_tpu_torch/csrc
       (one nvcc per source, in parallel) and prints the seconds;
-  (c) kernels: each kernel against its plain PyTorch version on the card
-      at the Llama-3-8B serving shapes, with the error, the kernel's, the
+  (c) kernels: each serving kernel against its plain PyTorch version on
+      the card at the Llama-3-8B serving shapes, with the error, the kernel's, the
       plain version's and one PyTorch library call's time (CUDA events,
       after warm-up, weights rotated through copies larger than the L2
       cache), and the bound (bytes at 3.35 TB/s or operations at
@@ -25,15 +25,31 @@ Phases, in order; any failure exits non-zero before the result line:
       waves, decode spans, lm_head rows), with its times as in (c);
       then one decode step's wall time against the card's busy time;
   (g) server: three concurrent /openai/v1/completions requests against
-      the port's HTTP server over that engine.
-The line before the last is {"kernels": [...]}, each kernel timed at a
-shape of the engine run; the last line is {"ok": true, "device": {...}}.
+      the port's HTTP server over that engine;
+  (h) training kernels: flash-attention forward (B1), dq (B2) and dk/dv
+      (B3) against their plain versions at B=2 H=32 D=128 — S=4096
+      causal, S=4000 causal with two documents per row, S=1024
+      non-causal — the worst row's error over its largest value, a
+      repeat launch bit for bit, and kernel, plain, SDPA and bound
+      times; then B1's forward-only q_offset path;
+  (i) train reference: a small bf16 Llama's loss and every grad through
+      the kernels on the card against the same function on the CPU;
+  (j) trainer: Llama-3-8B width cut to 4 layers, B=2 x S=4096, AdamW,
+      6 steps, twice from --seed: loss and grad_norm per step, tokens/s,
+      MFU, peak memory, launches of B1-B3 per step (each at least one per
+      layer, at the shape (h) timed), the two runs' losses, and one
+      step's wall time against the card's busy time.
+Each phase prints its seconds. The line before the last is
+{"kernels": [...]}, each kernel timed at a shape its path launched it at
+(the 8B engine run for the serving kernels, the trainer for B1-B3); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -47,12 +63,17 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import flash_attention as fa
 from kubeflow_tpu_torch.ops import flash_decode as fd
 from kubeflow_tpu_torch.ops import flash_prefill as fp
 from kubeflow_tpu_torch.ops import quant
 from kubeflow_tpu_torch.ops import quant_matmul as qm
 from kubeflow_tpu_torch.serving.llm import LLMEngine
 from kubeflow_tpu_torch.serving.server import CompletionServer
+from kubeflow_tpu_torch.training import data as train_data
+from kubeflow_tpu_torch.training import mfu
+from kubeflow_tpu_torch.training import trainer as train
+from kubeflow_tpu_torch.training.metrics_writer import MetricsWriter
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
@@ -66,10 +87,16 @@ K1_LAYER = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2,
             (14336, 4096): 1}
 K1_HEAD = (4096, 128256)
 
+SERVING_KERNELS = ("quant_matmul", "flash_decode", "flash_prefill")
+TRAINING_KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
+
 REPLACES = {
     "quant_matmul": "kubeflow_tpu/ops/quant_matmul.py:68",
     "flash_decode": "kubeflow_tpu/ops/flash_decode.py:125",
     "flash_prefill": "kubeflow_tpu/ops/flash_prefill.py:134",
+    "flash_attn_fwd": "kubeflow_tpu/ops/flash_pallas.py:77",
+    "flash_attn_dq": "kubeflow_tpu/ops/flash_pallas.py:229",
+    "flash_attn_dkv": "kubeflow_tpu/ops/flash_pallas.py:284",
 }
 
 
@@ -184,12 +211,17 @@ ATTN_ROW_TOL = 2 ** -6
 ATTN_ROW_TOL_K3_INT8 = 2 ** -5
 
 
-def attn_err(got, ref, name, row_tol):
+def attn_err(got, ref, name, row_tol, grad=False):
     """The max abs error, and the worst row's error over the row's largest
-    value, which must be at most row_tol."""
+    value, which must be at most row_tol. For a gradient (grad=True) the
+    row's largest value is floored at the median row's: a row whose exact
+    gradient cancels to about 0 (dq of the first causal row, where dp
+    equals delta) holds only rounding residue in both versions."""
     torch.cuda.synchronize()
     diff = (got.float() - ref.float()).abs().amax(-1)
     scale = ref.float().abs().amax(-1)
+    if grad:
+        scale = scale.clamp_min(scale.median())
     err = diff.max().item()
     worst = (diff / scale.clamp_min(1e-30)).max().item()
     check(math.isfinite(err) and worst <= row_tol,
@@ -379,6 +411,406 @@ def reference_phase(seed: int) -> None:
               f"argmax agreement {agree:.3f}", flush=True)
 
 
+# -- (h) training attention kernels against their plain versions ------------
+
+
+def two_documents(b: int, s: int) -> torch.Tensor:
+    """[b, s] int32 segment ids, two documents per row, the boundary of
+    row i at s // 2 + 17 * (i + 1): inside a 64-row tile of every
+    kernel."""
+    seg = torch.zeros(b, s, dtype=torch.int32, device=DEV)
+    for i in range(b):
+        seg[i, s // 2 + 17 * (i + 1):] = 1
+    return seg
+
+
+def visible_pairs(b: int, s: int, causal: bool, seg) -> int:
+    """(query row, key) pairs visible in this input, summed over the
+    batch: the work the attention kernels must do for it."""
+    total = 0
+    for i in range(b):
+        lens = ([s] if seg is None else
+                torch.unique_consecutive(seg[i], return_counts=True)[1]
+                .tolist())
+        total += sum(n * (n + 1) // 2 if causal else n * n for n in lens)
+    return total
+
+
+def train_attn_case(gen, b, s, causal, segments, h=32, d=128):
+    """B1, B2 and B3 at one shape against their plain versions (run per
+    batch row, to hold the [H, S, S] f32 scores of one row at a time),
+    repeat-launch bitwise equality, and each kernel's, plain and SDPA
+    times with its bound. Returns {kernel: case}."""
+    def mk():
+        return torch.randn(b, s, h, d, device=DEV, generator=gen).to(
+            torch.bfloat16)
+
+    q, k, v, do = mk(), mk(), mk(), mk()
+    seg = two_documents(b, s) if segments else None
+    kw = dict(causal=causal, segment_ids=seg)
+    _build.reset_launches()
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.row_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    shape_key = {name: next(iter(_build.SHAPES[name]))
+                 for name in TRAINING_KERNELS}
+    again = (*fa.flash_fwd(q, k, v, **kw),
+             fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in
+              zip((o, lse, dq, dk, dv), again)),
+          f"B1-B3 B={b} S={s}: a second launch gave other bits")
+
+    def rows(i):
+        sl = slice(i, i + 1)
+        return dict(causal=causal,
+                    segment_ids=None if seg is None else seg[sl]), sl
+
+    def plain_fwd_all():
+        outs = []
+        for i in range(b):
+            kwi, sl = rows(i)
+            outs.append(fa.plain_fwd(q[sl], k[sl], v[sl], **kwi))
+        return [torch.cat(x) for x in zip(*outs)]
+
+    def plain_dq_all():
+        outs = []
+        for i in range(b):
+            kwi, sl = rows(i)
+            outs.append(fa.plain_bwd_dq(q[sl], k[sl], v[sl], do[sl],
+                                        lse[sl], delta[sl], **kwi))
+        return torch.cat(outs)
+
+    def plain_dkv_all():
+        outs = []
+        for i in range(b):
+            kwi, sl = rows(i)
+            outs.append(fa.plain_bwd_dkv(q[sl], k[sl], v[sl], do[sl],
+                                         lse[sl], delta[sl], **kwi))
+        return [torch.cat(x) for x in zip(*outs)]
+
+    name = f"B={b} S={s} causal={causal} segments={segments}"
+    ro, rlse = plain_fwd_all()
+    errs = {"o": attn_err(o, ro, f"B1 {name} o", ATTN_ROW_TOL),
+            "lse": attn_err(lse, rlse, f"B1 {name} lse", ATTN_ROW_TOL)}
+    del ro, rlse
+    errs["dq"] = attn_err(dq, plain_dq_all(), f"B2 {name} dq", ATTN_ROW_TOL,
+                          grad=True)
+    rdk, rdv = plain_dkv_all()
+    errs["dk"] = attn_err(dk, rdk, f"B3 {name} dk", ATTN_ROW_TOL, grad=True)
+    errs["dv"] = attn_err(dv, rdv, f"B3 {name} dv", ATTN_ROW_TOL, grad=True)
+    del rdk, rdv
+    torch.cuda.empty_cache()
+
+    ms = {"fwd": time_ms([lambda: fa.flash_fwd(q, k, v, **kw)], 10),
+          "dq": time_ms([lambda: fa.flash_bwd_dq(
+              q, k, v, do, lse, delta, **kw)], 10),
+          "dkv": time_ms([lambda: fa.flash_bwd_dkv(
+              q, k, v, do, lse, delta, **kw)], 10)}
+    plain = {"fwd": time_ms([plain_fwd_all], 2),
+             "dq": time_ms([plain_dq_all], 2),
+             "dkv": time_ms([plain_dkv_all], 2)}
+    torch.cuda.empty_cache()
+    # library yardstick: SDPA forward, and its backward (dq, dk and dv in
+    # one autograd call) as forward+backward less the forward
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mask = None
+    if seg is not None:
+        mask = seg[:, None, :, None] == seg[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(s, s, dtype=torch.bool,
+                                     device=DEV).tril()
+    sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None)
+    dot = do.transpose(1, 2)
+    with torch.no_grad():
+        lib_fwd = time_ms([lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa_kw)], 10)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+        torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    lib_fb = time_ms([sdpa_fwd_bwd], 10)
+    del qt, kt, vt, mask
+    pairs = h * visible_pairs(b, s, causal, seg)
+    x = b * s * h * d * 2           # one bf16 [B, S, H, D] tensor
+    rowv = b * h * s * 4            # one f32 [B, H, S] vector
+    segb = 0 if seg is None else b * s * 4
+    bounds = {"fwd": bound_ms(4 * x + rowv + segb, 4.0 * d * pairs),
+              "dq": bound_ms(5 * x + 2 * rowv + segb, 6.0 * d * pairs),
+              "dkv": bound_ms(6 * x + 2 * rowv + segb, 8.0 * d * pairs)}
+    lib = {"fwd": lib_fwd, "dq": lib_fb - lib_fwd, "dkv": lib_fb - lib_fwd}
+    out = {}
+    for kern, part, outs in (("flash_attn_fwd", "fwd", ("o", "lse")),
+                             ("flash_attn_dq", "dq", ("dq",)),
+                             ("flash_attn_dkv", "dkv", ("dk", "dv"))):
+        worst = max(errs[n][1] for n in outs)
+        out[kern] = dict(
+            err=max(errs[n][0] for n in outs), worst_row=worst,
+            row_tol=ATTN_ROW_TOL, ms=ms[part], plain_ms=plain[part],
+            library_ms=lib[part], bound_ms=bounds[part][0],
+            bound_by=bounds[part][1],
+            errs={n: errs[n] for n in outs}, shape_key=shape_key[kern],
+            shape=f"one launch at {name} H={h} D={d}")
+    return out
+
+
+def train_attn_phase(gen) -> dict:
+    """(h): the three training-attention kernels at the training shapes,
+    plus B1's forward-only q_offset path. Returns the kernels-line
+    entries from the trainer's shape (B=2, S=4096, causal)."""
+    entries = None
+    for b, s, causal, segments in ((2, 4096, True, False),
+                                   (2, 4000, True, True),
+                                   (2, 1024, False, False)):
+        case = train_attn_case(gen, b, s, causal, segments)
+        for kern, c in case.items():
+            errs = " ".join(f"{n} worst row {w:.3g}" for n, (_, w) in
+                            c["errs"].items())
+            print(f"{kern} B={b} S={s} causal={causal} "
+                  f"segments={segments}: {errs}; {fmt(c)}", flush=True)
+        entries = entries or case
+        torch.cuda.empty_cache()
+    # continuation prefill: forward only, rows at q_offset 512 of 812 keys
+    q = torch.randn(1, 300, 32, 128, device=DEV, generator=gen).to(
+        torch.bfloat16)
+    k, v = (torch.randn(1, 812, 32, 128, device=DEV, generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    seg = two_documents(1, 812)
+    kw = dict(causal=True, q_offset=512, segment_ids=seg)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rlse = fa.plain_fwd(q, k, v, **kw)
+    e_o = attn_err(o, ro, "B1 q_offset o", ATTN_ROW_TOL)
+    e_l = attn_err(lse, rlse, "B1 q_offset lse", ATTN_ROW_TOL)
+    print(f"flash_attn_fwd B=1 Sq=300 Sk=812 q_offset=512 segments: o "
+          f"worst row {e_o[1]:.3g}, lse worst row {e_l[1]:.3g} "
+          f"(tol {ATTN_ROW_TOL:.3g})", flush=True)
+    return entries
+
+
+# -- (i) small model: training loss and grads, card against CPU -------------
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device).requires_grad_(True)
+
+
+# bf16 model, two layers: a grad leaf on the card is held within 2^-4 of
+# the leaf's largest value of the CPU run (bf16 rounds at other places in
+# the kernels and the GEMMs); the loss within 1% of the CPU loss
+GRAD_LEAF_TOL = 2 ** -4
+LOSS_RTOL = 1e-2
+
+
+def train_reference_phase(seed: int) -> None:
+    """(i): loss_fn and every grad of a small bf16 Llama (2 layers, d 512,
+    hd 128, GQA 4/2, vocab 4096, seq 256, two documents per row and a
+    loss mask) through the kernels on the card against the same function
+    on the CPU, which takes the plain versions."""
+    cfg = llama.LlamaConfig(vocab_size=4096, d_model=512, n_layers=2,
+                            n_heads=4, n_kv_heads=2, d_ff=1024,
+                            max_seq_len=256)
+    params = llama.init(cfg, seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    b, s = 2, 256
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, dtype=torch.int32),
+             "segment_ids": torch.zeros(b, s, dtype=torch.int32),
+             "loss_mask": (torch.rand(b, s, generator=gen) < 0.7).float()}
+    batch["segment_ids"][0, 100:] = 1
+    batch["segment_ids"][1, 150:] = 1
+    out = {}
+    _build.reset_launches()
+    for side, dev in (("card", DEV), ("cpu", "cpu")):
+        p = tree_to(params, dev)
+        loss, aux = llama.loss_fn(p, {k: v.to(dev) for k, v in
+                                      batch.items()}, cfg)
+        grads = torch.autograd.grad(loss, train.leaves(p))
+        out[side] = (loss.item(), aux["tokens"].item(),
+                     [g.float().cpu() for g in grads])
+    for name in TRAINING_KERNELS:
+        check(_build.LAUNCHES[name] > 0,
+              f"train reference: {name} was not launched on the card")
+    (cl, ct, cg), (rl, rt, rg) = out["card"], out["cpu"]
+    check(math.isfinite(cl) and ct == rt, "train reference: bad loss")
+    check(abs(cl - rl) <= LOSS_RTOL * abs(rl),
+          f"train reference: loss {cl} vs CPU {rl}")
+    worst, worst_name = 0.0, ""
+    names = [".".join(k) for k in leaf_names(params)]
+    for name, g, r in zip(names, cg, rg):
+        check(bool(torch.isfinite(g).all()), f"train reference: {name} "
+                                             "grad not finite")
+        rel = ((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= GRAD_LEAF_TOL, f"train reference: grad {worst_name} "
+                                  f"off by {worst:.4g} of its max")
+    print(f"train reference: loss card {cl:.6f} cpu {rl:.6f} (tol "
+          f"{LOSS_RTOL:.0%}); worst grad leaf {worst_name} {worst:.4g} of "
+          f"its max (tol {GRAD_LEAF_TOL:.4g}); kernel launches "
+          f"{json.dumps({k: _build.LAUNCHES[k] for k in TRAINING_KERNELS})}",
+          flush=True)
+
+
+def leaf_names(tree, prefix=()):
+    """Key paths of a nested dict in train.leaves order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k],
+                                                            prefix + (k,))]
+    return [prefix]
+
+
+# -- (j) the trainer at Llama-3-8B width -------------------------------------
+
+
+TRAIN_STEPS = 6
+# the two runs' losses: the same seed and data; the embedding gradient's
+# scatter-add on the card may sum in another order from run to run
+TRAIN_LOSS_RTOL = 1e-3
+
+
+def train_config(seed: int) -> train.TrainerConfig:
+    """Llama-3-8B width with the depth cut to 4 layers, B=2 x S=4096,
+    AdamW with 2 warmup steps of 100, remat "minimal" (the defaults)."""
+    base = llama.LlamaConfig.llama3_8b()
+    overrides = {f: getattr(base, f) for f in (
+        "vocab_size", "d_model", "n_heads", "n_kv_heads", "d_ff",
+        "rope_theta")}
+    overrides.update(n_layers=4, max_seq_len=4096)
+    return train.TrainerConfig(
+        model="llama", model_overrides=overrides, batch_size=2,
+        optimizer=train.OptimizerConfig(warmup_steps=2, total_steps=100),
+        dataset=train_data.DatasetConfig(seq_len=4096), seed=seed,
+        log_every=1)
+
+
+def train_run(cfg: train.TrainerConfig):
+    """One trainer run of TRAIN_STEPS; returns (trainer, state, per-step
+    metrics, cumulative launches after each step)."""
+    trainer = train.Trainer(cfg, device=DEV,
+                            metrics=MetricsWriter(echo=False))
+    state = trainer.init_state()
+    data = train_data.make_dataset(cfg.dataset, cfg.model,
+                                   trainer.model_cfg, cfg.batch_size,
+                                   fallback_seed=cfg.seed)
+    log, counts = [], []
+
+    def on_step(step, scalars):
+        log.append(scalars)
+        counts.append({k: _build.LAUNCHES[k] for k in TRAINING_KERNELS})
+
+    trainer.train(data, TRAIN_STEPS, state, step_callback=on_step)
+    return trainer, state, log, counts, data
+
+
+def step_profile(trainer, state, batch) -> dict:
+    """One training step's wall time against the card's busy time from the
+    profiler's kernel events, by kernel family."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    busy = {"flash_attn_fwd": 0.0, "flash_attn_dq": 0.0,
+            "flash_attn_dkv": 0.0, "gemm": 0.0, "other": 0.0}
+    by_name: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
+        key = evt.key.lower()
+        if "fwd_kernel" in key:
+            busy["flash_attn_fwd"] += ms
+        elif "dq_kernel" in key:
+            busy["flash_attn_dq"] += ms
+        elif "dkv_kernel" in key:
+            busy["flash_attn_dkv"] += ms
+        elif any(w in key for w in ("gemm", "nvjet", "xmma", "cutlass")):
+            busy["gemm"] += ms
+        else:
+            busy["other"] += ms
+    device_ms = sum(busy.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall_ms, "device_busy_ms": device_ms,
+            "busy_ms_by_kernel": busy,
+            "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+            "top_kernels_ms": {k[:90]: round(v, 3) for k, v in top}}
+
+
+def trainer_phase(seed: int, attn_shape: dict) -> dict:
+    """(j): the trainer at the Llama-3-8B-width config, twice from the same
+    seed; each kernel must have run at the shape (h) timed it at
+    (attn_shape, its _build.SHAPES key). Returns the training kernels'
+    launches in run 1."""
+    cfg = train_config(seed)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    trainer, state, log, counts, data = train_run(cfg)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
+    shapes = {k: dict(_build.SHAPES[k]) for k in TRAINING_KERNELS}
+    mcfg = trainer.model_cfg
+    tokens = cfg.batch_size * cfg.dataset.seq_len
+    flops = llama.flops_per_token(mcfg, cfg.dataset.seq_len) * tokens
+    for i, m in enumerate(log):
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"trainer: step {i + 1} loss/grad_norm not finite")
+        print(f"trainer step {i + 1}: loss={m['loss']:.6f} "
+              f"grad_norm={m['grad_norm']:.6f} "
+              f"step_time_s={m['step_time_s']:.4f}"
+              + (" (includes the first launches)" if i == 0 else ""),
+              flush=True)
+    per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
+                for i, c in enumerate(counts)]
+    for name in TRAINING_KERNELS:
+        check(all(p[name] >= mcfg.n_layers for p in per_step),
+              f"trainer: {name} launched fewer than once per layer in a "
+              f"step: {[p[name] for p in per_step]}")
+        check(attn_shape[name] in shapes[name],
+              f"trainer: {name} never ran at the shape phase (h) timed")
+    steady = sorted(m["step_time_s"] for m in log[1:])
+    step_s = steady[len(steady) // 2]
+    stats = {"step_time_s_median": step_s,
+             "tokens_per_s": tokens / step_s,
+             "mfu": mfu.mfu(flops, step_s, 1),
+             "flops_per_step": flops, "peak_memory_gb": peak_gb,
+             "launches_per_step": per_step[-1],
+             "params": sum(p.numel() for p in train.leaves(state["params"]))}
+    print(f"trainer: Llama-3-8B width, {mcfg.n_layers} layers, B="
+          f"{cfg.batch_size} S={cfg.dataset.seq_len}: {json.dumps(stats)}",
+          flush=True)
+    profile_batch = trainer.to_device(next(data))
+    del trainer, state
+    torch.cuda.empty_cache()
+    trainer2, state2, log2, _, _ = train_run(cfg)
+    for i, (a, b) in enumerate(zip(log, log2)):
+        check(abs(a["loss"] - b["loss"]) <= TRAIN_LOSS_RTOL * abs(a["loss"]),
+              f"trainer: run 2 step {i + 1} loss {b['loss']} vs "
+              f"{a['loss']}")
+    diff = max(abs(a["loss"] - b["loss"]) for a, b in zip(log, log2))
+    print(f"trainer: run 2 losses {[round(m['loss'], 6) for m in log2]}; "
+          f"max |loss diff| vs run 1 {diff:.3g} (tol "
+          f"{TRAIN_LOSS_RTOL:g} relative)", flush=True)
+    prof = step_profile(trainer2, state2, profile_batch)
+    print(f"train step breakdown: {json.dumps(prof)}", flush=True)
+    del trainer2, state2
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- (e) engine at full 8B width, (f) engine shapes, (g) server --------------
 
 
@@ -435,9 +867,8 @@ def engine_phase(seed: int):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     first, stats1 = run_batch(engine, prompts, 32)
-    launches = dict(_build.LAUNCHES)
-    shapes = {name: dict(by_shape) for name, by_shape in
-              _build.SHAPES.items()}
+    launches = {name: _build.LAUNCHES[name] for name in SERVING_KERNELS}
+    shapes = {name: dict(_build.SHAPES[name]) for name in SERVING_KERNELS}
     second, stats2 = run_batch(engine, prompts, 32)
     print(f"engine run 1 (cold): {json.dumps(stats1)}", flush=True)
     print(f"engine run 2: {json.dumps(stats2)}", flush=True)
@@ -589,12 +1020,34 @@ def main(argv=None) -> int:
     print(f"build: {time.monotonic() - t:.2f} s for "
           f"{len(logs)} kernels", flush=True)
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
-    k1_step = kernel_phase(gen)
-    reference_phase(args.seed)
-    engine, launches, shapes = engine_phase(args.seed)
-    cases = {"quant_matmul": k1_step, **engine_shape_phase(gen, shapes)}
-    step_breakdown(engine)
-    server_phase(engine)
+    seconds = {}
+
+    def phase(name, fn, *a):
+        t0 = time.monotonic()
+        out = fn(*a)
+        seconds[name] = round(time.monotonic() - t0, 2)
+        print(f"phase {name}: {seconds[name]} s", flush=True)
+        return out
+
+    k1_step = phase("c kernels", kernel_phase, gen)
+    phase("d reference", reference_phase, args.seed)
+    engine, launches, shapes = phase("e engine", engine_phase, args.seed)
+    cases = {"quant_matmul": k1_step,
+             **phase("f engine shapes", engine_shape_phase, gen, shapes)}
+    phase("f step breakdown", step_breakdown, engine)
+    phase("g server", server_phase, engine)
+    del engine   # the engine holds reference cycles: collect it now, so
+    gc.collect()   # the trainer's peak memory is the trainer's own
+    torch.cuda.empty_cache()
+    print(f"after serving: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          "still allocated", flush=True)
+    train_cases = phase("h training kernels", train_attn_phase, gen)
+    cases.update(train_cases)
+    phase("i train reference", train_reference_phase, args.seed)
+    launches.update(phase("j trainer", trainer_phase, args.seed,
+                          {name: train_cases[name]["shape_key"]
+                           for name in TRAINING_KERNELS}))
+    print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     kernels = []
     for name in _build.KERNELS:
         c = cases[name]

@@ -1,14 +1,17 @@
-"""Llama-family decoder, serving path (counterpart of
-kubeflow_tpu/models/llama.py: config, init, quantize_params, the KV
-cache, prefill, prefill_continue, decode_step and verify_step).
+"""Llama-family decoder (counterpart of kubeflow_tpu/models/llama.py):
+config, init and quantize_params; the training forward (apply_hidden,
+apply, loss_fn with its chunked cross-entropy, flops_per_token); and the
+serving path (the KV cache, prefill, prefill_continue, decode_step and
+verify_step).
 
 Layout follows the JAX package so parameters convert one to one
 (models/interop.py): weights are [in, out] applied as x @ W, every
 per-layer tensor is stacked on a leading [L, ...] axis, and a quantized
 leaf is {"q": int8 [..., in, out], "s": f32 [..., out]}. The lax.scan over
 layers is a Python loop. Attention goes through the kernel wrappers of
-ops/flash_prefill.py and ops/flash_decode.py, which launch the CUDA
-kernels for CUDA tensors and run their plain versions for CPU tensors.
+ops/flash_attention.py (training), ops/flash_prefill.py and
+ops/flash_decode.py (serving), which launch the CUDA kernels for CUDA
+tensors and run their plain versions for CPU tensors.
 
 The KV cache is updated IN PLACE by verify_step/decode_step (the JAX
 functions return a new cache): at 8B width the cache is about a gigabyte,
@@ -22,9 +25,12 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.ops import quant
+from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.flash_decode import flash_decode_attention
 from kubeflow_tpu_torch.ops.flash_prefill import flash_prefill_attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
@@ -33,6 +39,7 @@ from kubeflow_tpu_torch.ops.rope import apply_rope_tables, rope_tables
 Params = dict[str, Any]
 
 QUANT_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+REMAT_POLICIES = ("none", "minimal", "full")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +50,28 @@ class LlamaConfig:
     n_heads: int = 32
     n_kv_heads: int = 8
     d_ff: int = 14336
+    max_seq_len: int = 8192
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # activation checkpointing of each layer in the training forward:
+    # "none" saves everything, "minimal" saves only the weight-matmul
+    # outputs (JAX's checkpoint_dots_with_no_batch_dims), "full" saves
+    # only the layer's input
+    remat: bool = True
+    remat_policy: str = "minimal"
+    # >0: the loss projects and normalizes ce_chunk tokens at a time under
+    # checkpoint, so the [B, S, vocab] f32 logits never exist whole
+    ce_chunk: int = 0
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+        for name in ("dtype", "param_dtype"):   # "bfloat16" from a config
+            value = getattr(self, name)
+            if isinstance(value, str):
+                object.__setattr__(self, name, getattr(torch, value))
 
     @property
     def head_dim(self) -> int:
@@ -63,7 +88,7 @@ class LlamaConfig:
         """Test-size config: real structure, toy dims."""
         return LlamaConfig(vocab_size=vocab_size, d_model=64, n_layers=2,
                            n_heads=8, n_kv_heads=4, d_ff=128,
-                           rope_theta=10000.0)
+                           max_seq_len=128, rope_theta=10000.0)
 
 
 def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
@@ -129,15 +154,160 @@ def quantize_params(params: Params) -> Params:
     return out
 
 
-def layer_at(layers: Params, i: int) -> Params:
-    """Layer i of the stacked [L, ...] tree (views, no copies)."""
-    return {k: ({"q": v["q"][i], "s": v["s"][i]} if quant.is_quantized(v)
-                else v[i]) for k, v in layers.items()}
+def unstack_layers(layers: Params) -> list[Params]:
+    """The stacked [L, ...] tree as L per-layer trees of views, split with
+    one unbind per leaf: in training, autograd then gathers the layers'
+    grads with one stack per leaf, where indexing each layer would scatter
+    its grad into a full-size zero tensor and add them up."""
+    parts = {k: ({"q": v["q"].unbind(0), "s": v["s"].unbind(0)}
+                 if quant.is_quantized(v) else v.unbind(0))
+             for k, v in layers.items()}
+    return [{k: ({"q": p["q"][i], "s": p["s"][i]} if isinstance(p, dict)
+                 else p[i]) for k, p in parts.items()}
+            for i in range(layers["attn_norm"].shape[0])]
 
 
-def n_layers_of(layers: Params) -> int:
-    v = layers["attn_norm"]
-    return v.shape[0]
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+
+def _attention(cfg: LlamaConfig, x: torch.Tensor, layer: Params, rope,
+               segment_ids) -> torch.Tensor:
+    """Pre-norm causal GQA self-attention block with its residual; the
+    attention itself is flash attention (B1 forward, B2/B3 backward)."""
+    q, k, v = _project_qkv(cfg, layer, x, rope)
+    b, s = x.shape[:2]
+    out = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
+    return x + quant.matmul(out.reshape(b, s, -1), layer["wo"], cfg.dtype)
+
+
+def _layer_body(cfg: LlamaConfig, x: torch.Tensor, layer: Params, rope,
+                segment_ids) -> torch.Tensor:
+    return _mlp(cfg, _attention(cfg, x, layer, rope, segment_ids), layer)
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "minimal" policy: keep the outputs of the 2-D weight products
+    (x @ W folds to mm), recompute everything else in the backward."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: LlamaConfig, body):
+    """`body` under the config's activation checkpointing."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return body
+    if cfg.remat_policy == "full":
+        return lambda *a: checkpoint(body, *a, use_reentrant=False)
+    return lambda *a: checkpoint(
+        body, *a, use_reentrant=False,
+        context_fn=lambda: create_selective_checkpoint_contexts(
+            _save_matmuls))
+
+
+def apply_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+                 positions: torch.Tensor | None = None,
+                 segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, S] tokens -> [B, S, d_model] after the final norm (no lm_head),
+    each layer under cfg's remat policy."""
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    rope = _rope(cfg, positions)
+    x = _embed(params, tokens, cfg)
+    body = _remat(cfg, lambda x, layer: _layer_body(cfg, x, layer, rope,
+                                                    segment_ids))
+    for layer in unstack_layers(params["layers"]):
+        x = body(x, layer)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def apply(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+          positions: torch.Tensor | None = None,
+          segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, S] tokens -> [B, S, vocab] f32 logits."""
+    x = apply_hidden(params, tokens, cfg, positions=positions,
+                     segment_ids=segment_ids)
+    return quant.matmul_f32_out(x, params["lm_head"], cfg.dtype)
+
+
+def _token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0]
+
+
+def loss_fn(params: Params, batch: dict[str, torch.Tensor],
+            cfg: LlamaConfig):
+    """Next-token cross-entropy: batch has tokens [B, S] and optionally
+    loss_mask [B, S] (1 where the target counts) and segment_ids [B, S].
+    The forward runs on the full sequence and the logits shift after.
+    Returns (loss, {"loss", "tokens"})."""
+    if cfg.ce_chunk:
+        return _chunked_ce_loss(params, batch, cfg)
+    tokens = batch["tokens"].long()
+    logits = apply(params, tokens, cfg,
+                   segment_ids=batch.get("segment_ids"))[:, :-1]
+    token_loss = _token_loss(logits, tokens[:, 1:])
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(token_loss) if mask is None
+            else mask[:, 1:].float())
+    total = (token_loss * mask).sum()
+    n = mask.sum()
+    loss = total / n.clamp_min(1.0)
+    return loss, {"loss": loss, "tokens": n}
+
+
+def _chunk_loss(h, targets, valid, lm_head, dtype):
+    logits = quant.matmul_f32_out(h, lm_head, dtype)
+    return (_token_loss(logits, targets) * valid).sum()
+
+
+def _chunked_ce_loss(params: Params, batch: dict[str, torch.Tensor],
+                     cfg: LlamaConfig):
+    """The loss with the lm_head and log-softmax run per ce_chunk tokens
+    under checkpoint, so one [B, C, vocab] block of logits is live at a
+    time, forward and backward. The same loss as the plain path; S must
+    divide by ce_chunk."""
+    tokens = batch["tokens"].long()
+    b, s = tokens.shape
+    c = cfg.ce_chunk
+    if s % c:
+        raise ValueError(f"seq_len {s} must divide by ce_chunk {c}")
+    h = apply_hidden(params, tokens, cfg,
+                     segment_ids=batch.get("segment_ids"))
+    # targets roll left; the last position has no target
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    valid = torch.ones(b, s, device=tokens.device)
+    valid[:, -1] = 0.0
+    mask = batch.get("loss_mask")
+    if mask is not None:   # by target position, as the plain path
+        valid = valid * torch.cat(
+            [mask[:, 1:].float(), torch.zeros(b, 1, device=tokens.device)],
+            dim=1)
+    total = torch.zeros((), device=tokens.device)
+    for i in range(0, s, c):
+        total = total + checkpoint(
+            _chunk_loss, h[:, i:i + c], targets[:, i:i + c],
+            valid[:, i:i + c], params["lm_head"], cfg.dtype,
+            use_reentrant=False)
+    n = valid.sum()
+    loss = total / n.clamp_min(1.0)
+    return loss, {"loss": loss, "tokens": n}
+
+
+def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Training FLOPs per token, 6 * matmul params + 12 * L * H * hd * S
+    (the PaLM-appendix convention the JAX package uses: the causal
+    attention term is not halved)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    nh, nkv, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    matmul_params = L * (d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+                         + 3 * d * f)
+    embed_params = cfg.vocab_size * d
+    return 6.0 * (matmul_params + embed_params) + 12 * L * nh * hd * seq_len
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +366,7 @@ def _project_qkv(cfg: LlamaConfig, layer: Params, x: torch.Tensor, rope):
     return apply_rope_tables(q, *rope), apply_rope_tables(k, *rope), v
 
 
-def _serving_mlp(cfg: LlamaConfig, x: torch.Tensor,
+def _mlp(cfg: LlamaConfig, x: torch.Tensor,
                  layer: Params) -> torch.Tensor:
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     gate = quant.matmul(h, layer["w_gate"], cfg.dtype)
@@ -238,12 +408,11 @@ def prefill_inner(layers: Params, x: torch.Tensor, positions: torch.Tensor,
     b, s = x.shape[:2]
     rope = _rope(cfg, positions)
     ks, vs = [], []
-    for i in range(n_layers_of(layers)):
-        layer = layer_at(layers, i)
+    for layer in unstack_layers(layers):
         q, k, v = _project_qkv(cfg, layer, x, rope)
         out = prefill_attention(cfg, q, k, v, q_offset=0)
         x = x + quant.matmul(out.reshape(b, s, -1), layer["wo"], cfg.dtype)
-        x = _serving_mlp(cfg, x, layer)
+        x = _mlp(cfg, x, layer)
         ks.append(k)
         vs.append(v)
     return x, (torch.stack(ks), torch.stack(vs))
@@ -286,14 +455,13 @@ def prefill_continue(params: Params, tail_tokens: torch.Tensor,
     layers = params["layers"]
     rope = _rope(cfg, positions)
     ks, vs = [], []
-    for i in range(n_layers_of(layers)):
-        layer = layer_at(layers, i)
+    for i, layer in enumerate(unstack_layers(layers)):
         q, k_new, v_new = _project_qkv(cfg, layer, x, rope)
         k_full = torch.cat([k_prefix[i].to(cfg.dtype), k_new], dim=1)
         v_full = torch.cat([v_prefix[i].to(cfg.dtype), v_new], dim=1)
         out = prefill_attention(cfg, q, k_full, v_full, q_offset=p)
         x = x + quant.matmul(out.reshape(b, t, -1), layer["wo"], cfg.dtype)
-        x = _serving_mlp(cfg, x, layer)
+        x = _mlp(cfg, x, layer)
         ks.append(k_new)
         vs.append(v_new)
     return lm_head(params, x, cfg), torch.stack(ks), torch.stack(vs)
@@ -359,8 +527,7 @@ def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
     positions, rows, wpos, valid = _write_coords(lengths, s_v, max_len)
     rope = _rope(cfg, positions)
     lengths = lengths.to(torch.int32)
-    for i in range(n_layers_of(layers)):
-        layer = layer_at(layers, i)
+    for i, layer in enumerate(unstack_layers(layers)):
         q, k_new, v_new = _project_qkv(cfg, layer, x, rope)
         if quantized:
             kq, ksc = quantize_kv(k_new)
@@ -376,5 +543,5 @@ def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
             cache["k_s"][i][:, :span] if quantized else None,
             cache["v_s"][i][:, :span] if quantized else None, lengths)
         x = x + quant.matmul(out, layer["wo"], cfg.dtype)
-        x = _serving_mlp(cfg, x, layer)
+        x = _mlp(cfg, x, layer)
     return x

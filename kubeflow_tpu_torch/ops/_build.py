@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("quant_matmul", "flash_decode", "flash_prefill")
+KERNELS = ("quant_matmul", "flash_decode", "flash_prefill", "flash_attn_fwd",
+           "flash_attn_dq", "flash_attn_dkv")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
