@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero before the result line:
       plain version's and one PyTorch library call's time (CUDA events,
       after warm-up, weights rotated through copies larger than the L2
       cache), and the bound (bytes at 3.35 TB/s or operations at
-      989 TFLOP/s, whichever is larger);
+      989 TFLOP/s, whichever is larger); K3 also at the engine's
+      1024-token wave, at 1, 2, 3 and 8 query heads per kv head (hd 64),
+      and as a ragged int8 continuation in a longer slab, each launched
+      twice for the same bits;
   (d) reference: a small int8 model's prefill, decode and verify logits
       through the kernels against the same functions on the CPU;
   (e) engine: LLMEngine at full Llama-3-8B width (32 layers, random int8
@@ -23,7 +26,8 @@ Phases, in order; any failure exits non-zero before the result line:
   (f) engine shapes: every kernel again against its plain version, at
       each argument shape the wrappers recorded in that run (prefill
       waves, decode spans, lm_head rows), with its times as in (c);
-      then one decode step's wall time against the card's busy time;
+      then one decode step's and one B=3 x 1024 prefill wave's wall time
+      against the card's busy time by kernel family;
   (g) server: three concurrent /openai/v1/completions requests against
       the port's HTTP server over that engine;
   (h) training kernels: flash-attention forward (B1), dq (B2) and dk/dv
@@ -31,7 +35,8 @@ Phases, in order; any failure exits non-zero before the result line:
       causal, S=4000 causal with two documents per row, S=1024
       non-causal — the worst row's error over its largest value, a
       repeat launch bit for bit, and kernel, plain, SDPA and bound
-      times; then B1's forward-only q_offset path;
+      times; then B1 alone: the forward-only q_offset path, D=64, and
+      Sq=200 (not a multiple of its 128-row tile), causal and not;
   (i) train reference: a small bf16 Llama's loss and every grad through
       the kernels on the card against the same function on the CPU;
   (j) trainer: Llama-3-8B width cut to 4 layers, B=2 x S=4096, AdamW,
@@ -281,10 +286,14 @@ def k3_case(gen, s, q_offset, int8, b=2, nh=32, nkv=8, hd=128, t=None,
     k, v, ks, vs = kv_inputs(gen, b, t, nkv, hd, int8, slot_stride)
     kw = dict(q_offset=q_offset, k_scale=ks, v_scale=vs)
     got = fp.flash_prefill_attention(q, k, v, **kw)
+    again = fp.flash_prefill_attention(q, k, v, **kw)
     ref = fp.flash_prefill_plain(q, k, v, **kw)
     row_tol = ATTN_ROW_TOL_K3_INT8 if int8 else ATTN_ROW_TOL
-    err, worst = attn_err(got, ref, f"K3 B={b} S={s} q_offset={q_offset} "
-                                    f"int8={int8}", row_tol)
+    name = (f"K3 B={b} S={s} H={nh} kv={nkv} hd={hd} q_offset={q_offset} "
+            f"int8={int8}")
+    err, worst = attn_err(got, ref, name, row_tol)
+    check(torch.equal(got, again), f"{name}: a second launch gave other "
+                                   "bits")
     ms = time_ms([lambda: fp.flash_prefill_attention(q, k, v, **kw)], 20)
     plain = time_ms([lambda: fp.flash_prefill_plain(q, k, v, **kw)], 5)
     mask = (torch.arange(t, device=DEV)[None, :]
@@ -357,6 +366,23 @@ def kernel_phase(gen) -> dict:
                 c = k3_case(gen, s, q_offset, int8)
                 print(f"K3 B=2 S={s} q_offset={q_offset} int8={int8}: "
                       f"{fmt(c)}", flush=True)
+    # the engine's 1024-token wave; the group sizes 1, 2, 8 (and 3) at hd 64;
+    # a ragged int8 continuation in a slab longer than its keys (tile
+    # edges of the mask, the slot stride of the 4-D TMA map)
+    k3_more = [dict(b=3, s=1024, q_offset=0, int8=False)]
+    k3_more += [dict(b=2, s=512, q_offset=q_offset, int8=int8, nh=8 * g,
+                     nkv=8, hd=64)
+                for g in (1, 2, 8) for q_offset, int8 in ((0, False),
+                                                          (256, True))]
+    k3_more.append(dict(b=2, s=200, q_offset=300, int8=True,
+                        slot_stride=2048 * 8 * 128))
+    # g = 3 does not divide the 128-row tile: 2 pad rows per block
+    k3_more.append(dict(b=2, s=100, q_offset=37, int8=True, nh=24, nkv=8,
+                        hd=64))
+    for kw in k3_more:
+        c = k3_case(gen, **kw)
+        desc = " ".join(f"{k}={v}" for k, v in kw.items())
+        print(f"K3 {desc}: {fmt(c)}", flush=True)
     return dict(k1_step, shape="one 8B decode step: 224 int8 matmuls at "
                 "m=8 + lm_head")
 
@@ -574,21 +600,40 @@ def train_attn_phase(gen) -> dict:
                   f"segments={segments}: {errs}; {fmt(c)}", flush=True)
         entries = entries or case
         torch.cuda.empty_cache()
-    # continuation prefill: forward only, rows at q_offset 512 of 812 keys
-    q = torch.randn(1, 300, 32, 128, device=DEV, generator=gen).to(
-        torch.bfloat16)
-    k, v = (torch.randn(1, 812, 32, 128, device=DEV, generator=gen).to(
-        torch.bfloat16) for _ in range(2))
-    seg = two_documents(1, 812)
-    kw = dict(causal=True, q_offset=512, segment_ids=seg)
-    o, lse = fa.flash_fwd(q, k, v, **kw)
-    ro, rlse = fa.plain_fwd(q, k, v, **kw)
-    e_o = attn_err(o, ro, "B1 q_offset o", ATTN_ROW_TOL)
-    e_l = attn_err(lse, rlse, "B1 q_offset lse", ATTN_ROW_TOL)
-    print(f"flash_attn_fwd B=1 Sq=300 Sk=812 q_offset=512 segments: o "
-          f"worst row {e_o[1]:.3g}, lse worst row {e_l[1]:.3g} "
-          f"(tol {ATTN_ROW_TOL:.3g})", flush=True)
+    # B1 alone: the continuation prefill (forward only, rows at q_offset
+    # 512 of 812 keys, with segments), head dim 64, and 200 rows (not a
+    # multiple of the 128-row tile), causal and not
+    for kw in (dict(b=1, sq=300, sk=812, q_offset=512, segments=True),
+               dict(b=2, sq=1024, sk=1024, d=64),
+               dict(b=2, sq=1024, sk=1024, d=64, causal=False,
+                    segments=True),
+               dict(b=2, sq=200, sk=200),
+               dict(b=2, sq=200, sk=200, causal=False)):
+        b1_case(gen, **kw)
     return entries
+
+
+def b1_case(gen, b, sq, sk, h=32, d=128, causal=True, q_offset=0,
+            segments=False):
+    """B1 against its plain version (o and lse), and a repeat launch bit
+    for bit."""
+    q = torch.randn(b, sq, h, d, device=DEV, generator=gen).to(
+        torch.bfloat16)
+    k, v = (torch.randn(b, sk, h, d, device=DEV, generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    seg = two_documents(b, sk) if segments else None
+    kw = dict(causal=causal, q_offset=q_offset, segment_ids=seg)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o2, lse2 = fa.flash_fwd(q, k, v, **kw)
+    ro, rlse = fa.plain_fwd(q, k, v, **kw)
+    name = (f"flash_attn_fwd B={b} Sq={sq} Sk={sk} H={h} D={d} "
+            f"causal={causal} q_offset={q_offset} segments={segments}")
+    e_o = attn_err(o, ro, f"{name} o", ATTN_ROW_TOL)
+    e_l = attn_err(lse, rlse, f"{name} lse", ATTN_ROW_TOL)
+    check(torch.equal(o, o2) and torch.equal(lse, lse2),
+          f"{name}: a second launch gave other bits")
+    print(f"{name}: o worst row {e_o[1]:.3g}, lse worst row {e_l[1]:.3g} "
+          f"(tol {ATTN_ROW_TOL:.3g})", flush=True)
 
 
 # -- (i) small model: training loss and grads, card against CPU -------------
@@ -963,6 +1008,63 @@ def step_breakdown(engine) -> dict:
     return out
 
 
+def prefill_breakdown(engine, seed: int) -> dict:
+    """One prefill wave of the 8B engine: three 1000-token prompts (bucket
+    1024, B=3 x 1024, the largest wave of (e)) submitted with one new
+    token each, so the engine step that runs the wave finishes them. Its
+    wall time, and the card's busy time in it from the profiler's kernel
+    events by family (K3, K1, cuBLAS GEMMs, other). The wave runs once
+    before either timing, so neither holds first-use costs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    prompts = [torch.randint(0, engine.cfg.vocab_size, (1000,),
+                             generator=gen).tolist() for _ in range(3)]
+
+    def wave():
+        rids = [engine.submit(p, 1) for p in prompts]
+        engine.step()
+        torch.cuda.synchronize()
+        check(all(engine.is_done(r) for r in rids),
+              "prefill breakdown: one step did not finish the wave")
+        for r in rids:
+            engine.release(r)
+
+    wave()
+    t = time.perf_counter()
+    wave()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wave()
+    busy = {"flash_prefill": 0.0, "quant_matmul": 0.0, "gemm": 0.0,
+            "other": 0.0}
+    by_name: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
+        key = evt.key.lower()
+        if "prefill_kernel" in key:
+            busy["flash_prefill"] += ms
+        elif "dequant_kernel" in key or "splitk_reduce" in key:
+            busy["quant_matmul"] += ms
+        elif any(w in key for w in ("gemm", "nvjet", "xmma", "cutlass")):
+            busy["gemm"] += ms
+        else:
+            busy["other"] += ms
+    device_ms = sum(busy.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"wall_ms": wall_ms, "device_busy_ms": device_ms,
+           "busy_ms_by_kernel": busy,
+           "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+           "top_kernels_ms": {k[:90]: round(v, 3) for k, v in top}}
+    print(f"prefill wave breakdown: {json.dumps(out)}", flush=True)
+    return out
+
+
 def server_phase(engine) -> None:
     server = CompletionServer(engine, model="llama3-8b",
                               tokenizer=IdTokenizer()).start()
@@ -1016,9 +1118,10 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           "allow_tf32 matmul=False cudnn=False", flush=True)
     t = time.monotonic()
-    logs = _build.build_all()
-    print(f"build: {time.monotonic() - t:.2f} s for "
-          f"{len(logs)} kernels", flush=True)
+    built = _build.build_all()
+    print(f"build: {time.monotonic() - t:.2f} s for {len(built)} kernels; "
+          "seconds each: " + json.dumps({name: round(sec, 2) for name, (sec, _)
+                                          in built.items()}), flush=True)
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     seconds = {}
 
@@ -1035,6 +1138,7 @@ def main(argv=None) -> int:
     cases = {"quant_matmul": k1_step,
              **phase("f engine shapes", engine_shape_phase, gen, shapes)}
     phase("f step breakdown", step_breakdown, engine)
+    phase("f prefill breakdown", prefill_breakdown, engine, args.seed)
     phase("g server", server_phase, engine)
     del engine   # the engine holds reference cycles: collect it now, so
     gc.collect()   # the trainer's peak memory is the trainer's own

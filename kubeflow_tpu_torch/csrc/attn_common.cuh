@@ -1,9 +1,9 @@
-// Shared body of the two serving attention kernels (flash_decode.cu and
-// flash_prefill.cu): grouped-query attention of a block of query rows that
-// all belong to one (slot, kv head) against that kv head's slab
-// [B, T, kv, hd], with an online softmax over KV tiles held in shared
-// memory. The two kernels differ only in how a query row maps to its head
-// and absolute position, and in how the KV tiles are split across blocks.
+// Body of the serving decode kernel (flash_decode.cu): grouped-query
+// attention of a block of query rows that all belong to one (slot, kv
+// head) against that kv head's slab [B, T, kv, hd], with an online softmax
+// over KV tiles held in shared memory. A RowMap says how a query row maps
+// to its head and absolute position. (The prefill kernel runs on the
+// tensor-core mainloop of attn_fwd_sm90.cuh.)
 //
 // Numerics follow the TPU kernels (kubeflow_tpu/ops/flash_decode.py
 // _decode_kernel and flash_prefill.py _prefill_kernel) step for step:

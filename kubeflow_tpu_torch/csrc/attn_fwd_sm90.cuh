@@ -1,0 +1,611 @@
+// The Hopper forward mainloop of the two attention kernels that run a
+// causal online softmax over streamed K/V tiles: K3 (flash_prefill.cu,
+// serving prefill) and B1 (flash_attn_fwd.cu, training forward).
+//
+// Block: 128 query rows, 384 threads in three warpgroups.
+//   Warpgroup 0, the producer, gives its registers away (setmaxnreg) and
+//   one of its threads issues every load by TMA: the Q tile once, then
+//   K and V tiles of BK keys into a ring of kStages stages. Each stage has
+//   a full mbarrier (the TMA's transaction bytes) and an empty one (one
+//   arrival per consumer warp).
+//   Warpgroups 1 and 2, the consumers, own 64 rows each, the wgmma M:
+//     S  = Q.K^T   wgmma m64nBKk16, Q and K both from shared memory;
+//     the online softmax in registers, in log2 units (one exp2 a score);
+//     O += P.V     wgmma m64nDk16 with p rounded to bf16 as the register
+//                  A operand (the S accumulator layout is the A fragment
+//                  layout) and V read transposed from shared memory.
+// Tiles live in shared memory as regions of [rows][64] bf16, 128-byte
+// rows in the 128-byte swizzle that TMA writes and the wgmma descriptors
+// read (both XOR address bits 4-6 with bits 7-9, so every region starts
+// 1024-byte aligned). int8 K/V arrive unswizzled by TMA and the consumers
+// widen them to bf16 regions in the same swizzle (exact for int8).
+//
+// The kernels differ only in where a row sits and which keys it sees
+// (`Rows`), in the int8 scales (`KvScales`, K3 only) and in their
+// epilogues, which each kernel writes from the returned o, m and l.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap; the encoder comes from the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int kBM = 128;        // query rows per block
+constexpr int kThreads = 384;   // producer warpgroup + two consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kBK = 128;        // keys per K/V tile
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// -- host: TMA tensor maps ----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so no -lcuda link is needed.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over x[n3][n2][n1][n0] (n0 contiguous; s1..s3 the element
+// strides of n1..n3) whose box is (b0, b1, b2, 1); bf16 in the 128-byte
+// swizzle, or int8 unswizzled. Coordinates past a dimension read zeros.
+inline bool tensor_map(CUtensorMap* map, const void* base, bool int8,
+                       long long n0, long long n1, long long n2,
+                       long long n3, long long s1, long long s2,
+                       long long s3, int b0, int b1, int b2) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const long long es = int8 ? 1 : 2;
+  cuuint64_t dims[4] = {(cuuint64_t)n0, (cuuint64_t)n1,
+                        (cuuint64_t)(n2 > 0 ? n2 : 1), (cuuint64_t)n3};
+  cuuint64_t strides[3] = {(cuuint64_t)(s1 * es), (cuuint64_t)(s2 * es),
+                           (cuuint64_t)(s3 * es)};
+  cuuint32_t box[4] = {(cuuint32_t)b0, (cuuint32_t)b1, (cuuint32_t)b2, 1};
+  cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map,
+             int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             4, const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Byte offsets of a block's shared memory (from a 1024-aligned base).
+template <int D, bool INT8>
+struct Smem {
+  static constexpr int kTile = kBK * D * (INT8 ? 1 : 2);   // K or V as landed
+  static constexpr int kWideTile = INT8 ? kBK * D * 2 : 0;  // widened to bf16
+  static constexpr int kQ = 0;                          // [D/64][kBM][64]
+  static constexpr int kRing = kQ + kBM * D * 2;        // stage s: K, then V
+  static constexpr int kWide = kRing + 2 * kStages * kTile;  // K, then V
+  static constexpr int kScales = kWide + 2 * kWideTile;  // k, v [kBK] f32
+  static constexpr int kBars = kScales + (INT8 ? 2 * kBK * 4 : 0);
+  // full[kStages], empty[kStages], q; plus room to align the base
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+};
+
+// -- device: barriers, TMA, wgmma --------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// barrier of the 256 consumer threads only
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// this thread's shared-memory stores, visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// wgmma shared-memory descriptor in the 128-byte swizzle: start address,
+// leading and stride byte offsets
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// 2^x in one MUFU instruction (denormal results flush to 0)
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared
+  // memory; acc = 0 overwrites d
+  __device__ static void ss(float (&d)[32], uint64_t a, uint64_t b,
+                         int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // d[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (the mma.sync
+  // m16n8k16 A layout per warp), B MN-major in shared memory (transposed)
+  __device__ static void rs(float (&d)[32], const uint32_t (&a)[4],
+                         uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared
+  // memory; acc = 0 overwrites d
+  __device__ static void ss(float (&d)[64], uint64_t a, uint64_t b,
+                         int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // d[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (the mma.sync
+  // m16n8k16 A layout per warp), B MN-major in shared memory (transposed)
+  __device__ static void rs(float (&d)[64], const uint32_t (&a)[4],
+                         uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// -- the mainloop ------------------------------------------------------------
+
+// Row i (0 or 1) of this consumer thread, 0..kBM-1 in the block: the
+// accumulator rows lane/4 and lane/4 + 8 of its warp's 16.
+__device__ __forceinline__ int row(int i) {
+  return (threadIdx.x / 128 - 1) * 64 + (threadIdx.x / 32 % 4) * 16 +
+         threadIdx.x % 32 / 4 + 8 * i;
+}
+
+// Which keys this thread's two rows see.
+struct Rows {
+  int pos[2];          // each row's position: causal rows see keys <= it
+  int seg[2];          // each row's segment id (when seg_k is set)
+  const int* seg_k;    // null, or this batch row's key segment ids
+  int n_keys;          // keys at or past it are padding
+  int first_pos;       // the smallest position of any row of the block
+  bool causal;
+
+  // whether every row of the block sees all of [k0, k0 + kBK)
+  __device__ bool whole(int k0) const {
+    return seg_k == nullptr && k0 + kBK <= n_keys &&
+           (!causal || k0 + kBK - 1 <= first_pos);
+  }
+};
+
+// int8 K/V: key t's scales are k[t * stride] and v[t * stride].
+struct KvScales {
+  const float* k;
+  const float* v;
+  int stride;
+};
+
+// Aligns the block's shared memory, sets up the barriers and zeroes the
+// Q rows [q_rows, kBM) that no TMA box covers; ends in __syncthreads.
+template <int D, bool INT8>
+__device__ uint8_t* begin(uint8_t* raw, int q_rows) {
+  using L = Smem<D, INT8>;
+  uint8_t* smem = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + s, 1);
+      mbar_init(bars + kStages + s, kConsumerWarps);
+    }
+    mbar_init(bars + 2 * kStages, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (q_rows < kBM) {
+    const int pad = kBM - q_rows;   // 8 chunks of 16 bytes per row
+    for (int i = threadIdx.x; i < (D / 64) * pad * 8; i += kThreads) {
+      const int c = i / (pad * 8), r = q_rows + i / 8 % pad;
+      *reinterpret_cast<int4*>(smem + L::kQ + c * kBM * 128 + r * 128 +
+                               i % 8 * 16) = make_int4(0, 0, 0, 0);
+    }
+    fence_async_smem();
+  }
+  __syncthreads();
+  return smem;
+}
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+}
+
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+}
+
+// The producer thread: Q rows [q0, q0 + q_rows) of head coordinate qh
+// (q_rows * 128 bytes per 64-column box), then n_tiles K/V tiles of head
+// coordinate kh, batch b.
+template <int D, bool INT8>
+__device__ void produce(uint8_t* smem, const CUtensorMap* qm,
+                        const CUtensorMap* km, const CUtensorMap* vm,
+                        int q_rows, int qh, int q0, int kh, int b,
+                        int n_tiles) {
+  using L = Smem<D, INT8>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = full + 2 * kStages;
+  mbar_expect_tx(qbar, (D / 64) * q_rows * 128);
+  for (int c = 0; c < D / 64; ++c)
+    tma_load(smem + L::kQ + c * kBM * 128, qm, c * 64, qh, q0, b, qbar);
+  constexpr int kBoxes = INT8 ? 1 : D / 64;   // int8: one [kBK][D] box
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);   // first pass: free
+    mbar_expect_tx(full + st, 2 * L::kTile);
+    uint8_t* kt = smem + L::kRing + 2 * st * L::kTile;
+    for (int c = 0; c < kBoxes; ++c) {
+      tma_load(kt + c * kBK * 128, km, c * 64, kh, i * kBK, b, full + st);
+      tma_load(kt + L::kTile + c * kBK * 128, vm, c * 64, kh, i * kBK, b,
+               full + st);
+    }
+  }
+}
+
+// A [kBK][D] int8 tile to bf16 regions in the 128-byte swizzle; the 256
+// consumer threads share the work (ct is this one's index).
+template <int D>
+__device__ __forceinline__ void widen(uint8_t* dst, const uint8_t* src,
+                                      int ct) {
+  constexpr int CH = D / 16;   // 16-byte int8 chunks per row
+#pragma unroll 2
+  for (int i = ct; i < kBK * CH; i += 256) {
+    const int r = i / CH, c = i % CH * 16;
+    const int4 raw = *reinterpret_cast<const int4*>(src + r * D + c);
+    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+    uint32_t w[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) w[e] = pack_bf16(x[2 * e], x[2 * e + 1]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = c + 8 * half, grp = col % 64 / 8;
+      *reinterpret_cast<int4*>(dst + col / 64 * kBK * 128 + r * 128 +
+                               (grp ^ (r % 8)) * 16) =
+          make_int4(w[4 * half], w[4 * half + 1], w[4 * half + 2],
+                    w[4 * half + 3]);
+    }
+  }
+}
+
+// A consumer thread: attention of its warpgroup's 64 rows over n_tiles
+// K/V tiles. Returns o (the wgmma accumulator layout: o[4j + 2i + e] is
+// row(i), column 8j + 2 (lane % 4) + e), each row's max m in log2 units
+// (kNegInf if it saw no key) and its sum l, clamped to 1e-30. Numerics of
+// the TPU kernels: scores s = q.k in f32 (times the int8 k scale, then the
+// softmax scale), -1e30 where masked; p = 0 where masked; l sums the
+// unrounded p; p times the int8 v scale is rounded to bf16 before p.v.
+template <int D, bool INT8>
+__device__ void consume(uint8_t* smem, const Rows& rows, const KvScales& sc,
+                        int n_tiles, float scale, float (&o)[D / 2],
+                        float (&m)[2], float (&l)[2]) {
+  using L = Smem<D, INT8>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = full + 2 * kStages;
+  float* ks_s = reinterpret_cast<float*>(smem + L::kScales);
+  float* vs_s = ks_s + kBK;
+  const int ct = threadIdx.x - 128, lane = threadIdx.x % 32, t = lane % 4;
+  const float scale2 = scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+  m[0] = m[1] = kNegInf;
+  l[0] = l[1] = 0.f;
+  // this warpgroup's 64 rows of each Q region
+  const uint32_t q_addr = smem_u32(smem + L::kQ) + ct / 128 * 64 * 128;
+  mbar_wait(qbar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages, k0 = i * kBK;
+    mbar_wait(full + st, (i / kStages) & 1);
+    uint8_t* kt = smem + L::kRing + 2 * st * L::kTile;
+    uint8_t* vt = kt + L::kTile;
+    if constexpr (INT8) {
+      consumer_sync();   // both warpgroups are done with the last tile
+      widen<D>(smem + L::kWide, kt, ct);
+      widen<D>(smem + L::kWide + L::kWideTile, vt, ct);
+      for (int j = ct; j < kBK; j += 256) {
+        const bool in = k0 + j < rows.n_keys;
+        ks_s[j] = in ? sc.k[(long long)(k0 + j) * sc.stride] : 0.f;
+        vs_s[j] = in ? sc.v[(long long)(k0 + j) * sc.stride] : 0.f;
+      }
+      fence_async_smem();
+      consumer_sync();
+      if (lane == 0) mbar_arrive(empty + st);   // the int8 stage is free
+      kt = smem + L::kWide;
+      vt = kt + L::kWideTile;
+    }
+
+    // S = Q.K^T: D/16 steps of 16 along the head dim, 32 bytes apart
+    // inside a 128-byte swizzle row, then on to the next 64-column region
+    float s[kBK / 2];
+    const uint32_t k_addr = smem_u32(kt);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      Wgmma<kBK>::ss(s,
+                     desc(q_addr + kc / 4 * kBM * 128 + kc % 4 * 32, 16,
+                          1024),
+                     desc(k_addr + kc / 4 * kBK * 128 + kc % 4 * 32, 16,
+                          1024),
+                     kc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+
+    // online softmax; s[4j + e] is row(e / 2), key k0 + 8j + 2t + e % 2
+    if constexpr (INT8) {
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j)
+        s[j] *= ks_s[8 * (j / 4) + 2 * t + (j & 1)];
+    }
+    float mx[2] = {kNegInf, kNegInf}, corr[2], sum[2] = {0.f, 0.f};
+    const bool whole = rows.whole(k0);
+    if (whole) {   // no mask: the max of the raw scores (scale2 > 0)
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j)
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+      mx[0] *= scale2;
+      mx[1] *= scale2;
+    } else {   // one segment id load per key, shared by the two rows
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + 8 * j + 2 * t + c;
+          const bool in = key < rows.n_keys;
+          const int seg =
+              rows.seg_k == nullptr ? 0 : __ldg(rows.seg_k + (in ? key : 0));
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const bool ok = in & (!rows.causal | (key <= rows.pos[hi])) &
+                            (rows.seg_k == nullptr | (seg == rows.seg[hi]));
+            float& x = s[4 * j + 2 * hi + c];
+            x = ok ? x * scale2 : kNegInf;
+            mx[hi] = fmaxf(mx[hi], x);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2_fast(m[r] - m_new);
+      m[r] = m_new;
+    }
+    if (whole) {   // one FFMA and one exp2 a score
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j) {
+        s[j] = exp2_fast(fmaf(s[j], scale2, -m[(j >> 1) & 1]));
+        sum[(j >> 1) & 1] += s[j];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j) {
+        s[j] = s[j] > kNegInf / 2 ? exp2_fast(s[j] - m[(j >> 1) & 1]) : 0.f;
+        sum[(j >> 1) & 1] += s[j];
+      }
+    }
+    if constexpr (INT8) {
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j)
+        s[j] *= vs_s[8 * (j / 4) + 2 * t + (j & 1)];
+    }
+    // l is this thread's partial sum; the quad adds up at the end
+    l[0] = l[0] * corr[0] + sum[0];
+    l[1] = l[1] * corr[1] + sum[1];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+
+    // O += P.V: kBK/16 steps of 16 keys (two 8-key swizzle atoms, 2048
+    // bytes); V is MN-major, its 64-column regions kBK * 128 bytes apart.
+    // Every A fragment is packed before the fence, so no wgmma of the
+    // chain waits for a register write.
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc) {
+      pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
+      pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+      pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+      pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+    }
+    const uint32_t v_addr = smem_u32(vt);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc)
+      Wgmma<D>::rs(o, pa[kc], desc(v_addr + kc * 2048, kBK * 128, 1024));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    if (!INT8 && lane == 0) mbar_arrive(empty + st);   // K and V are free
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+}
+
+}  // namespace sm90

@@ -1,13 +1,14 @@
-// Shared pieces of the three training-attention kernels (flash_attn_fwd.cu
-// B1, flash_attn_dq.cu B2, flash_attn_dkv.cu B3): bf16 tensor-core
-// products (mma.sync m16n8k16, f32 accumulation) on tiles staged in shared
-// memory and read with ldmatrix, the tile loads, and the mask.
+// Shared pieces of the two training-attention backward kernels
+// (flash_attn_dq.cu B2, flash_attn_dkv.cu B3; the forward B1 runs on
+// attn_fwd_sm90.cuh): bf16 tensor-core products (mma.sync m16n8k16, f32
+// accumulation) on tiles staged in shared memory and read with ldmatrix,
+// the tile loads, and the mask.
 //
 // Semantics follow kubeflow_tpu/ops/flash_pallas.py: NEG_INF = -1e30 for
-// masked scores, a key is visible to query row i iff k < Sk, k <= q_offset
-// + i when causal, and its segment id equals the row's. q/k/v/o/dO are
-// [B, S, H, D] bf16, contiguous; lse/delta are [B*H, Sq] f32; segment ids
-// stay [B, Sk] int32, read by b = bh / H.
+// masked scores, a key is visible to query row i iff k < Sk, k <= i when
+// causal (q_offset is 0 in the backward), and its segment id equals the
+// row's. q/k/v/o/dO are [B, S, H, D] bf16, contiguous; lse/delta are
+// [B*H, Sq] f32; segment ids stay [B, Sk] int32, read by b = bh / H.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,7 +21,6 @@ constexpr int kThreads = 128;   // 4 warps, 16 rows of a 64-row tile each
 constexpr float kNegInf = -1e30f;
 // exponentials run as exp2 on scores scaled by log2(e) (one ex2 per score)
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // Everything one launch reads and writes; element strides, not bytes.
 struct Params {
@@ -32,12 +32,11 @@ struct Params {
   const float* delta;        // [B*H, Sq] rowsum(dO * O) (backward)
   const int* seg_q;          // query row i of batch b: seg_q[b*seg_stride+i]
   const int* seg_k;          // key t of batch b: seg_k[b*seg_stride+t]
-  __nv_bfloat16* out;        // o (B1) or dq (B2)
+  __nv_bfloat16* out;        // dq (B2)
   __nv_bfloat16* dk;         // B3
   __nv_bfloat16* dv;         // B3
-  float* lse_out;            // B1
   long long seg_stride;
-  int B, H, Sq, Sk, q_offset, causal;
+  int B, H, Sq, Sk, causal;
   float scale;
 };
 
@@ -174,8 +173,8 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
     dst[i] = row0 + i < limit ? src[row0 + i] : fill;
 }
 
-// Whether key `kpos` is visible to query row `qrow` (q_offset already
-// added by the caller when it applies): key padding, causal, segments.
+// Whether key `kpos` is visible to the query row at `qpos`: key padding,
+// causal, segments.
 __device__ __forceinline__ bool visible(int qpos, int kpos, int Sk,
                                         int causal, int seg_q, int seg_k,
                                         bool segmented) {

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -92,23 +93,34 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> str:
     return log
 
 
-def build_all() -> dict[str, str]:
+def build_all() -> dict[str, tuple[float, str]]:
     """Compile every kernel that has no library for the current sources,
-    all `nvcc` processes at once; returns each fresh build's compiler log
-    (registers, shared memory and spills per kernel, from -Xptxas -v)."""
+    all `nvcc` processes at once. Returns, for each fresh build, its
+    seconds from the common start and its compiler log (registers, shared
+    memory and spills per kernel, from -Xptxas -v)."""
     with _lock:
+        t0 = time.monotonic()
         started = {name: _start(name) for name in KERNELS
                    if not _lib_path(name).exists()}
-        logs = {}
-        try:
-            for name, (proc, tmp, out) in started.items():
-                logs[name] = _finish(name, proc, tmp, out)
-        finally:
-            for proc, _, _ in started.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        return logs
+        done: dict = {}
+
+        def collect(name, job):
+            try:
+                log = _finish(name, *job)
+                done[name] = (time.monotonic() - t0, log)
+            except BaseException as e:   # raised below, in the caller
+                done[name] = e
+
+        threads = [threading.Thread(target=collect, args=item)
+                   for item in started.items()]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for res in done.values():
+            if isinstance(res, BaseException):
+                raise res
+        return done
 
 
 def load(name: str) -> ctypes.CDLL:

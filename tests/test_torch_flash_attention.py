@@ -28,6 +28,19 @@ TOL = 2e-5
 GRAD_TOL = 5e-4
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test runs torch on one intra-op thread: in a process that also
+    runs XLA, the second thread sometimes computed its share of a batched
+    product in another floating-point state (7.7e-5 off on every row of
+    batch 1, from one process to the next), which made these f32
+    comparisons flaky."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def interpret():
     saved = jfp.FORCE_INTERPRET

@@ -85,10 +85,23 @@ def test_flash_decode_plain_matches_jax(interpret, s_v, quantized):
                                np.asarray(xla), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("q_offset", [0, 24])
-@pytest.mark.parametrize("quantized", [False, True])
-def test_flash_prefill_plain_matches_jax(interpret, q_offset, quantized):
-    nh, nkv, hd, s = 8, 2, 16, 20
+# (quantized, q_offset, group): every group size the CUDA kernel packs into
+# its 128-row tile differently (1, 4, 8 query heads per kv head), and a
+# ragged continuation offset in int8; the group-4 cases keep the ids
+# "quantized-q_offset"
+_PREFILL_CASES = (
+    [pytest.param(qz, off, 4, id=f"{qz}-{off}")
+     for qz in (False, True) for off in (0, 24)]
+    + [pytest.param(qz, off, g, id=f"g{g}-{qz}-{off}")
+       for g in (1, 8) for qz in (False, True) for off in (0, 24)]
+    + [pytest.param(True, 37, g, id=f"g{g}-True-37") for g in (1, 4, 8)])
+
+
+@pytest.mark.parametrize("quantized,q_offset,group", _PREFILL_CASES)
+def test_flash_prefill_plain_matches_jax(interpret, q_offset, quantized,
+                                         group):
+    nh, hd, s = 8, 16, 20
+    nkv = nh // group
     t = q_offset + s
     rng = np.random.default_rng(20 + q_offset)
     q = rng.normal(size=(2, s, nh, hd)).astype(np.float32)
