@@ -6,7 +6,10 @@ Phases, in order; any failure exits non-zero before the result line:
   (a) device: a CUDA device must be present; prints the card's name and
       power limit as nvidia-smi reports them;
   (b) build: compiles the six CUDA kernels from kubeflow_tpu_torch/csrc
-      (one nvcc per source, in parallel) and prints the seconds;
+      (one nvcc per source, in parallel) and prints the seconds; for B2
+      and B3 the registers and spills of each kernel from ptxas -v (no
+      spill allowed) and the tensor-core instructions in their SASS
+      (wgmma's HGMMA, no mma.sync HMMA), where cuobjdump is present;
   (c) kernels: each serving kernel against its plain PyTorch version on
       the card at the Llama-3-8B serving shapes, with the error, the kernel's, the
       plain version's and one PyTorch library call's time (CUDA events,
@@ -36,7 +39,10 @@ Phases, in order; any failure exits non-zero before the result line:
       non-causal — the worst row's error over its largest value, a
       repeat launch bit for bit, and kernel, plain, SDPA and bound
       times; then B1 alone: the forward-only q_offset path, D=64, and
-      Sq=200 (not a multiple of its 128-row tile), causal and not;
+      Sq=200 (not a multiple of its 128-row tile), causal and not; then
+      B2 and B3 at the edges of their tiles: D=64, S=200 causal and not,
+      S=320 causal (a partial 128-key block), each against its plain
+      version and launched twice for the same bits;
   (i) train reference: a small bf16 Llama's loss and every grad through
       the kernels on the card against the same function on the CPU;
   (j) trainer: Llama-3-8B width cut to 4 layers, B=2 x S=4096, AdamW,
@@ -48,6 +54,14 @@ Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the trainer for B1-B3); the
 last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --ab OTHER_TREE
+
+compares this tree with another checkout (an unpacked `git archive` of
+the parent commit, say) on one card in one call: B1-B3 at the trainer's
+shape, K3 at the engine's 1024-token wave and phase (j), with each
+tree's own code, in turns (other, this, this, other), one process each.
+It prints no result line.
 """
 
 from __future__ import annotations
@@ -57,6 +71,9 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -140,6 +157,85 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
 
 def n_copies(nbytes: float) -> int:
     return max(1, math.ceil(L2_ROTATE_BYTES / nbytes))
+
+
+# -- (b) build report -------------------------------------------------------
+
+# the backward kernels whose build (b) holds to no spill and to wgmma
+WGMMA_KERNELS = ("flash_attn_dq", "flash_attn_dkv")
+
+
+def kernel_name(mangled: str) -> str:
+    """`dq_kernel<128>` from a mangled `..._kernelILi128E...` name: the
+    identifier is the one whose length prefix matches it."""
+    m = re.search(r"_kernelILi(\d+)E", mangled)
+    if not m:
+        return mangled
+    end = m.start() + len("_kernel")
+    for n in range(len("_kernel"), end):
+        ident = mangled[end - n:end]
+        if mangled[:end - n].endswith(str(n)) and ident[0].isalpha():
+            return f"{ident}<{m.group(1)}>"
+    return mangled
+
+
+def ptxas_kernels(log: str) -> list[dict]:
+    """Each entry function of a -Xptxas -v log: name, registers, spill
+    bytes stored and loaded."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            out.append({"name": kernel_name(m.group(1)), "registers": None,
+                        "spill_stores": None, "spill_loads": None})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def build_report(built: dict) -> None:
+    """For B2 and B3: registers and spills of each kernel from the build
+    log (a spill fails the run), ptxas's wgmma warnings, and the count of
+    wgmma (HGMMA) and mma.sync (HMMA) instructions in the built SASS (an
+    HMMA, or no HGMMA, fails the run)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in WGMMA_KERNELS:
+        if name not in built:
+            print(f"{name}: library was already built, no ptxas log",
+                  flush=True)
+        else:
+            log = built[name][1]
+            for k in ptxas_kernels(log):
+                print(f"ptxas {name} {k['name']}: {k['registers']} "
+                      f"registers, spill stores {k['spill_stores']} B, "
+                      f"spill loads {k['spill_loads']} B", flush=True)
+                check(k["spill_stores"] == 0 and k["spill_loads"] == 0,
+                      f"{name} {k['name']}: ptxas spilled registers")
+            for line in log.splitlines():
+                if "wgmma" in line.lower():
+                    print(f"ptxas {name}: {line.strip()}", flush=True)
+        try:
+            sass = subprocess.run([cuobjdump, "-sass",
+                                   str(_build._lib_path(name))],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"{name}: no SASS listing ({e})", flush=True)
+            continue
+        hgmma = len(re.findall(r"\bHGMMA\.", sass))
+        hmma = len(re.findall(r"\bHMMA\.", sass))
+        print(f"sass {name}: {hgmma} HGMMA, {hmma} HMMA", flush=True)
+        check(hgmma > 0 and hmma == 0,
+              f"{name}: SASS has {hgmma} HGMMA and {hmma} HMMA")
 
 
 # -- (c) kernels against their plain versions --------------------------------
@@ -610,6 +706,16 @@ def train_attn_phase(gen) -> dict:
                dict(b=2, sq=200, sk=200),
                dict(b=2, sq=200, sk=200, causal=False)):
         b1_case(gen, **kw)
+    # B2 and B3 at the edges of their tiles: head dim 64; 200 rows (not a
+    # multiple of 64 or 128), causal and not; 320 causal, whose last key
+    # block holds 64 keys and whose last 128-row block 64 rows
+    for kw in (dict(b=2, s=1024, d=64),
+               dict(b=2, s=1024, d=64, causal=False, segments=True),
+               dict(b=2, s=200),
+               dict(b=2, s=200, causal=False),
+               dict(b=2, s=200, segments=True),
+               dict(b=2, s=320)):
+        bwd_case(gen, **kw)
     return entries
 
 
@@ -634,6 +740,34 @@ def b1_case(gen, b, sq, sk, h=32, d=128, causal=True, q_offset=0,
           f"{name}: a second launch gave other bits")
     print(f"{name}: o worst row {e_o[1]:.3g}, lse worst row {e_l[1]:.3g} "
           f"(tol {ATTN_ROW_TOL:.3g})", flush=True)
+
+
+def bwd_case(gen, b, s, h=32, d=128, causal=True, segments=False):
+    """B2 and B3 against their plain versions (dq, dk, dv), from B1's lse,
+    and a repeat launch bit for bit."""
+    q, k, v, do = (torch.randn(b, s, h, d, device=DEV, generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+    seg = two_documents(b, s) if segments else None
+    kw = dict(causal=causal, segment_ids=seg)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.row_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    name = f"B2/B3 B={b} S={s} H={h} D={d} causal={causal} " \
+           f"segments={segments}"
+    check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+          and torch.equal(dv, dv2), f"{name}: a second launch gave other "
+                                    "bits")
+    rdq = fa.plain_bwd_dq(q, k, v, do, lse, delta, **kw)
+    rdk, rdv = fa.plain_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    worst = {n: attn_err(g, r, f"{name} {n}", ATTN_ROW_TOL, grad=True)[1]
+             for n, g, r in (("dq", dq, rdq), ("dk", dk, rdk),
+                             ("dv", dv, rdv))}
+    print(f"{name}: " + ", ".join(f"{n} worst row {w:.3g}" for n, w in
+                                  worst.items())
+          + f" (tol {ATTN_ROW_TOL:.3g}); same bits twice", flush=True)
 
 
 # -- (i) small model: training loss and grads, card against CPU -------------
@@ -1101,13 +1235,63 @@ def server_phase(engine) -> None:
     print(f"server: {ok}/3 completions ok", flush=True)
 
 
+# One tree's side of --ab: its own chip_smoke's functions on its own code.
+AB_RUN = """
+import os, sys
+root, label, seed = sys.argv[1], sys.argv[2], int(sys.argv[3])
+sys.path.insert(0, root)
+os.chdir(root)
+import torch
+import chip_smoke as cs
+from kubeflow_tpu_torch.ops import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+print(f"[{label}] {root}", flush=True)
+_build.build_all()
+gen = torch.Generator(device=cs.DEV).manual_seed(seed)
+case = cs.train_attn_case(gen, 2, 4096, True, False)
+for kern, c in case.items():
+    print(f"[{label}] {kern} B=2 S=4096 H=32 D=128 causal: {cs.fmt(c)}",
+          flush=True)
+torch.cuda.empty_cache()
+c = cs.k3_case(gen, 1024, 0, False, b=3)
+print(f"[{label}] flash_prefill B=3 S=1024 wave: {cs.fmt(c)}", flush=True)
+torch.cuda.empty_cache()
+cs.trainer_phase(seed, {n: case[n]["shape_key"] for n in
+                        cs.TRAINING_KERNELS})
+"""
+
+
+def ab_main(other: str, seed: int) -> int:
+    """--ab: the other tree and this one in turns, each in its own
+    process; stops at the first run that fails."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    check(os.path.isfile(os.path.join(other, "chip_smoke.py")),
+          f"--ab: no chip_smoke.py in {other}")
+    for root, label in ((other, "other"), (here, "this"), (here, "this"),
+                        (other, "other")):
+        rc = subprocess.run([sys.executable, "-c", AB_RUN, root, label,
+                             str(seed)]).returncode
+        if rc != 0:
+            print(f"chip_smoke --ab: the {label} run failed ({rc})",
+                  file=sys.stderr)
+            return rc
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", metavar="OTHER_TREE",
+                    help="compare the training kernels, K3 and the "
+                         "trainer with another checkout instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.ab:
+        return ab_main(args.ab, args.seed)
     # f32 references run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1122,6 +1306,7 @@ def main(argv=None) -> int:
     print(f"build: {time.monotonic() - t:.2f} s for {len(built)} kernels; "
           "seconds each: " + json.dumps({name: round(sec, 2) for name, (sec, _)
                                           in built.items()}), flush=True)
+    build_report(built)
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     seconds = {}
 

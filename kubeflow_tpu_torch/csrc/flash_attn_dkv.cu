@@ -6,195 +6,342 @@
 // What it computes, per key: dv = sum over query rows of p^T . dO and dk =
 // sum of ds^T . q, with p = exp(q.k^T * scale - lse) (0 where masked) and
 // ds = p * (dO.v^T - delta) * scale, delta = rowsum(dO * O) computed
-// outside the kernel. p is rounded to bf16 before p^T . dO and ds before
-// ds^T . q, as on the TPU. Keys past Sk are not written.
+// outside the kernel. ds takes p in f32; p is rounded to bf16 before
+// p^T . dO and ds before ds^T . q, as on the TPU. A key is visible to
+// query row i iff k < Sk, k <= i when causal (q_offset is 0 in the
+// backward) and its segment id equals the row's. Keys past Sk are not
+// written.
 //
 // Bound on the H100: operations. Four products per visible (row, key)
 // pair (k.q^T, v.dO^T, p^T.dO, ds^T.q): 8 * B*H * D * (S^2 / 2) = 550 GFLOP
 // for a causal layer at B=2, S=4096, H=32, D=128, so 0.556 ms at 989
 // TFLOP/s.
 //
-// Design: the transpose of B2. One block of 4 warps per (batch*head, 64
-// keys), each warp 16 keys; K and V stay in shared memory, q and dO tiles
-// of 32 rows stream through it in two stages (cp.async, the next tile's
-// copies in flight during the current one) with their lse, delta and
-// segment ids. The warp computes the transposed scores k.q^T and dp^T =
-// v.dO^T (keys as rows), so p^T and ds^T come out of the accumulators
-// already in the A layout of p^T . dO and ds^T . q (p as one exp2 of
-// log2-scaled scores; tiles every row sees whole skip the mask). dk and dv
-// accumulate in registers over the query rows in order, with no atomics,
-// so a launch is deterministic. Causal blocks start at the first query
-// tile that reaches their first key.
-#include "flash_attn_common.cuh"
+// Design: the Hopper block of sm90_primitives.cuh, one block per (128
+// keys, batch * head), 384 threads.
+//   Producer warpgroup: thread 0 loads the block's K and V once by TMA,
+//   then streams q and dO tiles of 64 rows through a ring of kStages
+//   stages; warp 1 puts each tile's lse (in log2 units), delta and query
+//   segment ids into the same stage with plain loads (a TMA map needs
+//   16-byte row strides, and S = 200 or 4000 must work). A stage's full
+//   barrier waits for the TMA bytes and warp 1's 32 lanes, its empty
+//   barrier for one arrival per consumer warp.
+//   Consumer warpgroup w owns keys k0 + 64w .. k0 + 64w + 63, the wgmma M.
+//   Per tile it computes the transposed scores, keys as rows:
+//     S^T  = K.Q^T   wgmma m64n64k16, K and q both K-major (as the
+//     dP^T = V.dO^T  forward's Q.K^T);
+//   p^T and ds^T then sit in the accumulator layout, which is the register
+//   A fragment layout, and are packed to bf16 pairs in place:
+//     dV += P^T.dO   wgmma m64nDk16, dO read MN-major (as the forward's
+//     dK += dS^T.Q   P.V), Q likewise.
+//   dk and dv accumulate in registers over the query tiles in order, with
+//   no atomics, so a launch is deterministic. Causal blocks start at the
+//   first q tile that reaches their first key, and a warpgroup skips the
+//   tiles wholly before its own first key; tiles that every pair sees
+//   whole skip the mask. Key blocks vary fastest in the grid, in
+//   ascending order: each head's heaviest blocks launch first, and the
+//   blocks in flight share a few heads' q and dO in L2.
+// Where it can go wrong:
+//   - The MN-major descriptor of a 64-row tile has its 64-column regions
+//     kBQ * 128 bytes apart (the forward's V: kBK * 128). A mismatch
+//     gives wrong numbers, not a fault; chip_smoke's comparison with the
+//     plain version is the check.
+//   - Registers: at D = 128 a consumer thread holds dk and dv (64 f32
+//     each) and s^T and dp^T (32 each); p and ds are packed to bf16 as s
+//     and dp die, inside setmaxnreg's 240 (ptxas -v reports spills).
+//   - Rows past Sq read zeros from TMA and lse = delta = 0; the mask
+//     drops them, and the whole-tile path is taken only below Sq.
+#include "sm90_primitives.cuh"
 
 namespace {
 
-constexpr int BK = 64;   // keys per block
-constexpr int BQ = 32;   // query rows per shared-memory tile
+constexpr int kBKeys = 128;   // keys per block, 64 per consumer warpgroup
+constexpr int kBQ = 64;       // query rows per streamed tile
+constexpr int kStages = 2;    // q/dO ring depth
+constexpr int kLoaderLanes = 32;   // warp 1 of the producer warpgroup
 
+struct Args {
+  __nv_bfloat16* dk;    // [B, Sk, H, D]
+  __nv_bfloat16* dv;
+  const float* lse;     // [B*H, Sq]
+  const float* delta;   // [B*H, Sq]
+  const int* seg_q;     // null, or query row i of batch b at b*seg_stride+i
+  const int* seg_k;     // key t of batch b at b*seg_stride + t
+  long long seg_stride;
+  int H, Sq, Sk, causal;
+  float scale;
+};
+
+// Byte offsets of a block's shared memory (from a 1024-aligned base).
 template <int D>
-constexpr int smem_bytes() {   // K, V, two q/dO stages, two row stages
-  return (2 * BK + 4 * BQ) * kfa::tile_stride<D>() * 2 + 6 * BQ * 4;
+struct Smem {
+  static constexpr int kKV = kBKeys * D * 2;   // K or V: [D/64][kBKeys][64]
+  static constexpr int kTile = kBQ * D * 2;    // q or dO: [D/64][kBQ][64]
+  static constexpr int kK = 0;
+  static constexpr int kV = kKV;
+  static constexpr int kRing = 2 * kKV;        // stage s: q, then dO
+  // stage s: lse * log2(e) and delta [kBQ] f32, segment ids [kBQ] int32
+  static constexpr int kRows = kRing + 2 * kStages * kTile;
+  static constexpr int kRowBytes = 3 * kBQ * 4;
+  static constexpr int kBars = kRows + kStages * kRowBytes;
+  // full[kStages], empty[kStages], kv; plus room to align the base
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+};
+
+// Which (key, query row) pairs of a tile a consumer thread keeps.
+struct Mask {
+  int key[2];    // its two keys (accumulator rows)
+  int seg[2];    // their segment ids
+  int Sq, Sk;
+  bool causal, segmented;
+};
+
+// p^T and ds^T of one tile, in place of s^T and dp^T. s[4j + 2i + e] is
+// key i of the thread, query row q0 + 8j + 2t + e; rows holds the tile's
+// lse * log2(e), delta and segment ids.
+template <bool MASKED>
+__device__ __forceinline__ void tile_grads(float (&s)[32], float (&dp)[32],
+                                           const float* rows, int q0,
+                                           const Mask& mk, float scale2,
+                                           float scale) {
+  const int t = threadIdx.x % 4;
+  const float* lse2 = rows;
+  const float* dlt = rows + kBQ;
+  const int* segq = reinterpret_cast<const int*>(rows + 2 * kBQ);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c0 = 8 * j + 2 * t;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c0);
+    const float2 dl = *reinterpret_cast<const float2*>(dlt + c0);
+    int2 sq = make_int2(0, 0);
+    if (MASKED && mk.segmented)
+      sq = *reinterpret_cast<const int2*>(segq + c0);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = q0 + c0 + e;
+      const float le = e ? l2.y : l2.x, de = e ? dl.y : dl.x;
+      const int se = e ? sq.y : sq.x;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int idx = 4 * j + 2 * i + e;
+        float p = sm90::exp2_fast(fmaf(s[idx], scale2, -le));
+        if (MASKED) {
+          const bool ok = (q < mk.Sq) & (mk.key[i] < mk.Sk) &
+                          (!mk.causal | (mk.key[i] <= q)) &
+                          (!mk.segmented | (se == mk.seg[i]));
+          p = ok ? p : 0.f;
+        }
+        dp[idx] = p * (dp[idx] - de) * scale;
+        s[idx] = p;
+      }
+    }
+  }
+}
+
+// The register A fragments of a [64 x 64] accumulator rounded to bf16:
+// a[kc] covers columns 16 kc .. 16 kc + 15.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&x)[32]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kc][r] = sm90::pack_bf16(x[8 * kc + 2 * r], x[8 * kc + 2 * r + 1]);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kfa::kThreads) dkv_kernel(kfa::Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int TS = kfa::tile_stride<D>();
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + BK * TS;
-  __nv_bfloat16* qdo_s = v_s + BK * TS;   // stage i: q at 2i, dO at 2i + 1
-  float* rows_s = reinterpret_cast<float*>(qdo_s + 4 * BQ * TS);
-  // stage i: lse at rows_s + 3 * BQ * i, delta after it, then segment ids
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+dkv_kernel(const __grid_constant__ CUtensorMap qm,
+           const __grid_constant__ CUtensorMap km,
+           const __grid_constant__ CUtensorMap vm,
+           const __grid_constant__ CUtensorMap dom, Args a) {
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = full + 2 * kStages;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * kBKeys;
+  // causal: query tiles wholly before the block's first key see none of it
+  // (k0 is a multiple of kBQ)
+  const int q_begin = a.causal ? k0 : 0;
+  const int n_tiles = a.Sq > q_begin ? (a.Sq - q_begin + kBQ - 1) / kBQ : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full + s, 1 + kLoaderLanes);
+      sm90::mbar_init(empty + s, sm90::kConsumerWarps);
+    }
+    sm90::mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.y * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const bool segmented = p.seg_q != nullptr;
+  if (threadIdx.x < 128) {
+    sm90::producer_regs();
+    if (threadIdx.x == 0) {   // every TMA load
+      sm90::mbar_expect_tx(kvbar, 2 * L::kKV);
+      for (int c = 0; c < D / 64; ++c) {
+        sm90::tma_load(smem + L::kK + c * kBKeys * 128, &km, c * 64, h, k0,
+                       b, kvbar);
+        sm90::tma_load(smem + L::kV + c * kBKeys * 128, &vm, c * 64, h, k0,
+                       b, kvbar);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, q0 = q_begin + i * kBQ;
+        sm90::mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);
+        sm90::mbar_expect_tx(full + st, 2 * L::kTile);
+        uint8_t* qt = smem + L::kRing + 2 * st * L::kTile;
+        for (int c = 0; c < D / 64; ++c) {
+          sm90::tma_load(qt + c * kBQ * 128, &qm, c * 64, h, q0, b,
+                         full + st);
+          sm90::tma_load(qt + L::kTile + c * kBQ * 128, &dom, c * 64, h, q0,
+                         b, full + st);
+        }
+      }
+    } else if (threadIdx.x / 32 == 1) {   // each tile's per-row values
+      const int lane = threadIdx.x % 32;
+      const float* lse = a.lse + (long long)bh * a.Sq;
+      const float* delta = a.delta + (long long)bh * a.Sq;
+      const int* seg_q =
+          a.seg_q == nullptr ? nullptr : a.seg_q + b * a.seg_stride;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages, q0 = q_begin + i * kBQ;
+        sm90::mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);
+        float* rows =
+            reinterpret_cast<float*>(smem + L::kRows + st * L::kRowBytes);
+        for (int r = lane; r < kBQ; r += 32) {
+          const int q = q0 + r;
+          const bool in = q < a.Sq;
+          rows[r] = in ? lse[q] * sm90::kLog2e : 0.f;
+          rows[kBQ + r] = in ? delta[q] : 0.f;
+          reinterpret_cast<int*>(rows)[2 * kBQ + r] =
+              seg_q != nullptr && in ? seg_q[q] : -1;
+        }
+        sm90::mbar_arrive(full + st);
+      }
+    }
+    return;
+  }
+  sm90::consumer_regs();
 
-  kfa::load_tile<D, BK>(k_s, p.k, b, h, k0, p.Sk, p.H);
-  kfa::load_tile<D, BK>(v_s, p.v, b, h, k0, p.Sk, p.H);
-
-  // this thread's two keys: fragment elements 0, 1 and 2, 3
-  const int r = warp * 16 + g;
-  int key[2], segk[2];
+  const int wg = threadIdx.x / 128 - 1, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int kw0 = k0 + 64 * wg;   // this warpgroup's first key
+  Mask mk;
+  mk.Sq = a.Sq;
+  mk.Sk = a.Sk;
+  mk.causal = a.causal != 0;
+  mk.segmented = a.seg_q != nullptr;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    key[i] = k0 + r + 8 * i;
-    segk[i] = segmented && key[i] < p.Sk
-                  ? p.seg_k[b * p.seg_stride + key[i]] : -1;
+    mk.key[i] = k0 + sm90::row(i);
+    mk.seg[i] = mk.segmented && mk.key[i] < a.Sk
+                    ? a.seg_k[b * a.seg_stride + mk.key[i]] : -1;
+  }
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+  const float scale2 = a.scale * sm90::kLog2e;
+  // this warpgroup's 64 rows of each K and V region
+  const uint32_t k_addr = sm90::smem_u32(smem + L::kK) + wg * 64 * 128;
+  const uint32_t v_addr = sm90::smem_u32(smem + L::kV) + wg * 64 * 128;
+  sm90::mbar_wait(kvbar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages, q0 = q_begin + i * kBQ;
+    sm90::mbar_wait(full + st, (i / kStages) & 1);
+    // no pair of this warpgroup's keys and the tile's rows is visible when
+    // its keys are all padding or, causal, all after the tile's last row
+    const bool live = kw0 < a.Sk && (!mk.causal || q0 + kBQ - 1 >= kw0);
+    if (live) {
+      const uint32_t q_addr =
+          sm90::smem_u32(smem + L::kRing + 2 * st * L::kTile);
+      const uint32_t do_addr = q_addr + L::kTile;
+      // S^T = K.Q^T and dP^T = V.dO^T: D/16 steps of 16 along the head
+      // dim, 32 bytes apart in a 128-byte swizzle row, then the next
+      // 64-column region
+      float s[32], dp[32];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        sm90::Wgmma<64>::ss(
+            s,
+            sm90::desc(k_addr + kc / 4 * kBKeys * 128 + kc % 4 * 32, 16,
+                       1024),
+            sm90::desc(q_addr + kc / 4 * kBQ * 128 + kc % 4 * 32, 16, 1024),
+            kc);
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        sm90::Wgmma<64>::ss(
+            dp,
+            sm90::desc(v_addr + kc / 4 * kBKeys * 128 + kc % 4 * 32, 16,
+                       1024),
+            sm90::desc(do_addr + kc / 4 * kBQ * 128 + kc % 4 * 32, 16,
+                       1024),
+            kc);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+
+      const float* rows = reinterpret_cast<const float*>(
+          smem + L::kRows + st * L::kRowBytes);
+      const bool whole = !mk.segmented && kw0 + 64 <= a.Sk &&
+                         q0 + kBQ <= a.Sq &&
+                         (!mk.causal || q0 >= kw0 + 63);
+      if (whole)
+        tile_grads<false>(s, dp, rows, q0, mk, scale2, a.scale);
+      else
+        tile_grads<true>(s, dp, rows, q0, mk, scale2, a.scale);
+
+      // dV += P^T.dO and dK += dS^T.Q: 4 steps of 16 query rows (two
+      // 8-row swizzle atoms, 2048 bytes); dO and q are MN-major, their
+      // 64-column regions kBQ * 128 bytes apart. Every A fragment is
+      // packed before the fence, so no wgmma waits on a register write.
+      uint32_t pa[4][4], da[4][4];
+      pack_a(pa, s);
+      pack_a(da, dp);
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        sm90::Wgmma<D>::rs(dv, pa[kc],
+                           sm90::desc(do_addr + kc * 2048, kBQ * 128, 1024));
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        sm90::Wgmma<D>::rs(dk, da[kc],
+                           sm90::desc(q_addr + kc * 2048, kBQ * 128, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+    }
+    if (lane == 0) sm90::mbar_arrive(empty + st);   // q, dO and rows free
   }
 
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  const float* lse_bh = p.lse + (long long)bh * p.Sq;
-  const float* delta_bh = p.delta + (long long)bh * p.Sq;
-  const float scale2 = p.scale * kfa::kLog2e;   // p = exp2 in log2 units
-  // causal: query tiles wholly before this block's first key see none of it
-  const int q_begin = p.causal ? (k0 / BQ) * BQ : 0;
-  const int n_tiles = p.Sq > q_begin ? (p.Sq - q_begin + BQ - 1) / BQ : 0;
-  auto prefetch = [&](int tile) {   // copies of q/dO tile `tile` into its stage
-    const int st = tile & 1, q0 = q_begin + tile * BQ;
-    kfa::load_tile_async<D, BQ>(qdo_s + 2 * st * BQ * TS, p.q, b, h, q0,
-                                p.Sq, p.H);
-    kfa::load_tile_async<D, BQ>(qdo_s + (2 * st + 1) * BQ * TS, p.dout, b,
-                                h, q0, p.Sq, p.H);
-    kfa::cp_async_commit();
-    float* rs = rows_s + 3 * BQ * st;
-    kfa::load_rows(rs, lse_bh, q0, BQ, p.Sq, 0.f);
-    kfa::load_rows(rs + BQ, delta_bh, q0, BQ, p.Sq, 0.f);
-    if (segmented)
-      kfa::load_rows(reinterpret_cast<int*>(rs + 2 * BQ),
-                     p.seg_q + b * p.seg_stride, q0, BQ, p.Sq, -1);
-  };
-  __syncthreads();   // K and V are in place
-  if (n_tiles > 0) prefetch(0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int q0 = q_begin + tile * BQ, st = tile & 1;
-    if (tile + 1 < n_tiles) {   // its stage was freed by the last barrier
-      prefetch(tile + 1);
-      kfa::cp_async_wait<1>();
-    } else {
-      kfa::cp_async_wait<0>();
-    }
-    __syncthreads();   // this tile's copies are visible to every warp
-    const __nv_bfloat16* q_s = qdo_s + 2 * st * BQ * TS;
-    const __nv_bfloat16* do_s = qdo_s + (2 * st + 1) * BQ * TS;
-    const float* lse_s = rows_s + 3 * BQ * st;
-    const float* delta_s = lse_s + BQ;
-    const int* segq_s = reinterpret_cast<const int*>(lse_s + 2 * BQ);
-
-    // transposed scores s^T = k.q^T and dp^T = v.dO^T: 16 keys x 32 rows
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t ak[4], av[4];
-      kfa::load_a<D>(ak, k_s, warp * 16, kc * 16);
-      kfa::load_a<D>(av, v_s, warp * 16, kc * 16);
-#pragma unroll
-      for (int np = 0; np < BQ / 16; ++np) {
-        uint32_t bb[4];
-        kfa::load_b_nk<D>(bb, q_s, np * 16, kc * 16);
-        kfa::mma(s[2 * np], ak, bb[0], bb[1]);
-        kfa::mma(s[2 * np + 1], ak, bb[2], bb[3]);
-        kfa::load_b_nk<D>(bb, do_s, np * 16, kc * 16);
-        kfa::mma(dp[2 * np], av, bb[0], bb[1]);
-        kfa::mma(dp[2 * np + 1], av, bb[2], bb[3]);
-      }
-    }
-    // s becomes p^T, dp becomes ds^T; a tile whose every row sees every
-    // key of the block needs no per-score mask
-    const bool whole = !segmented && k0 + BK <= p.Sk && q0 + BQ <= p.Sq &&
-                       (!p.causal || q0 >= k0 + BK - 1);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hi = e >> 1, col = n * 8 + t * 2 + (e & 1);
-        const int qpos = q0 + col;
-        const bool ok =
-            whole || (qpos < p.Sq &&
-                      kfa::visible(qpos, key[hi], p.Sk, p.causal,
-                                   segmented ? segq_s[col] : 0, segk[hi],
-                                   segmented));
-        const float pe =
-            ok ? exp2f(s[n][e] * scale2 - lse_s[col] * kfa::kLog2e) : 0.f;
-        s[n][e] = pe;
-        dp[n][e] = pe * (dp[n][e] - delta_s[col]) * p.scale;
-      }
-    }
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      const uint32_t ap[4] = {
-          kfa::pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-          kfa::pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-          kfa::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-          kfa::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      const uint32_t ads[4] = {
-          kfa::pack_bf16(dp[2 * kc][0], dp[2 * kc][1]),
-          kfa::pack_bf16(dp[2 * kc][2], dp[2 * kc][3]),
-          kfa::pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]),
-          kfa::pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bb[4];
-        kfa::load_b_kn<D>(bb, do_s, kc * 16, dn * 16);
-        kfa::mma(dv[2 * dn], ap, bb[0], bb[1]);
-        kfa::mma(dv[2 * dn + 1], ap, bb[2], bb[3]);
-        kfa::load_b_kn<D>(bb, q_s, kc * 16, dn * 16);
-        kfa::mma(dk[2 * dn], ads, bb[0], bb[1]);
-        kfa::mma(dk[2 * dn + 1], ads, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();   // every warp is done with this stage
-  }
-
+  // dk[4j + 2i + e] is key i of the thread, column 8j + 2t + e
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (key[i] >= p.Sk) continue;
-    const long long off = ((long long)(b * p.Sk + key[i]) * p.H + h) * D;
+    if (mk.key[i] >= a.Sk) continue;
+    const long long off = ((long long)(b * a.Sk + mk.key[i]) * a.H + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(p.dk + off + j * 8 + t * 2) =
-          __floats2bfloat162_rn(dk[j][2 * i], dk[j][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(p.dv + off + j * 8 + t * 2) =
-          __floats2bfloat162_rn(dv[j][2 * i], dv[j][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(a.dk + off + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(a.dv + off + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
     }
   }
 }
 
 template <int D>
-cudaError_t launch(const kfa::Params& p, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
+cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
+                   const CUtensorMap& vm, const CUtensorMap& dom,
+                   const Args& a, int B, cudaStream_t stream) {
+  constexpr int smem = Smem<D>::kBytes;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -202,16 +349,16 @@ cudaError_t launch(const kfa::Params& p, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  dim3 grid(p.B * p.H, (p.Sk + BK - 1) / BK);
-  dkv_kernel<D><<<grid, kfa::kThreads, smem, stream>>>(p);
+  dim3 grid((a.Sk + kBKeys - 1) / kBKeys, B * a.H);
+  dkv_kernel<D><<<grid, sm90::kThreads, smem, stream>>>(qm, km, vm, dom, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dk, dv [B, Sk, H, D] bf16 from q, dout [B, Sq, H, D], k/v [B, Sk, H, D]
-// bf16 and lse, delta [B*H, Sq] f32, all contiguous; segment ids as in
-// kft_flash_attn_fwd.
+// bf16 and lse, delta [B*H, Sq] f32, all contiguous (16-byte aligned for
+// the TMA maps); segment ids as in kft_flash_attn_fwd.
 extern "C" int kft_flash_attn_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* seg_q,
@@ -219,24 +366,26 @@ extern "C" int kft_flash_attn_dkv(const void* q, const void* k, const void* v,
                                   int B, int H, int Sq, int Sk, int D,
                                   long long seg_stride, int causal,
                                   float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Sq < 0 || Sk < 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Sq < 0 || Sk < 0 || (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
   if (Sk == 0) return (int)cudaSuccess;
-  kfa::Params p{};
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.seg_q = static_cast<const int*>(seg_q);
-  p.seg_k = static_cast<const int*>(seg_k);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.seg_stride = seg_stride;
-  p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk;
-  p.causal = causal; p.scale = scale;
+  CUtensorMap qm, km, vm, dom;
+  const long long row = (long long)H * D, rows_q = Sq > 0 ? Sq : 1;
+  const bool ok =
+      sm90::tensor_map(&qm, q, false, D, H, Sq, B, D, row, rows_q * row, 64,
+                       1, kBQ) &&
+      sm90::tensor_map(&dom, dout, false, D, H, Sq, B, D, row, rows_q * row,
+                       64, 1, kBQ) &&
+      sm90::tensor_map(&km, k, false, D, H, Sk, B, D, row, Sk * row, 64, 1,
+                       kBKeys) &&
+      sm90::tensor_map(&vm, v, false, D, H, Sk, B, D, row, Sk * row, 64, 1,
+                       kBKeys);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  Args a{static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+         static_cast<const float*>(lse), static_cast<const float*>(delta),
+         static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
+         seg_stride, H, Sq, Sk, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return (int)launch<128>(p, st);
-  if (D == 64) return (int)launch<64>(p, st);
-  return (int)cudaErrorInvalidValue;
+  if (D == 128) return (int)launch<128>(qm, km, vm, dom, a, B, st);
+  return (int)launch<64>(qm, km, vm, dom, a, B, st);
 }

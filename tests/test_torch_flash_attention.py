@@ -100,11 +100,21 @@ def test_plain_fwd_matches_pallas_kernel(interpret, s, causal, segmented):
         rtol=TOL)
 
 
-@pytest.mark.parametrize("s", [128, 200])
+# (s, head dim): the B2/B3 tile edges too — 320 rows hold a partial
+# 128-key block and 64-row tiles past it, and 64 is the kernels' other
+# head dim; the head-dim-32 cases keep their old ids
+BWD_SHAPES = [(128, 32), (200, 32), (320, 32), (128, 64), (200, 64),
+              (320, 64)]
+
+
+@pytest.mark.parametrize(
+    "s,d", BWD_SHAPES,
+    ids=[str(s) if d == 32 else f"{s}-d{d}" for s, d in BWD_SHAPES])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("segmented", [False, True])
-def test_plain_bwd_matches_pallas_kernels(interpret, s, causal, segmented):
-    b, h, d = 1, 2, 32
+def test_plain_bwd_matches_pallas_kernels(interpret, s, d, causal,
+                                          segmented):
+    b, h = 1, 2
     q, k, v, do = _qkvo(10 + s + causal + 2 * segmented, b, s, h, d)
     seg = _segments(b, s) if segmented else None
     jseg = None if seg is None else jnp.asarray(seg)
