@@ -6,19 +6,22 @@ Phases, in order; any failure exits non-zero before the result line:
   (a) device: a CUDA device must be present; prints the card's name and
       power limit as nvidia-smi reports them;
   (b) build: compiles the six CUDA kernels from kubeflow_tpu_torch/csrc
-      (one nvcc per source, in parallel) and prints the seconds; for B2
-      and B3 the registers and spills of each kernel from ptxas -v (no
-      spill allowed) and the tensor-core instructions in their SASS
-      (wgmma's HGMMA, no mma.sync HMMA), where cuobjdump is present;
+      (one nvcc per source, in parallel) and prints the seconds; for K1,
+      K2, B2 and B3 the registers and spills of each kernel from ptxas
+      -v (no spill allowed) and the tensor-core instructions in their
+      SASS, where cuobjdump is present (K1, B2, B3: wgmma's HGMMA and no
+      mma.sync HMMA; K2 runs on mma.sync);
   (c) kernels: each serving kernel against its plain PyTorch version on
       the card at the Llama-3-8B serving shapes, with the error, the kernel's, the
       plain version's and one PyTorch library call's time (CUDA events,
       after warm-up, weights rotated through copies larger than the L2
       cache), and the bound (bytes at 3.35 TB/s or operations at
-      989 TFLOP/s, whichever is larger); K3 also at the engine's
+      989 TFLOP/s, whichever is larger); K1 at m = 1, 8, 13, 32 and 128;
+      K2 also at S_v = 8, at span 200, with every length 0 and with one
+      slot far past the others in a longer slab; K3 also at the engine's
       1024-token wave, at 1, 2, 3 and 8 query heads per kv head (hd 64),
-      and as a ragged int8 continuation in a longer slab, each launched
-      twice for the same bits;
+      and as a ragged int8 continuation in a longer slab; every K1, K2
+      and K3 case launched twice for the same bits;
   (d) reference: a small int8 model's prefill, decode and verify logits
       through the kernels against the same functions on the CPU;
   (e) engine: LLMEngine at full Llama-3-8B width (32 layers, random int8
@@ -58,10 +61,13 @@ last line is {"ok": true, "device": {...}}.
     python3 chip_smoke.py --ab OTHER_TREE
 
 compares this tree with another checkout (an unpacked `git archive` of
-the parent commit, say) on one card in one call: B1-B3 at the trainer's
-shape, K3 at the engine's 1024-token wave and phase (j), with each
-tree's own code, in turns (other, this, this, other), one process each.
-It prints no result line.
+the parent commit, say) on one card in one call: K1's decode step (the
+224 m=8 matmuls and the lm_head of (c)), K2 at B=8 S_v=1 span 1024 int8,
+the 8B engine's decode-step breakdown at span 2048 (twice) and its
+prefill-wave breakdown, B1-B3 at the trainer's shape, K3 at the engine's
+1024-token wave and phase (j), with each tree's own code, in turns
+(other, this, this, other), one process each. It prints no result
+line.
 """
 
 from __future__ import annotations
@@ -161,22 +167,50 @@ def n_copies(nbytes: float) -> int:
 
 # -- (b) build report -------------------------------------------------------
 
-# the backward kernels whose build (b) holds to no spill and to wgmma
-WGMMA_KERNELS = ("flash_attn_dq", "flash_attn_dkv")
+# the kernels whose build (b) holds to no spill and to wgmma (HGMMA
+# present, no mma.sync HMMA)
+WGMMA_KERNELS = ("flash_attn_dq", "flash_attn_dkv", "quant_matmul")
+# ... and those held to no spill alone (K2 runs on mma.sync)
+SPILL_KERNELS = WGMMA_KERNELS + ("flash_decode",)
+# template arguments in a mangled name: a type by its length-prefixed name
+# or one of these codes, or an integer literal
+_MANGLED_TYPES = {"a": "int8_t", "f": "float"}
 
 
 def kernel_name(mangled: str) -> str:
-    """`dq_kernel<128>` from a mangled `..._kernelILi128E...` name: the
-    identifier is the one whose length prefix matches it."""
-    m = re.search(r"_kernelILi(\d+)E", mangled)
+    """`dq_kernel<128>` or `decode_kernel<signed char, 128, 8>` from a
+    mangled `..._kernelI...E...` name: the identifier is the one whose
+    length prefix matches it."""
+    m = re.search(r"_kernelI", mangled)
     if not m:
         return mangled
     end = m.start() + len("_kernel")
+    name = None
     for n in range(len("_kernel"), end):
         ident = mangled[end - n:end]
         if mangled[:end - n].endswith(str(n)) and ident[0].isalpha():
-            return f"{ident}<{m.group(1)}>"
-    return mangled
+            name = ident
+            break
+    if name is None:
+        return mangled
+    args, rest = [], mangled[end + 1:]
+    while rest and rest[0] != "E":
+        lit = re.match(r"Li(\d+)E", rest)
+        typ = re.match(r"(\d+)", rest)
+        if lit:
+            args.append(lit.group(1))
+            rest = rest[lit.end():]
+        elif typ:
+            n = int(typ.group(1))
+            start = typ.end()
+            args.append(rest[start:start + n])
+            rest = rest[start + n:]
+        elif rest[0] in _MANGLED_TYPES:
+            args.append(_MANGLED_TYPES[rest[0]])
+            rest = rest[1:]
+        else:
+            return mangled
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_kernels(log: str) -> list[dict]:
@@ -203,12 +237,12 @@ def ptxas_kernels(log: str) -> list[dict]:
 
 
 def build_report(built: dict) -> None:
-    """For B2 and B3: registers and spills of each kernel from the build
-    log (a spill fails the run), ptxas's wgmma warnings, and the count of
-    wgmma (HGMMA) and mma.sync (HMMA) instructions in the built SASS (an
-    HMMA, or no HGMMA, fails the run)."""
+    """For B2, B3, K1 and K2: registers and spills of each kernel from the
+    build log (a spill fails the run), ptxas's wgmma warnings, and the
+    count of wgmma (HGMMA) and mma.sync (HMMA) instructions in the built
+    SASS (for B2, B3 and K1 an HMMA, or no HGMMA, fails the run)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in WGMMA_KERNELS:
+    for name in SPILL_KERNELS:
         if name not in built:
             print(f"{name}: library was already built, no ptxas log",
                   flush=True)
@@ -234,8 +268,9 @@ def build_report(built: dict) -> None:
         hgmma = len(re.findall(r"\bHGMMA\.", sass))
         hmma = len(re.findall(r"\bHMMA\.", sass))
         print(f"sass {name}: {hgmma} HGMMA, {hmma} HMMA", flush=True)
-        check(hgmma > 0 and hmma == 0,
-              f"{name}: SASS has {hgmma} HGMMA and {hmma} HMMA")
+        if name in WGMMA_KERNELS:
+            check(hgmma > 0 and hmma == 0,
+                  f"{name}: SASS has {hgmma} HGMMA and {hmma} HMMA")
 
 
 # -- (c) kernels against their plain versions --------------------------------
@@ -246,8 +281,11 @@ def k1_case(gen, m, d, o, out_dtype):
     w = quant.quantize_int8(torch.randn(d, o, device=DEV, generator=gen)
                             / d ** 0.5)
     got = qm.dequant_matmul(x, w["q"], w["s"], out_dtype)
+    again = qm.dequant_matmul(x, w["q"], w["s"], out_dtype)
     ref = qm.dequant_matmul_plain(x, w["q"], w["s"], out_dtype)
     torch.cuda.synchronize()
+    check(torch.equal(got, again), f"K1 m={m} d={d} o={o} {out_dtype}: a "
+                                   "second launch gave other bits")
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     # bf16 output: half an ulp of the largest value per rounding, sums in
@@ -332,19 +370,28 @@ def attn_err(got, ref, name, row_tol, grad=False):
 
 
 def k2_case(gen, s_v, span, int8, b=8, nh=32, nkv=8, hd=128,
-            slot_stride=None):
+            slot_stride=None, lengths="ragged"):
+    """K2 against its plain version, a repeat launch bit for bit, and its
+    times. lengths: "ragged" (random, the first slot reaching the end of
+    the span), "zero" (every slot at position 0) or "one_long" (the first
+    slot at the end, the others in its first 100 positions)."""
     q = torch.randn(b, s_v, nh, hd, device=DEV, generator=gen).to(
         torch.bfloat16)
     k, v, ks, vs = kv_inputs(gen, b, span, nkv, hd, int8, slot_stride)
-    # ragged lengths, the first slot reaching the end of the span
-    lengths = torch.randint(0, span - s_v + 1, (b,), device=DEV,
-                            generator=gen, dtype=torch.int32)
-    lengths[0] = span - s_v
+    top = {"ragged": span - s_v + 1, "zero": 1, "one_long": 100}[lengths]
+    mode = lengths
+    lengths = torch.randint(0, top, (b,), device=DEV, generator=gen,
+                            dtype=torch.int32)
+    if mode != "zero":
+        lengths[0] = span - s_v
     kw = dict(k_scale=ks, v_scale=vs)
     got = fd.flash_decode_attention(q, k, v, lengths, **kw)
+    again = fd.flash_decode_attention(q, k, v, lengths, **kw)
     ref = fd.flash_decode_plain(q, k, v, lengths, **kw)
-    err, worst = attn_err(got, ref, f"K2 B={b} S_v={s_v} span={span} "
-                                    f"int8={int8}", ATTN_ROW_TOL)
+    name = f"K2 B={b} S_v={s_v} span={span} int8={int8} lengths={mode}"
+    err, worst = attn_err(got, ref, name, ATTN_ROW_TOL)
+    check(torch.equal(got, again), f"{name}: a second launch gave other "
+                                   "bits")
     elem = 1 if int8 else 2
     kv_bytes = k.numel() * elem * 2 + (ks.numel() * 8 if int8 else 0)
     copies = [tuple(slab_copy(x) for x in (k, v, ks, vs))
@@ -425,7 +472,9 @@ def kernel_phase(gen) -> dict:
     k1_step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0, "err": 0.0}
     bytes_step = ops_step = 0.0
-    for m in (1, 8, 32):
+    # m = 13 and 128: the kernel's activation tile edge (13 rounds up to
+    # 16) and the gate's top
+    for m in (1, 8, 13, 32, 128):
         for (d, o) in list(K1_LAYER) + [K1_HEAD]:
             for od in (torch.bfloat16, torch.float32):
                 c = k1_case(gen, m, d, o, od)
@@ -456,6 +505,21 @@ def kernel_phase(gen) -> dict:
                 c = k2_case(gen, s_v, span, int8)
                 print(f"K2 B=8 S_v={s_v} span={span} int8={int8}: "
                       f"{fmt(c)}", flush=True)
+    # S_v = 8 (32 rows a kv head, the kernel's limit); span 200 (a partial
+    # 64-key tile); every length 0 (each block's share one tile or none);
+    # one slot far past the others in a slab longer than the span
+    k2_more = [dict(s_v=8, span=2048, int8=True),
+               dict(s_v=8, span=2048, int8=False),
+               dict(s_v=1, span=200, int8=True),
+               dict(s_v=4, span=200, int8=False),
+               dict(s_v=1, span=1024, int8=True, lengths="zero"),
+               dict(s_v=4, span=1024, int8=False, lengths="zero"),
+               dict(s_v=1, span=600, int8=True, lengths="one_long",
+                    slot_stride=2048 * 8 * 128)]
+    for kw in k2_more:
+        c = k2_case(gen, **kw)
+        desc = " ".join(f"{k}={v}" for k, v in kw.items())
+        print(f"K2 B=8 {desc}: {fmt(c)}", flush=True)
     for s in (128, 512):
         for q_offset in (0, 512):
             for int8 in (False, True):
@@ -1128,9 +1192,9 @@ def step_breakdown(engine) -> dict:
         if evt.device_type != DeviceType.CUDA:
             continue
         us = evt.self_device_time_total
-        if "dequant_kernel" in evt.key or "splitk_reduce" in evt.key:
+        if "dequant_kernel" in evt.key:
             busy["quant_matmul"] += us / 1e3
-        elif "decode_kernel" in evt.key or "combine_kernel" in evt.key:
+        elif "decode_kernel" in evt.key:
             busy["flash_decode"] += us / 1e3
         else:
             busy["other"] += us / 1e3
@@ -1183,7 +1247,7 @@ def prefill_breakdown(engine, seed: int) -> dict:
         key = evt.key.lower()
         if "prefill_kernel" in key:
             busy["flash_prefill"] += ms
-        elif "dequant_kernel" in key or "splitk_reduce" in key:
+        elif "dequant_kernel" in key:
             busy["quant_matmul"] += ms
         elif any(w in key for w in ("gemm", "nvjet", "xmma", "cutlass")):
             busy["gemm"] += ms
@@ -1235,9 +1299,10 @@ def server_phase(engine) -> None:
     print(f"server: {ok}/3 completions ok", flush=True)
 
 
-# One tree's side of --ab: its own chip_smoke's functions on its own code.
+# One tree's side of --ab: its own chip_smoke's functions on its own code
+# (only functions that the parent tree's chip_smoke has too).
 AB_RUN = """
-import os, sys
+import dataclasses, gc, os, sys
 root, label, seed = sys.argv[1], sys.argv[2], int(sys.argv[3])
 sys.path.insert(0, root)
 os.chdir(root)
@@ -1249,6 +1314,32 @@ torch.backends.cudnn.allow_tf32 = False
 print(f"[{label}] {root}", flush=True)
 _build.build_all()
 gen = torch.Generator(device=cs.DEV).manual_seed(seed)
+# K1: one 8B decode step (8 slots: 224 matmuls + the f32 lm_head)
+step = {"ms": 0.0, "library_ms": 0.0}
+for (d, o), n in list(cs.K1_LAYER.items()) + [(cs.K1_HEAD, None)]:
+    od = torch.float32 if n is None else torch.bfloat16
+    c = cs.k1_case(gen, 8, d, o, od)
+    for key in step:
+        step[key] += (1 if n is None else 32 * n) * c[key]
+    print(f"[{label}] quant_matmul m=8 d={d} o={o}: {cs.fmt(c)}", flush=True)
+print(f"[{label}] quant_matmul decode step: ms={step['ms']:.4f} "
+      f"library_ms={step['library_ms']:.4f}", flush=True)
+c = cs.k2_case(gen, 1, 1024, True)
+print(f"[{label}] flash_decode B=8 S_v=1 span=1024 int8: {cs.fmt(c)}",
+      flush=True)
+# the 8B engine (no requests): one decode step and one prefill wave
+cfg = dataclasses.replace(cs.llama.LlamaConfig.llama3_8b(),
+                          param_dtype=torch.bfloat16)
+engine = cs.LLMEngine(cs.llama.init(cfg, seed=seed, device=cs.DEV,
+                                    quantize="int8"),
+                      cfg, n_slots=8, max_len=2048, buckets=(128, 512, 1024),
+                      decode_chunk=8, kv_quantize="int8", device=cs.DEV)
+for i in range(2):
+    cs.step_breakdown(engine)
+cs.prefill_breakdown(engine, seed)
+del engine
+gc.collect()
+torch.cuda.empty_cache()
 case = cs.train_attn_case(gen, 2, 4096, True, False)
 for kern, c in case.items():
     print(f"[{label}] {kern} B=2 S=4096 H=32 D=128 causal: {cs.fmt(c)}",
@@ -1284,8 +1375,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", metavar="OTHER_TREE",
-                    help="compare the training kernels, K3 and the "
-                         "trainer with another checkout instead")
+                    help="compare K1's decode step, K2, the decode step, "
+                         "the prefill wave, the training kernels, K3 and "
+                         "the trainer with another checkout instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

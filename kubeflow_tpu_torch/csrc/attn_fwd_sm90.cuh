@@ -142,11 +142,8 @@ __device__ __forceinline__ void widen(uint8_t* dst, const uint8_t* src,
 #pragma unroll 2
   for (int i = ct; i < kBK * CH; i += 256) {
     const int r = i / CH, c = i % CH * 16;
-    const int4 raw = *reinterpret_cast<const int4*>(src + r * D + c);
-    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
     uint32_t w[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) w[e] = pack_bf16(x[2 * e], x[2 * e + 1]);
+    widen16(*reinterpret_cast<const int4*>(src + r * D + c), w);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int col = c + 8 * half, grp = col % 64 / 8;

@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the four attention kernels
-// that run on wgmma and TMA: the forward mainloop of K3 and B1
-// (attn_fwd_sm90.cuh) and the backward kernels B2 (flash_attn_dq.cu) and
-// B3 (flash_attn_dkv.cu). An edit here rebuilds all four.
+// Hopper (sm_90a) building blocks shared by the port's kernels: the
+// forward mainloop of K3 and B1 (attn_fwd_sm90.cuh), the backward kernels
+// B2 (flash_attn_dq.cu) and B3 (flash_attn_dkv.cu), the decode kernel K2
+// (flash_decode.cu) and the int8 matmul K1 (quant_matmul.cu). An edit here
+// rebuilds all six.
 //
-// Every block is 384 threads in three warpgroups: warpgroup 0 produces
+// The four attention kernels on wgmma (K3, B1, B2, B3) share one block
+// shape: 384 threads in three warpgroups; warpgroup 0 produces
 // (its registers given away with setmaxnreg, one thread issuing the TMA
 // loads), warpgroups 1 and 2 consume, each owning 64 accumulator rows,
 // the wgmma M. Tiles live in shared memory as regions of [rows][64] bf16,
@@ -56,10 +58,13 @@ inline EncodeTiled encoder() {
 // A 4-D map over x[n3][n2][n1][n0] (n0 contiguous; s1..s3 the element
 // strides of n1..n3) whose box is (b0, b1, b2, 1); bf16 in the 128-byte
 // swizzle, or int8 unswizzled. Coordinates past a dimension read zeros.
+// L2 promotion: the sector size L2 fetches for each miss.
 inline bool tensor_map(CUtensorMap* map, const void* base, bool int8,
                        long long n0, long long n1, long long n2,
                        long long n3, long long s1, long long s2,
-                       long long s3, int b0, int b1, int b2) {
+                       long long s3, int b0, int b1, int b2,
+                       CUtensorMapL2promotion promotion =
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const long long es = int8 ? 1 : 2;
@@ -75,8 +80,7 @@ inline bool tensor_map(CUtensorMap* map, const void* base, bool int8,
              4, const_cast<void*>(base), dims, strides, box, step,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
              int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+             promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // -- device: barriers, TMA, wgmma --------------------------------------------
@@ -290,6 +294,128 @@ struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+
+// -- cp.async ----------------------------------------------------------------
+
+// 16 bytes global -> shared, bypassing L1; only the first src_bytes (0 or
+// 16) are read, the rest of the 16 are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled as above
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// one arrival on bar once every cp.async this thread issued so far has
+// landed (counted among the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// -- thread block clusters and distributed shared memory ---------------------
+
+// Launches kernel with the blocks of grid.x grouped cluster_x at a time
+// (cluster_x <= 8, a divisor of grid.x) on neighbouring SMs.
+template <typename... Exp, typename... Act>
+inline cudaError_t launch_cluster(void (*kernel)(Exp...), dim3 grid,
+                                  int threads, int smem, cudaStream_t stream,
+                                  int cluster_x, Act&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
+}
+
+// Every thread of every block of the cluster: this block's shared-memory
+// writes before it are visible to the cluster's reads after it. Each
+// thread of the cluster must reach it, in warp-uniform control flow.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The cluster's last barrier, before its blocks exit: the reads of other
+// blocks' shared memory have returned their values by then, so it needs no
+// memory ordering, only that no block leaves while another still reads it.
+__device__ __forceinline__ void cluster_sync_exit() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n"
+               "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The address of p (in this block's shared memory) in block `rank` of the
+// cluster, for ld_dsmem.
+__device__ __forceinline__ uint32_t dsmem(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_dsmem(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// -- int8 widening -----------------------------------------------------------
+
+// Four int8 (one 32-bit word) to f32 without I2F, which issues at a
+// quarter of the FP32 rate: each byte, biased to unsigned, becomes the low
+// mantissa byte of 2^23 (one PRMT), and one FADD takes 2^23 + 128 away.
+// Exact for every int8.
+__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
+           8388736.f;
+}
+
+// Four int8 to two bf16 pairs, bytes (0, 1) in lo and (2, 3) in hi, the
+// lower byte in the low half. An f32 holding an integer of at most 8 bits
+// is exact in bf16, so its top half is the bf16 (one PRMT packs two).
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                      uint32_t& hi) {
+  float f[4];
+  int8x4_to_f32(w, f);
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// Sixteen int8 to bf16 pairs: out[j] holds elements 2j and 2j + 1.
+__device__ __forceinline__ void widen16(int4 raw, uint32_t (&out)[8]) {
+  widen4((uint32_t)raw.x, out[0], out[1]);
+  widen4((uint32_t)raw.y, out[2], out[3]);
+  widen4((uint32_t)raw.z, out[4], out[5]);
+  widen4((uint32_t)raw.w, out[6], out[7]);
+}
 
 // -- warp specialisation ------------------------------------------------------
 

@@ -64,10 +64,42 @@ class LlamaConfig:
     # >0: the loss projects and normalizes ce_chunk tokens at a time under
     # checkpoint, so the [B, S, vocab] f32 logits never exist whole
     ce_chunk: int = 0
+    # The JAX config's implementation keys, so a job's model_overrides
+    # carry over. Each is stored and checked, and nothing branches on it:
+    # attention always runs the kernel wrappers (the plain version only
+    # for CPU tensors), and the layer loop is JAX's unrolled one, whose
+    # results equal the scan's, so any scan_layers describes it.
+    attention_impl: str = "flash"
+    scan_layers: bool = True
+    pipeline_microbatches: int = 0
+    decode_attention_impl: str = "auto"
+    prefill_attention_impl: str = "auto"
 
     def __post_init__(self):
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+        for name in ("attention_impl", "decode_attention_impl",
+                     "prefill_attention_impl"):
+            value = getattr(self, name)
+            allowed = ("flash",) if name == "attention_impl" else (
+                "auto", "flash")
+            if value in allowed:
+                continue
+            if value == "xla":
+                raise ValueError(
+                    f"{name}='xla': the port has no plain-version path on "
+                    "the card; CUDA tensors always take the kernels "
+                    "(ROADMAP.md north star, rule 4)")
+            if name == "attention_impl" and value in ("ring", "ulysses"):
+                raise ValueError(
+                    f"attention_impl={value!r}: sequence-parallel attention "
+                    "is not ported yet (ROADMAP.md queue A6, parallelism)")
+            raise ValueError(f"unknown {name} {value!r}")
+        if self.pipeline_microbatches != 0:
+            raise ValueError(
+                f"pipeline_microbatches={self.pipeline_microbatches}: "
+                "pipeline parallelism is not ported yet (ROADMAP.md queue "
+                "A6, parallelism)")
         for name in ("dtype", "param_dtype"):   # "bfloat16" from a config
             value = getattr(self, name)
             if isinstance(value, str):

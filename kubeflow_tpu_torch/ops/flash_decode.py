@@ -57,7 +57,7 @@ def _lib():
         lib.kft_flash_decode_workspace.argtypes = [ctypes.c_int] * 6
         lib.kft_flash_decode.restype = ctypes.c_int
         lib.kft_flash_decode.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 2
             + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     return lib
@@ -65,8 +65,8 @@ def _lib():
 
 @functools.lru_cache(maxsize=None)
 def _workspace(b: int, s_v: int, nh: int, nkv: int, hd: int, t: int) -> int:
-    """f32 words of split-KV workspace the kernel needs (it picks the
-    split): 0 when the span is not split, -1 for a shape it cannot hold."""
+    """f32 words of workspace the kernel needs: 0 (it merges its split
+    inside the launch), or -1 for a shape it cannot hold."""
     return _lib().kft_flash_decode_workspace(b, s_v, nh, nkv, hd, t)
 
 
@@ -129,22 +129,18 @@ def flash_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
             or not lengths.is_contiguous() or lengths.device != q.device):
         raise ValueError("flash_decode: lengths must be int32 [B] on q's "
                          "device")
-    n_ws = _workspace(b, s_v, nh, nkv, hd, t)
-    if n_ws < 0:
+    if _workspace(b, s_v, nh, nkv, hd, t) < 0:
         raise ValueError(f"flash_decode: g * S_v = {nh // nkv * s_v} query "
                          "rows per kv head is more than the kernel holds")
     scale = 1.0 / (hd ** 0.5) if scale is None else scale
     out = torch.empty_like(q)
     dev = q.device
-    ws = torch.empty(n_ws, dtype=torch.float32, device=dev) if n_ws else None
     err = _lib().kft_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        lengths.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
-        b, s_v, nh, nkv, hd, t, k.stride(0),
-        k_scale.stride(0) if quantized else 0, int(quantized),
+        lengths.data_ptr(), out.data_ptr(), b, s_v, nh, nkv, hd, t,
+        k.stride(0), k_scale.stride(0) if quantized else 0, int(quantized),
         float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_decode")
     _build.count_launch("flash_decode", b=b, s_v=s_v, nh=nh, nkv=nkv, hd=hd,

@@ -10,7 +10,6 @@ tensor it runs `dequant_matmul_plain`, the same arithmetic in PyTorch.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -49,20 +48,11 @@ def dequant_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 def _lib():
     lib = _build.load("quant_matmul")
     if lib.kft_dequant_matmul.argtypes is None:
-        lib.kft_dequant_matmul_workspace.restype = ctypes.c_longlong
-        lib.kft_dequant_matmul_workspace.argtypes = [ctypes.c_int] * 3
         lib.kft_dequant_matmul.restype = ctypes.c_int
-        lib.kft_dequant_matmul.argtypes = ([ctypes.c_void_p] * 5
+        lib.kft_dequant_matmul.argtypes = ([ctypes.c_void_p] * 4
                                            + [ctypes.c_int] * 4
                                            + [ctypes.c_void_p])
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _workspace(m: int, d: int, o: int) -> int:
-    """f32 words of split-K workspace the kernel needs (it picks the
-    split); 0 when d is not split."""
-    return _lib().kft_dequant_matmul_workspace(m, d, o)
 
 
 def dequant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -75,6 +65,8 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     d, o = q.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, d).to(torch.bfloat16).contiguous()
+    if x2.data_ptr() % 16:   # the kernel copies x in 16-byte chunks
+        x2 = x2.clone()
     m = x2.shape[0]
     if x.shape[-1] != d or not kernel_applicable(m, d, o):
         raise ValueError(f"dequant_matmul: shape m={m} d={d} o={o} is "
@@ -91,13 +83,9 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                          "s of shape [o]")
     if q.data_ptr() % 16:
         raise ValueError("dequant_matmul: q must be 16-byte aligned")
-    n_ws = _workspace(m, d, o)
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
-    ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
-          if n_ws else None)
     err = _lib().kft_dequant_matmul(
-        x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, m, d, o,
+        x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, d, o,
         int(out_dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dequant_matmul")

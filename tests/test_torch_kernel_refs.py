@@ -62,12 +62,21 @@ def _j(a):
     return None if a is None else jnp.asarray(a)
 
 
-@pytest.mark.parametrize("s_v", [1, 4])
+# S_v = 8 at g = 4 is the CUDA kernel's 32-row limit; all lengths 0 is
+# the first decode step, where each block's share of the live keys is
+# one tile or none
+@pytest.mark.parametrize("s_v,zero_lengths", [
+    pytest.param(1, False, id="1"), pytest.param(4, False, id="4"),
+    pytest.param(8, False, id="8"), pytest.param(1, True, id="1-len0"),
+    pytest.param(8, True, id="8-len0")])
 @pytest.mark.parametrize("quantized", [False, True])
-def test_flash_decode_plain_matches_jax(interpret, s_v, quantized):
+def test_flash_decode_plain_matches_jax(interpret, s_v, zero_lengths,
+                                        quantized):
     nh, nkv, hd, t = 8, 2, 16, 40        # GQA 4:1
     rng = np.random.default_rng(10 + s_v)
     lengths = np.array([0, 7, 21, t - s_v], np.int32)   # ragged
+    if zero_lengths:
+        lengths[:] = 0
     b = len(lengths)
     q = rng.normal(size=(b, s_v, nh, hd)).astype(np.float32)
     k, ks = _kv(rng, (b, t, nkv, hd), quantized)
@@ -122,10 +131,17 @@ def test_flash_prefill_plain_matches_jax(interpret, q_offset, quantized,
                                rtol=RTOL)
 
 
-@pytest.mark.parametrize("m", [1, 8])
+# m = 13 and 128 are the CUDA kernel's tile edges (its activation rows
+# round up to 16) and the gate's top; (512, 384) is a width that is not a
+# multiple of the JAX kernel's 512-column block
+@pytest.mark.parametrize("m,d,o", [
+    pytest.param(1, 256, 128, id="1"), pytest.param(8, 256, 128, id="8"),
+    pytest.param(13, 256, 128, id="13"),
+    pytest.param(128, 256, 128, id="128"),
+    pytest.param(8, 512, 384, id="8-512x384"),
+    pytest.param(13, 512, 384, id="13-512x384")])
 @pytest.mark.parametrize("out", ["float32", "bfloat16"])
-def test_dequant_matmul_plain_matches_jax(interpret, m, out):
-    d, o = 256, 128
+def test_dequant_matmul_plain_matches_jax(interpret, m, d, o, out):
     rng = np.random.default_rng(30 + m)
     x = rng.normal(size=(m, d)).astype(np.float32)
     w = rng.normal(size=(d, o)).astype(np.float32)

@@ -7,6 +7,7 @@ test_torch_optimizer.py."""
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from kubeflow_tpu.models import llama as jllama
 from kubeflow_tpu.training import data as jdata
 from kubeflow_tpu.training import trainer as jtrainer
 from kubeflow_tpu_torch.models import interop
@@ -133,6 +135,54 @@ def test_from_dict_accepts_the_example_job_config():
 def test_from_dict_rejects(raw, match):
     with pytest.raises(ValueError, match=match):
         ttrainer.TrainerConfig.from_dict(raw)
+
+
+def test_longctx_job_model_overrides_build_a_trainer():
+    """The model_overrides of examples/llama-longctx-jaxjob.yaml (the JAX
+    config's attention_impl and scan_layers keys included), shrunk for
+    the CPU, build the port's Trainer and one training step runs."""
+    job = open(os.path.join(os.path.dirname(__file__), "..", "examples",
+                            "llama-longctx-jaxjob.yaml")).read()
+    raw = json.loads(job.split("KTPU_TRAINER_CONFIG: >", 1)[1]
+                     .split("\n\n", 1)[0])
+    overrides = raw["model_overrides"]
+    assert overrides["attention_impl"] == "flash"
+    assert overrides["scan_layers"] is False
+    overrides.update(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                     n_kv_heads=2, d_ff=128, max_seq_len=64)
+    raw.pop("dataset")   # token_file loader: ROADMAP A2.c
+    cfg = ttrainer.TrainerConfig.from_dict(
+        dict(raw, dataset={"seq_len": 64}))
+    trainer = ttrainer.Trainer(cfg, device="cpu",
+                               metrics=MetricsWriter(echo=False))
+    assert trainer.model_cfg.attention_impl == "flash"
+    assert trainer.model_cfg.scan_layers is False
+    state = trainer.init_state()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 256, (1, 64)).astype(np.int32),
+             "segment_ids": np.zeros((1, 64), np.int32),
+             "loss_mask": np.ones((1, 64), np.float32)}
+    metrics = trainer.train_step(state, trainer.to_device(batch))
+    assert np.isfinite(float(metrics["loss"]))
+    # the JAX config takes the same keys
+    jllama.LlamaConfig(**overrides)
+
+
+@pytest.mark.parametrize("key,value,match", [
+    ("attention_impl", "xla", "plain-version"),
+    ("attention_impl", "ring", "A6"),
+    ("attention_impl", "ulysses", "A6"),
+    ("decode_attention_impl", "xla", "plain-version"),
+    ("prefill_attention_impl", "xla", "plain-version"),
+    ("pipeline_microbatches", 2, "A6"),
+    ("attention_impl", "bogus", "unknown"),
+])
+def test_llama_config_rejects_unported_impls(key, value, match):
+    with pytest.raises(ValueError, match=match):
+        tllama.LlamaConfig(**{key: value})
+    with pytest.raises(ValueError, match=match):
+        ttrainer.Trainer(ttrainer.TrainerConfig(
+            model_overrides={key: value}), device="cpu")
 
 
 def test_mfu():
