@@ -21,7 +21,13 @@ Phases, in order; any failure exits non-zero before the result line:
       slot far past the others in a longer slab; K3 also at the engine's
       1024-token wave, at 1, 2, 3 and 8 query heads per kv head (hd 64),
       and as a ragged int8 continuation in a longer slab; every K1, K2
-      and K3 case launched twice for the same bits;
+      and K3 case launched twice for the same bits; K2's paged mode
+      (K2-paged) at B=8, S_v 1 and 4, span 1024 and 2048, block_tokens
+      16, 64 and 128, int8 and bf16, over a shuffled table into a pool
+      larger than the batch needs with finite junk in block 0: against
+      its plain version, launched twice for the same bits, and against
+      the slab kernel on the same keys gathered into a slab (the same
+      bits), with K2-slab's time at the same shape;
   (d) reference: a small int8 model's prefill, decode and verify logits
       through the kernels against the same functions on the CPU;
   (e) engine: LLMEngine at full Llama-3-8B width (32 layers, random int8
@@ -29,11 +35,20 @@ Phases, in order; any failure exits non-zero before the result line:
       decode_chunk 8) serves 8 prompts of 30..1000 tokens x 32 greedy
       tokens, twice: TTFT, decode tokens/s, determinism, and the launch
       count of every kernel during the run (each must be > 0);
+  (e2) paged engine: PagedLLMEngine over the same weights and settings
+      (block_tokens 128 = the gcd of the buckets), the same burst, twice:
+      with the default pool (the slab's memory, 128 blocks) and with 24
+      blocks, fewer than the burst's 32; each run's greedy tokens must
+      equal the slab engine's request by request, the small pool must
+      hold at least one prefill, and K2-paged must launch while K2-slab
+      does not; TTFT, decode tokens/s, held prefills and the pool's peak
+      used blocks;
   (f) engine shapes: every kernel again against its plain version, at
       each argument shape the wrappers recorded in that run (prefill
-      waves, decode spans, lm_head rows), with its times as in (c);
-      then one decode step's and one B=3 x 1024 prefill wave's wall time
-      against the card's busy time by kernel family;
+      waves, decode spans, lm_head rows, the paged engine's K2-paged
+      launches), with its times as in (c); then one decode step's (slab
+      and paged) and one B=3 x 1024 prefill wave's wall time against the
+      card's busy time by kernel family;
   (g) server: three concurrent /openai/v1/completions requests against
       the port's HTTP server over that engine;
   (h) training kernels: flash-attention forward (B1), dq (B2) and dk/dv
@@ -55,7 +70,8 @@ Phases, in order; any failure exits non-zero before the result line:
       step's wall time against the card's busy time.
 Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
-(the 8B engine run for the serving kernels, the trainer for B1-B3); the
+(the 8B engine run for the serving kernels, the paged engine's run for
+K2-paged, the trainer for B1-B3); the
 last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab OTHER_TREE
@@ -97,6 +113,7 @@ from kubeflow_tpu_torch.ops import flash_prefill as fp
 from kubeflow_tpu_torch.ops import quant
 from kubeflow_tpu_torch.ops import quant_matmul as qm
 from kubeflow_tpu_torch.serving.llm import LLMEngine
+from kubeflow_tpu_torch.serving.paged import PagedLLMEngine
 from kubeflow_tpu_torch.serving.server import CompletionServer
 from kubeflow_tpu_torch.training import data as train_data
 from kubeflow_tpu_torch.training import mfu
@@ -116,11 +133,13 @@ K1_LAYER = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2,
 K1_HEAD = (4096, 128256)
 
 SERVING_KERNELS = ("quant_matmul", "flash_decode", "flash_prefill")
+PAGED_KERNELS = ("quant_matmul", "flash_decode_paged", "flash_prefill")
 TRAINING_KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
 
 REPLACES = {
     "quant_matmul": "kubeflow_tpu/ops/quant_matmul.py:68",
     "flash_decode": "kubeflow_tpu/ops/flash_decode.py:125",
+    "flash_decode_paged": "kubeflow_tpu/ops/flash_decode.py:125",
     "flash_prefill": "kubeflow_tpu/ops/flash_prefill.py:134",
     "flash_attn_fwd": "kubeflow_tpu/ops/flash_pallas.py:77",
     "flash_attn_dq": "kubeflow_tpu/ops/flash_pallas.py:229",
@@ -175,6 +194,7 @@ SPILL_KERNELS = WGMMA_KERNELS + ("flash_decode",)
 # template arguments in a mangled name: a type by its length-prefixed name
 # or one of these codes, or an integer literal
 _MANGLED_TYPES = {"a": "int8_t", "f": "float"}
+_MANGLED_BOOLS = {"Lb0E": "false", "Lb1E": "true"}
 
 
 def kernel_name(mangled: str) -> str:
@@ -200,6 +220,9 @@ def kernel_name(mangled: str) -> str:
         if lit:
             args.append(lit.group(1))
             rest = rest[lit.end():]
+        elif rest[:4] in _MANGLED_BOOLS:
+            args.append(_MANGLED_BOOLS[rest[:4]])
+            rest = rest[4:]
         elif typ:
             n = int(typ.group(1))
             start = typ.end()
@@ -421,6 +444,103 @@ def k2_case(gen, s_v, span, int8, b=8, nh=32, nkv=8, hd=128,
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by)
 
 
+def paged_inputs(gen, b, span, bt, nkv, hd, int8, n_pool=None,
+                 lengths=None, s_v=1):
+    """A pool of n_pool blocks (by default half again what the batch
+    needs) with large finite junk in block 0, ragged lengths (the first
+    slot at the end of the span) unless given, and tables [b, span // bt]
+    that name a shuffled set of blocks for each slot's live keys and
+    block 0 past them, as the engine leaves them."""
+    nb = span // bt
+    n_pool = n_pool or b * nb * 3 // 2 + 1
+    if lengths is None:
+        lengths = torch.randint(0, span - s_v + 1, (b,), device=DEV,
+                                generator=gen, dtype=torch.int32)
+        lengths[0] = span - s_v
+    kf = torch.randn(n_pool, bt, nkv, hd, device=DEV, generator=gen)
+    vf = torch.randn(n_pool, bt, nkv, hd, device=DEV, generator=gen)
+    kf[0] *= 1e4
+    vf[0] *= 1e4
+    if int8:
+        k, ks = llama.quantize_kv(kf)
+        v, vs = llama.quantize_kv(vf)
+        ks[0] = vs[0] = 1e4
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    perm = torch.randperm(n_pool - 1, device=DEV, generator=gen) + 1
+    live = (lengths.long() + s_v + bt - 1) // bt
+    tables = torch.zeros(b, nb, dtype=torch.int32, device=DEV)
+    start = 0
+    for i, n in enumerate(live.tolist()):
+        check(start + n <= n_pool - 1, "paged inputs: pool too small")
+        tables[i, :n] = perm[start:start + n].to(torch.int32)
+        start += n
+    return lengths, k, v, ks, vs, tables
+
+
+def k2_paged_case(gen, s_v, span, bt, int8, b=8, nh=32, nkv=8, hd=128,
+                  n_pool=None):
+    """K2-paged against its plain version, a repeat launch bit for bit,
+    the slab kernel on the same keys gathered into a slab bit for bit, and
+    its times beside K2-slab's on that slab. The library yardstick is
+    SDPA on KV already gathered and dequantized: the gather is not
+    counted."""
+    q = torch.randn(b, s_v, nh, hd, device=DEV, generator=gen).to(
+        torch.bfloat16)
+    lengths, k, v, ks, vs, tables = paged_inputs(gen, b, span, bt, nkv, hd,
+                                                 int8, n_pool, s_v=s_v)
+    kw = dict(k_scale=ks, v_scale=vs)
+    got = fd.flash_decode_attention(q, k, v, lengths, tables=tables, **kw)
+    again = fd.flash_decode_attention(q, k, v, lengths, tables=tables, **kw)
+    ref = fd.flash_decode_plain(q, k, v, lengths, tables=tables, **kw)
+    sk, sv, sks, svs = fd.gather_pages(tables, k, v, ks, vs)
+    slab = fd.flash_decode_attention(q, sk, sv, lengths, k_scale=sks,
+                                     v_scale=svs)
+    name = (f"K2-paged B={b} S_v={s_v} span={span} bt={bt} int8={int8} "
+            f"pool={k.shape[0]}")
+    err, worst = attn_err(got, ref, name, ATTN_ROW_TOL)
+    check(torch.equal(got, again), f"{name}: a second launch gave other "
+                                   "bits")
+    check(torch.equal(got, slab), f"{name}: other bits than the slab "
+                                  "kernel on the same keys")
+    elem = 1 if int8 else 2
+    pool_bytes = k.numel() * elem * 2 + (ks.numel() * 8 if int8 else 0)
+    copies = [tuple(None if x is None else x.clone() for x in (k, v, ks, vs))
+              for _ in range(n_copies(pool_bytes))]
+    ms = time_ms([lambda c=c: fd.flash_decode_attention(
+        q, c[0], c[1], lengths, k_scale=c[2], v_scale=c[3], tables=tables)
+        for c in copies], 50)
+    plain = time_ms([lambda c=c: fd.flash_decode_plain(
+        q, c[0], c[1], lengths, k_scale=c[2], v_scale=c[3], tables=tables)
+        for c in copies], 10)
+    slab_bytes = sk.numel() * elem * 2 + (sks.numel() * 8 if int8 else 0)
+    slabs = [tuple(None if x is None else x.clone()
+                   for x in (sk, sv, sks, svs))
+             for _ in range(n_copies(slab_bytes))]
+    slab_ms = time_ms([lambda c=c: fd.flash_decode_attention(
+        q, c[0], c[1], lengths, k_scale=c[2], v_scale=c[3])
+        for c in slabs], 50)
+    pos = lengths.long()[:, None] + torch.arange(s_v, device=DEV)
+    mask = (torch.arange(span, device=DEV)[None, None, None, :]
+            <= pos[:, None, :, None])
+    qt = q.transpose(1, 2)
+    lib_kv = [(dequant(c[0], c[2]).transpose(1, 2).contiguous(),
+               dequant(c[1], c[3]).transpose(1, 2).contiguous())
+              for c in slabs[:n_copies(sk.numel() * 4)]]
+    lib = time_ms([lambda kk=kk, vv=vv: F.scaled_dot_product_attention(
+        qt, kk, vv, attn_mask=mask, enable_gqa=True) for kk, vv in lib_kv],
+        50)
+    live = torch.clamp(lengths.long() + s_v, max=span)
+    n_live = live.sum().item()
+    table_bytes = ((live + bt - 1) // bt).sum().item() * 4
+    nbytes = (n_live * nkv * hd * elem * 2 + (n_live * nkv * 8 if int8 else 0)
+              + q.numel() * 4 + b * 4 + table_bytes)
+    b_ms, by = bound_ms(nbytes, 4.0 * n_live * nh * s_v * hd)
+    return dict(err=err, worst_row=worst, row_tol=ATTN_ROW_TOL, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by,
+                slab_ms=slab_ms)
+
+
 def k3_case(gen, s, q_offset, int8, b=2, nh=32, nkv=8, hd=128, t=None,
             slot_stride=None):
     t = q_offset + s if t is None else t
@@ -463,7 +583,9 @@ def fmt(case: dict) -> str:
     return (f"max_abs_err={case['err']:.3g} ({tol}) "
             f"ms={case['ms']:.4f} plain_ms={case['plain_ms']:.4f} "
             f"library_ms={case['library_ms']:.4f} "
-            f"bound_ms={case['bound_ms']:.4f} ({case['bound_by']})")
+            f"bound_ms={case['bound_ms']:.4f} ({case['bound_by']})"
+            + (f" slab_ms={case['slab_ms']:.4f}" if "slab_ms" in case
+               else ""))
 
 
 def kernel_phase(gen) -> dict:
@@ -520,6 +642,13 @@ def kernel_phase(gen) -> dict:
         c = k2_case(gen, **kw)
         desc = " ".join(f"{k}={v}" for k, v in kw.items())
         print(f"K2 B=8 {desc}: {fmt(c)}", flush=True)
+    for s_v in (1, 4):
+        for span in (1024, 2048):
+            for bt in (16, 64, 128):
+                for int8 in (True, False):
+                    c = k2_paged_case(gen, s_v, span, bt, int8)
+                    print(f"K2-paged B=8 S_v={s_v} span={span} bt={bt} "
+                          f"int8={int8}: {fmt(c)}", flush=True)
     for s in (128, 512):
         for q_offset in (0, 512):
             for int8 in (False, True):
@@ -1057,11 +1186,13 @@ def trainer_phase(seed: int, attn_shape: dict) -> dict:
 # -- (e) engine at full 8B width, (f) engine shapes, (g) server --------------
 
 
-def run_batch(engine, prompts, max_new):
+def run_batch(engine, prompts, max_new, on_step=None):
     t0 = time.monotonic()
     rids = [engine.submit(p, max_new) for p in prompts]
     t_first = None
     while engine.step():
+        if on_step is not None:
+            on_step()
         if t_first is None and all(engine.ttft_seconds(r) is not None
                                    for r in rids):
             torch.cuda.synchronize()
@@ -1124,7 +1255,66 @@ def engine_phase(seed: int):
     for name, n in launches.items():
         check(n > 0, f"engine: kernel {name} was never launched")
     print("engine: determinism ok (two runs, identical tokens)", flush=True)
-    return engine, launches, shapes
+    return engine, launches, shapes, prompts, first
+
+
+# the oversubscribed pool of (e2): the burst's requests need 1, 1, 2, 3,
+# 4, 5, 7 and 9 blocks of 128 tokens (prompt + 32 new tokens), 32 in all
+PAGED_SMALL_POOL = 24
+
+
+def paged_engine_phase(engine, prompts, want):
+    """(e2): PagedLLMEngine over the slab engine's weights and settings,
+    the same burst, with the default pool and with PAGED_SMALL_POOL
+    blocks. Returns the kernels' launches and shapes of the default-pool
+    run, the paged engine with the default pool, and each run's stats."""
+    runs = {}
+    for label, pool_blocks in (("default pool", None),
+                               ("small pool", PAGED_SMALL_POOL)):
+        paged = PagedLLMEngine(engine.params, engine.cfg, n_slots=8,
+                               max_len=2048, buckets=(128, 512, 1024),
+                               decode_chunk=8, kv_quantize="int8",
+                               pool_blocks=pool_blocks, device=DEV)
+        seen = {"held": 0, "used": 0}
+
+        def note(paged=paged, seen=seen):
+            m = paged.metrics()
+            seen["held"] = max(seen["held"], m["held_prefills"])
+            seen["used"] = max(seen["used"], m["kv_pool"]["used_blocks"])
+
+        _build.reset_launches()
+        toks, stats = run_batch(paged, prompts, 32, on_step=note)
+        launches = {name: _build.LAUNCHES[name] for name in _build.KERNELS}
+        shapes = {name: dict(_build.SHAPES[name]) for name in PAGED_KERNELS}
+        pool = paged.metrics()["kv_pool"]
+        stats.update(held_prefills_max=seen["held"],
+                     pool_peak_used_blocks=seen["used"],
+                     pool_blocks=pool["pool_blocks"],
+                     alloc_failures=pool["alloc_failures"])
+        print(f"paged engine ({label}): {json.dumps(stats)}; launches "
+              f"{json.dumps(launches)}", flush=True)
+        for i, (got, ref) in enumerate(zip(toks, want)):
+            step = next((j for j, (a, b) in enumerate(zip(got, ref))
+                         if a != b), min(len(got), len(ref)))
+            check(got == ref, f"paged engine ({label}): request {i} "
+                              f"differs from the slab engine's tokens "
+                              f"first at step {step}")
+        for name in PAGED_KERNELS:
+            check(launches[name] > 0,
+                  f"paged engine ({label}): {name} was never launched")
+        check(launches["flash_decode"] == 0,
+              f"paged engine ({label}): the slab K2 was launched")
+        check(pool["free_blocks"] == pool["pool_blocks"],
+              f"paged engine ({label}): blocks still held after the burst")
+        if pool_blocks is not None:
+            check(seen["held"] > 0,
+                  f"paged engine ({label}): no prefill was held")
+        runs[label] = (paged, launches, shapes, stats)
+    print("paged engine: greedy tokens equal the slab engine's in both "
+          "runs", flush=True)
+    paged, launches, shapes, _ = runs["default pool"]
+    del runs["small pool"]
+    return launches, shapes, paged
 
 
 def engine_shape_phase(gen, shapes) -> dict[str, dict]:
@@ -1145,6 +1335,12 @@ def engine_shape_phase(gen, shapes) -> dict[str, dict]:
                             nh=a["nh"], nkv=a["nkv"], hd=a["hd"],
                             slot_stride=a["slot_stride"])
                 work = a["b"] * a["s_v"] * a["t"]
+            elif name == "flash_decode_paged":
+                span = a["nb"] * a["bt"]
+                c = k2_paged_case(gen, a["s_v"], span, a["bt"], a["int8"],
+                                  b=a["b"], nh=a["nh"], nkv=a["nkv"],
+                                  hd=a["hd"], n_pool=a["n_pool"])
+                work = a["b"] * a["s_v"] * span
             else:
                 c = k3_case(gen, a["s"], a["q_offset"], a["int8"], b=a["b"],
                             nh=a["nh"], nkv=a["nkv"], hd=a["hd"], t=a["t"],
@@ -1163,7 +1359,9 @@ def step_breakdown(engine) -> dict:
     time, and the card's busy time in it from the profiler's kernel events
     (by kernel family). A step makes thousands of launches, more than the
     launch queue holds, so a sleep kernel cannot keep the card ahead of
-    the host here."""
+    the host here. For a paged engine, each slot reads and writes through
+    a table of its own shuffled pool blocks (the engine's own tables are
+    left as they are)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1171,9 +1369,15 @@ def step_breakdown(engine) -> dict:
     lengths = torch.full((engine.n_slots,), 1000, dtype=torch.int32,
                          device=DEV)
     toks = engine.last_tokens.clone()
+    cache = engine.cache
+    if "tbl" in cache:
+        n_slots, n_tbl = cache["tbl"].shape
+        ids = torch.randperm(cache["k"].shape[1] - 1, device=DEV)
+        cache = dict(cache, tbl=(ids[:n_slots * n_tbl] + 1).to(
+            torch.int32).reshape(n_slots, n_tbl))
 
     def step():
-        llama.decode_step(engine.params, toks, engine.cache, lengths, cfg,
+        llama.decode_step(engine.params, toks, cache, lengths, cfg,
                           span=2048)
 
     step()
@@ -1202,7 +1406,8 @@ def step_breakdown(engine) -> dict:
     out = {"wall_ms": wall_ms, "device_busy_ms": device_ms,
            "busy_ms_by_kernel": busy,
            "device_idle_share": max(0.0, 1 - device_ms / wall_ms)}
-    print(f"decode step breakdown: {json.dumps(out)}", flush=True)
+    print(f"decode step breakdown ({type(engine).__name__}): "
+          f"{json.dumps(out)}", flush=True)
     return out
 
 
@@ -1411,10 +1616,18 @@ def main(argv=None) -> int:
 
     k1_step = phase("c kernels", kernel_phase, gen)
     phase("d reference", reference_phase, args.seed)
-    engine, launches, shapes = phase("e engine", engine_phase, args.seed)
+    engine, launches, shapes, prompts, tokens = phase(
+        "e engine", engine_phase, args.seed)
+    p_launches, p_shapes, paged = phase("e2 paged engine",
+                                        paged_engine_phase, engine, prompts,
+                                        tokens)
+    launches["flash_decode_paged"] = p_launches["flash_decode_paged"]
+    shapes["flash_decode_paged"] = p_shapes["flash_decode_paged"]
     cases = {"quant_matmul": k1_step,
              **phase("f engine shapes", engine_shape_phase, gen, shapes)}
     phase("f step breakdown", step_breakdown, engine)
+    phase("f paged step breakdown", step_breakdown, paged)
+    del paged
     phase("f prefill breakdown", prefill_breakdown, engine, args.seed)
     phase("g server", server_phase, engine)
     del engine   # the engine holds reference cycles: collect it now, so
@@ -1432,9 +1645,10 @@ def main(argv=None) -> int:
     kernels = []
     for name in _build.KERNELS:
         c = cases[name]
+        source = "flash_decode" if name == "flash_decode_paged" else name
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"kubeflow_tpu_torch/csrc/{name}.cu",
+            "source": f"kubeflow_tpu_torch/csrc/{source}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": c["err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

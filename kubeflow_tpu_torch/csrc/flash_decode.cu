@@ -1,7 +1,10 @@
-// K2: grouped-query flash-decoding over the serving KV slab.
+// K2: grouped-query flash-decoding over the serving KV slab, or over the
+// block pool of paged serving through per-slot block tables.
 //
 // Replaces: kubeflow_tpu/ops/flash_decode.py `_decode_kernel` (the TPU
-// Pallas kernel behind `flash_decode_attention`, slab mode).
+// Pallas kernel behind `flash_decode_attention`), in slab mode and in
+// paged mode (`tables=`, where the TPU kernel's k/v/scale index maps read
+// a scalar-prefetched table).
 //
 // What it computes: for every slot b, kv head h and query row r of the
 // g * S_v rows regrouped onto h (row r is head h*g + r / S_v at position
@@ -50,6 +53,22 @@
 //     the output, each value summed over the ranks in rank order. No
 //     second kernel, no workspace, no atomics, and the summation order is
 //     fixed, so a second launch gives the same bits.
+//
+// Paged mode (kPaged): k/v are one layer of the pool, [N, bt, kv, HD]
+// (scales [N, bt, kv]), and slot b's T = nb * bt logical keys are the
+// blocks of its table row tbl[b, 0 .. nb) concatenated: key t lies in
+// pool row tbl[b, t / bt] * bt + t % bt. Only the address of a key row
+// changes; the split, the ring, the products, the mask and the merge are
+// the slab kernel's, so a paged launch gives the slab launch's bits for
+// the same keys. Each thread that copies a 16-byte chunk of a key row
+// reads that row's table entry through the read-only path (__ldg): the
+// chunks of one row hit the same L1 line, so the table costs one load a
+// row and nothing in shared memory, and bt need not divide the 64-key
+// tile. The bound is the slab's plus the table: bytes, the live key rows
+// of every slot and kv head and their scales, plus 4 bytes a block of
+// table. Entries past a slot's live keys may name any block (the engine
+// leaves them at block 0, the trash block): their keys are masked, and
+// junk there must only be finite.
 #include "sm90_primitives.cuh"
 
 namespace {
@@ -67,15 +86,17 @@ constexpr float kNegInf = -1e30f;
 
 struct Params {
   const __nv_bfloat16* q;   // [B, S_v, H, HD] contiguous
-  const void* k;            // [B, T, kv, HD], slot stride kv_sb elements
-  const void* v;
-  const float* k_scale;     // [B, T, kv], slot stride s_sb (int8 only)
-  const float* v_scale;
+  const void* k;            // [B, T, kv, HD], slot stride kv_sb elements;
+  const void* v;            //   paged: the pool layer [N, bt, kv, HD]
+  const float* k_scale;     // [B, T, kv], slot stride s_sb (int8 only);
+  const float* v_scale;     //   paged: [N, bt, kv]
   const int* lengths;       // [B]
   __nv_bfloat16* out;       // [B, S_v, H, HD] contiguous
-  long long kv_sb, s_sb;
-  int s_v, H, kv, T;
+  long long kv_sb, s_sb;    // 0 when paged
+  int s_v, H, kv, T;        // paged: T = nb * bt
   float scale;
+  const int* tbl;           // paged: [B, >= nb] int32, rows tbl_stride apart
+  int bt, tbl_stride;
 };
 
 // Cluster size: enough blocks for kTargetBlocks, at most one per tile.
@@ -152,18 +173,31 @@ __device__ __forceinline__ void widen4_odd_even(uint32_t w, uint32_t& even,
   odd = __byte_perm(__float_as_uint(f[1]), __float_as_uint(f[3]), 0x7632);
 }
 
-// Where one slot's K/V rows and scales start.
+// Where one slot's K/V rows and scales start (paged: the pool's start),
+// and its table row (paged only).
 struct Slot {
   const char* k;
   const char* v;
   const float* ks;
   const float* vs;
+  const int* tbl;
 };
+
+// The row of key t < T from the slot's start: t in the slab, its pool row
+// through the table when paged.
+template <bool kPaged>
+__device__ __forceinline__ long long key_row(const Params& p,
+                                             const Slot& slot, int t) {
+  if constexpr (kPaged)
+    return (long long)__ldg(slot.tbl + t / p.bt) * p.bt + t % p.bt;
+  else
+    return t;
+}
 
 // Local tile i (keys (first + i) * TK ..) of kv head h into stage
 // i % kStages by cp.async, zero-filled past T; one commit group per call,
 // empty past the block's n_local tiles.
-template <typename L, bool kInt8>
+template <typename L, bool kInt8, bool kPaged>
 __device__ __forceinline__ void load_tile(uint8_t* smem, const Params& p,
                                           const Slot& slot, int h,
                                           int first, int i, int n_local) {
@@ -174,7 +208,9 @@ __device__ __forceinline__ void load_tile(uint8_t* smem, const Params& p,
       const int r = c / L::kChunks, cc = c % L::kChunks;
       const bool in = t0 + r < p.T;
       const long long off =
-          in ? ((long long)(t0 + r) * p.kv + h) * L::kRow + cc * 16 : 0;
+          in ? (key_row<kPaged>(p, slot, t0 + r) * p.kv + h) * L::kRow +
+                   cc * 16
+             : 0;
       sm90::cp_async16(st + chunk_at<L>(r, cc),
                        (in ? slot.k : static_cast<const char*>(p.k)) + off,
                        in ? 16 : 0);
@@ -185,7 +221,8 @@ __device__ __forceinline__ void load_tile(uint8_t* smem, const Params& p,
     if (kInt8) {   // k scales in threads 0..TK-1, v scales in the rest
       const int j = threadIdx.x % TK;
       const bool in = t0 + j < p.T, is_k = threadIdx.x < TK;
-      const long long off = in ? (long long)(t0 + j) * p.kv + h : 0;
+      const long long off =
+          in ? key_row<kPaged>(p, slot, t0 + j) * p.kv + h : 0;
       const float* src = in ? (is_k ? slot.ks : slot.vs)
                             : (is_k ? p.k_scale : p.v_scale);
       sm90::cp_async4(reinterpret_cast<float*>(st + 2 * L::kTile) +
@@ -210,7 +247,7 @@ __device__ __forceinline__ void load_tile(uint8_t* smem, const Params& p,
 //     ldmatrix.trans on the int8 tile: a lane's register holds keys 2t,
 //     2t+1 at two adjacent head dims, which split into the fragments of an
 //     even and an odd n-tile.
-template <typename KV_T, int HD, int RMAX>
+template <typename KV_T, int HD, int RMAX, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const Params p) {
   using L = Smem<KV_T, HD, RMAX>;
@@ -262,10 +299,11 @@ decode_kernel(const Params p) {
                   static_cast<const char*>(p.v) +
                       (long long)b * p.kv_sb * sizeof(KV_T),
                   kInt8 ? p.k_scale + (long long)b * p.s_sb : nullptr,
-                  kInt8 ? p.v_scale + (long long)b * p.s_sb : nullptr};
+                  kInt8 ? p.v_scale + (long long)b * p.s_sb : nullptr,
+                  kPaged ? p.tbl + (long long)b * p.tbl_stride : nullptr};
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i)
-    load_tile<L, kInt8>(smem, p, slot, h, first, i, n_local);
+    load_tile<L, kInt8, kPaged>(smem, p, slot, h, first, i, n_local);
 
   // this lane's softmax state: rows rt * 8 + 2t + j
   float m[RT][2], l[RT][2];
@@ -289,7 +327,8 @@ decode_kernel(const Params p) {
     sm90::cp_async_wait<kStages - 2>();   // tile i (and q) have landed
     __syncthreads();                      // ... for every thread
     // the stage tile i - 1 used
-    load_tile<L, kInt8>(smem, p, slot, h, first, i + kStages - 1, n_local);
+    load_tile<L, kInt8, kPaged>(smem, p, slot, h, first, i + kStages - 1,
+                                n_local);
     const uint8_t* kt = smem + (i % kStages) * L::kStage;
     const uint8_t* vt = kt + L::kTile;
     const float* ks_s = reinterpret_cast<const float*>(kt + 2 * L::kTile);
@@ -517,29 +556,45 @@ decode_kernel(const Params p) {
   if (n_split > 1) sm90::cluster_sync_exit();
 }
 
-template <typename KV_T, int HD, int RMAX>
+template <typename KV_T, int HD, int RMAX, bool kPaged>
 cudaError_t launch_rows(const Params& p, int B, int n_split,
                         cudaStream_t stream) {
   constexpr int smem = Smem<KV_T, HD, RMAX>::kBytes;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<KV_T, HD, RMAX>,
+        decode_kernel<KV_T, HD, RMAX, kPaged>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  return sm90::launch_cluster(decode_kernel<KV_T, HD, RMAX>,
+  return sm90::launch_cluster(decode_kernel<KV_T, HD, RMAX, kPaged>,
                               dim3(n_split, B * p.kv), kThreads, smem,
                               stream, n_split, p);
 }
 
-template <typename KV_T, int HD>
+template <typename KV_T, int HD, bool kPaged>
 cudaError_t launch(const Params& p, int B, int n_split, cudaStream_t st) {
   const int rows = (p.H / p.kv) * p.s_v;
-  if (rows <= 8) return launch_rows<KV_T, HD, 8>(p, B, n_split, st);
-  if (rows <= 16) return launch_rows<KV_T, HD, 16>(p, B, n_split, st);
-  return launch_rows<KV_T, HD, 32>(p, B, n_split, st);
+  if (rows <= 8) return launch_rows<KV_T, HD, 8, kPaged>(p, B, n_split, st);
+  if (rows <= 16)
+    return launch_rows<KV_T, HD, 16, kPaged>(p, B, n_split, st);
+  return launch_rows<KV_T, HD, 32, kPaged>(p, B, n_split, st);
+}
+
+template <bool kPaged>
+cudaError_t launch_kv(const Params& p, int B, int hd, int int8_kv,
+                      cudaStream_t st) {
+  const int n_split = choose_split(B, p.kv, p.T);
+  if (int8_kv) {
+    if (hd == 128) return launch<int8_t, 128, kPaged>(p, B, n_split, st);
+    if (hd == 64) return launch<int8_t, 64, kPaged>(p, B, n_split, st);
+  } else {
+    if (hd == 128)
+      return launch<__nv_bfloat16, 128, kPaged>(p, B, n_split, st);
+    if (hd == 64) return launch<__nv_bfloat16, 64, kPaged>(p, B, n_split, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -565,15 +620,31 @@ extern "C" int kft_flash_decode(const void* q, const void* k, const void* v,
            static_cast<const float*>(v_scale),
            static_cast<const int*>(lengths),
            static_cast<__nv_bfloat16*>(out), kv_sb, s_sb, s_v, H, kv, T,
-           scale};
-  const int n_split = choose_split(B, kv, T);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int8_kv) {
-    if (hd == 128) return (int)launch<int8_t, 128>(p, B, n_split, st);
-    if (hd == 64) return (int)launch<int8_t, 64>(p, B, n_split, st);
-  } else {
-    if (hd == 128) return (int)launch<__nv_bfloat16, 128>(p, B, n_split, st);
-    if (hd == 64) return (int)launch<__nv_bfloat16, 64>(p, B, n_split, st);
-  }
-  return (int)cudaErrorInvalidValue;
+           scale, nullptr, 0, 0};
+  return (int)launch_kv<false>(p, B, hd, int8_kv,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Paged mode: k/v the pool layer [N, bt, kv, hd] (int8 with scales
+// [N, bt, kv] f32, or bf16), tables [B, nb] int32 with rows tbl_stride
+// elements apart; slot b's nb * bt keys are its table's blocks in order.
+extern "C" int kft_flash_decode_paged(const void* q, const void* k,
+                                      const void* v, const void* k_scale,
+                                      const void* v_scale,
+                                      const void* lengths,
+                                      const void* tables, void* out, int B,
+                                      int s_v, int H, int kv, int hd, int bt,
+                                      int nb, int tbl_stride, int int8_kv,
+                                      float scale, void* stream) {
+  if (!supported(H, kv, s_v) || B < 1 || bt < 1 || nb < 1 ||
+      tbl_stride < nb)
+    return (int)cudaErrorInvalidValue;
+  Params p{static_cast<const __nv_bfloat16*>(q), k, v,
+           static_cast<const float*>(k_scale),
+           static_cast<const float*>(v_scale),
+           static_cast<const int*>(lengths),
+           static_cast<__nv_bfloat16*>(out), 0, 0, s_v, H, kv, nb * bt,
+           scale, static_cast<const int*>(tables), bt, tbl_stride};
+  return (int)launch_kv<true>(p, B, hd, int8_kv,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -422,14 +422,18 @@ def prefill_attention(cfg: LlamaConfig, q, k, v, cks=None, cvs=None, *,
 
 
 def decode_attention(cfg: LlamaConfig, q, ck, cv, cks, cvs,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor,
+                     tables: torch.Tensor | None = None) -> torch.Tensor:
     """GQA decode/verify attention over a span-sliced slab: q [B, S_v, nh,
     hd]; row i of slot b sees keys t <= lengths[b] + i. Returns
-    [B, S_v, nh * hd]."""
+    [B, S_v, nh * hd]. With `tables` [B, span // bt] int32, ck/cv are a
+    pool layer [N, bt, kv, hd] (cks/cvs [N, bt, kv]) and slot b's span is
+    its table's blocks."""
     b, s_v = q.shape[:2]
     out = flash_decode_attention(q, ck, cv, lengths, k_scale=cks,
                                  v_scale=cvs,
-                                 scale=1.0 / (cfg.head_dim ** 0.5))
+                                 scale=1.0 / (cfg.head_dim ** 0.5),
+                                 tables=tables)
     return out.reshape(b, s_v, -1)
 
 
@@ -545,18 +549,54 @@ def _write_rows(buf: torch.Tensor, rows, wpos, valid, val) -> None:
     buf[rows, wpos] = torch.where(keep, val, buf[rows, wpos])
 
 
+def _paged_write_coords(tbl: torch.Tensor, lengths: torch.Tensor, s_v: int,
+                        bt: int):
+    """(positions [B, S_v], (block, offset) write coordinates) of the S_v
+    new rows of every slot in paged mode: position p of slot r lands at
+    block tbl[r, p // bt], offset p % bt. Positions at or past max_len,
+    and table entries never allocated (0), land in block 0, the pool's
+    trash block, which is never read."""
+    max_len = tbl.shape[1] * bt
+    positions = lengths.long()[:, None] + torch.arange(
+        s_v, device=lengths.device)[None]
+    pos_c = positions.clamp_max(max_len - 1)
+    blk = torch.gather(tbl.long(), 1, pos_c // bt)
+    blk = torch.where(positions < max_len, blk, torch.zeros_like(blk))
+    return positions, (blk, positions % bt)
+
+
 def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
                  lengths: torch.Tensor, cfg: LlamaConfig,
                  span: int | None = None) -> torch.Tensor:
-    """x [B, S_v, D] through the layer stack against the slab cache
-    (updated in place) -> x. B must equal the cache's slot count."""
+    """x [B, S_v, D] through the layer stack against the cache (updated in
+    place) -> x. The cache is a slab with one row per slot (B must equal
+    its slot count), or, with "tbl" [B, max_len // bt] in it, the paged
+    block pool [L, N, bt, ...] that the tables index."""
     b, s_v = x.shape[:2]
-    max_len = cache["k"].shape[2]
-    if cache["k"].shape[1] != b:
-        raise ValueError(f"batch {b} != cache slots {cache['k'].shape[1]}")
+    paged = "tbl" in cache
+    if paged:
+        tbl = cache["tbl"]
+        bt = cache["k"].shape[2]
+        max_len = tbl.shape[1] * bt
+        if tbl.shape[0] != b:
+            raise ValueError(f"batch {b} != table rows {tbl.shape[0]}")
+    else:
+        max_len = cache["k"].shape[2]
+        if cache["k"].shape[1] != b:
+            raise ValueError(
+                f"batch {b} != cache slots {cache['k'].shape[1]}")
     span = max_len if span is None else min(span, max_len)
     quantized = "k_s" in cache
-    positions, rows, wpos, valid = _write_coords(lengths, s_v, max_len)
+    if paged:
+        if span % bt:
+            raise ValueError(
+                f"paged span {span} must divide by block_tokens {bt}")
+        # attention reads the whole pool layer; the table slices the span
+        tables, span_rows = tbl[:, :span // bt], slice(None)
+        positions, w_idx = _paged_write_coords(tbl, lengths, s_v, bt)
+    else:
+        tables, span_rows = None, slice(0, span)
+        positions, rows, wpos, valid = _write_coords(lengths, s_v, max_len)
     rope = _rope(cfg, positions)
     lengths = lengths.to(torch.int32)
     for i, layer in enumerate(unstack_layers(layers)):
@@ -569,11 +609,13 @@ def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
             writes = {"k": k_new.to(cache["k"].dtype),
                       "v": v_new.to(cache["v"].dtype)}
         for name, val in writes.items():
-            _write_rows(cache[name][i], rows, wpos, valid, val)
-        out = decode_attention(
-            cfg, q, cache["k"][i][:, :span], cache["v"][i][:, :span],
-            cache["k_s"][i][:, :span] if quantized else None,
-            cache["v_s"][i][:, :span] if quantized else None, lengths)
+            if paged:   # duplicate coordinates only in block 0, never read
+                cache[name][i][w_idx] = val
+            else:
+                _write_rows(cache[name][i], rows, wpos, valid, val)
+        kv = [cache[n][i][:, span_rows] if n in cache else None
+              for n in ("k", "v", "k_s", "v_s")]
+        out = decode_attention(cfg, q, *kv, lengths, tables)
         x = x + quant.matmul(out, layer["wo"], cfg.dtype)
         x = _mlp(cfg, x, layer)
     return x

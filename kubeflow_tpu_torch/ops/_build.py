@@ -27,8 +27,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("quant_matmul", "flash_decode", "flash_prefill", "flash_attn_fwd",
+#: the sources, one library each
+SOURCES = ("quant_matmul", "flash_decode", "flash_prefill", "flash_attn_fwd",
            "flash_attn_dq", "flash_attn_dkv")
+#: the kernels, each with its own wrapper and launch counter: one per
+#: source, and the paged mode of K2 (its own entry point in
+#: flash_decode.cu)
+KERNELS = SOURCES + ("flash_decode_paged",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -100,7 +105,7 @@ def build_all() -> dict[str, tuple[float, str]]:
     memory and spills per kernel, from -Xptxas -v)."""
     with _lock:
         t0 = time.monotonic()
-        started = {name: _start(name) for name in KERNELS
+        started = {name: _start(name) for name in SOURCES
                    if not _lib_path(name).exists()}
         done: dict = {}
 

@@ -1,13 +1,19 @@
-"""K2: grouped-query decode/verify attention over the KV slab
-(counterpart of kubeflow_tpu/ops/flash_decode.py, whose TPU kernel
-`_decode_kernel` this replaces in slab mode; CUDA source
+"""K2: grouped-query decode/verify attention over the KV slab or the
+paged block pool (counterpart of kubeflow_tpu/ops/flash_decode.py, whose
+TPU kernel `_decode_kernel` this replaces in both modes; CUDA source
 csrc/flash_decode.cu).
 
 q [B, S_v, H, hd]; k/v [B, T, kv, hd] — the span-sliced cache slab, int8
 with per-token scales [B, T, kv] f32, or the model dtype; lengths [B]
 int32. Query row i of slot b sees keys t <= lengths[b] + i. Returns
-[B, S_v, H, hd] in q.dtype. On a CUDA tensor the wrapper launches the
-kernel or raises; on a CPU tensor it runs `flash_decode_plain`.
+[B, S_v, H, hd] in q.dtype.
+
+Paged mode (`tables` [B, nb] int32): k/v are one layer of the block pool,
+[N, bt, kv, hd] (scales [N, bt, kv]), and slot b's T = nb * bt keys are
+the blocks of its table row concatenated. The mask is the same.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+tensor it runs `flash_decode_plain`.
 """
 
 from __future__ import annotations
@@ -21,11 +27,25 @@ from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import F32_MIN
 
 
+def gather_pages(tables, *pool):
+    """The slab view [B, nb * bt, ...] of pool tensors [N, bt, ...]
+    through tables [B, nb] (None passes through): the JAX `jnp.take`
+    twin of paged decode."""
+    b, nb = tables.shape
+    idx = tables.long()
+    return [None if x is None else
+            x[idx].reshape(b, nb * x.shape[1], *x.shape[2:]) for x in pool]
+
+
 def flash_decode_plain(q, k, v, lengths, *, k_scale=None, v_scale=None,
-                       scale=None):
+                       scale=None, tables=None):
     """The einsum path of the JAX `llama.decode_attention`: GQA without
     repeat_kv, the int8 k scale on the score before 1/sqrt(hd), the v
-    scale folded into the probabilities, f32 softmax."""
+    scale folded into the probabilities, f32 softmax. With `tables`, the
+    pool's blocks are gathered into the slab view first."""
+    if tables is not None:
+        k, v, k_scale, v_scale = gather_pages(tables, k, v, k_scale,
+                                              v_scale)
     b, s_v, nh, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
     g = nh // nkv
@@ -60,6 +80,10 @@ def _lib():
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 2
             + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        lib.kft_flash_decode_paged.restype = ctypes.c_int
+        lib.kft_flash_decode_paged.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p])
     return lib
 
 
@@ -116,12 +140,16 @@ def check_slab(q, k, v, k_scale, v_scale, name):
 
 
 def flash_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
-                           scale=None):
+                           scale=None, tables=None):
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, k_scale=k_scale,
-                                  v_scale=v_scale, scale=scale)
+                                  v_scale=v_scale, scale=scale,
+                                  tables=tables)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
+    if tables is not None:
+        return _flash_decode_paged(q, k, v, lengths, tables, k_scale,
+                                   v_scale, scale)
     quantized = check_slab(q, k, v, k_scale, v_scale, "flash_decode")
     b, s_v, nh, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
@@ -145,4 +173,80 @@ def flash_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
     _build.check(err, "flash_decode")
     _build.count_launch("flash_decode", b=b, s_v=s_v, nh=nh, nkv=nkv, hd=hd,
                         t=t, slot_stride=k.stride(0), int8=quantized)
+    return out
+
+
+def check_paged(q, k, v, k_scale, v_scale, tables, lengths, name):
+    """Argument checks of paged mode: q bf16 contiguous [B, S, H, hd];
+    k/v one contiguous pool layer [N, bt, kv, hd], int8 with contiguous
+    f32 scales [N, bt, kv], or bf16; tables int32 [B, nb] with contiguous
+    rows; lengths int32 [B]; all on q's device. Returns (quantized, bt,
+    nb)."""
+    b, _, nh, hd = q.shape
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise TypeError(f"{name}: q must be contiguous bfloat16")
+    if hd not in (64, 128):
+        raise ValueError(f"{name}: head dim {hd} unsupported (64 or 128)")
+    if k.dim() != 4 or k.shape != v.shape or k.shape[3] != hd:
+        raise ValueError(f"{name}: pool k/v shape {tuple(k.shape)} is not "
+                         f"[N, bt, kv, {hd}]")
+    nkv = k.shape[2]
+    if nh % nkv:
+        raise ValueError(f"{name}: heads {nh} must divide by kv {nkv}")
+    if k.dtype != v.dtype or k.dtype not in (torch.int8, torch.bfloat16):
+        raise TypeError(f"{name}: k/v must both be int8 or bfloat16")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: pool k/v must be contiguous")
+    quantized = k.dtype == torch.int8
+    if quantized != (k_scale is not None) or \
+            (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: int8 k/v need k_scale and v_scale, "
+                         "float k/v take neither")
+    tensors = [q, k, v, tables, lengths]
+    if quantized:
+        if (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                or k_scale.shape != k.shape[:3]
+                or v_scale.shape != k.shape[:3]
+                or not (k_scale.is_contiguous()
+                        and v_scale.is_contiguous())):
+            raise ValueError(f"{name}: scales must be contiguous float32 "
+                             "[N, bt, kv]")
+        tensors += [k_scale, v_scale]
+    if (tables.dtype != torch.int32 or tables.dim() != 2
+            or tables.shape[0] != b or tables.shape[1] < 1
+            or tables.stride(1) != 1):
+        raise ValueError(f"{name}: tables must be int32 [B, nb] with "
+                         "contiguous rows")
+    if (lengths.dtype != torch.int32 or lengths.shape != (b,)
+            or not lengths.is_contiguous()):
+        raise ValueError(f"{name}: lengths must be int32 [B]")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: all tensors must share q's device")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k/v must be 16-byte aligned")
+    return quantized, k.shape[1], tables.shape[1]
+
+
+def _flash_decode_paged(q, k, v, lengths, tables, k_scale, v_scale, scale):
+    """The paged launch of K2 on the card."""
+    quantized, bt, nb = check_paged(q, k, v, k_scale, v_scale, tables,
+                                    lengths, "flash_decode")
+    b, s_v, nh, hd = q.shape
+    nkv = k.shape[2]
+    if _workspace(b, s_v, nh, nkv, hd, nb * bt) < 0:
+        raise ValueError(f"flash_decode: g * S_v = {nh // nkv * s_v} query "
+                         "rows per kv head is more than the kernel holds")
+    scale = 1.0 / (hd ** 0.5) if scale is None else scale
+    out = torch.empty_like(q)
+    err = _lib().kft_flash_decode_paged(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), b, s_v, nh,
+        nkv, hd, bt, nb, tables.stride(0), int(quantized), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_decode")
+    _build.count_launch("flash_decode_paged", b=b, s_v=s_v, nh=nh, nkv=nkv,
+                        hd=hd, bt=bt, nb=nb, n_pool=k.shape[0],
+                        int8=quantized)
     return out

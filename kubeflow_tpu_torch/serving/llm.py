@@ -75,8 +75,7 @@ class LLMEngine:
         self.eos_id = eos_id
         self.decode_chunk = max(1, decode_chunk)
         self.scheduler = PyScheduler(n_slots, self.buckets)
-        self.cache = llama.init_cache(cfg, n_slots, max_len, kv_quantize,
-                                      device=self.device)
+        self.cache = self._alloc_cache()
         self.lengths = torch.zeros(n_slots, dtype=torch.int32,
                                    device=self.device)
         self.last_tokens = torch.zeros(n_slots, dtype=torch.long,
@@ -200,12 +199,26 @@ class LLMEngine:
             if not isinstance(nxt, PrefillAction):
                 break    # a decode pass re-derives from slot state later
             actions.append(nxt)
+        actions = self._admit_prefills(actions)
+        if actions:
+            self._run_prefill_actions(actions)
+        return True
+
+    def _admit_prefills(self, actions: list[PrefillAction]
+                        ) -> list[PrefillAction]:
+        """Admission between the scheduler's pop and the waves: the slab
+        engine's rows are preallocated per slot, so it admits everything.
+        The paged engine reserves KV blocks here and holds back what it
+        cannot fund yet."""
+        return actions
+
+    def _run_prefill_actions(self, actions: list[PrefillAction]) -> None:
+        """One batched prefill wave per prompt bucket."""
         groups: dict[int, list[PrefillAction]] = {}
         for a in actions:
             groups.setdefault(a.bucket_len, []).append(a)
         for bucket, wave in groups.items():
             self._prefill_wave(bucket, wave)
-        return True
 
     def run_until_idle(self) -> None:
         while self.step():
@@ -279,6 +292,11 @@ class LLMEngine:
             self._first_token_t[a.req_id] = now
             self._record_token(a.req_id, a.slot, toks_host[i])
 
+    def _alloc_cache(self) -> dict:
+        """The KV cache: a slab [L, n_slots, max_len, kv, hd]."""
+        return llama.init_cache(self.cfg, self.n_slots, self.max_len,
+                                self.kv_quantize, device=self.device)
+
     def _cache_write(self, slot: int, count: int, ks: torch.Tensor,
                      vs: torch.Tensor) -> None:
         """Write [L, count, kv, hd] KV rows into rows [0, count) of a
@@ -302,9 +320,11 @@ class LLMEngine:
         compute and write junk their next prefill overwrites). k is the
         largest power of two <= decode_chunk that fits the cache headroom
         of the fullest slot and is not past every request's budget."""
-        slot_req = [self.scheduler.slot_request(s)
-                    for s in range(self.n_slots)]
+        slot_req = self._mask_unfunded(
+            [self.scheduler.slot_request(s) for s in range(self.n_slots)])
         active = np.array([r >= 0 for r in slot_req], bool)
+        if not active.any():
+            return   # every live slot waits for KV blocks (paged engine)
         remaining = max(max(1, self._max_new[r] - len(self._results[r]))
                         for r in slot_req if r >= 0)
         longest = int(self._host_lengths[active].max())
@@ -334,6 +354,12 @@ class LLMEngine:
                 self._host_lengths[slot] += 1
                 if self._record_token(req, slot, row[slot]):
                     done_slots.add(slot)
+
+    def _mask_unfunded(self, slot_req: list[int]) -> list[int]:
+        """Decode planning sees a slot whose prefill is held (paged
+        engine: assigned, no KV funded yet) as empty (-1). The slab engine
+        holds nothing."""
+        return slot_req
 
     def _record_token(self, req_id: int, slot: int, token: int) -> bool:
         """Append one token; True when it finished the request."""
