@@ -4,13 +4,14 @@
 
 Phases, in order; any failure exits non-zero before the result line:
   (a) device: a CUDA device must be present; prints the card's name and
-      power limit as nvidia-smi reports them;
-  (b) build: compiles the six CUDA kernels from kubeflow_tpu_torch/csrc
+      power limit as nvidia-smi reports them, and the build stamp
+      (obs/build.py: torch, CUDA, driver, device);
+  (b) build: compiles the six CUDA sources from kubeflow_tpu_torch/csrc
       (one nvcc per source, in parallel) and prints the seconds; for K1,
-      K2, B2 and B3 the registers and spills of each kernel from ptxas
-      -v (no spill allowed) and the tensor-core instructions in their
-      SASS, where cuobjdump is present (K1, B2, B3: wgmma's HGMMA and no
-      mma.sync HMMA; K2 runs on mma.sync);
+      K2, K3 (slab and paged), B2 and B3 the registers and spills of each
+      kernel from ptxas -v (no spill allowed) and the tensor-core
+      instructions in their SASS, where cuobjdump is present (K1, K3, B2,
+      B3: wgmma's HGMMA and no mma.sync HMMA; K2 runs on mma.sync);
   (c) kernels: each serving kernel against its plain PyTorch version on
       the card at the Llama-3-8B serving shapes, with the error, the kernel's, the
       plain version's and one PyTorch library call's time (CUDA events,
@@ -27,7 +28,12 @@ Phases, in order; any failure exits non-zero before the result line:
       larger than the batch needs with finite junk in block 0: against
       its plain version, launched twice for the same bits, and against
       the slab kernel on the same keys gathered into a slab (the same
-      bits), with K2-slab's time at the same shape;
+      bits), with K2-slab's time at the same shape; K3's paged mode
+      (K3-paged) the same way at the serving profiler's prefill probe
+      (B=8, S=32, q_offset 2016, 2048 keys) and at the 1024-token wave
+      (B=3, q_offset 0, a 2048-key table naming block 0 past the keys
+      the rows see), block_tokens 16, 64, 128 and 256, int8 and bf16,
+      with K3-slab's time on the gathered keys;
   (d) reference: a small int8 model's prefill, decode and verify logits
       through the kernels against the same functions on the CPU;
   (e) engine: LLMEngine at full Llama-3-8B width (32 layers, random int8
@@ -49,6 +55,16 @@ Phases, in order; any failure exits non-zero before the result line:
       launches), with its times as in (c); then one decode step's (slab
       and paged) and one B=3 x 1024 prefill wave's wall time against the
       card's busy time by kernel family;
+  (f2) serving breakdown: training/profiling.py serving_decode_breakdown
+      (steps 8, iters 5, span 2048) on the slab engine of (e) and on the
+      paged engine of (e2), whose slot tables are first filled with a
+      shuffled permutation of its pool blocks: the bucket partition,
+      K3-slab launched in the slab call and K3-paged (not K3-slab, not
+      K2-slab) in the paged call, 32 launches a probe run, and each
+      engine's greedy tokens for the burst unchanged after it; both dicts
+      and, from a second call under torch.profiler, each kernel family's
+      card-busy time beside the probe buckets; then K3-paged against its
+      plain version at each shape the paged call launched it at;
   (g) server: three concurrent /openai/v1/completions requests against
       the port's HTTP server over that engine;
   (h) training kernels: flash-attention forward (B1), dq (B2) and dk/dv
@@ -67,12 +83,15 @@ Phases, in order; any failure exits non-zero before the result line:
       6 steps, twice from --seed: loss and grad_norm per step, tokens/s,
       MFU, peak memory, launches of B1-B3 per step (each at least one per
       layer, at the shape (h) timed), the two runs' losses, and one
-      step's wall time against the card's busy time.
+      step's wall time against the card's busy time;
+  (j2) trainer profile window: (j)'s trainer again with profile_dir
+      (steps 2 and 3 of 6): PROFILE_DONE and one trace file, and each
+      step's time inside and outside the window.
 Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the paged engine's run for
-K2-paged, the trainer for B1-B3); the
-last line is {"ok": true, "device": {...}}.
+K2-paged, the paged serving breakdown for K3-paged, the trainer for
+B1-B3); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab OTHER_TREE
 
@@ -106,6 +125,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.obs.build import build_stamp
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import flash_attention as fa
 from kubeflow_tpu_torch.ops import flash_decode as fd
@@ -141,6 +161,7 @@ REPLACES = {
     "flash_decode": "kubeflow_tpu/ops/flash_decode.py:125",
     "flash_decode_paged": "kubeflow_tpu/ops/flash_decode.py:125",
     "flash_prefill": "kubeflow_tpu/ops/flash_prefill.py:134",
+    "flash_prefill_paged": "kubeflow_tpu/ops/flash_prefill.py:134",
     "flash_attn_fwd": "kubeflow_tpu/ops/flash_pallas.py:77",
     "flash_attn_dq": "kubeflow_tpu/ops/flash_pallas.py:229",
     "flash_attn_dkv": "kubeflow_tpu/ops/flash_pallas.py:284",
@@ -188,7 +209,8 @@ def n_copies(nbytes: float) -> int:
 
 # the kernels whose build (b) holds to no spill and to wgmma (HGMMA
 # present, no mma.sync HMMA)
-WGMMA_KERNELS = ("flash_attn_dq", "flash_attn_dkv", "quant_matmul")
+WGMMA_KERNELS = ("flash_attn_dq", "flash_attn_dkv", "quant_matmul",
+                 "flash_prefill")
 # ... and those held to no spill alone (K2 runs on mma.sync)
 SPILL_KERNELS = WGMMA_KERNELS + ("flash_decode",)
 # template arguments in a mangled name: a type by its length-prefixed name
@@ -260,10 +282,11 @@ def ptxas_kernels(log: str) -> list[dict]:
 
 
 def build_report(built: dict) -> None:
-    """For B2, B3, K1 and K2: registers and spills of each kernel from the
-    build log (a spill fails the run), ptxas's wgmma warnings, and the
-    count of wgmma (HGMMA) and mma.sync (HMMA) instructions in the built
-    SASS (for B2, B3 and K1 an HMMA, or no HGMMA, fails the run)."""
+    """For B2, B3, K1, K2 and K3 (slab and paged): registers and spills
+    of each kernel from the build log (a spill fails the run), ptxas's
+    wgmma warnings, and the count of wgmma (HGMMA) and mma.sync (HMMA)
+    instructions in the built SASS (for B2, B3, K1 and K3 an HMMA, or no
+    HGMMA, fails the run)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in SPILL_KERNELS:
         if name not in built:
@@ -576,6 +599,101 @@ def k3_case(gen, s, q_offset, int8, b=2, nh=32, nkv=8, hd=128, t=None,
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by)
 
 
+def k3_paged_case(gen, b, s, q_offset, bt, int8, nb, nh=32, nkv=8, hd=128,
+                  n_pool=None):
+    """K3-paged against its plain version, a repeat launch bit for bit, the
+    slab kernel on the same keys gathered into a slab bit for bit, and its
+    times beside K3-slab's on that slab. The pool holds n_pool blocks (by
+    default half again what the batch needs) with large finite junk in
+    block 0; each slot's table names a shuffled set of blocks for the keys
+    its rows can see and block 0 past them, as an engine leaves them. The
+    library yardstick is SDPA on KV already gathered and dequantized: the
+    gather is not counted."""
+    t = nb * bt
+    n_keys = min(t, q_offset + s)          # keys the deepest row sees
+    live = -(-n_keys // bt)
+    n_pool = n_pool or b * nb * 3 // 2 + 1
+    q = torch.randn(b, s, nh, hd, device=DEV, generator=gen).to(
+        torch.bfloat16)
+    kf = torch.randn(n_pool, bt, nkv, hd, device=DEV, generator=gen)
+    vf = torch.randn(n_pool, bt, nkv, hd, device=DEV, generator=gen)
+    kf[0] *= 1e4
+    vf[0] *= 1e4
+    if int8:
+        k, ks = llama.quantize_kv(kf)
+        v, vs = llama.quantize_kv(vf)
+        ks[0] = vs[0] = 1e4
+    else:
+        k, v, ks, vs = kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
+    del kf, vf
+    check(b * live <= n_pool - 1, "K3-paged inputs: pool too small")
+    perm = torch.randperm(n_pool - 1, device=DEV, generator=gen) + 1
+    tables = torch.zeros(b, nb, dtype=torch.int32, device=DEV)
+    tables[:, :live] = perm[:b * live].reshape(b, live).to(torch.int32)
+    kw = dict(q_offset=q_offset, k_scale=ks, v_scale=vs)
+    got = fp.flash_prefill_attention(q, k, v, tables=tables, **kw)
+    again = fp.flash_prefill_attention(q, k, v, tables=tables, **kw)
+    ref = fp.flash_prefill_plain(q, k, v, tables=tables, **kw)
+    sk, sv, sks, svs = fd.gather_pages(tables, k, v, ks, vs)
+    skw = dict(q_offset=q_offset, k_scale=sks, v_scale=svs)
+    slab = fp.flash_prefill_attention(q, sk, sv, **skw)
+    row_tol = ATTN_ROW_TOL_K3_INT8 if int8 else ATTN_ROW_TOL
+    name = (f"K3-paged B={b} S={s} H={nh} kv={nkv} hd={hd} "
+            f"q_offset={q_offset} bt={bt} nb={nb} int8={int8} pool={n_pool}")
+    err, worst = attn_err(got, ref, name, row_tol)
+    check(torch.equal(got, again), f"{name}: a second launch gave other "
+                                   "bits")
+    check(torch.equal(got, slab), f"{name}: other bits than the slab "
+                                  "kernel on the same keys")
+    elem = 1 if int8 else 2
+    pool_bytes = k.numel() * elem * 2 + (ks.numel() * 8 if int8 else 0)
+    copies = [tuple(None if x is None else x.clone() for x in (k, v, ks, vs))
+              for _ in range(n_copies(pool_bytes))]
+    ms = time_ms([lambda c=c: fp.flash_prefill_attention(
+        q, c[0], c[1], q_offset=q_offset, k_scale=c[2], v_scale=c[3],
+        tables=tables) for c in copies], 20)
+    plain = time_ms([lambda c=c: fp.flash_prefill_plain(
+        q, c[0], c[1], q_offset=q_offset, k_scale=c[2], v_scale=c[3],
+        tables=tables) for c in copies[:1]], 5)
+    slab_bytes = sk.numel() * elem * 2 + (sks.numel() * 8 if int8 else 0)
+    slabs = [tuple(None if x is None else x.clone()
+                   for x in (sk, sv, sks, svs))
+             for _ in range(n_copies(slab_bytes))]
+    slab_ms = time_ms([lambda c=c: fp.flash_prefill_attention(
+        q, c[0], c[1], q_offset=q_offset, k_scale=c[2], v_scale=c[3])
+        for c in slabs], 20)
+    mask = (torch.arange(t, device=DEV)[None, :]
+            <= q_offset + torch.arange(s, device=DEV)[:, None])
+    qt = q.transpose(1, 2)
+    lib_kv = [(dequant(c[0], c[2]).transpose(1, 2).contiguous(),
+               dequant(c[1], c[3]).transpose(1, 2).contiguous())
+              for c in slabs[:n_copies(sk.numel() * 4)]]
+    lib = time_ms([lambda kk=kk, vv=vv: F.scaled_dot_product_attention(
+        qt, kk, vv, attn_mask=mask, enable_gqa=True) for kk, vv in lib_kv],
+        20)
+    del copies, slabs, lib_kv
+    # each row sees min(t, q_offset + i + 1) keys; the bytes are the keys
+    # the deepest row sees (and their scales and table entries), q and out
+    visible = sum(min(t, q_offset + i + 1) for i in range(s))
+    nbytes = (2 * q.numel() * 2 + b * n_keys * nkv * hd * elem * 2
+              + (b * n_keys * nkv * 8 if int8 else 0) + b * live * 4)
+    b_ms, by = bound_ms(nbytes, 4.0 * b * nh * hd * visible)
+    return dict(err=err, worst_row=worst, row_tol=row_tol, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by,
+                slab_ms=slab_ms)
+
+
+# K3-paged in (c): the serving profiler's prefill probe on the 8B paged
+# engine (B=8 slots, a 32-row chunk at the end of a 2048-key span), and
+# the engine's 1024-token wave (B=3) in a 2048-key table whose entries
+# past the keys it sees name block 0; each at four block sizes
+K3_PAGED_CASES = (
+    [dict(b=8, s=32, q_offset=2016, bt=bt, nb=2048 // bt, int8=int8)
+     for bt in (16, 64, 128, 256) for int8 in (True, False)]
+    + [dict(b=3, s=1024, q_offset=0, bt=bt, nb=2048 // bt, int8=int8)
+       for bt in (16, 64, 128, 256) for int8 in (True, False)])
+
+
 def fmt(case: dict) -> str:
     tol = (f"worst row {case['worst_row']:.3g} of its max, tol "
            f"{case['row_tol']:.3g}" if "row_tol" in case
@@ -672,6 +790,11 @@ def kernel_phase(gen) -> dict:
         c = k3_case(gen, **kw)
         desc = " ".join(f"{k}={v}" for k, v in kw.items())
         print(f"K3 {desc}: {fmt(c)}", flush=True)
+    for kw in K3_PAGED_CASES:
+        c = k3_paged_case(gen, **kw)
+        desc = " ".join(f"{k}={v}" for k, v in kw.items())
+        print(f"K3-paged {desc}: {fmt(c)}", flush=True)
+        torch.cuda.empty_cache()
     return dict(k1_step, shape="one 8B decode step: 224 int8 matmuls at "
                 "m=8 + lm_head")
 
@@ -1122,11 +1245,11 @@ def step_profile(trainer, state, batch) -> dict:
             "top_kernels_ms": {k[:90]: round(v, 3) for k, v in top}}
 
 
-def trainer_phase(seed: int, attn_shape: dict) -> dict:
+def trainer_phase(seed: int, attn_shape: dict) -> tuple[dict, dict]:
     """(j): the trainer at the Llama-3-8B-width config, twice from the same
     seed; each kernel must have run at the shape (h) timed it at
     (attn_shape, its _build.SHAPES key). Returns the training kernels'
-    launches in run 1."""
+    launches in run 1 and run 1's stats."""
     cfg = train_config(seed)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -1180,7 +1303,41 @@ def trainer_phase(seed: int, attn_shape: dict) -> dict:
     print(f"train step breakdown: {json.dumps(prof)}", flush=True)
     del trainer2, state2
     torch.cuda.empty_cache()
-    return launches
+    return launches, stats
+
+
+def trainer_profile_phase(seed: int, base_step_s: float) -> None:
+    """(j2): the trainer of (j) once more with profile_dir set (window at
+    steps 2 and 3 of 6): PROFILE_DONE must name that window and one trace
+    file must be written; prints each step's time, inside and outside the
+    window, beside (j)'s median step. The trace goes to a temporary
+    directory, removed after."""
+    import tempfile
+
+    logdir = tempfile.mkdtemp(prefix="kft_profile_")
+    try:
+        cfg = dataclasses.replace(train_config(seed), profile_dir=logdir,
+                                  profile_start_step=2, profile_num_steps=2)
+        trainer, state, log, _, _ = train_run(cfg)
+        del trainer, state
+        torch.cuda.empty_cache()
+        with open(os.path.join(logdir, "PROFILE_DONE")) as f:
+            done = f.read()
+        check(done == "steps 2..3\n",
+              f"trainer profile: PROFILE_DONE says {done!r}")
+        traces = [f for f in os.listdir(logdir) if ".pt.trace.json" in f]
+        check(len(traces) == 1, f"trainer profile: trace files {traces}")
+        size = os.path.getsize(os.path.join(logdir, traces[0]))
+        times = [m["step_time_s"] for m in log]
+        check(all(math.isfinite(m["loss"]) for m in log),
+              "trainer profile: loss not finite")
+        outside = sorted(times[3:])[len(times[3:]) // 2]
+        print(f"trainer profile window: step times {json.dumps(times)} "
+              f"(steps 2-3 profiled; step 3 also writes the trace, "
+              f"{size} bytes); median outside the window {outside:.4f} s, "
+              f"(j)'s median {base_step_s:.4f} s", flush=True)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
 
 
 # -- (e) engine at full 8B width, (f) engine shapes, (g) server --------------
@@ -1468,6 +1625,177 @@ def prefill_breakdown(engine, seed: int) -> dict:
     return out
 
 
+def probe_busy(eng, bd) -> dict:
+    """The card-busy time of one run of the breakdown's two attention
+    probes: the same per-layer calls (K2 over the live span at S_v=1, K3 on
+    a 32-row chunk at its end, through the slot tables on a paged engine)
+    on the engine's cache, at the lengths the breakdown's decode runs left,
+    each under torch.profiler; ms and launches by kernel family."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, cache, n = eng.cfg, eng.cache, eng.n_slots
+    span = bd["span"]
+    paged = "tbl" in cache
+    if paged:
+        bt = cache["k"].shape[2]
+        nb = min(span // bt, cache["tbl"].shape[1])
+        tbl, span_p = cache["tbl"][:, :nb], nb * bt
+    else:
+        tbl, span_p = None, span
+
+    def kv(li):
+        return [None if name not in cache else
+                cache[name][li] if paged else cache[name][li][:, :span]
+                for name in ("k", "v", "k_s", "v_s")]
+
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    q1 = torch.randn(n, 1, cfg.n_heads, cfg.head_dim, device=DEV,
+                     generator=gen).to(cfg.dtype)
+    qp = torch.randn(n, 32, cfg.n_heads, cfg.head_dim, device=DEV,
+                     generator=gen).to(cfg.dtype)
+    lengths = torch.full((n,), bd["fill_len"] + bd["steps"]
+                         * (2 + 2 * bd["iters"]), dtype=torch.int32,
+                         device=DEV)
+    probes = {
+        "attn_kernel": lambda li: llama.decode_attention(
+            cfg, q1, *kv(li), lengths, tbl),
+        "prefill_attn": lambda li: llama.prefill_attention(
+            cfg, qp, *kv(li), q_offset=span_p - 32, tables=tbl)}
+    fam = {"flash_decode": "decode_kernel", "flash_prefill": "prefill_kernel"}
+    out = {}
+    for name, call in probes.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for li in range(cfg.n_layers):
+                call(li)
+            torch.cuda.synchronize()
+        busy = {f: {"ms": 0.0, "launches": 0} for f in (*fam, "other")}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            f = next((f for f, w in fam.items() if w in evt.key), "other")
+            busy[f]["ms"] += evt.self_device_time_total / 1e3
+            busy[f]["launches"] += evt.count
+        out[name] = busy
+    return out
+
+
+def serving_breakdown_phase(engine, paged, prompts, want):
+    """The serving profiler (training/profiling.py serving_decode_breakdown,
+    default steps, iters and fill_len) on the 8B slab engine of (e) and on
+    the paged engine of (e2). The paged engine's slot tables are first
+    filled with a shuffled permutation of its pool blocks (an idle engine
+    leaves every row at block 0), and zeroed again after. Checks the
+    launches (K3-slab in the slab call, K3-paged and no slab K2 or K3 in
+    the paged call), the bucket partition, and that each engine's greedy
+    tokens for the burst are unchanged after it; a second call under
+    torch.profiler gives the card-busy time of each kernel family beside
+    the buckets. Returns the paged call's K3-paged launches and shapes."""
+    from kubeflow_tpu_torch.training import profiling
+
+    out = {}
+    for label, eng in (("slab", engine), ("paged", paged)):
+        eng.perf_counters(reset=True)
+        run_batch(eng, prompts[:2], 16)   # the host counters' traffic
+        if label == "paged":
+            n_pool = eng.cache["k"].shape[1]
+            ids = torch.randperm(n_pool - 1, generator=torch.Generator()
+                                 .manual_seed(5)) + 1
+            check(ids.numel() >= eng._tbl_host.size,
+                  "breakdown: the pool cannot fill every slot's table")
+            eng._tbl_host[:] = ids[:eng._tbl_host.size].reshape(
+                eng._tbl_host.shape).numpy()
+            eng._tbl_sync()
+        _build.reset_launches()
+        bd = profiling.serving_decode_breakdown(
+            eng, hbm_gbps=HBM_BYTES_PER_S / 1e9)
+        launches = dict(_build.LAUNCHES)
+        shapes = dict(_build.SHAPES["flash_prefill_paged"])
+        busy = probe_busy(eng, bd)
+        if label == "paged":
+            eng._tbl_host[:] = 0
+            eng._tbl_sync()
+        b = bd["buckets_ms"]
+        print(f"serving breakdown ({label}): {json.dumps(bd)}", flush=True)
+        print(f"serving breakdown ({label}) launches: {json.dumps(launches)}"
+              f"; card busy of one probe run by kernel family: "
+              f"{json.dumps(busy)}", flush=True)
+        n_layers = eng.cfg.n_layers
+        runs = 1 + bd["iters"]   # each probe: one untimed + iters timed
+        for name, fam in (("attn_kernel", "flash_decode"),
+                          ("prefill_attn", "flash_prefill")):
+            wall = b[name]
+            kern = busy[name][fam]
+            # the profiler may miss the first kernel of a session: the
+            # per-launch mean times the probe's launches (one a layer)
+            card = kern["ms"] / max(kern["launches"], 1) * n_layers
+            lead = "the host" if wall > 2 * card else "the card"
+            print(f"serving breakdown ({label}) {name}: bucket {wall:.4f} ms"
+                  f" wall a probe; {fam} card busy {card:.4f} ms a probe "
+                  f"({kern['launches']} of its {n_layers} launches seen by "
+                  f"the profiler); {lead} leads", flush=True)
+        for name, val in b.items():
+            check(val is None or val >= 0, f"breakdown ({label}): bucket "
+                                           f"{name} = {val}")
+        part = b["weight_read"] + b["attention_kv_update"] + \
+            b["sampling_penalties"]
+        check(abs(part - bd["device_step_ms"])
+              <= 0.02 * bd["device_step_ms"],
+              f"breakdown ({label}): buckets sum to {part}, device step "
+              f"{bd['device_step_ms']}")
+        check(b["kv_handoff"] is None and b["pipeline_bubble"] is None,
+              f"breakdown ({label}): kv_handoff/pipeline_bubble not None")
+        check(b["prefill_attn"] is not None and b["attn_kernel"] is not None
+              and b["attn_dequant"] is not None,
+              f"breakdown ({label}): a probe bucket is None")
+        kernel = "flash_prefill_paged" if label == "paged" else \
+            "flash_prefill"
+        other = "flash_prefill" if label == "paged" else \
+            "flash_prefill_paged"
+        check(launches[kernel] == n_layers * runs and launches[other] == 0,
+              f"breakdown ({label}): {kernel} launched {launches[kernel]} "
+              f"times (want {n_layers * runs}), {other} "
+              f"{launches[other]}")
+        if label == "paged":
+            check(isinstance(b["kv_gather"], float),
+                  "breakdown (paged): kv_gather is not a number")
+            check(launches["flash_decode_paged"] > 0
+                  and launches["flash_decode"] == 0,
+                  "breakdown (paged): K2-paged not launched, or K2-slab "
+                  "launched")
+        else:
+            check(b["kv_gather"] is None, "breakdown (slab): kv_gather set")
+        toks, stats = run_batch(eng, prompts, 32)
+        check(toks == want, f"breakdown ({label}): the burst's greedy "
+                            "tokens changed after profiling")
+        print(f"serving breakdown ({label}): the burst's tokens are "
+              f"unchanged after it ({json.dumps(stats)})", flush=True)
+        out[label] = (launches, shapes)
+    return out["paged"]
+
+
+def paged_prefill_shape_phase(gen, shapes) -> dict:
+    """K3-paged against its plain version at each argument shape the paged
+    breakdown launched it at. Returns its kernels-line entry: the shape
+    launched most often."""
+    best = None
+    for key, n in sorted(shapes.items(), key=str):
+        a = dict(key)
+        c = k3_paged_case(gen, a["b"], a["s"], a["q_offset"], a["bt"],
+                          a["int8"], a["nb"], nh=a["nh"], nkv=a["nkv"],
+                          hd=a["hd"], n_pool=a["n_pool"])
+        desc = " ".join(f"{k}={v}" for k, v in key)
+        print(f"breakdown shape flash_prefill_paged {desc} launches={n}: "
+              f"{fmt(c)}", flush=True)
+        if best is None or n > best[0]:
+            best = (n, dict(c, shape="one launch at the paged serving "
+                            f"breakdown's {desc}"))
+    check(best is not None, "breakdown: no K3-paged shape recorded")
+    return best[1]
+
+
 def server_phase(engine) -> None:
     server = CompletionServer(engine, model="llama3-8b",
                               tokenizer=IdTokenizer()).start()
@@ -1598,6 +1926,7 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           "allow_tf32 matmul=False cudnn=False", flush=True)
+    print(f"build stamp: {json.dumps(build_stamp())}", flush=True)
     t = time.monotonic()
     built = _build.build_all()
     print(f"build: {time.monotonic() - t:.2f} s for {len(built)} kernels; "
@@ -1627,8 +1956,14 @@ def main(argv=None) -> int:
              **phase("f engine shapes", engine_shape_phase, gen, shapes)}
     phase("f step breakdown", step_breakdown, engine)
     phase("f paged step breakdown", step_breakdown, paged)
-    del paged
     phase("f prefill breakdown", prefill_breakdown, engine, args.seed)
+    bd_launches, bd_shapes = phase("f2 serving breakdown",
+                                   serving_breakdown_phase, engine, paged,
+                                   prompts, tokens)
+    del paged
+    launches["flash_prefill_paged"] = bd_launches["flash_prefill_paged"]
+    cases["flash_prefill_paged"] = phase(
+        "f2 breakdown shapes", paged_prefill_shape_phase, gen, bd_shapes)
     phase("g server", server_phase, engine)
     del engine   # the engine holds reference cycles: collect it now, so
     gc.collect()   # the trainer's peak memory is the trainer's own
@@ -1638,14 +1973,17 @@ def main(argv=None) -> int:
     train_cases = phase("h training kernels", train_attn_phase, gen)
     cases.update(train_cases)
     phase("i train reference", train_reference_phase, args.seed)
-    launches.update(phase("j trainer", trainer_phase, args.seed,
-                          {name: train_cases[name]["shape_key"]
-                           for name in TRAINING_KERNELS}))
+    train_launches, train_stats = phase(
+        "j trainer", trainer_phase, args.seed,
+        {name: train_cases[name]["shape_key"] for name in TRAINING_KERNELS})
+    launches.update(train_launches)
+    phase("j2 trainer profile window", trainer_profile_phase, args.seed,
+          train_stats["step_time_s_median"])
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     kernels = []
     for name in _build.KERNELS:
         c = cases[name]
-        source = "flash_decode" if name == "flash_decode_paged" else name
+        source = name.removesuffix("_paged")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"kubeflow_tpu_torch/csrc/{source}.cu",

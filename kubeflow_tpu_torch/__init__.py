@@ -8,3 +8,5 @@ Every TPU Pallas kernel on a ported path is a hand-written CUDA kernel
 here (`csrc/`), built for sm_90a on first use. Entry points run on the GPU
 unless the caller passes `device="cpu"`.
 """
+
+__version__ = "0.1.0"

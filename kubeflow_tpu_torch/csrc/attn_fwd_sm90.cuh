@@ -26,6 +26,12 @@
 // The kernels differ only in where a row sits and which keys it sees
 // (`Rows`), in the int8 scales (`KvScales`, K3 only) and in their
 // epilogues, which each kernel writes from the returned o, m and l.
+//
+// K3's paged mode (PAGED, `Pages`) changes only where a K/V tile comes
+// from: the producer loads a tile of slot b as boxes from the pool blocks
+// that b's table names, and the consumers read an int8 key's scales at
+// its pool row. The products, the widening and the softmax are the slab
+// path's, and with PAGED false the code is the slab path's as it was.
 #pragma once
 
 #include "sm90_primitives.cuh"
@@ -75,6 +81,15 @@ struct KvScales {
   int stride;
 };
 
+// Paged K/V: one slot's table row. Key t lies in pool row
+// tbl[t / bt] * bt + t % bt of a pool [n_blocks, bt, kv, D]; a tile's
+// boxes past the row's nb blocks load from block n_blocks, out of the
+// map's bounds, which TMA fills with zeros (and counts in full).
+struct Pages {
+  const int* tbl;
+  int bt, nb, n_blocks;
+};
+
 // Aligns the block's shared memory, sets up the barriers and zeroes the
 // Q rows [q_rows, kBM) that no TMA box covers; ends in __syncthreads.
 template <int D, bool INT8>
@@ -106,12 +121,18 @@ __device__ uint8_t* begin(uint8_t* raw, int q_rows) {
 
 // The producer thread: Q rows [q0, q0 + q_rows) of head coordinate qh
 // (q_rows * 128 bytes per 64-column box), then n_tiles K/V tiles of head
-// coordinate kh, batch b.
-template <int D, bool INT8>
+// coordinate kh, batch b. PAGED: K/V maps over the pool [n_blocks, bt,
+// kv, D] with boxes of min(bt, kBK) rows; tile i's keys i * kBK + r come
+// from block tbl[(i * kBK + r) / bt] (b is unused), one box per block
+// share of the tile, each landing at its row of the stage. A landing row
+// that is a multiple of 8 starts a 1024-byte swizzle atom in bf16 (and a
+// 16-byte multiple in int8), so the wrapper takes bt a multiple of 8
+// that divides kBK, or a multiple of kBK.
+template <int D, bool INT8, bool PAGED = false>
 __device__ void produce(uint8_t* smem, const CUtensorMap* qm,
                         const CUtensorMap* km, const CUtensorMap* vm,
                         int q_rows, int qh, int q0, int kh, int b,
-                        int n_tiles) {
+                        int n_tiles, const Pages& pg = Pages{}) {
   using L = Smem<D, INT8>;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* empty = full + kStages;
@@ -125,10 +146,25 @@ __device__ void produce(uint8_t* smem, const CUtensorMap* qm,
     mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);   // first pass: free
     mbar_expect_tx(full + st, 2 * L::kTile);
     uint8_t* kt = smem + L::kRing + 2 * st * L::kTile;
-    for (int c = 0; c < kBoxes; ++c) {
-      tma_load(kt + c * kBK * 128, km, c * 64, kh, i * kBK, b, full + st);
-      tma_load(kt + L::kTile + c * kBK * 128, vm, c * 64, kh, i * kBK, b,
-               full + st);
+    if constexpr (PAGED) {
+      constexpr int kRow = INT8 ? D : 128;   // bytes of a row in a region
+      const int rows = min(pg.bt, kBK);
+      for (int r0 = 0; r0 < kBK; r0 += rows) {
+        const int t = i * kBK + r0, j = t / pg.bt;
+        const int blk = j < pg.nb ? __ldg(pg.tbl + j) : pg.n_blocks;
+        for (int c = 0; c < kBoxes; ++c) {
+          uint8_t* dst = kt + c * kBK * 128 + r0 * kRow;
+          tma_load(dst, km, c * 64, kh, t % pg.bt, blk, full + st);
+          tma_load(dst + L::kTile, vm, c * 64, kh, t % pg.bt, blk,
+                   full + st);
+        }
+      }
+    } else {
+      for (int c = 0; c < kBoxes; ++c) {
+        tma_load(kt + c * kBK * 128, km, c * 64, kh, i * kBK, b, full + st);
+        tma_load(kt + L::kTile + c * kBK * 128, vm, c * 64, kh, i * kBK, b,
+                 full + st);
+      }
     }
   }
 }
@@ -162,10 +198,12 @@ __device__ __forceinline__ void widen(uint8_t* dst, const uint8_t* src,
 // the TPU kernels: scores s = q.k in f32 (times the int8 k scale, then the
 // softmax scale), -1e30 where masked; p = 0 where masked; l sums the
 // unrounded p; p times the int8 v scale is rounded to bf16 before p.v.
-template <int D, bool INT8>
+// PAGED: key t's scales are read at its pool row (see Pages).
+template <int D, bool INT8, bool PAGED = false>
 __device__ void consume(uint8_t* smem, const Rows& rows, const KvScales& sc,
                         int n_tiles, float scale, float (&o)[D / 2],
-                        float (&m)[2], float (&l)[2]) {
+                        float (&m)[2], float (&l)[2],
+                        const Pages& pg = Pages{}) {
   using L = Smem<D, INT8>;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* empty = full + kStages;
@@ -191,10 +229,22 @@ __device__ void consume(uint8_t* smem, const Rows& rows, const KvScales& sc,
       consumer_sync();   // both warpgroups are done with the last tile
       widen<D>(smem + L::kWide, kt, ct);
       widen<D>(smem + L::kWide + L::kWideTile, vt, ct);
-      for (int j = ct; j < kBK; j += 256) {
-        const bool in = k0 + j < rows.n_keys;
-        ks_s[j] = in ? sc.k[(long long)(k0 + j) * sc.stride] : 0.f;
-        vs_s[j] = in ? sc.v[(long long)(k0 + j) * sc.stride] : 0.f;
+      if constexpr (PAGED) {
+        for (int j = ct; j < kBK; j += 256) {
+          const int t = k0 + j;
+          const bool in = t < rows.n_keys;
+          const long long r =
+              in ? (long long)__ldg(pg.tbl + t / pg.bt) * pg.bt + t % pg.bt
+                 : 0;
+          ks_s[j] = in ? sc.k[r * sc.stride] : 0.f;
+          vs_s[j] = in ? sc.v[r * sc.stride] : 0.f;
+        }
+      } else {
+        for (int j = ct; j < kBK; j += 256) {
+          const bool in = k0 + j < rows.n_keys;
+          ks_s[j] = in ? sc.k[(long long)(k0 + j) * sc.stride] : 0.f;
+          vs_s[j] = in ? sc.v[(long long)(k0 + j) * sc.stride] : 0.f;
+        }
       }
       fence_async_smem();
       consumer_sync();

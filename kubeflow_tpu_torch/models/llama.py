@@ -412,13 +412,18 @@ def _embed(params: Params, tokens: torch.Tensor,
 
 
 def prefill_attention(cfg: LlamaConfig, q, k, v, cks=None, cvs=None, *,
-                      q_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0,
+                      tables: torch.Tensor | None = None) -> torch.Tensor:
     """Causal GQA chunk attention: q [B, S, nh, hd] at absolute rows
     q_offset + i against k/v [B, T, kv, hd] (cfg.dtype, or int8 with
-    cks/cvs [B, T, kv] f32 scales). Returns [B, S, nh, hd]."""
+    cks/cvs [B, T, kv] f32 scales). Returns [B, S, nh, hd]. With `tables`
+    [B, T // bt] int32, k/v are a pool layer [N, bt, kv, hd] (cks/cvs
+    [N, bt, kv]) and slot b's T keys are its table's blocks (K3's paged
+    mode; its plain version gathers them into the slab view)."""
     return flash_prefill_attention(q, k, v, q_offset=q_offset,
                                    k_scale=cks, v_scale=cvs,
-                                   scale=1.0 / (cfg.head_dim ** 0.5))
+                                   scale=1.0 / (cfg.head_dim ** 0.5),
+                                   tables=tables)
 
 
 def decode_attention(cfg: LlamaConfig, q, ck, cv, cks, cvs,

@@ -31,9 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("quant_matmul", "flash_decode", "flash_prefill", "flash_attn_fwd",
            "flash_attn_dq", "flash_attn_dkv")
 #: the kernels, each with its own wrapper and launch counter: one per
-#: source, and the paged mode of K2 (its own entry point in
-#: flash_decode.cu)
-KERNELS = SOURCES + ("flash_decode_paged",)
+#: source, and the paged modes of K2 and K3 (their own entry points in
+#: flash_decode.cu and flash_prefill.cu)
+KERNELS = SOURCES + ("flash_decode_paged", "flash_prefill_paged")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

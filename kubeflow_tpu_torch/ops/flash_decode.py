@@ -180,8 +180,8 @@ def check_paged(q, k, v, k_scale, v_scale, tables, lengths, name):
     """Argument checks of paged mode: q bf16 contiguous [B, S, H, hd];
     k/v one contiguous pool layer [N, bt, kv, hd], int8 with contiguous
     f32 scales [N, bt, kv], or bf16; tables int32 [B, nb] with contiguous
-    rows; lengths int32 [B]; all on q's device. Returns (quantized, bt,
-    nb)."""
+    rows; lengths int32 [B] (None for K3, which takes none); all on q's
+    device. Returns (quantized, bt, nb)."""
     b, _, nh, hd = q.shape
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise TypeError(f"{name}: q must be contiguous bfloat16")
@@ -202,7 +202,7 @@ def check_paged(q, k, v, k_scale, v_scale, tables, lengths, name):
             (k_scale is None) != (v_scale is None):
         raise ValueError(f"{name}: int8 k/v need k_scale and v_scale, "
                          "float k/v take neither")
-    tensors = [q, k, v, tables, lengths]
+    tensors = [q, k, v, tables] + ([] if lengths is None else [lengths])
     if quantized:
         if (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
                 or k_scale.shape != k.shape[:3]
@@ -217,8 +217,9 @@ def check_paged(q, k, v, k_scale, v_scale, tables, lengths, name):
             or tables.stride(1) != 1):
         raise ValueError(f"{name}: tables must be int32 [B, nb] with "
                          "contiguous rows")
-    if (lengths.dtype != torch.int32 or lengths.shape != (b,)
-            or not lengths.is_contiguous()):
+    if lengths is not None and (lengths.dtype != torch.int32
+                                or lengths.shape != (b,)
+                                or not lengths.is_contiguous()):
         raise ValueError(f"{name}: lengths must be int32 [B]")
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: all tensors must share q's device")

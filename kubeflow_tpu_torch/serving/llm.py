@@ -82,8 +82,7 @@ class LLMEngine:
                                        device=self.device)
         # per-slot (temperature, top_k, top_p); the host copy decides
         # whether a batch samples at all, so no device value is read
-        self._samp_host = np.zeros((n_slots, 3), np.float32)
-        self._samp_host[:, 2] = 1.0
+        self._samp_host = self._samp_reset()
         self.samp = torch.from_numpy(self._samp_host).to(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             sample_seed)
@@ -97,6 +96,32 @@ class LLMEngine:
         self._submit_t: dict[int, float] = {}
         self._first_token_t: dict[int, float] = {}
         self._done: set[int] = set()
+        # the decode active mask on the device, uploaded when it changes
+        self._active_host: np.ndarray | None = None
+        self._active_dev: torch.Tensor | None = None
+        # host-side decode counters (perf_counters), the JAX engine's keys
+        self._perf = {"dispatch_s": 0.0, "fetch_replay_s": 0.0,
+                      "decode_chunks": 0, "decode_steps": 0,
+                      "active_uploads": 0}
+
+    def _samp_reset(self) -> np.ndarray:
+        """Idle per-slot sampling state: greedy (temperature 0, top_k 0,
+        top_p 1)."""
+        s = np.zeros((self.n_slots, 3), np.float32)
+        s[:, 2] = 1.0
+        return s
+
+    def perf_counters(self, reset: bool = False) -> dict[str, Any]:
+        """Decode host-side attribution counters: the wall time spent
+        issuing each chunk's launches (dispatch_s) and fetching its tokens
+        and replaying them into the requests (fetch_replay_s), chunk and
+        step counts, and active-mask uploads. The serving profiler
+        (training/profiling.serving_decode_breakdown) reads them."""
+        out = dict(self._perf)
+        if reset:
+            for key in self._perf:
+                self._perf[key] = type(self._perf[key])(0)
+        return out
 
     # -- sampling ------------------------------------------------------------
 
@@ -334,18 +359,15 @@ class LLMEngine:
                and k < remaining):
             k *= 2
         span = self._pick_span(min(longest + k, self.max_len))
-        act = torch.from_numpy(active).to(self.device)
         sampling = bool((self._samp_host[active, 0] > 0).any())
-        out = []
-        for _ in range(k):
-            logits = llama.decode_step(self.params, self.last_tokens,
-                                       self.cache, self.lengths, self.cfg,
-                                       span=span)
-            toks = self._choose(logits, self.samp, sampling)
-            self.lengths += act.to(torch.int32)
-            self.last_tokens = torch.where(act, toks, self.last_tokens)
-            out.append(toks)
-        out_host = torch.stack(out).tolist()   # one fetch per chunk
+        t_dispatch = time.perf_counter()
+        out = self._decode_chunk(k, span, self._active_for(active),
+                                 sample=sampling)
+        self._perf["dispatch_s"] += time.perf_counter() - t_dispatch
+        self._perf["decode_chunks"] += 1
+        self._perf["decode_steps"] += k
+        t_replay = time.perf_counter()
+        out_host = out.tolist()   # one fetch per chunk: waits for the card
         done_slots: set[int] = set()
         for row in out_host:
             for slot, req in enumerate(slot_req):
@@ -354,6 +376,46 @@ class LLMEngine:
                 self._host_lengths[slot] += 1
                 if self._record_token(req, slot, row[slot]):
                     done_slots.add(slot)
+        self._perf["fetch_replay_s"] += time.perf_counter() - t_replay
+
+    def _decode_chunk(self, steps: int, span: int, active: torch.Tensor,
+                      sample: bool = True) -> torch.Tensor:
+        """Issue `steps` decode steps over every slot at attention span
+        `span`; `active` [n_slots] bool on the device says which slots
+        advance (inactive ones compute and write junk). Updates the cache,
+        lengths and last tokens, and returns the chunk's tokens [steps,
+        n_slots] on the device, not fetched. The engine and the serving
+        profiler run this same code.
+
+        sample=True runs the sampling path of `_choose` for every row (a
+        row at temperature 0 still takes the argmax). sample=False is the
+        profiler's sampling-stripped variant (the JAX engine's
+        `_decode_nosample_fn`): the raw argmax and no sampling work. The
+        engine itself passes sample=False when no row samples, since the
+        tokens are the argmax either way; the profiler's full variant
+        passes True, forcing the sampling path on as the JAX compiled
+        decode program always runs it."""
+        step = active.to(torch.int32)
+        out = []
+        for _ in range(steps):
+            logits = llama.decode_step(self.params, self.last_tokens,
+                                       self.cache, self.lengths, self.cfg,
+                                       span=span)
+            toks = self._choose(logits, self.samp, sample)
+            self.lengths += step
+            self.last_tokens = torch.where(active, toks, self.last_tokens)
+            out.append(toks)
+        return torch.stack(out)
+
+    def _active_for(self, active: np.ndarray) -> torch.Tensor:
+        """The decode active mask on the device, uploaded again only when
+        it changes (slots move at prefill and finish, not every chunk)."""
+        if (self._active_host is None
+                or not np.array_equal(active, self._active_host)):
+            self._active_host = active.copy()
+            self._active_dev = torch.from_numpy(active).to(self.device)
+            self._perf["active_uploads"] += 1
+        return self._active_dev
 
     def _mask_unfunded(self, slot_req: list[int]) -> list[int]:
         """Decode planning sees a slot whose prefill is held (paged

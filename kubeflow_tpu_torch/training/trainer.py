@@ -13,8 +13,9 @@ moment (the second stays f32), and b1 * mu is then taken in that dtype,
 b1 included, as JAX's weak-typed scalar is. Params are updated in place.
 
 Params stay in cfg.param_dtype (f32); the model casts to cfg.dtype at each
-matmul. Checkpointing, the profiler, LoRA (trainable_prefix) and meshes
-are not ported yet (ROADMAP.md).
+matmul. `profile_dir` captures a window of steps with torch.profiler
+(training/profiling.py `StepProfiler`). Checkpointing, LoRA
+(trainable_prefix) and meshes are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -176,6 +177,10 @@ class TrainerConfig:
     dataset: DatasetConfig = dataclasses.field(default_factory=DatasetConfig)
     seed: int = 0
     log_every: int = 10
+    # step-windowed torch.profiler capture; None disables
+    profile_dir: str | None = None
+    profile_start_step: int = 2
+    profile_num_steps: int = 3
 
     @staticmethod
     def from_dict(raw: dict[str, Any]) -> "TrainerConfig":
@@ -254,16 +259,33 @@ class Trainer:
               step_callback: Callable[[int, dict], None] | None = None):
         """Run num_steps steps; log loss, tokens, grad_norm and step_time_s
         every log_every steps and on the last. The first interval carries
-        includes_compile (the kernels build on first use)."""
+        includes_compile (the kernels build on first use). With
+        profile_dir, steps [profile_start_step, + profile_num_steps) of
+        this run (counted from its first step, as in the JAX trainer) are
+        captured there."""
         state = state if state is not None else self.init_state()
         start = state["step"]
         t_last = time.perf_counter()
         since = 0
         first = True
+        prof = None
+        if self.config.profile_dir:
+            from kubeflow_tpu_torch.training.profiling import StepProfiler
+
+            # the window is relative to this run's first step: on resume
+            # the first-use costs come again, and profile_start_step
+            # exists to skip them
+            prof = StepProfiler(self.config.profile_dir,
+                                start + self.config.profile_start_step,
+                                self.config.profile_num_steps)
         for i in range(num_steps):
+            step = start + i + 1
+            if prof is not None:
+                prof.maybe_start(step)
             metrics = self.train_step(state, self.to_device(next(data)))
             since += 1
-            step = start + i + 1
+            if prof is not None:
+                prof.maybe_stop(step, sync=self._sync)
             if step % self.config.log_every == 0 or i == num_steps - 1:
                 scalars = {k: float(v) for k, v in metrics.items()}
                 now = time.perf_counter()
@@ -275,4 +297,12 @@ class Trainer:
                 self.metrics.write(step, scalars)
                 if step_callback:
                     step_callback(step, scalars)
+        if prof is not None:
+            prof.close()
         return state
+
+    def _sync(self) -> None:
+        """Wait for the card's queued work (nothing to wait for on the
+        CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
