@@ -8,10 +8,10 @@ Phases, in order; any failure exits non-zero before the result line:
       (obs/build.py: torch, CUDA, driver, device);
   (b) build: compiles the six CUDA sources from kubeflow_tpu_torch/csrc
       (one nvcc per source, in parallel) and prints the seconds; for K1,
-      K2, K3 (slab and paged), B2 and B3 the registers and spills of each
-      kernel from ptxas -v (no spill allowed) and the tensor-core
-      instructions in their SASS, where cuobjdump is present (K1, K3, B2,
-      B3: wgmma's HGMMA and no mma.sync HMMA; K2 runs on mma.sync);
+      K2, K3 (slab and paged), B1, B2 and B3 the registers and spills of
+      each kernel from ptxas -v (no spill allowed) and the tensor-core
+      instructions in their SASS, where cuobjdump is present (K1, K3, B1,
+      B2, B3: wgmma's HGMMA and no mma.sync HMMA; K2 runs on mma.sync);
   (c) kernels: each serving kernel against its plain PyTorch version on
       the card at the Llama-3-8B serving shapes, with the error, the kernel's, the
       plain version's and one PyTorch library call's time (CUDA events,
@@ -34,37 +34,70 @@ Phases, in order; any failure exits non-zero before the result line:
       (B=3, q_offset 0, a 2048-key table naming block 0 past the keys
       the rows see), block_tokens 16, 64, 128 and 256, int8 and bf16,
       with K3-slab's time on the gathered keys;
-  (d) reference: a small int8 model's prefill, decode and verify logits
-      through the kernels against the same functions on the CPU;
+  (d) reference: a small int8 model's prefill, chunked prefill (128
+      tokens continued against the first 128 rows dequantized from the
+      int8 cache, K3 at q_offset 128), decode and verify logits through
+      the kernels against the same functions on the CPU;
   (e) engine: LLMEngine at full Llama-3-8B width (32 layers, random int8
       weights from --seed, int8 KV, 8 slots x 2048, buckets 128/512/1024,
-      decode_chunk 8) serves 8 prompts of 30..1000 tokens x 32 greedy
-      tokens, twice: TTFT, decode tokens/s, determinism, and the launch
-      count of every kernel during the run (each must be > 0);
+      decode_chunk 8, pipelined decode, every decode chunk a CUDA graph
+      replay) warms up (its decode graphs captured, timed) and serves 8
+      prompts of 30..1000 tokens x 32 greedy tokens, twice: TTFT, decode
+      tokens/s, determinism, no capture in live traffic, and the launch
+      count of every kernel during the run (each must be > 0; a graph's
+      launches count once per replay);
   (e2) paged engine: PagedLLMEngine over the same weights and settings
-      (block_tokens 128 = the gcd of the buckets), the same burst, twice:
-      with the default pool (the slab's memory, 128 blocks) and with 24
-      blocks, fewer than the burst's 32; each run's greedy tokens must
-      equal the slab engine's request by request, the small pool must
-      hold at least one prefill, and K2-paged must launch while K2-slab
-      does not; TTFT, decode tokens/s, held prefills and the pool's peak
-      used blocks;
+      (block_tokens 128 = the gcd of the buckets), warmed up, the same
+      burst, twice: with the default pool (the slab's memory, 128 blocks)
+      and with 24 blocks, fewer than the burst's 32; each run's greedy
+      tokens must equal the slab engine's request by request, the small
+      pool must hold at least one prefill, and K2-paged must launch while
+      K2-slab does not; TTFT, decode tokens/s, held prefills and the
+      pool's peak used blocks;
+  (e3) flagship engine: the ISVC configuration (16 slots x 2048, int8
+      weights and KV, buckets 128/512/1024, decode_chunk 8, pipelined,
+      logprobs_topk 5) over (e)'s weights, a slab LLMEngine and a
+      PagedLLMEngine of 128 blocks, each warmed up (seconds and the graph
+      pool's memory printed); a burst of 16 prompts (14 of 30..1000
+      tokens, and 1500 and 1900 tokens, chunked) with greedy rows,
+      seeded-sampled rows (temperature 0.7, top_p 0.9), two penalized
+      rows, two rows with a stop sequence taken from a first run's
+      output, and one row cancelled once it has 8 tokens, with a chunk in
+      flight. It holds: tokens equal row by row between pipelined and
+      unpipelined decode and between the slab and the paged engine;
+      seeded rows equal across runs and engines; the stop rows cut where
+      their sequence first ends the output; the cancelled row a prefix of
+      the others, "cancelled"; every logprob finite and <= 0, and a
+      greedy row's the top-1 alternative's; graph replays > 0, no capture
+      after warmup, K1, K2, K2-paged and K3 launched (K3 at the chunked
+      continuation's q_offset 1024 among them); and one chunk's graph
+      replay bit for bit the eager body (rows, slot state, KV cache, both
+      variants). Prints TTFT mean/max (the chunked rows' too) and decode
+      tokens/s; then K3 against its plain version at each continuation
+      shape those runs launched it at;
   (f) engine shapes: every kernel again against its plain version, at
-      each argument shape the wrappers recorded in that run (prefill
-      waves, decode spans, lm_head rows, the paged engine's K2-paged
-      launches), with its times as in (c); then one decode step's (slab
-      and paged) and one B=3 x 1024 prefill wave's wall time against the
-      card's busy time by kernel family;
+      each argument shape the wrappers recorded in (e) (prefill waves,
+      decode spans, lm_head rows, the paged engine's K2-paged launches),
+      with its times as in (c); then one decode step (slab and paged) as
+      a replay of the engine's captured 8-step chunk beside the eager body
+      of the same chunk, each with its wall time, the card's busy time by
+      kernel family, the replay's span by CUDA events and the idle share,
+      and one B=3 x 1024 prefill wave's wall time against the card's busy
+      time by kernel family;
   (f2) serving breakdown: training/profiling.py serving_decode_breakdown
-      (steps 8, iters 5, span 2048) on the slab engine of (e) and on the
-      paged engine of (e2), whose slot tables are first filled with a
-      shuffled permutation of its pool blocks: the bucket partition,
-      K3-slab launched in the slab call and K3-paged (not K3-slab, not
-      K2-slab) in the paged call, 32 launches a probe run, and each
-      engine's greedy tokens for the burst unchanged after it; both dicts
-      and, from a second call under torch.profiler, each kernel family's
-      card-busy time beside the probe buckets; then K3-paged against its
-      plain version at each shape the paged call launched it at;
+      (steps 8, iters 5, span 2048; its chunks are replays of the
+      engine's decode graphs) on the slab engine of (e) and on the paged
+      engine of (e2), whose slot tables are first filled with a shuffled
+      permutation of its pool blocks: the bucket partition, K3-slab
+      launched in the slab call and K3-paged (not K3-slab, not K2-slab)
+      in the paged call, 32 launches a probe run, and each engine's greedy
+      tokens for the burst unchanged after it; both dicts and, from a
+      second call under torch.profiler, each kernel family's card-busy
+      time beside the probe buckets; the chunk wall, device step,
+      host_dispatch_per_step and host fetch/replay of the same traffic
+      and breakdown with the eager body beside the graphs'; then K3-paged
+      against its plain version at each shape the paged call launched it
+      at;
   (g) server: three concurrent /openai/v1/completions requests against
       the port's HTTP server over that engine;
   (h) training kernels: flash-attention forward (B1), dq (B2) and dk/dv
@@ -109,6 +142,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -208,9 +242,9 @@ def n_copies(nbytes: float) -> int:
 # -- (b) build report -------------------------------------------------------
 
 # the kernels whose build (b) holds to no spill and to wgmma (HGMMA
-# present, no mma.sync HMMA)
-WGMMA_KERNELS = ("flash_attn_dq", "flash_attn_dkv", "quant_matmul",
-                 "flash_prefill")
+# present, no mma.sync HMMA); B1 is built on K3's mainloop
+WGMMA_KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+                 "quant_matmul", "flash_prefill")
 # ... and those held to no spill alone (K2 runs on mma.sync)
 SPILL_KERNELS = WGMMA_KERNELS + ("flash_decode",)
 # template arguments in a mangled name: a type by its length-prefixed name
@@ -282,11 +316,11 @@ def ptxas_kernels(log: str) -> list[dict]:
 
 
 def build_report(built: dict) -> None:
-    """For B2, B3, K1, K2 and K3 (slab and paged): registers and spills
-    of each kernel from the build log (a spill fails the run), ptxas's
-    wgmma warnings, and the count of wgmma (HGMMA) and mma.sync (HMMA)
-    instructions in the built SASS (for B2, B3, K1 and K3 an HMMA, or no
-    HGMMA, fails the run)."""
+    """For B1, B2, B3, K1, K2 and K3 (slab and paged): registers and
+    spills of each kernel from the build log (a spill fails the run),
+    ptxas's wgmma warnings, and the count of wgmma (HGMMA) and mma.sync
+    (HMMA) instructions in the built SASS (for B1, B2, B3, K1 and K3 an
+    HMMA, or no HGMMA, fails the run)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in SPILL_KERNELS:
         if name not in built:
@@ -809,32 +843,39 @@ def _to(tree, device):
 
 
 def reference_phase(seed: int) -> None:
-    """Prefill, decode and verify logits of a small int8 model (widths
-    that pass every kernel gate) on the card against the CPU run of the
-    same functions, which takes the plain versions."""
+    """Prefill, chunked prefill (a continuation link), decode and verify
+    logits of a small int8 model (widths that pass every kernel gate) on
+    the card against the CPU run of the same functions, which takes the
+    plain versions."""
     cfg = llama.LlamaConfig(vocab_size=1024, d_model=512, n_layers=2,
                             n_heads=4, n_kv_heads=2, d_ff=1024,
                             dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     params = llama.init(cfg, seed=seed, device=DEV, quantize="int8")
     gen = torch.Generator().manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
     lengths = torch.tensor([100, 128], dtype=torch.int32)
     outs = {}
     for side, dev, p in (("card", DEV, params),
                          ("cpu", "cpu", _to(params, "cpu"))):
         tok = tokens.to(dev)
-        logits, ks, vs = llama.prefill(p, tok, cfg)
+        logits, ks, vs = llama.prefill(p, tok[:, :128], cfg)
         cache = llama.init_cache(cfg, 2, 256, "int8", device=dev)
+        prefix = []
         for name, val in (("k", ks), ("v", vs)):
             q8, sc = llama.quantize_kv(val)
             cache[name][:, :, :128] = q8
             cache[name + "_s"][:, :, :128] = sc
-        dec = llama.decode_step(p, tok[:, -1], cache, lengths.to(dev), cfg)
+            prefix.append(llama.dequantize_kv(q8, sc, cfg.dtype))
+        # a chunked prefill's next link, as the engine runs it: the next
+        # 128 tokens against the first 128 rows dequantized from the int8
+        # cache (K3 at q_offset 128 on the card)
+        chunk = llama.prefill_continue(p, tok[:, 128:], *prefix, cfg)[0]
+        dec = llama.decode_step(p, tok[:, 127], cache, lengths.to(dev), cfg)
         ver = llama.verify_step(p, tok[:, :4], cache, lengths.to(dev) + 1,
                                 cfg)
-        outs[side] = [x.float().cpu() for x in (logits, dec, ver)]
-    for name, got, ref in zip(("prefill", "decode", "verify"),
-                              outs["card"], outs["cpu"]):
+        outs[side] = [x.float().cpu() for x in (logits, chunk, dec, ver)]
+    for name, got, ref in zip(("prefill", "chunked prefill", "decode",
+                               "verify"), outs["card"], outs["cpu"]):
         check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
               f"reference {name}: bad shape or non-finite logits")
         err = (got - ref).abs().max().item()
@@ -1343,28 +1384,70 @@ def trainer_profile_phase(seed: int, base_step_s: float) -> None:
 # -- (e) engine at full 8B width, (f) engine shapes, (g) server --------------
 
 
-def run_batch(engine, prompts, max_new, on_step=None):
+def warm(engine, label) -> float:
+    """engine.warmup(), timed; prints the decode menu it captured."""
+    t = time.monotonic()
+    engine.warmup()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t
+    g = engine.graph_stats()
+    print(f"{label}: warmup {sec:.2f} s, {g['captures']} decode graphs "
+          f"captured, graph pool {g['pool_bytes'] / 1e6:.1f} MB; keys "
+          f"{g['keys']}", flush=True)
+    check(g["captures"] == len(g["keys"]) > 0,
+          f"{label}: warmup captured no decode graph")
+    return sec
+
+
+def run_batch(engine, prompts, max_new, kws=None, on_step=None,
+              cancel_row=None):
+    """Submit a burst at once (per-request keywords `kws`) and step the
+    engine until idle; cancel row `cancel_row` once it has E3_CANCEL_AT
+    tokens (with a chunk in flight under pipelining). Returns each row's
+    tokens, finish reason, logprobs, top logprobs and TTFT, and the run's
+    stats: TTFT mean and max, and decode tokens/s from the moment every
+    request has its first token."""
     t0 = time.monotonic()
-    rids = [engine.submit(p, max_new) for p in prompts]
+    kws = kws or [{}] * len(prompts)
+    rids = [engine.submit(p, max_new, **kw) for p, kw in zip(prompts, kws)]
     t_first = None
+    cancel_in_flight = None
     while engine.step():
         if on_step is not None:
             on_step()
+        if cancel_row is not None and cancel_in_flight is None:
+            r = rids[cancel_row]
+            if (len(engine.partial_result(r)) >= E3_CANCEL_AT
+                    and (engine._pending is not None
+                         or not engine.pipeline_decode)):
+                cancel_in_flight = engine._pending is not None
+                check(engine.cancel(r), "cancel of a running request "
+                                        "returned False")
         if t_first is None and all(engine.ttft_seconds(r) is not None
                                    for r in rids):
             torch.cuda.synchronize()
             t_first = time.monotonic()
     torch.cuda.synchronize()
     t_end = time.monotonic()
-    toks = [engine.result(r) for r in rids]
-    ttft = [engine.ttft_seconds(r) for r in rids]
+    rows = [dict(tokens=engine.result(r), reason=engine.finish_reason(r),
+                 logprobs=engine.result_logprobs(r),
+                 top=(engine.result_top_logprobs(r) if engine.logprobs_topk
+                      else None),
+                 ttft=engine.ttft_seconds(r)) for r in rids]
     for r in rids:
         engine.release(r)
-    n = sum(len(t) for t in toks)
-    return toks, dict(ttft_mean_s=sum(ttft) / len(ttft),
-                      ttft_max_s=max(ttft),
-                      decode_tok_s=(n - len(prompts)) / (t_end - t_first),
-                      wall_s=t_end - t0)
+    ttft = [row["ttft"] for row in rows]
+    n = sum(len(row["tokens"]) for row in rows)
+    stats = dict(ttft_mean_s=sum(ttft) / len(ttft), ttft_max_s=max(ttft),
+                 decode_tok_s=(n - len(prompts)) / (t_end - t_first),
+                 wall_s=t_end - t0)
+    if cancel_row is not None:
+        stats.update(tokens=n, cancel_with_chunk_in_flight=cancel_in_flight)
+    return rows, stats
+
+
+def tokens_of(rows):
+    return [row["tokens"] for row in rows]
 
 
 class IdTokenizer:
@@ -1391,17 +1474,24 @@ def engine_phase(seed: int):
           f"KV, 8 slots x 2048; init {time.monotonic() - t:.2f} s; "
           f"resident {torch.cuda.memory_allocated() / 1e9:.3f} GB",
           flush=True)
+    warmup_s = warm(engine, "engine")
     gen = torch.Generator().manual_seed(seed)
     plens = (30, 75, 130, 260, 400, 600, 800, 1000)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in plens]
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    captures = engine.graph_stats()["captures"]
     first, stats1 = run_batch(engine, prompts, 32)
+    first = tokens_of(first)
     launches = {name: _build.LAUNCHES[name] for name in SERVING_KERNELS}
     shapes = {name: dict(_build.SHAPES[name]) for name in SERVING_KERNELS}
     second, stats2 = run_batch(engine, prompts, 32)
-    print(f"engine run 1 (cold): {json.dumps(stats1)}", flush=True)
+    second = tokens_of(second)
+    check(engine.graph_stats()["captures"] == captures,
+          "engine: a decode graph was captured in live traffic")
+    print(f"engine run 1 (after a {warmup_s:.2f} s warmup): "
+          f"{json.dumps(stats1)}", flush=True)
     print(f"engine run 2: {json.dumps(stats2)}", flush=True)
     print(f"engine launches in run 1: {json.dumps(launches)}; peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
@@ -1432,6 +1522,7 @@ def paged_engine_phase(engine, prompts, want):
                                max_len=2048, buckets=(128, 512, 1024),
                                decode_chunk=8, kv_quantize="int8",
                                pool_blocks=pool_blocks, device=DEV)
+        warm(paged, f"paged engine ({label})")
         seen = {"held": 0, "used": 0}
 
         def note(paged=paged, seen=seen):
@@ -1441,6 +1532,7 @@ def paged_engine_phase(engine, prompts, want):
 
         _build.reset_launches()
         toks, stats = run_batch(paged, prompts, 32, on_step=note)
+        toks = tokens_of(toks)
         launches = {name: _build.LAUNCHES[name] for name in _build.KERNELS}
         shapes = {name: dict(_build.SHAPES[name]) for name in PAGED_KERNELS}
         pool = paged.metrics()["kv_pool"]
@@ -1472,6 +1564,209 @@ def paged_engine_phase(engine, prompts, want):
     paged, launches, shapes, _ = runs["default pool"]
     del runs["small pool"]
     return launches, shapes, paged
+
+
+# (e3): the flagship ISVC engine (examples/llama-8b-serving-isvc.yaml
+# without the prefix cache, speculation and streaming) and its burst: 14
+# prompts of 30..1000 tokens and two chunked ones (1500: 1024 + a 476
+# tail in bucket 512; 1900: 1024 + an 876 tail in bucket 1024)
+FLAGSHIP = dict(n_slots=16, max_len=2048, buckets=(128, 512, 1024),
+                decode_chunk=8, kv_quantize="int8", logprobs_topk=5)
+E3_PLENS = (30, 60, 90, 130, 200, 260, 330, 400, 480, 560, 640, 720, 850,
+            1000, 1500, 1900)
+E3_NEW = 48
+E3_SEEDED = (1, 5, 9, 13, 15)              # temperature 0.7, top_p 0.9
+E3_PENALIZED = {2: dict(presence_penalty=0.6),
+                6: dict(frequency_penalty=0.8)}
+E3_STOP = (3, 10)                          # greedy rows given a stop
+E3_CANCEL = 7                              # greedy, cancelled mid-decode
+E3_CANCEL_AT = 8                           # ... once it has this many tokens
+E3_POOL_BLOCKS = 128
+
+
+def e3_kwargs(stops=None) -> list[dict]:
+    kws = []
+    for i in range(len(E3_PLENS)):
+        kw = dict(E3_PENALIZED.get(i, {}))
+        if i in E3_SEEDED:
+            kw.update(temperature=0.7, top_p=0.9, seed=1000 + i)
+        if stops and i in stops:
+            kw["stop"] = [stops[i]]
+        kws.append(kw)
+    return kws
+
+
+def stop_cut(tokens, stop):
+    """The result a stop sequence leaves of `tokens`: cut before the first
+    place where the output so far ends with it."""
+    for j in range(len(stop), len(tokens) + 1):
+        if tokens[j - len(stop):j] == stop:
+            return tokens[:j - len(stop)]
+    return None
+
+
+def graph_equals_eager(engine, seed) -> None:
+    """One chunk (8 steps, span 2048, both variants) from equal state: the
+    replay of its captured graph bit for bit the eager body, in the output
+    rows, the slot state and the KV cache."""
+    n, v = engine.n_slots, engine.cfg.vocab_size
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    lengths = torch.randint(100, 1900, (n,), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    tokens = torch.randint(0, v, (n,), generator=gen, device=DEV)
+    samp = torch.zeros(n, 6, device=DEV)
+    samp[:, 5] = -1
+    samp[1::4, 0], samp[1::4, 2], samp[1::4, 5] = 0.7, 0.9, 77
+    samp[2::4, 0], samp[2::4, 1] = 1.0, 20
+    samp[3::4, 3], samp[3::4, 4] = 0.6, 0.3
+    cnt = torch.randint(0, 2, (n, v), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    active = torch.ones(n, dtype=torch.bool, device=DEV)
+    active[n // 2] = False
+    kv = {k: t.clone() for k, t in engine.cache.items()}
+    for sample in (True, False):
+        outs = []
+        for run in ("graph", "eager"):
+            engine.lengths.copy_(lengths)
+            engine.last_tokens.copy_(tokens)
+            engine.samp.copy_(samp)
+            engine._cnt.copy_(cnt)
+            engine._draws.fill_(5)
+            for k, t in kv.items():
+                engine.cache[k].copy_(t)
+            engine._active_dev.copy_(active)
+            if run == "graph":
+                replays = engine.graph_stats()["replays"]
+                out = engine._decode_chunk(8, 2048, active, sample).clone()
+                check(engine.graph_stats()["replays"] == replays + 1,
+                      "e3: the chunk was not a graph replay")
+            else:
+                out = engine._decode_body(8, 2048, sample)
+            outs.append([out, *(t.clone() for t in engine._chunk_state()),
+                         *(engine.cache[k].clone() for k in kv)])
+        same = [torch.equal(a, b) for a, b in zip(*outs)]
+        check(all(same), f"e3: graph replay differs from the eager body "
+                         f"(sample={sample}): {same}")
+    del kv, outs
+    engine.lengths.zero_()
+    engine.last_tokens.zero_()
+    engine._cnt.zero_()
+    engine._samp_host[:] = engine._samp_reset()
+    engine.samp.copy_(torch.from_numpy(engine._samp_host))
+    engine._active_host = None
+    print("e3: one chunk's graph replay is bit for bit the eager body "
+          "(rows, slot state, KV cache; sampled and greedy variants)",
+          flush=True)
+
+
+def flagship_phase(engine, seed: int):
+    """(e3): the flagship engine at full Llama-3-8B width over (e)'s int8
+    weights: a slab LLMEngine and a PagedLLMEngine (128 blocks), warmed
+    up, serve the E3 burst of greedy, seeded-sampled, penalized, stopped
+    and cancelled rows; see the module docstring for what it holds.
+    Returns the K3 shapes of the slab runs (the chunked continuation
+    among them) and each kernel's launches."""
+    cfg = engine.cfg
+    gen = torch.Generator().manual_seed(seed + 3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in E3_PLENS]
+    slab = LLMEngine(engine.params, cfg, device=DEV, **FLAGSHIP)
+    warmup_s = warm(slab, "e3 slab")
+    pool_mb = slab.graph_stats()["pool_bytes"] / 1e6
+    captures = slab.graph_stats()["captures"]
+    replays = slab.graph_stats()["replays"]
+    _build.reset_launches()
+    runs = {}
+    runs["A"] = run_batch(slab, prompts, E3_NEW, e3_kwargs(),
+                          cancel_row=E3_CANCEL)
+    stops = {i: runs["A"][0][i]["tokens"][j:j + n]
+             for i, j, n in ((E3_STOP[0], 10, 2), (E3_STOP[1], 6, 3))}
+    kws = e3_kwargs(stops)
+    runs["B"] = run_batch(slab, prompts, E3_NEW, kws, cancel_row=E3_CANCEL)
+    slab.pipeline_decode = False
+    runs["C"] = run_batch(slab, prompts, E3_NEW, kws, cancel_row=E3_CANCEL)
+    slab.pipeline_decode = True
+    launches = dict(_build.LAUNCHES)
+    k3_shapes = dict(_build.SHAPES["flash_prefill"])
+    check(slab.graph_stats()["captures"] == captures,
+          "e3: a decode graph was captured after warmup")
+    slab_replays = slab.graph_stats()["replays"] - replays
+    graph_equals_eager(slab, seed)
+    del slab
+    gc.collect()
+    paged = PagedLLMEngine(engine.params, cfg, device=DEV,
+                           pool_blocks=E3_POOL_BLOCKS, **FLAGSHIP)
+    warm(paged, "e3 paged")
+    captures = paged.graph_stats()["captures"]
+    _build.reset_launches()
+    runs["D"] = run_batch(paged, prompts, E3_NEW, kws, cancel_row=E3_CANCEL)
+    check(paged.graph_stats()["captures"] == captures,
+          "e3 paged: a decode graph was captured after warmup")
+    p_launches = dict(_build.LAUNCHES)
+    pool = paged.metrics()["kv_pool"]
+    check(pool["free_blocks"] == pool["pool_blocks"],
+          "e3 paged: blocks still held after the burst")
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, (_, stats) in runs.items():
+        print(f"e3 run {label}: {json.dumps(stats)}", flush=True)
+    a, b, c, d = (runs[k][0] for k in "ABCD")
+    for i in range(len(E3_PLENS)):
+        if i == E3_CANCEL:
+            toks = [x[i]["tokens"] for x in (a, b, c, d)]
+            longest = max(toks, key=len)
+            check(all(t == longest[:len(t)] and len(t) >= E3_CANCEL_AT
+                      and x[i]["reason"] == "cancelled"
+                      for t, x in zip(toks, (a, b, c, d))),
+                  f"e3: cancelled row {i}: {[len(t) for t in toks]} tokens")
+            continue
+        want = b[i]["tokens"]
+        check(c[i]["tokens"] == want, f"e3: row {i} differs between "
+                                      "pipelined and unpipelined decode")
+        check(d[i]["tokens"] == want, f"e3: row {i} differs between the "
+                                      "slab and the paged engine")
+        if i in stops:
+            check(want == stop_cut(a[i]["tokens"], stops[i])
+                  and b[i]["reason"] == "stop",
+                  f"e3: stop row {i} was not cut as its stop sequence says")
+        else:
+            check(a[i]["tokens"] == want and len(want) == E3_NEW,
+                  f"e3: row {i} differs between two runs")
+    for x in (a, b, c, d):
+        for i, row in enumerate(x):
+            lps = row["logprobs"]
+            check(len(lps) == len(row["tokens"]) == len(row["top"])
+                  and all(math.isfinite(lp) and lp <= 0 for lp in lps),
+                  f"e3: row {i}: bad logprobs")
+            if i in E3_SEEDED or i in E3_PENALIZED:
+                continue
+            for tok, lp, top in zip(row["tokens"], lps, row["top"]):
+                check(len(top) == 5 and max(top, key=top.get) == tok
+                      and top[tok] == lp,
+                      f"e3: greedy row {i}: logprob {lp} of {tok} is not "
+                      f"the top-1 alternative's ({top})")
+    check(any(a[i]["tokens"] != c[i]["tokens"] for i in E3_STOP),
+          "e3: no stop sequence cut a row")
+    check(slab_replays > 0, "e3: no decode graph was replayed")
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0, f"e3: {name} never launched")
+    check(p_launches["flash_decode_paged"] > 0
+          and p_launches["flash_decode"] == 0,
+          "e3 paged: K2-paged not launched, or K2-slab launched")
+    check(any(dict(key)["q_offset"] == 1024 for key in k3_shapes),
+          "e3: K3 never ran a chunked continuation at q_offset 1024")
+    stats = runs["B"][1]
+    print(f"e3 flagship: warmup {warmup_s:.2f} s, graph pool {pool_mb:.1f} "
+          f"MB, {slab_replays} graph replays in three slab runs; TTFT mean "
+          f"{stats['ttft_mean_s']:.4f} s max {stats['ttft_max_s']:.4f} s "
+          f"(chunked rows {[row['ttft'] for row in b[-2:]]}); decode "
+          f"{stats['decode_tok_s']:.1f} tok/s; launches {json.dumps(launches)}"
+          f"; paged {json.dumps(p_launches)}", flush=True)
+    print("e3: tokens equal pipelined/unpipelined and slab/paged, seeded "
+          "rows reproduce, stop rows cut, the cancelled row stopped, greedy "
+          "logprobs are the top-1's", flush=True)
+    return k3_shapes, launches
 
 
 def engine_shape_phase(gen, shapes) -> dict[str, dict]:
@@ -1511,60 +1806,123 @@ def engine_shape_phase(gen, shapes) -> dict[str, dict]:
     return {name: entry for name, (_, entry) in best.items()}
 
 
-def step_breakdown(engine) -> dict:
-    """One 8B decode step (8 slots at position 1000, span 2048): its wall
-    time, and the card's busy time in it from the profiler's kernel events
-    (by kernel family). A step makes thousands of launches, more than the
-    launch queue holds, so a sleep kernel cannot keep the card ahead of
-    the host here. For a paged engine, each slot reads and writes through
-    a table of its own shuffled pool blocks (the engine's own tables are
-    left as they are)."""
+def continuation_shape_phase(gen, shapes) -> None:
+    """K3 against its plain version, with its times, at each chunked
+    continuation shape (q_offset > 0) the flagship runs launched it at."""
+    seen = 0
+    for key, n in sorted(shapes.items(), key=str):
+        a = dict(key)
+        if a["q_offset"] == 0:
+            continue
+        c = k3_case(gen, a["s"], a["q_offset"], a["int8"], b=a["b"],
+                    nh=a["nh"], nkv=a["nkv"], hd=a["hd"], t=a["t"],
+                    slot_stride=a["slot_stride"])
+        desc = " ".join(f"{k}={v}" for k, v in key)
+        print(f"e3 shape flash_prefill {desc} launches={n}: {fmt(c)}",
+              flush=True)
+        seen += 1
+    check(seen > 0, "e3: no chunked continuation shape recorded")
+
+
+def fill_tables(engine, seed: int = 5) -> None:
+    """A paged engine's slot tables filled with a shuffled permutation of
+    its pool blocks (an idle engine leaves every row at block 0), in place:
+    the decode graphs read that very table."""
+    n_pool = engine.cache["k"].shape[1]
+    ids = torch.randperm(n_pool - 1, generator=torch.Generator()
+                         .manual_seed(seed)) + 1
+    check(ids.numel() >= engine._tbl_host.size,
+          "the pool cannot fill every slot's table")
+    engine._tbl_host[:] = ids[:engine._tbl_host.size].reshape(
+        engine._tbl_host.shape).numpy()
+    engine._tbl_sync()
+
+
+def clear_tables(engine) -> None:
+    engine._tbl_host[:] = 0
+    engine._tbl_sync()
+
+
+def step_breakdown(engine, steps: int = 8) -> dict:
+    """One 8B decode step (every slot at position 1000, span 2048) as the
+    engine runs it, one replay of its captured decode chunk (`steps`
+    steps, the greedy variant), beside the eager body of the same chunk
+    in the same call, and the replay of the sampled variant (penalties
+    and the draw, on greedy rows): the wall time per step, the card's
+    busy time per step from the profiler's kernel events by kernel
+    family, the run's span on the card by CUDA events, and the idle
+    share. A paged engine's slot tables are filled with its shuffled pool
+    blocks first and zeroed after; the slot state is reset after."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, n = engine.cfg, 5
-    lengths = torch.full((engine.n_slots,), 1000, dtype=torch.int32,
-                         device=DEV)
-    toks = engine.last_tokens.clone()
-    cache = engine.cache
-    if "tbl" in cache:
-        n_slots, n_tbl = cache["tbl"].shape
-        ids = torch.randperm(cache["k"].shape[1] - 1, device=DEV)
-        cache = dict(cache, tbl=(ids[:n_slots * n_tbl] + 1).to(
-            torch.int32).reshape(n_slots, n_tbl))
+    n_slots, iters = engine.n_slots, 3
+    active = torch.ones(n_slots, dtype=torch.bool, device=DEV)
+    paged = "tbl" in engine.cache
+    if paged:
+        fill_tables(engine)
 
-    def step():
-        llama.decode_step(engine.params, toks, cache, lengths, cfg,
-                          span=2048)
+    def graph():
+        engine._decode_chunk(steps, 2048, active, sample=False)
 
-    step()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
+    def eager():
+        engine._active_dev.copy_(active)
+        engine._decode_body(steps, 2048, False)
+
+    def sampled():
+        engine._decode_chunk(steps, 2048, active, sample=True)
+
+    out = {}
+    for label, run in (("graph", graph), ("eager", eager),
+                       ("graph_sampled", sampled)):
+        engine.lengths.fill_(1000)
+        run()   # first use: the graph's capture, if the menu lacks it
+        walls, events = [], []
+        for _ in range(iters):
+            engine.lengths.fill_(1000)
+            torch.cuda.synchronize()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            t0.record()
+            run()
+            t1.record()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            events.append(t0.elapsed_time(t1))
+        engine.lengths.fill_(1000)
         torch.cuda.synchronize()
-    busy = {"quant_matmul": 0.0, "flash_decode": 0.0, "other": 0.0}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = evt.self_device_time_total
-        if "dequant_kernel" in evt.key:
-            busy["quant_matmul"] += us / 1e3
-        elif "decode_kernel" in evt.key:
-            busy["flash_decode"] += us / 1e3
-        else:
-            busy["other"] += us / 1e3
-    device_ms = sum(busy.values())
-    out = {"wall_ms": wall_ms, "device_busy_ms": device_ms,
-           "busy_ms_by_kernel": busy,
-           "device_idle_share": max(0.0, 1 - device_ms / wall_ms)}
-    print(f"decode step breakdown ({type(engine).__name__}): "
-          f"{json.dumps(out)}", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        busy = {"quant_matmul": 0.0, "flash_decode": 0.0, "other": 0.0}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            ms = evt.self_device_time_total / 1e3 / steps
+            if "dequant_kernel" in evt.key:
+                busy["quant_matmul"] += ms
+            elif "decode_kernel" in evt.key:
+                busy["flash_decode"] += ms
+            else:
+                busy["other"] += ms
+        wall_ms = sorted(walls)[iters // 2] / steps * 1e3
+        device_ms = sum(busy.values())
+        out[label] = {"wall_ms": wall_ms, "device_busy_ms": device_ms,
+                      "event_ms": sorted(events)[iters // 2] / steps,
+                      "busy_ms_by_kernel": busy,
+                      "device_idle_share": max(0.0, 1 - device_ms / wall_ms)}
+    if paged:
+        clear_tables(engine)
+    engine.lengths.zero_()
+    engine.last_tokens.zero_()
+    engine._cnt.zero_()
+    engine._active_host = None
+    print(f"decode step breakdown ({type(engine).__name__}, per step of a "
+          f"{steps}-step chunk): {json.dumps(out)}", flush=True)
+    if out["graph"]["device_busy_ms"] == 0:
+        print("decode step breakdown: the profiler saw no kernel inside the "
+              "graph replay; its card time is event_ms", flush=True)
     return out
 
 
@@ -1682,6 +2040,35 @@ def probe_busy(eng, bd) -> dict:
     return out
 
 
+def eager_breakdown(eng, label, prompts, bd) -> None:
+    """The same traffic and breakdown with the decode programs run as the
+    eager body (only here, for the comparison: the engine never does on
+    the card), printed beside the graphs' numbers of `bd`."""
+    from kubeflow_tpu_torch.training import profiling
+
+    def eager_fn(steps, span, sample=True):
+        return functools.partial(eng._decode_body, steps, span, sample)
+
+    eng._decode_fn = eager_fn
+    try:
+        eng.perf_counters(reset=True)
+        run_batch(eng, prompts[:2], 16)
+        if "tbl" in eng.cache:
+            fill_tables(eng)
+        ebd = profiling.serving_decode_breakdown(eng)
+        if "tbl" in eng.cache:
+            clear_tables(eng)
+    finally:
+        del eng._decode_fn
+    keys = ("chunk_wall_ms", "device_step_ms", "host_dispatch_per_step_ms")
+    side = {k: {"graph": bd[k], "eager": ebd[k]} for k in keys}
+    side["host_fetch_replay_per_step"] = {
+        "graph": bd["buckets_ms"]["host_fetch_replay_per_step"],
+        "eager": ebd["buckets_ms"]["host_fetch_replay_per_step"]}
+    print(f"serving breakdown ({label}), graphs against the eager body: "
+          f"{json.dumps(side)}", flush=True)
+
+
 def serving_breakdown_phase(engine, paged, prompts, want):
     """The serving profiler (training/profiling.py serving_decode_breakdown,
     default steps, iters and fill_len) on the 8B slab engine of (e) and on
@@ -1700,14 +2087,7 @@ def serving_breakdown_phase(engine, paged, prompts, want):
         eng.perf_counters(reset=True)
         run_batch(eng, prompts[:2], 16)   # the host counters' traffic
         if label == "paged":
-            n_pool = eng.cache["k"].shape[1]
-            ids = torch.randperm(n_pool - 1, generator=torch.Generator()
-                                 .manual_seed(5)) + 1
-            check(ids.numel() >= eng._tbl_host.size,
-                  "breakdown: the pool cannot fill every slot's table")
-            eng._tbl_host[:] = ids[:eng._tbl_host.size].reshape(
-                eng._tbl_host.shape).numpy()
-            eng._tbl_sync()
+            fill_tables(eng)
         _build.reset_launches()
         bd = profiling.serving_decode_breakdown(
             eng, hbm_gbps=HBM_BYTES_PER_S / 1e9)
@@ -1715,10 +2095,10 @@ def serving_breakdown_phase(engine, paged, prompts, want):
         shapes = dict(_build.SHAPES["flash_prefill_paged"])
         busy = probe_busy(eng, bd)
         if label == "paged":
-            eng._tbl_host[:] = 0
-            eng._tbl_sync()
+            clear_tables(eng)
         b = bd["buckets_ms"]
         print(f"serving breakdown ({label}): {json.dumps(bd)}", flush=True)
+        eager_breakdown(eng, label, prompts, bd)
         print(f"serving breakdown ({label}) launches: {json.dumps(launches)}"
               f"; card busy of one probe run by kernel family: "
               f"{json.dumps(busy)}", flush=True)
@@ -1768,6 +2148,7 @@ def serving_breakdown_phase(engine, paged, prompts, want):
         else:
             check(b["kv_gather"] is None, "breakdown (slab): kv_gather set")
         toks, stats = run_batch(eng, prompts, 32)
+        toks = tokens_of(toks)
         check(toks == want, f"breakdown ({label}): the burst's greedy "
                             "tokens changed after profiling")
         print(f"serving breakdown ({label}): the burst's tokens are "
@@ -1952,6 +2333,9 @@ def main(argv=None) -> int:
                                         tokens)
     launches["flash_decode_paged"] = p_launches["flash_decode_paged"]
     shapes["flash_decode_paged"] = p_shapes["flash_decode_paged"]
+    e3_k3_shapes, _ = phase("e3 flagship engine", flagship_phase, engine,
+                            args.seed)
+    phase("e3 K3 shapes", continuation_shape_phase, gen, e3_k3_shapes)
     cases = {"quant_matmul": k1_step,
              **phase("f engine shapes", engine_shape_phase, gen, shapes)}
     phase("f step breakdown", step_breakdown, engine)

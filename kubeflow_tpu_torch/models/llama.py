@@ -489,6 +489,17 @@ def prefill_continue(params: Params, tail_tokens: torch.Tensor,
     [L, B, P, kv, hd] is known: the tail attends causally over
     prefix + tail (q_offset = P). Returns (logits [B, T, vocab] f32,
     k_tail, v_tail [L, B, T, kv, hd])."""
+    x, ks, vs = prefill_continue_hidden(params, tail_tokens, k_prefix,
+                                        v_prefix, cfg)
+    return lm_head(params, x, cfg), ks, vs
+
+
+def prefill_continue_hidden(params: Params, tail_tokens: torch.Tensor,
+                            k_prefix: torch.Tensor, v_prefix: torch.Tensor,
+                            cfg: LlamaConfig):
+    """prefill_continue without the lm_head: (x [B, T, D] before the
+    final norm, k_tail, v_tail). The engine's chunked prefill projects
+    only the last prompt row."""
     b, t = tail_tokens.shape
     p = k_prefix.shape[2]
     positions = p + torch.arange(t, device=tail_tokens.device)
@@ -505,7 +516,7 @@ def prefill_continue(params: Params, tail_tokens: torch.Tensor,
         x = _mlp(cfg, x, layer)
         ks.append(k_new)
         vs.append(v_new)
-    return lm_head(params, x, cfg), torch.stack(ks), torch.stack(vs)
+    return x, torch.stack(ks), torch.stack(vs)
 
 
 def decode_step(params: Params, last_tokens: torch.Tensor, cache: Params,

@@ -58,6 +58,44 @@ def reset_launches() -> None:
         SHAPES[name].clear()
 
 
+# A CUDA graph runs its kernels at every replay, but the wrappers count
+# only while it is captured: the engine takes the counts a capture added
+# (counts_since), puts the counters back (restore_counts) and adds the
+# capture's counts once per replay (add_counts).
+
+
+def snapshot_counts() -> tuple[dict, dict]:
+    return dict(LAUNCHES), {k: dict(v) for k, v in SHAPES.items()}
+
+
+def restore_counts(snap: tuple[dict, dict]) -> None:
+    launches, shapes = snap
+    LAUNCHES.update(launches)
+    for name, by_shape in SHAPES.items():
+        by_shape.clear()
+        by_shape.update(shapes[name])
+
+
+def counts_since(snap: tuple[dict, dict]) -> tuple[dict, dict]:
+    launches, shapes = snap
+    d_launches = {k: n - launches[k] for k, n in LAUNCHES.items()
+                  if n != launches[k]}
+    d_shapes = {name: {key: n - shapes[name].get(key, 0)
+                       for key, n in by_shape.items()
+                       if n != shapes[name].get(key, 0)}
+                for name, by_shape in SHAPES.items()}
+    return d_launches, d_shapes
+
+
+def add_counts(delta: tuple[dict, dict]) -> None:
+    d_launches, d_shapes = delta
+    for name, n in d_launches.items():
+        LAUNCHES[name] += n
+    for name, by_shape in d_shapes.items():
+        for key, n in by_shape.items():
+            SHAPES[name][key] = SHAPES[name].get(key, 0) + n
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -25,12 +25,18 @@ admission funds each request with a reservation of blocks:
 
 Prefill runs the slab path's K3 on the wave and scatters the rows through
 the table; writes quantize as the slab engine's do, and K2 reads the same
-keys in the same order, so the greedy tokens equal the slab engine's.
+keys in the same order, so the greedy tokens equal the slab engine's. A
+chunked prefill gathers the slot's prefix through its table
+(`_extract_prefix`) and writes each chunk's rows through it.
+
+Pipelined decode: a finished or cancelled slot's table row is zeroed at
+once (later junk writes go to block 0), but its blocks return to the
+pool only when no chunk is in flight (`_flush_derefs`): a dispatched,
+unfetched chunk still writes through the old table into them. The table
+itself is copied into the same device tensor the decode graphs read.
 
 Not ported yet: the radix prefix cache (banking blocks, splicing shared
-blocks, the eviction valve) and chunked prefill of prompts longer than
-the largest bucket; the base engine has neither. The port has no
-dispatch-ahead decode either, so `_flush_derefs` frees at once.
+blocks, the eviction valve).
 """
 
 from __future__ import annotations
@@ -101,21 +107,25 @@ class PagedLLMEngine(LLMEngine):
         return cache
 
     def _tbl_sync(self) -> None:
-        """Upload the host table mirror after a batch of mutations. The
-        device never changes the table, so the mirror is the truth."""
-        self.cache["tbl"] = torch.tensor(self._tbl_host, device=self.device)
+        """Copy the host table mirror into the device table after a batch
+        of mutations, in place and in stream order (a chunk in flight
+        reads the table it was dispatched with). The device never changes
+        the table, so the mirror is the truth."""
+        self._upload(self.cache["tbl"], self._tbl_host)
 
-    def _cache_write(self, slot: int, count: int, ks: torch.Tensor,
-                     vs: torch.Tensor) -> None:
-        """Rows [0, count) of `slot` ([L, count, kv, hd]) scattered into
-        the blocks its table names; entries past its reservation are 0,
-        so the prefill's right-pad lands in the trash block."""
+    def _cache_write(self, slot: int, start: int, count: int,
+                     ks: torch.Tensor, vs: torch.Tensor) -> None:
+        """Rows [start, start + count) of `slot` ([L, count, kv, hd])
+        scattered into the blocks its table names; entries past its
+        reservation are 0, so the prefill's right-pad lands in the trash
+        block."""
         bt = self._bt
-        if count % bt:
-            raise ValueError(f"paged cache write of {count} rows must be "
-                             f"block-aligned (block_tokens={bt})")
+        if start % bt or count % bt:
+            raise ValueError(f"paged cache write of rows [{start}, "
+                             f"{start + count}) must be block-aligned "
+                             f"(block_tokens={bt})")
         nb = count // bt
-        blks = self.cache["tbl"][slot, :nb].long()
+        blks = self.cache["tbl"][slot, start // bt:start // bt + nb].long()
         c = self.cache
 
         def scatter(name, vals):
@@ -132,6 +142,24 @@ class PagedLLMEngine(LLMEngine):
         else:
             scatter("k", ks.to(c["k"].dtype))
             scatter("v", vs.to(c["v"].dtype))
+
+    def _extract_prefix(self, slot: int, p: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The slot's first p KV rows gathered through its table (p a
+        block multiple) as [L, 1, p, kv, hd] in the model dtype: the JAX
+        `_gather_blocks`."""
+        blks = self.cache["tbl"][slot, :p // self._bt].long()
+        c = self.cache
+
+        def gather(name):
+            g = c[name][:, blks]                       # [L, nb, bt, ...]
+            return g.reshape(g.shape[0], p, *g.shape[3:])[:, None]
+
+        k, v = gather("k"), gather("v")
+        if self.kv_quantize == "int8":
+            k = llama.dequantize_kv(k, gather("k_s"), self.cfg.dtype)
+            v = llama.dequantize_kv(v, gather("v_s"), self.cfg.dtype)
+        return k.to(self.cfg.dtype), v.to(self.cfg.dtype)
 
     # -- admission: reservations and held prefills --------------------------
 
@@ -171,8 +199,11 @@ class PagedLLMEngine(LLMEngine):
 
     def step(self) -> bool:
         if self._held:
-            # held retry first: blocks freed since the last step fund
-            # held prefills before the scheduler hands out anything new
+            # held retry first: finished chunks free blocks, so drain the
+            # pipeline, then fund held prefills before the scheduler hands
+            # out anything new
+            self._apply_cancellations()
+            self._drain_pending()
             ready = self._admit_prefills([])
             if ready:
                 self._run_prefill_actions(ready)
@@ -181,32 +212,55 @@ class PagedLLMEngine(LLMEngine):
 
     # -- release -------------------------------------------------------------
 
-    def _release_slot_blocks(self, slot: int) -> None:
+    def _release_slot_blocks(self, slot: int, sync: bool = True) -> None:
         """Zero the slot's table row (its later junk writes go to the
-        trash block) and return its blocks."""
+        trash block) and queue its blocks for return to the pool."""
         row = self._tbl_host[slot]
         ids = [int(b) for b in row if b]
         if not ids:
             return
         row[:] = 0
-        self._tbl_sync()
+        if sync:
+            self._tbl_sync()
         self._deferred_derefs.extend(ids)
         self._flush_derefs()
 
     def _flush_derefs(self) -> None:
-        """Return released blocks to the pool. Every decode chunk is
-        fetched before its tokens are recorded, so no launch in flight
-        writes through an old table and the blocks free at once; a
-        pipelined decode would defer this until its chunk lands."""
-        if self._deferred_derefs:
+        """Return released blocks to the pool once no chunk is in flight:
+        a dispatched, unfetched chunk writes junk through the old table
+        into them, so they may not be handed out before it lands."""
+        if self._deferred_derefs and self._pending is None:
             self._pool.deref(self._deferred_derefs)
             self._deferred_derefs = []
 
-    def _record_token(self, req_id: int, slot: int, token: int) -> bool:
-        freed = super()._record_token(req_id, slot, token)
+    def _record_token(self, req_id: int, slot: int, token: int,
+                      lp: float = 0.0, top=None,
+                      first_token: bool = False) -> bool:
+        freed = super()._record_token(req_id, slot, token, lp, top,
+                                      first_token=first_token)
         if freed:
             self._release_slot_blocks(slot)
         return freed
+
+    def _apply_cancellations(self) -> None:
+        """Cancelled slots release their blocks; cancelled held prefills
+        leave the held list."""
+        super()._apply_cancellations()
+        changed = False
+        for s in range(self.n_slots):
+            if self.scheduler.slot_request(s) < 0 and self._tbl_host[s].any():
+                self._release_slot_blocks(s, sync=False)
+                changed = True
+        if changed:
+            self._tbl_sync()
+        if self._held:
+            self._held = [a for a in self._held
+                          if self.scheduler.slot_request(a.slot)
+                          == a.req_id]
+
+    def _drain_pending(self) -> None:
+        super()._drain_pending()
+        self._flush_derefs()
 
     def metrics(self) -> dict[str, Any]:
         return {"kv_pool": self._pool.stats(),

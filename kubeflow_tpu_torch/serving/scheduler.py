@@ -4,6 +4,7 @@ fixed decode slots, prompt-length buckets, one FIFO queue.
 
 `next()` hands out a PrefillAction while a slot is free and a request is
 queued, else a DecodeAction while any slot is active, else None.
+`cancel()` drops a queued request or frees a running one's slot.
 """
 
 from __future__ import annotations
@@ -103,3 +104,18 @@ class PyScheduler:
         with self._mu:
             sl = self._slots[slot]
             return sl.req_id if sl.active else -1
+
+    def cancel(self, req_id: int) -> str | None:
+        """"queued" (removed from the queue), "active" (its slot freed)
+        or None (unknown or finished): the JAX scheduler's contract."""
+        with self._mu:
+            for i, (rid, _plen, _mx) in enumerate(self._queue):
+                if rid == req_id:
+                    del self._queue[i]
+                    return "queued"
+            for sl in self._slots:
+                if sl.active and sl.req_id == req_id:
+                    sl.active = False
+                    sl.req_id = -1
+                    return "active"
+            return None

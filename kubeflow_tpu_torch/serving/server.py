@@ -2,11 +2,22 @@
 completion and readiness routes of kubeflow_tpu/serving/server.py):
 
     POST /openai/v1/completions   {"prompt": str | [ids], "max_tokens",
-                                   "temperature", "top_k", "top_p"}
-         -> {"choices": [{"text", "token_ids", "finish_reason"}],
+                                   "temperature", "top_k", "top_p", "stop",
+                                   "presence_penalty", "frequency_penalty",
+                                   "seed", "logprobs", "timeout"}
+         -> {"choices": [{"text", "token_ids", "finish_reason",
+                          "logprobs"?}],
              "usage": {"prompt_tokens", "completion_tokens",
                        "total_tokens"}}
     GET  /v2/health/ready         -> {"ready": true}
+
+`stop` is a string, or a list of up to 8 strings (encoded by the
+server's tokenizer) or token-id lists. `logprobs` true returns each
+token's logprob; an int N (at most the engine's logprobs_topk) adds the
+top-N alternatives, as OpenAI's `logprobs` object (`tokens`,
+`token_logprobs`, `top_logprobs` keyed by token id). A request's
+`timeout` seconds, or else the server's `timeout_s` (the ISVC key),
+becomes the engine's deadline: past it the request ends "cancelled".
 
 A `ThreadingHTTPServer` answers each request on its own thread; one
 engine thread runs `engine.step()` while there is work and sleeps on a
@@ -29,7 +40,8 @@ from kubeflow_tpu_torch.serving.tokenizer import ByteTokenizer
 #: the engine settings a serving config may carry (the keys of
 #: examples/llama-8b-serving-isvc.yaml that this engine implements)
 CONFIG_KEYS = ("quantize", "kv_quantize", "n_slots", "max_len", "buckets",
-               "decode_chunk")
+               "decode_chunk", "pipeline_decode", "logprobs_topk",
+               "timeout_s")
 
 
 class BadRequest(ValueError):
@@ -39,8 +51,11 @@ class BadRequest(ValueError):
 class CompletionServer:
     def __init__(self, engine: LLMEngine, *, model: str = "llama",
                  tokenizer: Any = None, host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0, timeout_s: float | None = None):
+        if timeout_s is not None and not timeout_s > 0:
+            raise ValueError("timeout_s must be positive")
         self.engine = engine
+        self.timeout_s = timeout_s
         self.model = model
         self.tokenizer = tokenizer or ByteTokenizer()
         self._cv = threading.Condition()
@@ -98,6 +113,8 @@ class CompletionServer:
         eng_kw = dict(config)
         if "buckets" in eng_kw:
             eng_kw["buckets"] = tuple(eng_kw["buckets"])
+        if "timeout_s" in eng_kw:
+            kw.setdefault("timeout_s", eng_kw.pop("timeout_s"))
         return cls(LLMEngine(params, cfg, device=device, **eng_kw), **kw)
 
     @property
@@ -144,6 +161,44 @@ class CompletionServer:
                 if not busy:
                     self._cv.wait(timeout=0.05)
 
+    def _stop_sequences(self, stop: Any) -> list[list[int]] | None:
+        """`stop` as token sequences: a string, or a list of up to 8
+        strings (encoded by the tokenizer) or lists of token ids."""
+        if stop is None:
+            return None
+        if isinstance(stop, str):
+            stop = [stop]
+        if not isinstance(stop, list) or not 1 <= len(stop) <= 8:
+            raise BadRequest(
+                "stop must be a non-empty string or a list of up to 8")
+        seqs = []
+        for item in stop:
+            if isinstance(item, str) and item:
+                seqs.append(self.tokenizer.encode(item))
+            elif (isinstance(item, list) and item
+                  and all(isinstance(t, int) and not isinstance(t, bool)
+                          for t in item)):
+                seqs.append(list(item))
+            else:
+                raise BadRequest("each stop must be a non-empty string or "
+                                 "a non-empty list of token ids")
+        return seqs
+
+    def _logprobs_n(self, body: dict) -> int | None:
+        """None: no logprobs; 0: the chosen tokens'; N: also the top N."""
+        lp = body.get("logprobs")
+        if lp is None or lp is False:
+            return None
+        if lp is True:
+            return 0
+        if not isinstance(lp, int) or lp < 0:
+            raise BadRequest("logprobs must be a bool or a non-negative int")
+        if lp > self.engine.logprobs_topk:
+            raise BadRequest(
+                f"logprobs top-N must be 0..{self.engine.logprobs_topk} "
+                "(the engine's logprobs_topk build setting)")
+        return lp
+
     def complete(self, body: Any) -> dict[str, Any]:
         """One completion request, answered when the engine finishes it."""
         if not isinstance(body, dict):
@@ -158,12 +213,23 @@ class CompletionServer:
             raise BadRequest("prompt must be a string or a list of ids")
         if not ids:
             raise BadRequest("prompt must be non-empty")
+        stop = self._stop_sequences(body.get("stop"))
+        lp_n = self._logprobs_n(body)
+        seed = body.get("seed")
+        if seed is not None and (not isinstance(seed, int)
+                                 or isinstance(seed, bool) or seed < 0):
+            raise BadRequest("seed must be a non-negative integer")
+        deadline = body.get("timeout", self.timeout_s)
         try:
             rid = self.engine.submit(
                 ids, int(body.get("max_tokens", 16)),
                 temperature=float(body.get("temperature", 0.0)),
                 top_k=int(body.get("top_k", 0)),
-                top_p=float(body.get("top_p", 1.0)))
+                top_p=float(body.get("top_p", 1.0)),
+                presence_penalty=float(body.get("presence_penalty", 0.0)),
+                frequency_penalty=float(body.get("frequency_penalty", 0.0)),
+                seed=seed, stop=stop,
+                deadline_s=None if deadline is None else float(deadline))
         except (TypeError, ValueError) as e:
             if isinstance(e, PromptTooLong):
                 raise
@@ -179,13 +245,25 @@ class CompletionServer:
                 self._cv.wait(timeout=1.0)
         tokens = self.engine.result(rid)
         reason = self.engine.finish_reason(rid)
+        choice: dict[str, Any] = {"index": 0,
+                                  "text": self.tokenizer.decode(tokens),
+                                  "token_ids": tokens,
+                                  "finish_reason": reason}
+        if lp_n is not None:
+            logprobs: dict[str, Any] = {
+                "tokens": [self.tokenizer.decode([t]) for t in tokens],
+                "token_logprobs": self.engine.result_logprobs(rid),
+                "top_logprobs": None}
+            if lp_n:
+                logprobs["top_logprobs"] = [
+                    {str(t): v for t, v in sorted(
+                        d.items(), key=lambda kv: -kv[1])[:lp_n]}
+                    for d in self.engine.result_top_logprobs(rid)]
+            choice["logprobs"] = logprobs
         self.engine.release(rid)
         return {"id": f"cmpl-{rid}", "object": "text_completion",
                 "created": int(time.time()), "model": self.model,
-                "choices": [{"index": 0,
-                             "text": self.tokenizer.decode(tokens),
-                             "token_ids": tokens,
-                             "finish_reason": reason}],
+                "choices": [choice],
                 "usage": {"prompt_tokens": len(ids),
                           "completion_tokens": len(tokens),
                           "total_tokens": len(ids) + len(tokens)}}

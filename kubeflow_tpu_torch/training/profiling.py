@@ -165,7 +165,9 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
                              span (K3, or K3-paged through the slot
                              tables), per chunk, not per step;
       sampling_penalties   — the full chunk less the sampling-stripped
-                             one (`_decode_chunk(sample=False)`);
+                             one (`_decode_chunk(sample=False)`; on the
+                             card both are replays of the engine's
+                             decode graphs);
       dispatch_rtt_per_step, host_fetch_replay_per_step — the one-add
                              round trip per step, and the engine's live
                              perf counters (None before it has decoded);
@@ -211,15 +213,15 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
                               engine.max_len - rows_needed(steps, iters)))
     span = engine._pick_span(min(fill_len + steps, engine.max_len))
 
+    # the slot state is reset in place: the engine's decode graphs read
+    # these very tensors
     def reset_samp():
         engine._samp_host[:] = engine._samp_reset()
         engine.samp.copy_(torch.from_numpy(engine._samp_host))
 
     def reset_state():
-        engine.lengths = torch.full((n_slots,), fill_len, dtype=torch.int32,
-                                    device=dev)
-        engine.last_tokens = torch.ones(n_slots, dtype=torch.long,
-                                        device=dev)
+        engine.lengths.fill_(fill_len)
+        engine.last_tokens.fill_(1)
         reset_samp()
 
     active = torch.ones(n_slots, dtype=torch.bool, device=dev)
@@ -227,7 +229,7 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
     def run_decode(sample):
         def go():
             out = engine._decode_chunk(steps, span, active, sample=sample)
-            out[0, 0].item()   # value fetch: waits for the card
+            out[0, 0, 0].item()   # value fetch: waits for the card
         return go
 
     # pure weight read: every non-embed leaf reduced once (decode gathers
@@ -448,10 +450,9 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
     # leave the engine as a fresh one: slot state reset, host mirrors
     # zeroed (the junk cache rows are dead; the next prefill into a slot
     # rewrites them)
-    engine.lengths = torch.zeros(n_slots, dtype=torch.int32, device=dev)
-    engine.last_tokens = torch.zeros(n_slots, dtype=torch.long, device=dev)
+    engine.lengths.zero_()
+    engine.last_tokens.zero_()
     reset_samp()
     engine._host_lengths[:] = 0
-    engine._active_host = None
-    engine._active_dev = None
+    engine._active_host = None   # the next decode uploads its own mask
     return out

@@ -73,8 +73,10 @@ def test_seeded_sampling_repeats(tiny):
 def test_engine_limits(tiny):
     _, tcfg, _, tparams = tiny
     eng = LLMEngine(tparams, tcfg, device="cpu", eos_id=None, **ENGINE)
+    # a prompt past the largest bucket is chunked; one that leaves no
+    # room to decode in max_len is refused
     with pytest.raises(PromptTooLong):
-        eng.submit(list(range(17)))
+        eng.submit(list(range(ENGINE["max_len"])))
     with pytest.raises(ValueError):
         eng.submit([1, 2], temperature=float("nan"))
     # a request longer than the cache room ends with "length" at max_len
@@ -107,7 +109,7 @@ def test_http_round_trip(tiny):
         assert body["usage"]["prompt_tokens"] == 5
         bad = urllib.request.Request(
             server.url + "/openai/v1/completions",
-            data=json.dumps({"prompt": "x" * 40}).encode())
+            data=json.dumps({"prompt": "x" * 48}).encode())
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(bad, timeout=30)
         assert e.value.code == 400

@@ -120,13 +120,14 @@ def test_perf_counters_count_decode_chunks_and_steps(engine):
 
 def test_decode_chunk_variants_agree_on_greedy_rows(engine):
     """sample=True runs the sampling path; at temperature 0 it picks the
-    argmax that sample=False takes."""
+    argmax that sample=False takes (column 0 of the packed rows)."""
     active = torch.ones(engine.n_slots, dtype=torch.bool)
     toks = []
     for sample in (True, False):
-        engine.lengths = torch.full((engine.n_slots,), 5, dtype=torch.int32)
-        engine.last_tokens = torch.ones(engine.n_slots, dtype=torch.long)
-        toks.append(engine._decode_chunk(2, 128, active, sample=sample))
+        engine.lengths.fill_(5)
+        engine.last_tokens.fill_(1)
+        out = engine._decode_chunk(2, 128, active, sample=sample)
+        toks.append(out[..., 0])
     assert toks[0].shape == (2, engine.n_slots)
     assert torch.equal(toks[0], toks[1])
     engine.lengths.zero_()
