@@ -75,6 +75,30 @@ Phases, in order; any failure exits non-zero before the result line:
       variants). Prints TTFT mean/max (the chunked rows' too) and decode
       tokens/s; then K3 against its plain version at each continuation
       shape those runs launched it at;
+  (e4) prefix cache: the flagship settings with prefix_cache (the
+      default store, 32 blocks of 128 tokens) over (e)'s weights: a slab
+      LLMEngine (run twice, every block evicted between), PagedLLMEngines
+      of 128 and E4_SMALL_POOL blocks, and a cold slab engine without the
+      cache (run twice), each warmed up, serve a 512-token system
+      prompt, a burst of 16 sharing it (14 hits as continuation waves at
+      q_offset 512, one per tail bucket, and two chunked chains from the
+      cached head), four second turns and three cold long prompts (where
+      the small pool's eviction valve must fire). It holds: the hit and miss counts,
+      cached_tokens (512 on the burst, each second turn its first
+      prompt's block-aligned length, one past 1024), one wave per (p, t)
+      group, K3 at q_offset 512 with B > 1; tokens equal bit for bit
+      between the slab, the paged, the small-pool and the repeated run;
+      each banked block byte-equal to the slot rows it came from (int8
+      rows and f32 scales; the paged tables naming the trie's blocks);
+      the store's bytes, and the requested bytes evicting it frees, equal
+      to n_blocks x block bytes; used pool blocks equal to the trie's at
+      idle; the valve fired; K1, K2, K2-paged and K3 launched; no capture
+      after warmup; each hit row's first-token logprobs within
+      E4_LP_TOL of the cold engine's. Prints both bursts' TTFT (each
+      engine's second run: a first run carries first-use costs), the
+      prompt tokens computed and reused, the warmups and the store's
+      bytes; then K3 against its plain version at each continuation shape
+      it launched at;
   (f) engine shapes: every kernel again against its plain version, at
       each argument shape the wrappers recorded in (e) (prefill waves,
       decode spans, lm_head rows, the paged engine's K2-paged launches),
@@ -1430,6 +1454,7 @@ def run_batch(engine, prompts, max_new, kws=None, on_step=None,
     torch.cuda.synchronize()
     t_end = time.monotonic()
     rows = [dict(tokens=engine.result(r), reason=engine.finish_reason(r),
+                 cached=engine.cached_tokens(r),
                  logprobs=engine.result_logprobs(r),
                  top=(engine.result_top_logprobs(r) if engine.logprobs_topk
                       else None),
@@ -1806,9 +1831,9 @@ def engine_shape_phase(gen, shapes) -> dict[str, dict]:
     return {name: entry for name, (_, entry) in best.items()}
 
 
-def continuation_shape_phase(gen, shapes) -> None:
-    """K3 against its plain version, with its times, at each chunked
-    continuation shape (q_offset > 0) the flagship runs launched it at."""
+def continuation_shape_phase(gen, shapes, label="e3") -> None:
+    """K3 against its plain version, with its times, at each continuation
+    shape (q_offset > 0) the runs of phase `label` launched it at."""
     seen = 0
     for key, n in sorted(shapes.items(), key=str):
         a = dict(key)
@@ -1818,10 +1843,322 @@ def continuation_shape_phase(gen, shapes) -> None:
                     nh=a["nh"], nkv=a["nkv"], hd=a["hd"], t=a["t"],
                     slot_stride=a["slot_stride"])
         desc = " ".join(f"{k}={v}" for k, v in key)
-        print(f"e3 shape flash_prefill {desc} launches={n}: {fmt(c)}",
-              flush=True)
+        print(f"{label} shape flash_prefill {desc} launches={n}: "
+              f"{fmt(c)}", flush=True)
         seen += 1
-    check(seen > 0, "e3: no chunked continuation shape recorded")
+    check(seen > 0, f"{label}: no continuation shape recorded")
+
+
+# (e4): the prefix cache on the flagship engines (the ISVC's settings with
+# prefix_cache: true and the default store, 4 x 1024 / 128 = 32 blocks of
+# 128 tokens). A 512-token system prompt with a 40-token question banks
+# the prompt's four blocks; a burst of 16 shares it, with suffixes of
+# 30..900 tokens: the 14 prompts of at most 1024 tokens are hits that run
+# as continuation waves at q_offset 512, one per tail bucket (5 rows in
+# bucket 128, 9 in bucket 512), and the two longer ones take the chunked
+# chain from the cached head; four sessions send a second turn (the first
+# prompt, its 48 tokens and 60 more), which reuses the first prompt's
+# whole block-aligned chain (896, 896, 1152 and 1408 tokens); then three
+# cold long prompts. The burst needs 49 fresh blocks beside the 4 cached
+# ones, so a pool of 56 funds it at once; at the pressure step the trie
+# holds its 32 blocks and the three prompts need 45, so the small pool's
+# valve must evict, after the last reuse, and every engine's tokens stay
+# comparable bit for bit.
+E4_SYSTEM = 512
+E4_QUESTION = 40
+E4_SUFFIXES = (30, 50, 70, 90, 110, 140, 170, 200, 240, 280, 320, 380, 440,
+               500, 700, 900)
+E4_SESSIONS = (12, 13, 14, 15)
+E4_TURN = 60
+E4_PRESSURE = (1700, 1800, 1900)
+E4_NEW = 48
+E4_SMALL_POOL = 56
+# hit against cold, per hit row's first token: each token in both top-5
+# lists within E4_LP_TOL nats, and each row's top-1 in the other's top-5.
+# The int8 round moves a K/V element by at most half a step, 1/254 of its
+# row's largest value (about two bf16 rounds); the lm_head of this
+# random-weight model spreads the logits with a standard deviation near 1
+# (unit-RMS hidden states over N(0, 1/d_model) columns), and the top-5
+# logits of a 128k vocabulary lie about 0.1 apart, so a prefix error that
+# moved them by a tenth of their spread would reorder the lists; a
+# different prompt gives other lists altogether (printed as the control).
+E4_LP_TOL = 0.1
+
+
+def e4_prompts(cfg, seed: int) -> dict:
+    gen = torch.Generator().manual_seed(seed + 4)
+
+    def rand(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    system = rand(E4_SYSTEM)
+    return {"sys": system + rand(E4_QUESTION),
+            "burst": [system + rand(n) for n in E4_SUFFIXES],
+            "turn_tails": [rand(E4_TURN) for _ in E4_SESSIONS],
+            "pressure": [rand(n) for n in E4_PRESSURE]}
+
+
+def e4_turns(prompts, burst_rows) -> list:
+    """Each session's second turn: its first prompt, that prompt's output
+    and E4_TURN new tokens."""
+    return [prompts["burst"][i] + burst_rows[i]["tokens"] + tail
+            for i, tail in zip(E4_SESSIONS, prompts["turn_tails"])]
+
+
+def bank_check(engine) -> None:
+    """Every running slot's banked prefix: on a slab engine the trie's
+    blocks (int8 rows and f32 scales) byte-equal to the slot's rows they
+    were banked from, the hits' prefix rows included (written from the
+    store); on a paged engine the slot's table naming the trie's blocks."""
+    bt = engine.prefix_block_tokens
+    seen = 0
+    for slot in range(engine.n_slots):
+        prompt = engine._prompts.get(engine.scheduler.slot_request(slot))
+        if prompt is None:
+            continue
+        aligned = len(prompt) // bt * bt
+        m = engine.kvcache.match(prompt, max_tokens=aligned, namespace=0)
+        try:
+            check(m.tokens == aligned, f"e4: slot {slot}: {m.tokens} of "
+                                       f"{aligned} prompt tokens banked")
+            if isinstance(engine, PagedLLMEngine):
+                check([int(b) for b in engine._tbl_host[slot, :m.n_blocks]]
+                      == [int(b) for b in m.payloads],
+                      f"e4 paged: slot {slot}'s table is not the trie's "
+                      "blocks")
+            else:
+                for j, name in enumerate(("k", "k_s", "v", "v_s")):
+                    stored = torch.cat([b[j] for b in m.payloads], dim=2)
+                    check(stored.dtype == (torch.int8 if j % 2 == 0
+                                           else torch.float32)
+                          and torch.equal(stored[:, 0], engine.cache[name][
+                              :, slot, :aligned]),
+                          f"e4: slot {slot}: stored {name} differs from "
+                          "the slot's rows")
+        finally:
+            engine.kvcache.release(m)
+        seen += 1
+    check(seen == len(E4_SUFFIXES), f"e4: {seen} slots checked")
+
+
+def e4_run(engine, prompts, turns, label):
+    """The e4 traffic through `engine`: the system prompt, the burst
+    (continuation waves recorded, banked prefixes checked once after its
+    prefill), the second turns and the pressure prompts. Returns each
+    stage's rows and stats, the waves and the engine's metrics."""
+    waves = []
+    dispatch = engine._dispatch_prefill_cont_wave
+
+    def recording(p, t, pairs):
+        waves.append((p, t, len(pairs)))
+        return dispatch(p, t, pairs)
+
+    engine._dispatch_prefill_cont_wave = recording
+    checked = []
+
+    def on_burst_step():
+        if not checked and engine.kvcache is not None:
+            bank_check(engine)
+            checked.append(True)
+
+    out = {"sys": run_batch(engine, [prompts["sys"]], E4_NEW),
+           "burst": run_batch(engine, prompts["burst"], E4_NEW,
+                              on_step=on_burst_step)}
+    check(checked or engine.kvcache is None,
+          f"e4 {label}: the banked prefixes were not checked")
+    if turns is None:
+        turns = e4_turns(prompts, out["burst"][0])
+    out["turns"] = run_batch(engine, turns, E4_NEW)
+    if label != "cold":
+        out["pressure"] = run_batch(engine, prompts["pressure"], E4_NEW)
+    del engine._dispatch_prefill_cont_wave
+    out["waves"] = waves
+    out["metrics"] = engine.metrics()
+    out["turn_prompts"] = turns
+    return out
+
+
+def e4_tokens(run) -> list:
+    return [row["tokens"] for stage in ("sys", "burst", "turns", "pressure")
+            for row in run.get(stage, ([],))[0]]
+
+
+def store_bytes(engine) -> tuple[int, int]:
+    """(bytes of the storages behind the trie's payloads, n_blocks x the
+    bytes of one block's int8 rows and f32 scales)."""
+    storages = {}
+    for payload in engine.kvcache.payloads():
+        for a in payload:
+            st = a.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    cfg, bt = engine.cfg, engine.prefix_block_tokens
+    per_block = cfg.n_layers * bt * cfg.n_kv_heads * (2 * cfg.head_dim + 8)
+    return sum(storages.values()), engine.kvcache.n_blocks * per_block
+
+
+def first_token_gap(hit_row, cold_row) -> float | None:
+    """Largest first-token logprob gap over the tokens both top-5 lists
+    hold, or None when either row's top-1 is missing from the other's
+    list."""
+    a, b = hit_row["top"][0], cold_row["top"][0]
+    if max(a, key=a.get) not in b or max(b, key=b.get) not in a:
+        return None
+    return max(abs(a[t] - b[t]) for t in a.keys() & b.keys())
+
+
+def prefix_cache_phase(engine, seed: int):
+    """(e4): the prefix cache on the flagship engines over (e)'s weights
+    (see E4_* above): a slab LLMEngine run twice (every block evicted
+    between, and its freed bytes counted), PagedLLMEngines of 128 and
+    E4_SMALL_POOL blocks, each with prefix_cache, and a cold slab engine
+    without the cache, run twice; each warmed up. Returns the K3 shapes
+    of the first slab run."""
+    cfg = engine.cfg
+    prompts = e4_prompts(cfg, seed)
+    runs, launches, warmup_s = {}, {}, {}
+    memo = {}
+    for label, kw in (("slab", {}), ("paged", {"pool": E3_POOL_BLOCKS}),
+                      ("small", {"pool": E4_SMALL_POOL}), ("cold", {})):
+        if "pool" in kw:
+            eng = PagedLLMEngine(engine.params, cfg, device=DEV,
+                                 pool_blocks=kw["pool"], prefix_cache=True,
+                                 **FLAGSHIP)
+        else:
+            eng = LLMEngine(engine.params, cfg, device=DEV,
+                            prefix_cache=label != "cold", **FLAGSHIP)
+        warmup_s[label] = warm(eng, f"e4 {label}")
+        captures = eng.graph_stats()["captures"]
+        turns = memo.get("turns")
+        _build.reset_launches()
+        runs[label] = e4_run(eng, prompts, turns, label)
+        launches[label] = dict(_build.LAUNCHES)
+        if label == "slab":
+            k3_shapes = dict(_build.SHAPES["flash_prefill"])
+            memo["turns"] = runs[label]["turn_prompts"]
+            got, want = store_bytes(eng)
+            # the allocator's requested bytes (its allocated bytes round
+            # a block up when the rest of a cached segment is too small
+            # to split off)
+            gc.collect()     # so that only the store is freed below
+            before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+            n = eng.kvcache.n_blocks
+            check(eng.kvcache.evict(10**9) == n, "e4: blocks left pinned")
+            freed = (before - torch.cuda.memory_stats()[
+                "requested_bytes.all.current"])
+            memo["store"] = (n, got, want, freed)
+            print(f"e4 slab store: {n} blocks, {got} bytes in their own "
+                  f"storages, n_blocks x block bytes {want}, freed by "
+                  f"evicting all {freed}", flush=True)
+            check(got == want == freed, "e4: the store's bytes are not "
+                                        "n_blocks x block bytes")
+            runs["repeat"] = e4_run(eng, prompts, memo["turns"], "repeat")
+        if label == "cold":
+            runs["cold repeat"] = e4_run(eng, prompts, memo["turns"], "cold")
+        check(eng.graph_stats()["captures"] == captures,
+              f"e4 {label}: a decode graph was captured after warmup")
+        if "pool" in kw:
+            m = runs[label]["metrics"]
+            check(m["kv_pool"]["used_blocks"] == m["prefix_cache"]["blocks"],
+                  f"e4 {label}: {m['kv_pool']['used_blocks']} pool blocks "
+                  f"used at idle, the trie holds "
+                  f"{m['prefix_cache']['blocks']}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    slab = runs["slab"]
+    for label in ("repeat", "paged", "small"):
+        for i, (got, want) in enumerate(zip(e4_tokens(runs[label]),
+                                             e4_tokens(slab))):
+            check(got == want, f"e4 {label}: row {i} differs from the slab "
+                               "engine's tokens")
+    check(e4_tokens(runs["cold repeat"]) == e4_tokens(runs["cold"]),
+          "e4 cold: a repeated run gave other tokens")
+    m = slab["metrics"]
+    n_burst, n_turns = len(E4_SUFFIXES), len(E4_SESSIONS)
+    check(m["prefix_hits"] == n_burst + n_turns
+          and m["prefix_misses"] == 1 + len(E4_PRESSURE),
+          f"e4: hits {m['prefix_hits']} misses {m['prefix_misses']}")
+    bt = math.gcd(*FLAGSHIP["buckets"])
+    cached = [row["cached"] for row in slab["burst"][0]]
+    check(cached == [E4_SYSTEM] * n_burst, f"e4: burst cached {cached}")
+    turn_cached = [row["cached"] for row in slab["turns"][0]]
+    want_turn = [len(prompts["burst"][i]) // bt * bt for i in E4_SESSIONS]
+    check(turn_cached == want_turn
+          and max(turn_cached) > FLAGSHIP["buckets"][-1],
+          f"e4: second turns cached {turn_cached}, want {want_turn}")
+    n_wave = sum(len(p) <= FLAGSHIP["buckets"][-1] for p in prompts["burst"])
+    groups = {(E4_SYSTEM, min(b for b in FLAGSHIP["buckets"]
+                              if b >= len(p) - E4_SYSTEM))
+              for p in prompts["burst"] if len(p) <= FLAGSHIP["buckets"][-1]}
+    check(sorted((p, t) for p, t, _ in slab["waves"]) == sorted(groups)
+          and sum(w for *_, w in slab["waves"]) == n_wave,
+          f"e4: continuation waves {slab['waves']}, want one per group "
+          f"{sorted(groups)} over {n_wave} rows")
+    check(any(dict(k)["q_offset"] == E4_SYSTEM and dict(k)["b"] > 1
+              for k in k3_shapes),
+          f"e4: K3 never ran at q_offset {E4_SYSTEM} with B > 1")
+    small = runs["small"]["metrics"]
+    check(small["prefix_cache"]["evicted_blocks"] > 0
+          and small["kv_pool"]["alloc_failures"] > 0,
+          "e4 small: the eviction valve never fired")
+    for label, want_k in (("slab", SERVING_KERNELS),
+                          ("paged", PAGED_KERNELS)):
+        for name in want_k:
+            check(launches[label][name] > 0,
+                  f"e4 {label}: {name} never launched")
+    # hit against cold
+    cold = runs["cold"]
+    gaps, ctrl, equal, first, agree = [], 0, 0, 0, []
+    hit_rows = slab["burst"][0] + slab["turns"][0]
+    cold_rows = cold["burst"][0] + cold["turns"][0]
+    for i, (h, c) in enumerate(zip(hit_rows, cold_rows)):
+        gap = first_token_gap(h, c)
+        check(gap is not None and gap <= E4_LP_TOL,
+              f"e4: hit row {i}: first-token logprobs {h['top'][0]} "
+              f"against cold {c['top'][0]}")
+        gaps.append(gap)
+        ctrl += first_token_gap(h, cold_rows[(i + 1) % len(cold_rows)]) \
+            is not None
+        equal += h["tokens"] == c["tokens"]
+        first += h["tokens"][0] == c["tokens"][0]
+        agree.append(next((j for j, (a, b) in enumerate(
+            zip(h["tokens"], c["tokens"])) if a != b), len(h["tokens"])))
+    stats, cstats = runs["repeat"]["burst"][1], runs["cold repeat"][
+        "burst"][1]
+    print(f"e4: hit vs cold first-token logprobs: largest gap "
+          f"{max(gaps):.5f} nats (tol {E4_LP_TOL}), mean "
+          f"{sum(gaps) / len(gaps):.5f}; "
+          f"rows whose whole output equals the cold engine's: {equal}/"
+          f"{len(hit_rows)}, whose first token does: {first}/"
+          f"{len(hit_rows)}, tokens equal before the first difference: "
+          f"mean {sum(agree) / len(agree):.2f}, min {min(agree)}; control "
+          f"(hit row against the next row's cold "
+          f"run): {ctrl}/{len(hit_rows)} within the top-5 criterion",
+          flush=True)
+    n, got, want, freed = memo["store"]
+    pc = m["prefix_cache"]
+    print(f"e4 prefix cache (second runs): hit burst TTFT mean "
+          f"{stats['ttft_mean_s']:.4f} s max {stats['ttft_max_s']:.4f} s; "
+          f"cold burst TTFT mean {cstats['ttft_mean_s']:.4f} s max "
+          f"{cstats['ttft_max_s']:.4f} s; "
+          f"prefill_tokens_computed {pc['prefill_tokens_computed']} against "
+          f"prefill_tokens_saved {pc['prefill_tokens_saved']} (cold engine "
+          f"computed {cold['metrics']['prefill_tokens_computed']}); warmup "
+          f"s {json.dumps({k: round(v, 2) for k, v in warmup_s.items()})}; "
+          f"store {n} blocks, {got} bytes; waves {slab['waves']}; small pool "
+          f"{json.dumps(small['kv_pool'])}, evicted "
+          f"{small['prefix_cache']['evicted_blocks']}; launches "
+          f"{json.dumps(launches['slab'])}; paged "
+          f"{json.dumps(launches['paged'])}", flush=True)
+    for label in ("slab", "repeat", "cold", "cold repeat"):
+        print(f"e4 {label} stages: " + json.dumps(
+            {k: runs[label][k][1] for k in ("sys", "burst", "turns")}),
+            flush=True)
+    print("e4: hits counted, cached_tokens as banked, one continuation "
+          "wave per (p, t), tokens equal slab/paged/small pool/repeat, "
+          "store bytes as reckoned, the valve fired, hits within tolerance "
+          "of cold", flush=True)
+    return k3_shapes
 
 
 def fill_tables(engine, seed: int = 5) -> None:
@@ -2336,6 +2673,9 @@ def main(argv=None) -> int:
     e3_k3_shapes, _ = phase("e3 flagship engine", flagship_phase, engine,
                             args.seed)
     phase("e3 K3 shapes", continuation_shape_phase, gen, e3_k3_shapes)
+    e4_k3_shapes = phase("e4 prefix cache", prefix_cache_phase, engine,
+                         args.seed)
+    phase("e4 K3 shapes", continuation_shape_phase, gen, e4_k3_shapes, "e4")
     cases = {"quant_matmul": k1_step,
              **phase("f engine shapes", engine_shape_phase, gen, shapes)}
     phase("f step breakdown", step_breakdown, engine)

@@ -1,6 +1,9 @@
 """KV memory of the port (counterpart of kubeflow_tpu/kvcache): the block
-pool of paged serving. The radix prefix cache is not ported yet."""
+pool of paged serving and the radix prefix index both engines bank
+prompt prefixes into. The stage-partitioned index of the stage-sharded
+engine is not ported."""
 
 from kubeflow_tpu_torch.kvcache.pool import BlockPool
+from kubeflow_tpu_torch.kvcache.radix import Block, MatchResult, RadixKVCache
 
-__all__ = ["BlockPool"]
+__all__ = ["Block", "BlockPool", "MatchResult", "RadixKVCache"]

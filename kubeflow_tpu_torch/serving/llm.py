@@ -50,8 +50,23 @@ replay and removed from the tokens and logprobs (finish reason "stop");
 `cancel` and deadlines take effect at the top of the next `step()`
 (finish reason "cancelled").
 
-Not in this engine yet: the radix prefix cache, speculative decoding,
-streaming and adapters.
+The prefix cache (`prefix_cache=True`, the JAX engine's radix reuse): a
+`kvcache.RadixKVCache` maps prompt prefixes, in blocks of
+`prefix_block_tokens` tokens (the gcd of the buckets), to their KV. After
+every prefill the prompt's block-aligned prefix is banked
+(`_bank_prefix_blocks`): only blocks not cached yet are stored, each as
+tensors of its own (int8 rows and f32 scales on an int8 cache), so
+evicting a block frees its bytes. At admission a prompt's longest cached
+prefix p is matched and clamped (`_prefix_lookup`: one tail token must
+remain, and the tail must fit a bucket inside max_len); hits that share
+(p, tail bucket) run as one batched continuation wave
+(`_dispatch_prefill_cont_wave`: `llama.prefill_continue_hidden` over the
+tails against the dequantized prefixes, K3 at q_offset p), and a long
+prompt's chunked chain starts at its cached prefix. On the card a hit
+attends over the int8 prefix where a cold prefill attends over fresh
+K/V, so the two are close, not bit-equal, as in the JAX engine.
+
+Not in this engine yet: speculative decoding, streaming and adapters.
 """
 
 from __future__ import annotations
@@ -66,6 +81,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch.kvcache import RadixKVCache
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.serving.scheduler import (DecodeAction,
@@ -125,13 +141,21 @@ class LLMEngine:
     #: nucleus/top-k filtering looks at this many top candidates; a
     #: request may not ask for a larger top_k (the JAX engine's default)
     SAMPLE_K_MAX = 64
+    #: continuation waves write the prefix rows into the slot (slab); the
+    #: paged engine splices the cached blocks into the table instead
+    _cont_writes_prefix = True
+    #: the radix namespace of every request (the JAX engine's adapter
+    #: id; the port has no adapters)
+    _prefix_ns = 0
 
     def __init__(self, params, cfg: llama.LlamaConfig, *, n_slots: int = 4,
                  max_len: int = 512, buckets: Sequence[int] = (64, 128, 256),
                  eos_id: int | None = None, decode_chunk: int = 8,
                  sample_seed: int = 0, quantize: str | None = None,
                  kv_quantize: str | None = None, logprobs_topk: int = 0,
-                 pipeline_decode: bool = True, device="cuda"):
+                 pipeline_decode: bool = True, prefix_cache: bool = False,
+                 max_prefixes: int = 4,
+                 prefix_cache_blocks: int | None = None, device="cuda"):
         if max(buckets) >= max_len:
             raise ValueError("largest bucket must leave room to decode")
         if quantize not in (None, "int8"):
@@ -157,6 +181,28 @@ class LLMEngine:
         self.eos_id = eos_id
         self.decode_chunk = max(1, decode_chunk)
         self.scheduler = PyScheduler(n_slots, self.buckets)
+        # -- the radix prefix cache (module docstring); the store holds
+        # max_prefixes largest-bucket prefixes' worth of blocks unless
+        # prefix_cache_blocks says otherwise
+        self.prefix_cache_enabled = bool(prefix_cache)
+        self.max_prefixes = max_prefixes
+        self.prefix_block_tokens = 0
+        self.kvcache: RadixKVCache | None = None
+        if prefix_cache:
+            bt = math.gcd(*self.buckets)
+            self.prefix_block_tokens = bt
+            if prefix_cache_blocks is None:
+                prefix_cache_blocks = (max(1, max_prefixes)
+                                       * (self.buckets[-1] // bt))
+            self.kvcache = RadixKVCache(bt, prefix_cache_blocks)
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        # request -> reused prefix length (cached_tokens), until release
+        self._cached_prefix: dict[int, int] = {}
+        # prefill tokens computed and reused, counted with or without the
+        # cache
+        self._prefill_computed_tokens = 0
+        self._prefill_reused_tokens = 0
         dev = self.device
         # -- slot state on the device: allocated once, updated in place
         self.cache = self._alloc_cache()
@@ -198,6 +244,7 @@ class LLMEngine:
         self._prompts: dict[int, list[int]] = {}
         self._req_samp: dict[int, tuple] = {}
         self._req_stop: dict[int, list[list[int]]] = {}
+        self._req_tenant: dict[int, str] = {}
         self._max_new: dict[int, int] = {}
         self._results: dict[int, list[int]] = {}
         self._logprobs: dict[int, list[float]] = {}
@@ -502,7 +549,8 @@ class LLMEngine:
                top_p: float = 1.0, presence_penalty: float = 0.0,
                frequency_penalty: float = 0.0, seed: int | None = None,
                stop: Sequence[Sequence[int]] | None = None,
-               deadline_s: float | None = None) -> int:
+               deadline_s: float | None = None,
+               tenant: str | None = None) -> int:
         """Queue one request. A prompt longer than the largest bucket is
         chunked; PromptTooLong when it is empty or its chain cannot fit
         max_len, QueueFull when the queue is full, ValueError for bad
@@ -511,11 +559,15 @@ class LLMEngine:
         draws depend on (seed, position) alone; `stop`: token sequences
         that end the request (finish reason "stop") and are removed from
         the result; `deadline_s`: past it the request is cancelled at the
-        next step."""
+        next step; `tenant`: the name the prefix cache's per-tenant rows
+        count the request under."""
         (temperature, top_k, top_p, presence_penalty, frequency_penalty,
          seed, stop_seqs) = self._validate_submit(
             prompt, temperature, top_k, top_p, presence_penalty,
             frequency_penalty, seed, stop, deadline_s, max_new_tokens)
+        if tenant is not None and (not isinstance(tenant, str)
+                                   or not 1 <= len(tenant) <= 256):
+            raise ValueError("tenant must be a string of 1..256 chars")
         # the scheduler sees the largest bucket for a chunked prompt: it
         # only picks the bucket; the engine keeps the true length
         sched_len = min(len(prompt), self.buckets[-1])
@@ -529,6 +581,8 @@ class LLMEngine:
                 self._req_stop[rid] = stop_seqs
             if deadline_s is not None:
                 self._deadlines[rid] = time.monotonic() + deadline_s
+            if tenant is not None:
+                self._req_tenant[rid] = tenant
             self._max_new[rid] = max_new_tokens
             self._results[rid] = []
             self._logprobs[rid] = []
@@ -601,19 +655,54 @@ class LLMEngine:
         return actions
 
     def _run_prefill_actions(self, actions: list[PrefillAction]) -> None:
-        """One batched prefill per prompt bucket and one chained prefill
-        per chunked prompt, all dispatched before any token is fetched."""
-        groups: dict[int, list[PrefillAction]] = {}
-        chunked = []
+        """One batched prefill per prompt bucket, one continuation wave
+        per (cached prefix, tail bucket) of prefix-cache hits and one
+        chained prefill per chunked prompt, all dispatched before any
+        token is fetched; then the hits are counted and unpinned, and
+        every dispatched prompt's prefix is banked."""
+        chunked: list[PrefillAction] = []
+        short: list[PrefillAction] = []
         for a in actions:
-            if len(self._prompts[a.req_id]) > a.bucket_len:
-                chunked.append(a)
-            else:
-                groups.setdefault(a.bucket_len, []).append(a)
+            (chunked if len(self._prompts[a.req_id]) > a.bucket_len
+             else short).append(a)
+        cont: list[tuple] = []       # (action, match, p, t)
+        normal = short
+        if self.prefix_cache_enabled:
+            normal = []
+            for a in short:
+                hit = self._prefix_lookup(a)
+                (cont.append((a,) + hit) if hit is not None
+                 else normal.append(a))
+        groups: dict[int, list[PrefillAction]] = {}
+        for a in normal:
+            groups.setdefault(a.bucket_len, []).append(a)
+        bt = self.prefix_block_tokens
+        cont_groups: dict[tuple[int, int], list] = {}
+        for a, m, p, t in cont:
+            # the chain truncated to p when the clamp shortened it; the
+            # pin holds the blocks until after the dispatch
+            cont_groups.setdefault((p, t), []).append(
+                (a, m.payloads[:p // bt]))
         dispatched = [(wave, self._dispatch_prefill_wave(bucket, wave))
                       for bucket, wave in groups.items()]
+        dispatched += [([a for a, _ in pairs],
+                        self._dispatch_prefill_cont_wave(p, t, pairs))
+                       for (p, t), pairs in cont_groups.items()]
         dispatched += [([a], self._dispatch_chunked_prefill(a))
                        for a in chunked]
+        for a, m, p, _ in cont:
+            self._prefix_hits += 1
+            self._cached_prefix[a.req_id] = p
+            self.kvcache.record_hit(self._req_tenant.get(a.req_id), p)
+            self._prefill_reused_tokens += p
+            self._prefill_computed_tokens += len(self._prompts[a.req_id]) - p
+            self.kvcache.release(m)
+        if self.prefix_cache_enabled:
+            # before the fetch: the last token of a request pops its
+            # prompt, and the rows only need the prefill dispatched
+            for wave, _ in dispatched:
+                for a in wave:
+                    self._bank_prefix_blocks(a)
         for wave, out in dispatched:
             out_np = out.cpu().numpy()    # one fetch per wave
             for i, a in enumerate(wave):
@@ -682,8 +771,39 @@ class LLMEngine:
         self._done.discard(req_id)
         for d in (self._results, self._logprobs, self._toplogprobs,
                   self._finish_reasons, self._submit_t,
-                  self._first_token_t):
+                  self._first_token_t, self._req_tenant,
+                  self._cached_prefix):
             d.pop(req_id, None)
+
+    def cached_tokens(self, req_id: int) -> int:
+        """Prompt tokens whose KV came from the prefix cache for this
+        request (the OpenAI usage `cached_tokens`): 0 before its prefill,
+        on a miss and with the cache off."""
+        return self._cached_prefix.get(req_id, 0)
+
+    def metrics(self) -> dict[str, Any]:
+        """The prefill and prefix-cache counters under the JAX engine's
+        keys: prefill_tokens_computed always; with the cache, the hit and
+        miss counts, the stored blocks and `prefix_cache` (the radix
+        stats with the per-request rates and the tokens saved)."""
+        out: dict[str, Any] = {
+            "prefill_tokens_computed": self._prefill_computed_tokens}
+        if self.kvcache is not None:
+            st = self.kvcache.stats()
+            looked = self._prefix_hits + self._prefix_misses
+            out["prefix_hits"] = self._prefix_hits
+            out["prefix_misses"] = self._prefix_misses
+            out["prefix_entries"] = st["blocks"]
+            out["prefix_cache"] = {
+                **st,
+                "request_hits": self._prefix_hits,
+                "request_misses": self._prefix_misses,
+                "request_hit_rate": (round(self._prefix_hits / looked, 4)
+                                     if looked else None),
+                "prefill_tokens_computed": self._prefill_computed_tokens,
+                "prefill_tokens_saved": self._prefill_reused_tokens,
+            }
+        return out
 
     # -- prefill -------------------------------------------------------------
 
@@ -699,6 +819,7 @@ class LLMEngine:
             p = self._prompts[a.req_id]
             tokens[i, :len(p)] = torch.tensor(p)
         plens = [len(self._prompts[a.req_id]) for a in wave]
+        self._prefill_computed_tokens += sum(plens)
         x, (ks, vs) = llama.prefill_hidden(self.params, tokens.to(dev),
                                            self.cfg)
         for i, a in enumerate(wave):
@@ -707,22 +828,87 @@ class LLMEngine:
         last = x[rows, torch.tensor(plens, device=dev) - 1]
         return self._prefill_finish(last, wave, plens)
 
+    def _dispatch_prefill_cont_wave(self, p: int, t: int,
+                                    pairs: list[tuple]) -> torch.Tensor:
+        """One batched continuation prefill of every prefix-cache hit that
+        shares (cached prefix p, tail bucket t): the tails (prompt[p:],
+        right-padded to t) run `llama.prefill_continue_hidden` against the
+        matched prefixes [L, W, p, kv, hd] (K3 at B=W, S=t, q_offset=p);
+        each slot gets the prefix rows (`_cont_writes_prefix`) and its
+        tail's rows, and its first token from its last prompt row. pairs:
+        (action, the matched chain's block payloads). Returns the packed
+        rows [W, cols] on the device, not fetched."""
+        dev = self.device
+        wave = [a for a, _ in pairs]
+        tokens = torch.zeros((len(wave), t), dtype=torch.long)
+        plens = []
+        for i, a in enumerate(wave):
+            tail = self._prompts[a.req_id][p:]
+            tokens[i, :len(tail)] = torch.tensor(tail)
+            plens.append(p + len(tail))
+        k_prefix, v_prefix = self._stack_prefix(
+            [self._materialize_prefix(payloads) for _, payloads in pairs])
+        x, ks, vs = llama.prefill_continue_hidden(
+            self.params, tokens.to(dev), k_prefix, v_prefix, self.cfg)
+        for i, a in enumerate(wave):
+            if self._cont_writes_prefix:
+                self._cache_write(a.slot, 0, p, k_prefix[:, i],
+                                  v_prefix[:, i])
+            self._cache_write(a.slot, p, t, ks[:, i], vs[:, i])
+        rows = torch.arange(len(wave), device=dev)
+        last = x[rows, torch.tensor(plens, device=dev) - p - 1]
+        return self._prefill_finish(last, wave, plens)
+
     def _dispatch_chunked_prefill(self, action: PrefillAction
                                   ) -> torch.Tensor:
         """Chained prefill of a prompt longer than the largest bucket: the
         first chunk is an ordinary bucket prefill, each further chunk runs
         `llama.prefill_continue_hidden` against the slot's own first rows
         (`_extract_prefix`, dequantized to the model dtype) and writes its
-        rows after them. Returns the packed row [1, cols]."""
+        rows after them. With the prefix cache the chain starts at the
+        longest cached prefix whose remaining chain fits max_len: the
+        first link continues from the matched blocks, written into the
+        slot first (`_cont_writes_prefix`). Returns the packed row
+        [1, cols]."""
         dev = self.device
         prompt = self._prompts[action.req_id]
         n, slot, big = len(prompt), action.slot, self.buckets[-1]
-        x, (ks, vs) = llama.prefill_hidden(
-            self.params, torch.tensor([prompt[:big]], device=dev), self.cfg)
-        self._cache_write(slot, 0, big, ks[:, 0], vs[:, 0])
-        done, last = big, None
-        for chunk_len, t in self._chunk_plan_from(n, big):
-            k_prefix, v_prefix = self._extract_prefix(slot, done)
+        bt = self.prefix_block_tokens
+        done, pending = 0, None
+        if self.prefix_cache_enabled and n - 1 >= bt:
+            tenant = self._req_tenant.get(action.req_id)
+            m = self.kvcache.match(prompt, max_tokens=n - 1,
+                                   namespace=self._prefix_ns)
+            done = m.tokens
+            while done > 0 and self._chunk_plan_from(n, done) is None:
+                done -= bt
+            if done > 0:
+                pending = self._materialize_prefix(m.payloads[:done // bt])
+                self._prefix_hits += 1
+                self._cached_prefix[action.req_id] = done
+                self.kvcache.record_hit(tenant, done)
+                self._prefill_reused_tokens += done
+            else:
+                self.kvcache.record_miss(tenant)
+                self._prefix_misses += 1
+            self.kvcache.release(m)
+        self._prefill_computed_tokens += n - done
+        if done == 0:
+            x, (ks, vs) = llama.prefill_hidden(
+                self.params, torch.tensor([prompt[:big]], device=dev),
+                self.cfg)
+            self._cache_write(slot, 0, big, ks[:, 0], vs[:, 0])
+            done = big
+        last = None
+        for chunk_len, t in self._chunk_plan_from(n, done):
+            if pending is not None:
+                k_prefix, v_prefix = pending
+                pending = None
+                if self._cont_writes_prefix:
+                    self._cache_write(slot, 0, done, k_prefix[:, 0],
+                                      v_prefix[:, 0])
+            else:
+                k_prefix, v_prefix = self._extract_prefix(slot, done)
             tail = torch.zeros((1, t), dtype=torch.long)
             tail[0, :chunk_len] = torch.tensor(prompt[done:done + chunk_len])
             x, ks, vs = llama.prefill_continue_hidden(
@@ -791,6 +977,95 @@ class LLMEngine:
             v = llama.dequantize_kv(v, c["v_s"][:, slot, :p][:, None],
                                     self.cfg.dtype)
         return k.to(self.cfg.dtype), v.to(self.cfg.dtype)
+
+    # -- the prefix cache ----------------------------------------------------
+
+    def _prefix_lookup(self, action: PrefillAction):
+        """(match, p, t) when the prompt's longest cached chain gives a
+        legal continuation: one tail token at least, the tail in a bucket
+        t with p + t <= max_len (p shrunk block by block until it fits).
+        None on a miss, or for a prompt too short to hold one block
+        (neither a hit nor a miss). The match returned is pinned until
+        the caller releases it after the dispatch."""
+        prompt = self._prompts[action.req_id]
+        bt = self.prefix_block_tokens
+        if len(prompt) - 1 < bt:
+            return None
+        tenant = self._req_tenant.get(action.req_id)
+        m = self.kvcache.match(prompt, max_tokens=len(prompt) - 1,
+                               namespace=self._prefix_ns)
+        p, t = m.tokens, None
+        while p > 0:
+            t = self._tail_bucket(len(prompt) - p)
+            if t is None:   # shrinking p only grows the tail
+                p = 0
+                break
+            if p + t <= self.max_len:
+                break
+            p -= bt
+        if p <= 0:
+            self.kvcache.release(m)
+            self.kvcache.record_miss(tenant)
+            self._prefix_misses += 1
+            return None
+        return m, p, t
+
+    def _materialize_prefix(self, payloads: list
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """A matched block chain -> (k, v) [L, 1, P, kv, hd] in the model
+        dtype: the blocks concatenated along the token axis, int8 blocks
+        dequantized only here (the store keeps them int8)."""
+        parts = [torch.cat([b[j] for b in payloads], dim=2)
+                 for j in range(len(payloads[0]))]
+        if self.kv_quantize == "int8":
+            kq, ks, vq, vs = parts
+            return (llama.dequantize_kv(kq, ks, self.cfg.dtype),
+                    llama.dequantize_kv(vq, vs, self.cfg.dtype))
+        return parts[0].to(self.cfg.dtype), parts[1].to(self.cfg.dtype)
+
+    @staticmethod
+    def _stack_prefix(entries: list) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-row materialized prefixes -> the wave's (k, v) prefix
+        [L, W, P, kv, hd]."""
+        return (torch.cat([e[0] for e in entries], dim=1),
+                torch.cat([e[1] for e in entries], dim=1))
+
+    def _extract_prefix_raw(self, slot: int, p: int) -> tuple:
+        """A slot's first p KV rows as they are stored, views
+        [L, 1, p, ...]: (k, k_scale, v, v_scale) on an int8 cache, else
+        (k, v)."""
+        names = (("k", "k_s", "v", "v_s") if self.kv_quantize == "int8"
+                 else ("k", "v"))
+        return tuple(self.cache[n][:, slot, :p][:, None] for n in names)
+
+    @staticmethod
+    def _payload_slice(parts: tuple, s: int, e: int) -> tuple:
+        """One block's payload: rows [s, e) of every part, copied into
+        tensors of its own (a view would keep the whole slot alive, and
+        evicting the block would free nothing)."""
+        return tuple(
+            a[:, :, s:e].clone(memory_format=torch.contiguous_format)
+            for a in parts)
+
+    def _bank_prefix_blocks(self, action: PrefillAction) -> None:
+        """After a prefill (a wave, a continuation or a chunked chain),
+        bank the slot's block-aligned prompt prefix: probe first (a chain
+        cached end to end costs nothing), then copy only the blocks the
+        trie does not hold yet."""
+        prompt = self._prompts.get(action.req_id)
+        if prompt is None:
+            return
+        bt = self.prefix_block_tokens
+        aligned = (len(prompt) // bt) * bt
+        if aligned <= 0 or self.kvcache.cached_prefix_len(
+                prompt, max_tokens=aligned,
+                namespace=self._prefix_ns) >= aligned:
+            return
+        parts = self._extract_prefix_raw(action.slot, aligned)
+        self.kvcache.insert(
+            prompt, lambda _i, s, e: self._payload_slice(parts, s, e),
+            max_tokens=aligned, tenant=self._req_tenant.get(action.req_id),
+            namespace=self._prefix_ns)
 
     # -- the decode program menu ---------------------------------------------
 

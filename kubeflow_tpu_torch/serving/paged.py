@@ -1,5 +1,5 @@
 """Paged KV serving (counterpart of kubeflow_tpu/serving/paged.py
-`PagedLLMEngine`, without the prefix cache).
+`PagedLLMEngine`).
 
 The slab engine sizes KV by the worst case, [n_slots, max_len] rows, so a
 short request strands max_len - len rows of memory in its slot.
@@ -18,6 +18,15 @@ admission funds each request with a reservation of blocks:
     slot as empty (`_mask_unfunded`), and it is retried first at every
     step. A reservation covers every token the request can deliver, so
     an admitted request always runs to its end.
+  - **Prefix cache** (`prefix_cache=True`): the radix payloads are pool
+    block ids. Banking a prefix is one pool reference per new block
+    (`_bank_prefix_blocks`, no copy); a hit splices the cached blocks
+    into the slot's table (`_splice_shared`) and funds only the uncached
+    suffix; under block pressure admission evicts unpinned trie blocks
+    before it holds a request (the eviction valve in `_fund`), and the
+    request's own match stays pinned through it. A trie eviction drops
+    the trie's reference (`_on_radix_evict`); the block returns to the
+    pool when no table names it and no chunk in flight can reach it.
   - **Junk writes** land in block 0, the pool's trash block: table
     entries past a reservation are 0, a finished slot's row is zeroed
     when it is released, held slots decode as inactive, and positions at
@@ -27,16 +36,16 @@ Prefill runs the slab path's K3 on the wave and scatters the rows through
 the table; writes quantize as the slab engine's do, and K2 reads the same
 keys in the same order, so the greedy tokens equal the slab engine's. A
 chunked prefill gathers the slot's prefix through its table
-(`_extract_prefix`) and writes each chunk's rows through it.
+(`_extract_prefix`) and writes each chunk's rows through it; a prefix
+hit's continuation gathers the cached blocks the same way and does not
+write the prefix again (the spliced blocks hold its bytes).
 
 Pipelined decode: a finished or cancelled slot's table row is zeroed at
 once (later junk writes go to block 0), but its blocks return to the
 pool only when no chunk is in flight (`_flush_derefs`): a dispatched,
 unfetched chunk still writes through the old table into them. The table
-itself is copied into the same device tensor the decode graphs read.
-
-Not ported yet: the radix prefix cache (banking blocks, splicing shared
-blocks, the eviction valve).
+itself is copied into the same device tensor the decode graphs read,
+after every splice as after every reservation.
 """
 
 from __future__ import annotations
@@ -55,6 +64,8 @@ from kubeflow_tpu_torch.serving.llm import LLMEngine
 class PagedLLMEngine(LLMEngine):
     """LLMEngine over block-granular paged KV (see the module
     docstring)."""
+
+    _cont_writes_prefix = False   # the spliced blocks hold the prefix
 
     def __init__(self, params, cfg: llama.LlamaConfig, *,
                  pool_blocks: int | None = None, **kw):
@@ -98,6 +109,11 @@ class PagedLLMEngine(LLMEngine):
                     f"paged KV needs block_tokens {bt} to divide every "
                     f"attention span (got {s}); pick buckets whose gcd "
                     "divides 128 and max_len")
+        if self.kvcache is not None:
+            # radix payloads are pool block ids: eviction drops a pool
+            # reference, and stats() reports the pool's free blocks
+            self.kvcache.attach_pool(self._pool)
+            self.kvcache.evict_hook = self._on_radix_evict
 
     # -- cache layout --------------------------------------------------------
 
@@ -146,10 +162,17 @@ class PagedLLMEngine(LLMEngine):
     def _extract_prefix(self, slot: int, p: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         """The slot's first p KV rows gathered through its table (p a
-        block multiple) as [L, 1, p, kv, hd] in the model dtype: the JAX
-        `_gather_blocks`."""
-        blks = self.cache["tbl"][slot, :p // self._bt].long()
+        block multiple) as [L, 1, p, kv, hd] in the model dtype."""
+        return self._gather_blocks(
+            self.cache["tbl"][slot, :p // self._bt].long())
+
+    def _gather_blocks(self, blks: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Pool blocks `blks` [nb] -> their rows as a slab-shaped
+        [L, 1, nb * bt, kv, hd] in the model dtype (the JAX
+        `_gather_blocks`), dequantized from int8 here."""
         c = self.cache
+        p = blks.shape[0] * self._bt
 
         def gather(name):
             g = c[name][:, blks]                       # [L, nb, bt, ...]
@@ -161,6 +184,94 @@ class PagedLLMEngine(LLMEngine):
             v = llama.dequantize_kv(v, gather("v_s"), self.cfg.dtype)
         return k.to(self.cfg.dtype), v.to(self.cfg.dtype)
 
+    # -- the prefix cache: zero-copy banking and splicing --------------------
+
+    def _materialize_prefix(self, payloads: list
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """A matched chain (pool block ids) -> its (k, v) prefix, gathered
+        from the pool."""
+        return self._gather_blocks(torch.tensor(
+            [int(b) for b in payloads], dtype=torch.long,
+            device=self.device))
+
+    def _extract_prefix_raw(self, slot: int, p: int) -> tuple:
+        raise RuntimeError("a paged engine banks block ids, not KV rows")
+
+    def _bank_prefix_blocks(self, action) -> None:
+        """Bank the slot's block-aligned prompt prefix as block ids: one
+        pool reference per new block, no copy. The trie's reference
+        keeps the block after the slot lets it go."""
+        prompt = self._prompts.get(action.req_id)
+        if prompt is None:
+            return
+        bt = self._bt
+        aligned = (len(prompt) // bt) * bt
+        if aligned <= 0 or self.kvcache.cached_prefix_len(
+                prompt, max_tokens=aligned,
+                namespace=self._prefix_ns) >= aligned:
+            return
+        row = self._tbl_host[action.slot]
+
+        def payload(_i, s, _e):
+            bid = int(row[s // bt])
+            self._pool.ref([bid])
+            return bid
+
+        self.kvcache.insert(prompt, payload, max_tokens=aligned,
+                            tenant=self._req_tenant.get(action.req_id),
+                            namespace=self._prefix_ns)
+
+    def _on_radix_evict(self, payload) -> None:
+        """A trie eviction drops the trie's reference, through the
+        deferred derefs: a chunk in flight may still write through a
+        table row that names the block."""
+        self._deferred_derefs.append(int(payload))
+        self._flush_derefs()
+
+    def _splice_shared(self, slot: int, ids: list[int]) -> None:
+        """Point the slot's leading table entries at the cached blocks
+        `ids` (one pool reference each) instead of the blocks admission
+        reserved there; those were taken this step and no dispatched work
+        names them, so they return to the pool at once. Funding already
+        splices, so on the engine's own paths this changes nothing."""
+        row = self._tbl_host[slot]
+        displaced = []
+        for i, bid in enumerate(ids):
+            if int(row[i]) == int(bid):
+                continue
+            self._pool.ref([int(bid)])
+            if row[i]:
+                displaced.append(int(row[i]))
+            row[i] = bid
+        if displaced:
+            self._pool.deref(displaced)
+
+    def _dispatch_prefill_cont_wave(self, p: int, t: int,
+                                    pairs: list[tuple]) -> torch.Tensor:
+        for a, ids in pairs:
+            self._splice_shared(a.slot, [int(b) for b in ids])
+        self._tbl_sync()
+        return super()._dispatch_prefill_cont_wave(p, t, pairs)
+
+    def _dispatch_chunked_prefill(self, action) -> torch.Tensor:
+        """The chunked chain with a cached head start: the reusable blocks
+        are spliced into the table first (the same match and clamp as the
+        base method's, which then gathers that chain)."""
+        prompt = self._prompts[action.req_id]
+        n, bt = len(prompt), self._bt
+        if self.kvcache is not None and n - 1 >= bt:
+            m = self.kvcache.match(prompt, max_tokens=n - 1,
+                                   namespace=self._prefix_ns)
+            done = m.tokens
+            while done > 0 and self._chunk_plan_from(n, done) is None:
+                done -= bt
+            if done > 0:
+                self._splice_shared(
+                    action.slot, [int(b) for b in m.payloads[:done // bt]])
+                self._tbl_sync()
+            self.kvcache.release(m)
+        return super()._dispatch_chunked_prefill(action)
+
     # -- admission: reservations and held prefills --------------------------
 
     def _need_blocks(self, action) -> int:
@@ -171,20 +282,74 @@ class PagedLLMEngine(LLMEngine):
         max_new = self._max_new[action.req_id]
         return -(-min(self.max_len, plen + max_new) // self._bt)
 
+    def _cached_prefix_match(self, action):
+        """(match, block ids) of the cached prefix the dispatch will
+        splice for this action, under the same clamp as the dispatch path
+        it takes (the chunked chain's schedulable boundary, or the tail
+        bucket inside max_len), so funding reserves only the uncached
+        suffix. The match is pinned; the caller releases it. Accounting
+        is the dispatch's."""
+        if self.kvcache is None:
+            return None, []
+        prompt = self._prompts.get(action.req_id)
+        bt = self._bt
+        if prompt is None or len(prompt) - 1 < bt:
+            return None, []
+        n = len(prompt)
+        m = self.kvcache.match(prompt, max_tokens=n - 1,
+                               namespace=self._prefix_ns)
+        p = m.tokens
+        if n > action.bucket_len:
+            while p > 0 and self._chunk_plan_from(n, p) is None:
+                p -= bt
+        else:
+            while p > 0:
+                t = self._tail_bucket(n - p)
+                if t is None:
+                    p = 0
+                    break
+                if p + t <= self.max_len:
+                    break
+                p -= bt
+        return m, [int(b) for b in m.payloads[:p // bt]]
+
     def _fund(self, action) -> bool:
-        """All-or-nothing reservation into the slot's table row."""
+        """All-or-nothing reservation into the slot's table row, with the
+        eviction valve. A cached prefix funds itself: the leading entries
+        name the shared blocks (one pool reference each) and only the
+        uncached suffix takes fresh blocks. When the pool is short,
+        unpinned trie blocks are evicted (recomputable state) before the
+        request is held; its own match stays pinned through the valve,
+        and a held request probes the cache again at every retry."""
         need = self._need_blocks(action)
-        ids = self._pool.alloc(need)
+        m, cached = self._cached_prefix_match(action)
+        alloc_need = need - len(cached)
+        ids = self._pool.alloc(alloc_need)
+        while ids is None and self.kvcache is not None:
+            deficit = alloc_need - self._pool.free_blocks
+            if self.kvcache.evict(max(1, deficit)) == 0:
+                break   # nothing evictable: hold
+            ids = self._pool.alloc(alloc_need)
         if ids is None:
+            if m is not None:
+                self.kvcache.release(m)
             return False
+        if cached:
+            self._pool.ref(cached)
+        if m is not None:
+            self.kvcache.release(m)
         row = self._tbl_host[action.slot]
         row[:] = 0
-        row[:need] = ids
+        row[:len(cached)] = cached
+        row[len(cached):need] = ids
         return True
 
     def _admit_prefills(self, actions: list) -> list:
+        self._flush_derefs()
         ready, held = [], []
         for a in self._held + list(actions):
+            if self.scheduler.slot_request(a.slot) != a.req_id:
+                continue   # cancelled while held
             (ready if self._fund(a) else held).append(a)
         self._held = held
         if ready:
@@ -263,5 +428,7 @@ class PagedLLMEngine(LLMEngine):
         self._flush_derefs()
 
     def metrics(self) -> dict[str, Any]:
-        return {"kv_pool": self._pool.stats(),
-                "held_prefills": len(self._held)}
+        out = super().metrics()
+        out["kv_pool"] = self._pool.stats()
+        out["held_prefills"] = len(self._held)
+        return out

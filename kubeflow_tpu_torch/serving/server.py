@@ -4,11 +4,12 @@ completion and readiness routes of kubeflow_tpu/serving/server.py):
     POST /openai/v1/completions   {"prompt": str | [ids], "max_tokens",
                                    "temperature", "top_k", "top_p", "stop",
                                    "presence_penalty", "frequency_penalty",
-                                   "seed", "logprobs", "timeout"}
+                                   "seed", "logprobs", "timeout", "user"}
          -> {"choices": [{"text", "token_ids", "finish_reason",
                           "logprobs"?}],
              "usage": {"prompt_tokens", "completion_tokens",
-                       "total_tokens"}}
+                       "total_tokens", "cached_tokens"?,
+                       "prompt_tokens_details"?: {"cached_tokens"}}}
     GET  /v2/health/ready         -> {"ready": true}
 
 `stop` is a string, or a list of up to 8 strings (encoded by the
@@ -18,6 +19,10 @@ top-N alternatives, as OpenAI's `logprobs` object (`tokens`,
 `token_logprobs`, `top_logprobs` keyed by token id). A request's
 `timeout` seconds, or else the server's `timeout_s` (the ISVC key),
 becomes the engine's deadline: past it the request ends "cancelled".
+`user` (1..256 characters) is the engine's tenant, the row the prefix
+cache counts the request under. On an engine with the prefix cache,
+`usage` carries the prompt tokens whose KV the cache supplied, as
+`cached_tokens` and under `prompt_tokens_details`.
 
 A `ThreadingHTTPServer` answers each request on its own thread; one
 engine thread runs `engine.step()` while there is work and sleeps on a
@@ -41,6 +46,7 @@ from kubeflow_tpu_torch.serving.tokenizer import ByteTokenizer
 #: examples/llama-8b-serving-isvc.yaml that this engine implements)
 CONFIG_KEYS = ("quantize", "kv_quantize", "n_slots", "max_len", "buckets",
                "decode_chunk", "pipeline_decode", "logprobs_topk",
+               "prefix_cache", "max_prefixes", "prefix_cache_blocks",
                "timeout_s")
 
 
@@ -220,6 +226,10 @@ class CompletionServer:
                                  or isinstance(seed, bool) or seed < 0):
             raise BadRequest("seed must be a non-negative integer")
         deadline = body.get("timeout", self.timeout_s)
+        user = body.get("user")
+        if user is not None and (not isinstance(user, str)
+                                 or not 1 <= len(user) <= 256):
+            raise BadRequest("user must be a string of 1..256 chars")
         try:
             rid = self.engine.submit(
                 ids, int(body.get("max_tokens", 16)),
@@ -229,7 +239,8 @@ class CompletionServer:
                 presence_penalty=float(body.get("presence_penalty", 0.0)),
                 frequency_penalty=float(body.get("frequency_penalty", 0.0)),
                 seed=seed, stop=stop,
-                deadline_s=None if deadline is None else float(deadline))
+                deadline_s=None if deadline is None else float(deadline),
+                tenant=user)
         except (TypeError, ValueError) as e:
             if isinstance(e, PromptTooLong):
                 raise
@@ -260,10 +271,13 @@ class CompletionServer:
                         d.items(), key=lambda kv: -kv[1])[:lp_n]}
                     for d in self.engine.result_top_logprobs(rid)]
             choice["logprobs"] = logprobs
+        usage = {"prompt_tokens": len(ids), "completion_tokens": len(tokens),
+                 "total_tokens": len(ids) + len(tokens)}
+        if self.engine.prefix_cache_enabled:
+            cached = min(len(ids), self.engine.cached_tokens(rid))
+            usage["cached_tokens"] = cached
+            usage["prompt_tokens_details"] = {"cached_tokens": cached}
         self.engine.release(rid)
         return {"id": f"cmpl-{rid}", "object": "text_completion",
                 "created": int(time.time()), "model": self.model,
-                "choices": [choice],
-                "usage": {"prompt_tokens": len(ids),
-                          "completion_tokens": len(tokens),
-                          "total_tokens": len(ids) + len(tokens)}}
+                "choices": [choice], "usage": usage}

@@ -174,8 +174,13 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
       kv_gather            — paged engines: the span read through the
                              tables less a contiguous read of the same
                              volume (None on the slab engine);
-      kv_handoff, pipeline_bubble — None: the port has no prefix cache
-                             and no stage-sharded engine.
+      kv_handoff           — None: the JAX breakdown prices moving one
+                             prefix-cache block between engines through
+                             serving/disagg.py's KVHandoff, which the
+                             port does not have yet; on a paged engine
+                             it is None by design (banking is refcounts
+                             on pool blocks, nothing moves);
+      pipeline_bubble      — None: the port has no stage-sharded engine.
 
     weight_read + attention_kv_update + sampling_penalties is the
     measured device step (device_step_ms): the stripped chunk's time is

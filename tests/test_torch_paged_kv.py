@@ -379,9 +379,11 @@ def test_paged_ctor_validation(tiny, monkeypatch):
         # bt 48 divides max_len 144 but not the span 128
         PagedLLMEngine(tparams, tcfg, n_slots=2, max_len=144, buckets=(48,),
                        device="cpu")
-    with pytest.raises(TypeError):
-        PagedLLMEngine(tparams, tcfg, prefix_cache=True, device="cpu",
-                       **ENGINE)
+    # the prefix cache's payloads are this pool's block ids
+    eng = PagedLLMEngine(tparams, tcfg, prefix_cache=True, device="cpu",
+                         **ENGINE)
+    assert eng.kvcache is not None and eng.kvcache._pool is eng._pool
+    assert eng.kvcache.evict_hook == eng._on_radix_evict
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedLLMEngine(tparams, tcfg, **ENGINE)
