@@ -17,9 +17,14 @@ Phases, in order; any failure exits non-zero before the result line:
       plain version's and one PyTorch library call's time (CUDA events,
       after warm-up, weights rotated through copies larger than the L2
       cache), and the bound (bytes at 3.35 TB/s or operations at
-      989 TFLOP/s, whichever is larger); K1 at m = 1, 8, 13, 32 and 128;
-      K2 also at S_v = 8, at span 200, with every length 0 and with one
-      slot far past the others in a longer slab; K3 also at the engine's
+      989 TFLOP/s, whichever is larger); K1 at m = 1, 8, 13, 32 and 128,
+      and at the verify rows of speculation at 16 slots, m = 48, 80 and
+      112, each summed over one 8B verify round (m = 32 too) beside
+      torch.matmul's sum and the round's bound; K2 also at S_v = 8, at
+      span 200, with every length 0 and with one slot far past the others
+      in a longer slab, and at B=16 span 2048 int8 with S_v = 7, 9 and 17
+      (28, 36 and 68 query rows a kv head: one, two and three 32-row
+      groups), slab and paged (bt 128); K3 also at the engine's
       1024-token wave, at 1, 2, 3 and 8 query heads per kv head (hd 64),
       and as a ragged int8 continuation in a longer slab; every K1, K2
       and K3 case launched twice for the same bits; K2's paged mode
@@ -99,6 +104,24 @@ Phases, in order; any failure exits non-zero before the result line:
       prompt tokens computed and reused, the warmups and the store's
       bytes; then K3 against its plain version at each continuation shape
       it launched at;
+  (e5) speculation: the ISVC's whole engine config (the flagship
+      settings with prefix_cache and speculative 6, spec_ngram 3, the
+      adaptive draft length) over (e)'s weights: a slab LLMEngine (run
+      twice, the store evicted between), a 128-block PagedLLMEngine and
+      the same slab engine without speculation, each warmed up (the
+      speculative ones capture the verify menu: 14 keys x 2 variants),
+      serve (e3)'s burst, then a burst of four copy-heavy prompts (a
+      300-token passage quoted twice). It holds: no capture after
+      warmup; tokens equal slab/paged/repeat; each greedy row (not
+      sampled, penalized or cancelled) equal to the plain engine's, or
+      first different where the plain run's top-2 logprob gap is under
+      E5_GAP; finite logprobs with a top-5 list for every token; K1, K2
+      (at S_v > 1), K2-paged and K3 launched, 225 K1 launches a round;
+      one verify chunk's graph replay bit for bit its eager body. Prints
+      each differing row and its gap, decode tokens/s and TTFT of (e3)'s
+      burst with and without speculation, the spec_* metrics, warmups and
+      graph pools; then K2 and K2-paged against their plain versions at
+      each verify S_v the runs launched;
   (f) engine shapes: every kernel again against its plain version, at
       each argument shape the wrappers recorded in (e) (prefill waves,
       decode spans, lm_head rows, the paged engine's K2-paged launches),
@@ -148,7 +171,9 @@ Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the paged engine's run for
 K2-paged, the paged serving breakdown for K3-paged, the trainer for
-B1-B3); the last line is {"ok": true, "device": {...}}.
+B1-B3), then K1, K2 and K2-paged again at (e5)'s verify shapes (K1's
+verify round at the row count (e5) launched most, with its launches
+there); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab OTHER_TREE
 
@@ -209,6 +234,9 @@ DEV = "cuda"
 K1_LAYER = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2,
             (14336, 4096): 1}
 K1_HEAD = (4096, 128256)
+# K1's rows in one verify round of speculation at the ISVC's 16 slots:
+# m = 16 (kd + 1) for the draft lengths kd 1, 2, 4, 6 of `speculative: 6`
+K1_VERIFY_M = (32, 48, 80, 112)
 
 SERVING_KERNELS = ("quant_matmul", "flash_decode", "flash_prefill")
 PAGED_KERNELS = ("quant_matmul", "flash_decode_paged", "flash_prefill")
@@ -764,39 +792,50 @@ def fmt(case: dict) -> str:
                else ""))
 
 
-def kernel_phase(gen) -> dict:
+def k1_round() -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
+            "nbytes": 0.0, "ops": 0.0}
+
+
+def kernel_phase(gen) -> tuple[dict, dict]:
     """Every case of (c); returns K1's entry for the kernels line, one 8B
-    decode step (the engine's decode shapes, m = 8 slots)."""
-    k1_step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "err": 0.0}
-    bytes_step = ops_step = 0.0
+    decode step (the engine's decode shapes, m = 8 slots), and K1's sum
+    over one 8B verify round at each m of K1_VERIFY_M."""
+    rounds = {m: k1_round() for m in (8,) + K1_VERIFY_M}
     # m = 13 and 128: the kernel's activation tile edge (13 rounds up to
-    # 16) and the gate's top
-    for m in (1, 8, 13, 32, 128):
+    # 16) and the gate's top; 48, 80 and 112 (verify rounds) only in the
+    # output type the engine asks for
+    for m in (1, 8, 13, 32, 48, 80, 112, 128):
         for (d, o) in list(K1_LAYER) + [K1_HEAD]:
+            engine_od = (torch.float32 if (d, o) == K1_HEAD
+                         else torch.bfloat16)
             for od in (torch.bfloat16, torch.float32):
+                if m in (48, 80, 112) and od != engine_od:
+                    continue
                 c = k1_case(gen, m, d, o, od)
                 print(f"K1 m={m} d={d} o={o} out={od}: {fmt(c)}",
                       flush=True)
-                main = (m == 8 and (((d, o) == K1_HEAD
-                                     and od == torch.float32)
-                                    or ((d, o) in K1_LAYER
-                                        and od == torch.bfloat16)))
-                if main:   # one 8B decode step at 8 slots
+                if m in rounds and od == engine_od:
+                    # one 8B decode step (m = 8) or verify round
                     mult = 1 if (d, o) == K1_HEAD else 32 * K1_LAYER[d, o]
+                    r = rounds[m]
                     for key in ("ms", "plain_ms", "library_ms"):
-                        k1_step[key] += mult * c[key]
-                    k1_step["err"] = max(k1_step["err"], c["err"])
+                        r[key] += mult * c[key]
+                    r["err"] = max(r["err"], c["err"])
                     ob = 4 if od == torch.float32 else 2
-                    bytes_step += mult * (m * d * 2 + d * o + o * 4
-                                          + m * o * ob)
-                    ops_step += mult * 2.0 * m * d * o
-    k1_step["bound_ms"], k1_step["bound_by"] = bound_ms(bytes_step,
-                                                        ops_step)
-    print(f"K1 one decode step (8 slots, 32 layers + lm_head): "
-          f"ms={k1_step['ms']:.4f} plain_ms={k1_step['plain_ms']:.4f} "
-          f"library_ms={k1_step['library_ms']:.4f} "
-          f"bound_ms={k1_step['bound_ms']:.4f}", flush=True)
+                    r["nbytes"] += mult * (m * d * 2 + d * o + o * 4
+                                           + m * o * ob)
+                    r["ops"] += mult * 2.0 * m * d * o
+    for m, r in rounds.items():
+        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("nbytes"),
+                                                r.pop("ops"))
+        what = ("decode step (8 slots" if m == 8 else
+                f"verify round (16 slots x {m // 16} rows")
+        print(f"K1 one {what}, 32 layers + lm_head, m={m}): "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    k1_step = rounds.pop(8)
     for s_v in (1, 4):
         for span in (128, 2048):
             for int8 in (True, False):
@@ -818,6 +857,16 @@ def kernel_phase(gen) -> dict:
         c = k2_case(gen, **kw)
         desc = " ".join(f"{k}={v}" for k, v in kw.items())
         print(f"K2 B=8 {desc}: {fmt(c)}", flush=True)
+    # verify rows at the ISVC's 16 slots: S_v = 7 (speculative 6, 28 rows a
+    # kv head), 9 and 17 (36 and 68 rows: two and three 32-row groups;
+    # 17 is speculative 16), slab and paged
+    for s_v in (7, 9, 17):
+        c = k2_case(gen, s_v, 2048, True, b=16)
+        print(f"K2 B=16 S_v={s_v} span=2048 int8=True: {fmt(c)}",
+              flush=True)
+        c = k2_paged_case(gen, s_v, 2048, 128, True, b=16)
+        print(f"K2-paged B=16 S_v={s_v} span=2048 bt=128 int8=True: "
+              f"{fmt(c)}", flush=True)
     for s_v in (1, 4):
         for span in (1024, 2048):
             for bt in (16, 64, 128):
@@ -853,8 +902,8 @@ def kernel_phase(gen) -> dict:
         desc = " ".join(f"{k}={v}" for k, v in kw.items())
         print(f"K3-paged {desc}: {fmt(c)}", flush=True)
         torch.cuda.empty_cache()
-    return dict(k1_step, shape="one 8B decode step: 224 int8 matmuls at "
-                "m=8 + lm_head")
+    return (dict(k1_step, shape="one 8B decode step: 224 int8 matmuls at "
+                 "m=8 + lm_head"), rounds)
 
 
 # -- (d) small-model reference ------------------------------------------------
@@ -1630,10 +1679,11 @@ def stop_cut(tokens, stop):
     return None
 
 
-def graph_equals_eager(engine, seed) -> None:
-    """One chunk (8 steps, span 2048, both variants) from equal state: the
-    replay of its captured graph bit for bit the eager body, in the output
-    rows, the slot state and the KV cache."""
+def graph_equals_eager(engine, seed, kd=None, label="e3") -> None:
+    """One chunk (8 steps, span 2048, both variants; with kd, 8 verify
+    rounds of kd drafts) from equal state: the replay of its captured
+    graph bit for bit the eager body, in the output rows, the slot state
+    (the token history too) and the KV cache."""
     n, v = engine.n_slots, engine.cfg.vocab_size
     gen = torch.Generator(device=DEV).manual_seed(seed)
     lengths = torch.randint(100, 1900, (n,), generator=gen, device=DEV,
@@ -1662,16 +1712,20 @@ def graph_equals_eager(engine, seed) -> None:
             engine._active_dev.copy_(active)
             if run == "graph":
                 replays = engine.graph_stats()["replays"]
-                out = engine._decode_chunk(8, 2048, active, sample).clone()
+                out = (engine._decode_chunk(8, 2048, active, sample)
+                       if kd is None else
+                       engine._spec_chunk(8, 2048, kd, active, sample))
+                out = out.clone()
                 check(engine.graph_stats()["replays"] == replays + 1,
-                      "e3: the chunk was not a graph replay")
+                      f"{label}: the chunk was not a graph replay")
             else:
-                out = engine._decode_body(8, 2048, sample)
+                out = (engine._decode_body(8, 2048, sample) if kd is None
+                       else engine._spec_body(8, 2048, kd, sample))
             outs.append([out, *(t.clone() for t in engine._chunk_state()),
                          *(engine.cache[k].clone() for k in kv)])
         same = [torch.equal(a, b) for a, b in zip(*outs)]
-        check(all(same), f"e3: graph replay differs from the eager body "
-                         f"(sample={sample}): {same}")
+        check(all(same), f"{label}: graph replay differs from the eager "
+                         f"body (sample={sample}): {same}")
     del kv, outs
     engine.lengths.zero_()
     engine.last_tokens.zero_()
@@ -1679,7 +1733,7 @@ def graph_equals_eager(engine, seed) -> None:
     engine._samp_host[:] = engine._samp_reset()
     engine.samp.copy_(torch.from_numpy(engine._samp_host))
     engine._active_host = None
-    print("e3: one chunk's graph replay is bit for bit the eager body "
+    print(f"{label}: one chunk's graph replay is bit for bit the eager body "
           "(rows, slot state, KV cache; sampled and greedy variants)",
           flush=True)
 
@@ -2159,6 +2213,251 @@ def prefix_cache_phase(engine, seed: int):
           "store bytes as reckoned, the valve fired, hits within tolerance "
           "of cold", flush=True)
     return k3_shapes
+
+
+# (e5): speculation on the flagship engines: the ISVC's whole engine config
+# (examples/llama-8b-serving-isvc.yaml: FLAGSHIP with prefix_cache and
+# `speculative: 6`, spec_ngram 3, the adaptive draft length) over (e)'s
+# weights. The traffic is (e3)'s burst of 16 rows (the same prompts,
+# sampling, stop and cancel rows), then a burst of E5_COPY copy-heavy
+# prompts: a random passage of E5_PASSAGE tokens quoted twice around a
+# short question, where prompt-lookup drafting has text to find. Each
+# burst fits the 16 slots, so every engine prefills it in the same waves.
+# A slab and a 128-block paged engine with speculation and the same slab
+# engine without it, each warmed up, serve it; the slab engines twice,
+# every cached block evicted between, so each run is cold.
+E5_SPEC = dict(prefix_cache=True, speculative=6, spec_ngram=3,
+               spec_adaptive=True)
+E5_COPY = 4
+E5_PASSAGE = 300
+# A greedy row with speculation against the same engine without it: equal,
+# or first different where the plain run's top two logprobs lie less than
+# E5_GAP nats apart. A verify round computes a row's logits in products of
+# 16 (kd + 1) rows where a decode step has 16; K1 sums each output in the
+# same order at every row count, so only a near-tie could flip.
+E5_GAP = 2 ** -5
+
+
+def e5_prompts(cfg, seed: int) -> tuple[list, list]:
+    """(e3)'s prompts, and the copy-heavy ones."""
+    gen = torch.Generator().manual_seed(seed + 3)
+    e3 = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+          for n in E3_PLENS]
+    gen = torch.Generator().manual_seed(seed + 5)
+
+    def rand(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    copy = []
+    for i in range(E5_COPY):
+        passage = rand(E5_PASSAGE)
+        copy.append(rand(8) + passage + rand(12 + i) + passage)
+    return e3, copy
+
+
+def e5_run(engine, prompts, kws, label):
+    """One cold run of the two bursts ((e3)'s with its cancel row, then
+    the copy rows), then every cached block evicted; returns the rows of
+    both, each burst's stats and the metrics.
+    A speculative engine starts from a new engine's acceptance estimates:
+    the tokens-per-round EMA sizes the chunks, and so decides which
+    queued requests share a prefill wave, whose batched GEMMs round each
+    row differently; a repeat then takes the first run's schedule."""
+    if engine.spec:
+        engine._spec_round_ema = None
+        engine._spec_adapt.ema[:] = engine.spec
+    captures = engine.graph_stats()["captures"]
+    e3, copy = prompts
+    rows, stats = run_batch(engine, e3, E3_NEW, kws, cancel_row=E3_CANCEL)
+    copy_rows, copy_stats = run_batch(engine, copy, E3_NEW)
+    rows += copy_rows
+    stats = {"e3 burst": stats, "copy burst": copy_stats}
+    metrics = engine.metrics()
+    check(engine.graph_stats()["captures"] == captures,
+          f"e5 {label}: a decode graph was captured after warmup")
+    for i, row in enumerate(rows):
+        check(len(row["logprobs"]) == len(row["tokens"]) == len(row["top"])
+              and all(math.isfinite(lp) and lp <= 0
+                      for lp in row["logprobs"])
+              and all(math.isfinite(v) for top in row["top"]
+                      for v in top.values()),
+              f"e5 {label}: row {i}: bad logprobs")
+    engine.kvcache.evict(10**9)
+    return rows, stats, metrics
+
+
+def first_diff(a, b) -> int | None:
+    """The first position where token lists a and b differ (the shorter
+    one's end when one is the other's prefix), or None when equal."""
+    if a == b:
+        return None
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def spec_phase(engine, seed: int):
+    """(e5): see E5_* above; returns the launch shapes of the
+    speculative slab and paged runs."""
+    cfg = engine.cfg
+    prompts = e5_prompts(cfg, seed)
+    runs, warmup_s, pool_mb, launches, shapes = {}, {}, {}, {}, {}
+    kws = None
+    for label, spec, pool in (("plain", False, None), ("slab", True, None),
+                              ("paged", True, E3_POOL_BLOCKS)):
+        kw = dict(FLAGSHIP, **(E5_SPEC if spec else
+                               dict(E5_SPEC, speculative=None)))
+        eng = (PagedLLMEngine(engine.params, cfg, device=DEV,
+                              pool_blocks=pool, **kw) if pool
+               else LLMEngine(engine.params, cfg, device=DEV, **kw))
+        warmup_s[label] = warm(eng, f"e5 {label}")
+        pool_mb[label] = eng.graph_stats()["pool_bytes"] / 1e6
+        if kws is None:   # the plain run without stops sets them
+            runs["plain free"] = e5_run(eng, prompts, e3_kwargs(),
+                                        "plain")
+            free = runs["plain free"][0]
+            stops = {i: free[i]["tokens"][j:j + n]
+                     for i, j, n in ((E3_STOP[0], 10, 2),
+                                     (E3_STOP[1], 6, 3))}
+            kws = e3_kwargs(stops)
+        _build.reset_launches()
+        eng.perf_counters(reset=True)
+        runs[label] = e5_run(eng, prompts, kws, label)
+        launches[label] = dict(_build.LAUNCHES)
+        shapes[label] = {k: dict(v) for k, v in _build.SHAPES.items()}
+        rounds = eng.perf_counters()["decode_steps"]
+        if label != "paged":
+            runs[f"{label} repeat"] = e5_run(eng, prompts, kws, label)
+        if label == "slab":
+            graph_equals_eager(eng, seed, kd=E5_SPEC["speculative"],
+                               label="e5")
+        if spec:
+            m = runs[label][2]
+            check(m["spec_verify_rounds"] > 0 and rounds > 0,
+                  f"e5 {label}: no verify round")
+            verify_k1 = {key: n for key, n in
+                         shapes[label]["quant_matmul"].items()
+                         if dict(key)["m"] in K1_VERIFY_M}
+            by_m = {}
+            for key, n in verify_k1.items():
+                by_m[dict(key)["m"]] = by_m.get(dict(key)["m"], 0) + n
+            print(f"e5 {label}: {rounds} verify rounds on the card; K1 "
+                  f"launches at verify rows {json.dumps(by_m)}, "
+                  f"{sum(by_m.values()) / rounds:.2f} a round", flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    slab = runs["slab"][0]
+    for label in ("slab repeat", "paged"):
+        for i, (got, want) in enumerate(zip(runs[label][0], slab)):
+            if i == E3_CANCEL:
+                continue
+            check(got["tokens"] == want["tokens"],
+                  f"e5 {label}: row {i} differs from the slab engine's")
+    cancelled = [runs[k][0][E3_CANCEL] for k in ("slab", "slab repeat",
+                                                 "paged")]
+    longest = max((r["tokens"] for r in cancelled), key=len)
+    check(all(r["reason"] == "cancelled" and len(r["tokens"]) >= E3_CANCEL_AT
+              and r["tokens"] == longest[:len(r["tokens"])]
+              for r in cancelled), "e5: the cancelled row")
+    # against speculation off
+    free = runs["plain free"][0]
+    plain = runs["plain"][0]
+    diffs, greedy = [], 0
+    for i, row in enumerate(slab):
+        if i in E3_SEEDED or i in E3_PENALIZED or i == E3_CANCEL:
+            continue
+        greedy += 1
+        ref = free[i]["tokens"]
+        if i in E3_STOP:
+            stop = kws[i]["stop"][0]
+            ref = stop_cut(ref, stop)
+            check(plain[i]["tokens"] == ref and plain[i]["reason"] == "stop",
+                  f"e5 plain: stop row {i} was not cut")
+        j = first_diff(row["tokens"], ref)
+        if j is None:
+            continue
+        top = sorted(free[i]["top"][j].values(), reverse=True)
+        gap = top[0] - top[1]
+        diffs.append((i, j, gap))
+        print(f"e5: greedy row {i} first differs from the plain run at "
+              f"token {j}: top-2 gap {gap:.5f} nats there", flush=True)
+        check(gap < E5_GAP, f"e5: greedy row {i} differs from the plain "
+                            f"run at token {j}, where its top-2 gap is "
+                            f"{gap:.5f} >= {E5_GAP}")
+    for label, want_k in (("slab", SERVING_KERNELS),
+                          ("paged", PAGED_KERNELS)):
+        for name in want_k:
+            check(launches[label][name] > 0,
+                  f"e5 {label}: {name} never launched")
+    check(any(dict(k)["s_v"] > 1 for k in shapes["slab"]["flash_decode"])
+          and any(dict(k)["s_v"] > 1
+                  for k in shapes["paged"]["flash_decode_paged"]),
+          "e5: K2 never ran a verify round")
+    check(launches["paged"]["flash_decode"] == 0,
+          "e5 paged: K2-slab launched")
+    m = runs["slab repeat"][2]
+    stats = runs["slab repeat"][1]["e3 burst"]
+    pstats = runs["plain"][1]["e3 burst"]
+    spec_keys = {k: v for k, v in m.items() if k.startswith("spec_")}
+    print(f"e5 speculation (second slab run): {json.dumps(spec_keys)}; "
+          f"(e3)'s burst: decode {stats['decode_tok_s']:.1f} tok/s, TTFT "
+          f"mean {stats['ttft_mean_s']:.4f} s max {stats['ttft_max_s']:.4f} "
+          "s; "
+          f"without speculation (plain engine, stops set): decode "
+          f"{pstats['decode_tok_s']:.1f} tok/s, TTFT mean "
+          f"{pstats['ttft_mean_s']:.4f} s max {pstats['ttft_max_s']:.4f} s; "
+          f"copy rows' tokens per row "
+          f"{[len(r['tokens']) for r in slab[-E5_COPY:]]}; greedy rows "
+          f"differing from the plain run {len(diffs)}/{greedy} "
+          f"{json.dumps(diffs)}; warmup s "
+          f"{json.dumps({k: round(v, 2) for k, v in warmup_s.items()})}; "
+          "graph pool MB "
+          f"{json.dumps({k: round(v, 1) for k, v in pool_mb.items()})}",
+          flush=True)
+    for label in ("slab", "slab repeat", "paged", "plain", "plain free"):
+        print(f"e5 {label} run: {json.dumps(runs[label][1])}", flush=True)
+    print(f"e5 launches: slab {json.dumps(launches['slab'])}; paged "
+          f"{json.dumps(launches['paged'])}", flush=True)
+    print("e5: no capture after warmup, tokens equal slab/paged/repeat, "
+          "greedy rows equal the plain engine's or differ first at a "
+          "near-tie, logprobs finite", flush=True)
+    return shapes
+
+
+def verify_shape_phase(gen, shapes) -> dict:
+    """K2 and K2-paged against their plain versions, with their times, at
+    each verify S_v the (e5) runs launched them at (the span launched most
+    often for each); returns each one's kernels-line entry at the verify
+    shape launched most often, with its launches in (e5)."""
+    out = {}
+    for label, name in (("slab", "flash_decode"),
+                        ("paged", "flash_decode_paged")):
+        best_by_sv: dict[int, tuple] = {}
+        for key, n in shapes[label][name].items():
+            a = dict(key)
+            if a["s_v"] > 1 and n > best_by_sv.get(a["s_v"], (0,))[0]:
+                best_by_sv[a["s_v"]] = (n, key)
+        best = None
+        for s_v, (n, key) in sorted(best_by_sv.items()):
+            a = dict(key)
+            desc = " ".join(f"{k}={v}" for k, v in key)
+            if name == "flash_decode":
+                c = k2_case(gen, s_v, a["t"], a["int8"], b=a["b"],
+                            nh=a["nh"], nkv=a["nkv"], hd=a["hd"],
+                            slot_stride=a["slot_stride"])
+            else:   # a pool that holds ragged lengths up to the span
+                desc += " (timed over 1.5 b nb + 1 pool blocks)"
+                c = k2_paged_case(gen, s_v, a["nb"] * a["bt"], a["bt"],
+                                  a["int8"], b=a["b"], nh=a["nh"],
+                                  nkv=a["nkv"], hd=a["hd"])
+            print(f"e5 shape {name} {desc} launches={n}: {fmt(c)}",
+                  flush=True)
+            if best is None or n > best[0]:
+                best = (n, dict(c, launches=n, shape=(
+                    f"one verify launch at the (e5) engine's {desc}")))
+        check(best is not None, f"e5: no verify shape of {name}")
+        out[name] = best[1]
+    return out
 
 
 def fill_tables(engine, seed: int = 5) -> None:
@@ -2661,7 +2960,7 @@ def main(argv=None) -> int:
         print(f"phase {name}: {seconds[name]} s", flush=True)
         return out
 
-    k1_step = phase("c kernels", kernel_phase, gen)
+    k1_step, k1_rounds = phase("c kernels", kernel_phase, gen)
     phase("d reference", reference_phase, args.seed)
     engine, launches, shapes, prompts, tokens = phase(
         "e engine", engine_phase, args.seed)
@@ -2676,6 +2975,9 @@ def main(argv=None) -> int:
     e4_k3_shapes = phase("e4 prefix cache", prefix_cache_phase, engine,
                          args.seed)
     phase("e4 K3 shapes", continuation_shape_phase, gen, e4_k3_shapes, "e4")
+    e5_shapes = phase("e5 speculation", spec_phase, engine, args.seed)
+    verify_cases = phase("e5 verify shapes", verify_shape_phase, gen,
+                         e5_shapes)
     cases = {"quant_matmul": k1_step,
              **phase("f engine shapes", engine_shape_phase, gen, shapes)}
     phase("f step breakdown", step_breakdown, engine)
@@ -2712,6 +3014,29 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"kubeflow_tpu_torch/csrc/{source}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": c["err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": c["shape"]})
+    # the verify shapes of (e5): K1's verify round at the row count (e5)
+    # launched most, K2 and K2-paged at their most launched verify shape
+    by_m: dict[int, int] = {}
+    for key, n in e5_shapes["slab"]["quant_matmul"].items():
+        m = dict(key)["m"]
+        if m in K1_VERIFY_M:
+            by_m[m] = by_m.get(m, 0) + n
+    m = max(by_m, key=by_m.get)
+    verify_cases["quant_matmul"] = dict(
+        k1_rounds[m], launches=by_m[m],
+        shape=f"one 8B verify round (e5): 224 int8 matmuls at m={m} + "
+              "lm_head")
+    for name in ("quant_matmul", "flash_decode", "flash_decode_paged"):
+        c = verify_cases[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"kubeflow_tpu_torch/csrc/"
+                      f"{name.removesuffix('_paged')}.cu",
+            "replaces": REPLACES[name], "launches": c["launches"],
             "max_abs_err": c["err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],

@@ -24,8 +24,18 @@
 // operations per byte. At 8B width, 8 slots at position 1000 read 16.5 MB
 // a layer, about 5 us at 3.35 TB/s.
 //
-// Design: one launch, grid (n_split, B * kv), each column of n_split
-// blocks one thread block cluster for one (slot, kv head).
+// Design: one launch, grid (n_split, B * kv * n_grp), each column of
+// n_split blocks one thread block cluster for one (slot, kv head, row
+// group).
+//   - Row groups: a block holds at most 32 of the g * S_v query rows of its
+//     kv head (RMAX_LIMIT; the PV accumulators live in registers). A
+//     verify step with more rows (g = 4 at S_v = 9..17: 36..68 rows) runs
+//     n_grp = ceil(g * S_v / 32) groups of 32 rows side by side, each a
+//     cluster of its own over the same keys. Each group reads the slot's
+//     live K/V again: n_grp times the bytes of one read (2x at S_v 9..16,
+//     3x at S_v 17 for g = 4), served from L2 where the groups of a kv
+//     head run at once. Rows of different groups never meet, so a group's
+//     rows give the bits they give in any other grouping.
 //   - Split by live keys: each block derives its share of the key tiles
 //     on the device from lengths[b] (the min(T, lengths[b] + S_v) live
 //     keys, split evenly over the cluster), so no block walks dead tiles.
@@ -45,7 +55,8 @@
 //     tile needs one block barrier (the ring's); S^T = K.Q^T puts the keys
 //     on the M side, since g * S_v is 4 rows at decode. On CUDA cores the
 //     products were measured to take about as long as the bytes. The verify
-//     form (up to 32 rows) runs the same code with more n- and m-tiles.
+//     form (up to 32 rows a block) runs the same code with more n- and
+//     m-tiles.
 //     The warps' partials merge in warp order at the end.
 //   - The merge: each block leaves its (m, l, acc) partial in its own
 //     shared memory; after a cluster barrier every rank reads the others'
@@ -79,6 +90,7 @@ constexpr int TK = 64;             // keys per tile
 constexpr int kStages = 4;         // K/V ring depth
 constexpr int kMaxCluster = 8;     // portable cluster size
 constexpr int RMAX_LIMIT = 32;     // g * S_v rows per block, at most
+constexpr int kMaxGridY = 65535;   // B * kv * n_grp blocks along y
 // blocks wanted in flight: two a SM on 132 SMs (three fit; two, with
 // larger clusters' shares, measured faster at the 8B decode shapes)
 constexpr int kTargetBlocks = 2 * 132;
@@ -94,19 +106,27 @@ struct Params {
   __nv_bfloat16* out;       // [B, S_v, H, HD] contiguous
   long long kv_sb, s_sb;    // 0 when paged
   int s_v, H, kv, T;        // paged: T = nb * bt
+  int n_grp;                // row groups of RMAX_LIMIT rows per kv head
   float scale;
   const int* tbl;           // paged: [B, >= nb] int32, rows tbl_stride apart
   int bt, tbl_stride;
 };
 
-// Cluster size: enough blocks for kTargetBlocks, at most one per tile.
-int choose_split(int B, int kv, int T) {
+// Cluster size: enough blocks for kTargetBlocks, at most one per tile;
+// `columns` is the number of clusters (B * kv * n_grp).
+int choose_split(int columns, int T) {
   const int n_tiles = (T + TK - 1) / TK;
-  return max(1, min(min(kMaxCluster, n_tiles), kTargetBlocks / (B * kv)));
+  return max(1, min(min(kMaxCluster, n_tiles), kTargetBlocks / columns));
 }
 
-bool supported(int H, int kv, int s_v) {
-  return kv > 0 && s_v > 0 && H % kv == 0 && (H / kv) * s_v <= RMAX_LIMIT;
+// Row groups of one kv head's g * S_v query rows.
+int row_groups(int H, int kv, int s_v) {
+  return ((H / kv) * s_v + RMAX_LIMIT - 1) / RMAX_LIMIT;
+}
+
+bool supported(int B, int H, int kv, int s_v) {
+  return B > 0 && kv > 0 && s_v > 0 && H % kv == 0 &&
+         (long long)B * kv * row_groups(H, kv, s_v) <= kMaxGridY;
 }
 
 // Byte offsets of a block's shared memory, for RMAX query rows (a
@@ -234,9 +254,11 @@ __device__ __forceinline__ void load_tile(uint8_t* smem, const Params& p,
 }
 
 // RMAX: the block's row capacity, the smallest of 8/16/32 that holds
-// g * S_v. Warp w owns keys 16w .. 16w + 15 of every tile and keeps its
-// own online softmax over them (a split inside the block); lane (g, t) is
-// (lane / 4, lane % 4) in the mma fragments.
+// g * S_v (32 when there are several row groups); the block computes rows
+// r0 .. r0 + R - 1 of its kv head, r0 = RMAX_LIMIT * its group. Warp w
+// owns keys 16w .. 16w + 15 of every tile and keeps its own online softmax
+// over them (a split inside the block); lane (g, t) is (lane / 4, lane % 4)
+// in the mma fragments.
 //   S^T = K . Q^T: keys as M, query rows as N, the head dim as K. The
 //     head dim is permuted inside each 16-wide step (k-indices 2t, 2t+1,
 //     2t+8, 2t+9 are head dims 4t .. 4t+3), the same for K and Q, so a
@@ -263,8 +285,10 @@ decode_kernel(const Params p) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
   const int split = blockIdx.x, n_split = gridDim.x;
-  const int b = blockIdx.y / p.kv, h = blockIdx.y % p.kv;
-  const int grp = p.H / p.kv, R = grp * p.s_v;
+  const int bh = blockIdx.y / p.n_grp;
+  const int r0 = blockIdx.y % p.n_grp * RMAX_LIMIT;
+  const int b = bh / p.kv, h = bh % p.kv;
+  const int grp = p.H / p.kv, R = min(RMAX, grp * p.s_v - r0);
   __nv_bfloat16* p_w =
       reinterpret_cast<__nv_bfloat16*>(smem + L::kP) + warp * RM * 16 * 16;
   float* corr_w = reinterpret_cast<float*>(smem + L::kCorr) + warp * RMAX;
@@ -273,11 +297,11 @@ decode_kernel(const Params p) {
 
   // q rows (bf16, rows past R zero) in the first cp.async group
   for (int c = tid; c < RMAX * HD / 8; c += kThreads) {
-    const int r = c / (HD / 8), d = c % (HD / 8) * 8;
+    const int r = c / (HD / 8), d = c % (HD / 8) * 8, rq = r0 + r;
     const bool in = r < R;
     const long long off =
-        in ? ((long long)(b * p.s_v + r % p.s_v) * p.H + h * grp +
-              r / p.s_v) * HD + d : 0;
+        in ? ((long long)(b * p.s_v + rq % p.s_v) * p.H + h * grp +
+              rq / p.s_v) * HD + d : 0;
     sm90::cp_async16(smem + L::kQ + r * L::kQRow + d * 2, p.q + off,
                      in ? 16 : 0);
   }
@@ -376,7 +400,8 @@ decode_kernel(const Params p) {
         float s = sc[rt][e];
         if (kInt8) s *= ks_s[kl];
         s *= p.scale;
-        const bool valid = row < R && key < p.T && key <= len + row % p.s_v;
+        const bool valid =
+            row < R && key < p.T && key <= len + (r0 + row) % p.s_v;
         sc[rt][e] = valid ? s : kNegInf;
         mx[e % 2] = fmaxf(mx[e % 2], sc[rt][e]);
       }
@@ -549,7 +574,7 @@ decode_kernel(const Params p) {
 #pragma unroll
     for (int z = 0; z < kMaxCluster; ++z)
       if (z < n_split) o += pz[z] * w[z];
-    const int head = h * grp + r / p.s_v, qi = r % p.s_v;
+    const int head = h * grp + (r0 + r) / p.s_v, qi = (r0 + r) % p.s_v;
     p.out[((long long)(b * p.s_v + qi) * p.H + head) * HD + d] =
         __float2bfloat16(o / w[kMaxCluster]);
   }
@@ -569,8 +594,8 @@ cudaError_t launch_rows(const Params& p, int B, int n_split,
     attr_set = true;
   }
   return sm90::launch_cluster(decode_kernel<KV_T, HD, RMAX, kPaged>,
-                              dim3(n_split, B * p.kv), kThreads, smem,
-                              stream, n_split, p);
+                              dim3(n_split, B * p.kv * p.n_grp), kThreads,
+                              smem, stream, n_split, p);
 }
 
 template <typename KV_T, int HD, bool kPaged>
@@ -583,9 +608,10 @@ cudaError_t launch(const Params& p, int B, int n_split, cudaStream_t st) {
 }
 
 template <bool kPaged>
-cudaError_t launch_kv(const Params& p, int B, int hd, int int8_kv,
+cudaError_t launch_kv(Params p, int B, int hd, int int8_kv,
                       cudaStream_t st) {
-  const int n_split = choose_split(B, p.kv, p.T);
+  p.n_grp = row_groups(p.H, p.kv, p.s_v);
+  const int n_split = choose_split(B * p.kv * p.n_grp, p.T);
   if (int8_kv) {
     if (hd == 128) return launch<int8_t, 128, kPaged>(p, B, n_split, st);
     if (hd == 64) return launch<int8_t, 64, kPaged>(p, B, n_split, st);
@@ -601,10 +627,11 @@ cudaError_t launch_kv(const Params& p, int B, int hd, int int8_kv,
 
 // Workspace f32 words that kft_flash_decode needs for this shape: 0 (the
 // split is merged inside the launch), or -1 when the kernel does not
-// support the shape (more than RMAX_LIMIT query rows per kv head).
+// support the shape (heads not a multiple of kv heads, or more than
+// kMaxGridY (slot, kv head, row group) columns).
 extern "C" long long kft_flash_decode_workspace(int B, int s_v, int H, int kv,
                                                 int hd, int T) {
-  return supported(H, kv, s_v) ? 0 : -1;
+  return supported(B, H, kv, s_v) ? 0 : -1;
 }
 
 extern "C" int kft_flash_decode(const void* q, const void* k, const void* v,
@@ -613,14 +640,14 @@ extern "C" int kft_flash_decode(const void* q, const void* k, const void* v,
                                 int s_v, int H, int kv, int hd, int T,
                                 long long kv_sb, long long s_sb, int int8_kv,
                                 float scale, void* stream) {
-  if (!supported(H, kv, s_v) || B < 1 || T < 1)
+  if (!supported(B, H, kv, s_v) || T < 1)
     return (int)cudaErrorInvalidValue;
   Params p{static_cast<const __nv_bfloat16*>(q), k, v,
            static_cast<const float*>(k_scale),
            static_cast<const float*>(v_scale),
            static_cast<const int*>(lengths),
            static_cast<__nv_bfloat16*>(out), kv_sb, s_sb, s_v, H, kv, T,
-           scale, nullptr, 0, 0};
+           1, scale, nullptr, 0, 0};
   return (int)launch_kv<false>(p, B, hd, int8_kv,
                                static_cast<cudaStream_t>(stream));
 }
@@ -636,7 +663,7 @@ extern "C" int kft_flash_decode_paged(const void* q, const void* k,
                                       int s_v, int H, int kv, int hd, int bt,
                                       int nb, int tbl_stride, int int8_kv,
                                       float scale, void* stream) {
-  if (!supported(H, kv, s_v) || B < 1 || bt < 1 || nb < 1 ||
+  if (!supported(B, H, kv, s_v) || bt < 1 || nb < 1 ||
       tbl_stride < nb)
     return (int)cudaErrorInvalidValue;
   Params p{static_cast<const __nv_bfloat16*>(q), k, v,
@@ -644,7 +671,7 @@ extern "C" int kft_flash_decode_paged(const void* q, const void* k,
            static_cast<const float*>(v_scale),
            static_cast<const int*>(lengths),
            static_cast<__nv_bfloat16*>(out), 0, 0, s_v, H, kv, nb * bt,
-           scale, static_cast<const int*>(tables), bt, tbl_stride};
+           1, scale, static_cast<const int*>(tables), bt, tbl_stride};
   return (int)launch_kv<true>(p, B, hd, int8_kv,
                               static_cast<cudaStream_t>(stream));
 }

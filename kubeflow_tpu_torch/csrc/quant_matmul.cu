@@ -30,7 +30,7 @@
 //     box to bf16 in shared memory (PRMT + FADD, no I2F; about 3
 //     instructions and 5 bytes of shared-memory traffic per weight) in the
 //     swizzle wgmma reads, then runs 8 wgmma m64nNk16 (in two
-//     accumulator chains where N <= 32) with W^T read MN-major (the
+//     accumulator chains, even and odd k-steps) with W^T read MN-major (the
 //     transpose bit; channels contiguous, as q lies in memory) and x^T
 //     K-major. Widening in registers into an A fragment
 //     would need a transposing int8 shared-memory load that sm_90 lacks.
@@ -261,8 +261,11 @@ dequant_kernel(const __grid_constant__ CUtensorMap wm,
     uint8_t* wide = smem + C::kWide + wg * C::kWideBytes;
     const uint32_t a_addr = sm90::smem_u32(wide);
     // two accumulator chains (even and odd k-steps) halve the dependent
-    // wgmma chain of a stage where registers allow
-    constexpr int kChains = N <= 32 ? 2 : 1;
+    // wgmma chain of a stage; at every N, so that an output's sum runs in
+    // one order whatever the row count: a row's bits at m = 112 (a verify
+    // round of 16 slots x 7) are its bits at m = 16 (a decode step), and
+    // speculation's greedy rows are the plain engine's on the card
+    constexpr int kChains = 2;
     float acc[kChains][N / 2];
 #pragma unroll
     for (int c = 0; c < kChains; ++c)
@@ -316,8 +319,7 @@ dequant_kernel(const __grid_constant__ CUtensorMap wm,
       for (int e = 0; e < 4; ++e) {
         const int row = warp % 4 * 16 + lane / 4 + 8 * (e / 2);
         part[row * N + 8 * j + 2 * t + e % 2] =
-            kChains == 2 ? acc[0][4 * j + e] + acc[kChains - 1][4 * j + e]
-                         : acc[0][4 * j + e];
+            acc[0][4 * j + e] + acc[1][4 * j + e];
       }
   }
   __syncwarp();

@@ -94,6 +94,18 @@ def _workspace(b: int, s_v: int, nh: int, nkv: int, hd: int, t: int) -> int:
     return _lib().kft_flash_decode_workspace(b, s_v, nh, nkv, hd, t)
 
 
+def _check_shape(b: int, s_v: int, nh: int, nkv: int, hd: int,
+                 t: int) -> None:
+    """Raise for a shape the kernel does not hold. Any g * S_v is held:
+    the kernel runs the rows of a kv head in groups of 32, one block
+    cluster each; the grid caps slots x kv heads x row groups."""
+    if _workspace(b, s_v, nh, nkv, hd, t) < 0:
+        raise ValueError(
+            f"flash_decode: B={b} x kv={nkv} x ceil(g * S_v / 32) with "
+            f"g * S_v = {nh // nkv * s_v} is more (slot, kv head, row "
+            "group) columns than the kernel's grid holds")
+
+
 def check_slab(q, k, v, k_scale, v_scale, name):
     """Shared argument checks of the two attention kernels: q bf16
     contiguous [B, S, H, hd]; k/v [B, T, kv, hd] int8 or bf16 whose
@@ -157,9 +169,7 @@ def flash_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
             or not lengths.is_contiguous() or lengths.device != q.device):
         raise ValueError("flash_decode: lengths must be int32 [B] on q's "
                          "device")
-    if _workspace(b, s_v, nh, nkv, hd, t) < 0:
-        raise ValueError(f"flash_decode: g * S_v = {nh // nkv * s_v} query "
-                         "rows per kv head is more than the kernel holds")
+    _check_shape(b, s_v, nh, nkv, hd, t)
     scale = 1.0 / (hd ** 0.5) if scale is None else scale
     out = torch.empty_like(q)
     dev = q.device
@@ -234,9 +244,7 @@ def _flash_decode_paged(q, k, v, lengths, tables, k_scale, v_scale, scale):
                                     lengths, "flash_decode")
     b, s_v, nh, hd = q.shape
     nkv = k.shape[2]
-    if _workspace(b, s_v, nh, nkv, hd, nb * bt) < 0:
-        raise ValueError(f"flash_decode: g * S_v = {nh // nkv * s_v} query "
-                         "rows per kv head is more than the kernel holds")
+    _check_shape(b, s_v, nh, nkv, hd, nb * bt)
     scale = 1.0 / (hd ** 0.5) if scale is None else scale
     out = torch.empty_like(q)
     err = _lib().kft_flash_decode_paged(

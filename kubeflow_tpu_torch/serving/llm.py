@@ -66,7 +66,23 @@ prompt's chunked chain starts at its cached prefix. On the card a hit
 attends over the int8 prefix where a cold prefill attends over fresh
 K/V, so the two are close, not bit-equal, as in the JAX engine.
 
-Not in this engine yet: speculative decoding, streaming and adapters.
+Speculative decoding (`speculative=k_max`, the JAX engine's prompt-lookup
+drafting): a decode chunk becomes `steps` verify rounds (`_spec_body`).
+Each round drafts up to kd tokens per slot by matching the slot's trailing
+n-gram (`spec_ngram`) against its token history `cache["hist"]` (every
+prompt and delivered token at its position, written by each prefill and
+round), verifies [last ++ drafts] in one forward (`llama.verify_step`:
+K1 at m = n_slots x (kd + 1), K2 or K2-paged at S_v = kd + 1) and keeps
+the longest run of drafts the greedy prediction matches plus one bonus
+token, so greedy output is the plain engine's. Sampled and penalized rows
+draft nothing and take one token a round. kd adapts per round
+(`AdaptiveDraftLen`, `spec_adaptive`): the smallest menu k (powers of two,
+then k_max) covering the most optimistic drafting slot's acceptance EMA.
+The verify programs are keyed (steps, span, kd, sample), captured as
+graphs by `warmup()` in place of the decode menu, with the JAX fallbacks
+after it: a cold key takes full span, then static k_max at full span.
+
+Not in this engine yet: streaming and adapters.
 """
 
 from __future__ import annotations
@@ -117,6 +133,90 @@ def _mix32(x):
     return (x >> 16) ^ x
 
 
+def _ngram_draft(hist: torch.Tensor, lengths: torch.Tensor, k: int,
+                 n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prompt-lookup drafting over every slot at once (the JAX
+    `_ngram_draft`): hist [B, L] int32 token history, real through position
+    lengths[b] (the pending token, recorded just before). For each slot,
+    the latest window ending at j < lengths whose n tokens equal the
+    trailing n-gram hist[lengths - n + 1 .. lengths] proposes the k tokens
+    after it. Returns drafts [B, k] int32 and count [B] int32, how many of
+    them are known tokens: clip(lengths - j, 0, k), and 0 with no match or
+    when lengths < n. A handful of [B, L] compares, with no host sync, so
+    it runs inside the verify graph."""
+    b, l = hist.shape
+    dev = hist.device
+    lengths = lengths.long()
+    gram_pos = (lengths[:, None]
+                + torch.arange(1 - n, 1, device=dev)[None]).clamp(0, l - 1)
+    gram = hist.gather(1, gram_pos)                        # [B, n]
+    m = hist[:, :l - n + 1] == gram[:, :1]
+    for t in range(1, n):
+        m = m & (hist[:, t:l - n + 1 + t] == gram[:, t:t + 1])
+    jend = torch.arange(n - 1, l, device=dev)[None]   # each window's end
+    valid = m & (jend < lengths[:, None]) & (lengths[:, None] >= n)
+    j_best = torch.where(valid, jend, -1).amax(dim=1)      # -1: none
+    dpos = (j_best[:, None] + 1
+            + torch.arange(k, device=dev)[None]).clamp(0, l - 1)
+    drafts = hist.gather(1, dpos)
+    count = torch.where(j_best >= 0, (lengths - j_best).clamp(0, k), 0)
+    return drafts, count.to(torch.int32)
+
+
+#: EMA step of the speculative acceptance estimates: the per-slot draft
+#: length policy and the tokens-per-round estimate that chunk sizing and
+#: the drain guard read (the JAX engine's constant)
+SPEC_EMA_ALPHA = 0.25
+
+
+class AdaptiveDraftLen:
+    """Per-slot EMA of accepted drafts per verify round -> the next
+    round's draft length (the JAX `AdaptiveDraftLen`, host side). The menu
+    is the powers of two below k_max, then k_max; a round drafts the
+    smallest menu k that covers the most optimistic drafting slot's EMA
+    times `headroom`, or the smallest k when no slot drafts. A round that
+    accepts all its drafts observes one more (it was cut by k, not by the
+    model), capped at k_max, so the estimate can climb back."""
+
+    def __init__(self, k_max: int, n_slots: int, *,
+                 alpha: float = SPEC_EMA_ALPHA, headroom: float = 1.25):
+        if k_max < 1:
+            raise ValueError("k_max must be >= 1")
+        self.k_max = k_max
+        self.alpha = alpha
+        self.headroom = headroom
+        menu, k = [], 1
+        while k < k_max:
+            menu.append(k)
+            k *= 2
+        menu.append(k_max)
+        self.menu: list[int] = menu
+        # optimistic start: one round of observations re-anchors
+        self.ema = np.full(n_slots, float(k_max))
+
+    def observe(self, slot: int, accepted: int, k_round: int) -> None:
+        """One round of `slot`: `accepted` of `k_round` drafts landed."""
+        obs = min(self.k_max,
+                  accepted + (1 if accepted >= k_round else 0))
+        self.ema[slot] += self.alpha * (obs - self.ema[slot])
+
+    def reset_slot(self, slot: int) -> None:
+        """A new request took the slot: back to optimistic."""
+        self.ema[slot] = float(self.k_max)
+
+    def pick(self, drafting_slots) -> int:
+        """The draft length of a round whose drafting slots (greedy,
+        penalty-free) are `drafting_slots`."""
+        slots = list(drafting_slots)
+        if not slots:
+            return self.menu[0]
+        want = max(self.ema[s] for s in slots) * self.headroom
+        for k in self.menu:
+            if k >= want:
+                return k
+        return self.k_max
+
+
 class _GraphProgram:
     """One captured decode chunk: a replay, the launch counts the capture
     recorded (added once per replay, as the kernels run once per replay),
@@ -155,13 +255,19 @@ class LLMEngine:
                  kv_quantize: str | None = None, logprobs_topk: int = 0,
                  pipeline_decode: bool = True, prefix_cache: bool = False,
                  max_prefixes: int = 4,
-                 prefix_cache_blocks: int | None = None, device="cuda"):
+                 prefix_cache_blocks: int | None = None,
+                 speculative: int | None = None, spec_ngram: int = 3,
+                 spec_adaptive: bool = True, device="cuda"):
         if max(buckets) >= max_len:
             raise ValueError("largest bucket must leave room to decode")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if kv_quantize not in (None, "int8"):
             raise ValueError(f"unknown kv_quantize mode {kv_quantize!r}")
+        if speculative is not None and not 1 <= speculative <= 16:
+            raise ValueError("speculative must be 1..16 draft tokens")
+        if not 1 <= spec_ngram <= 8:
+            raise ValueError("spec_ngram must be 1..8")
         if not 0 <= logprobs_topk <= 16:
             raise ValueError("logprobs_topk must be 0..16")
         self.device = resolve_device(device)
@@ -181,6 +287,20 @@ class LLMEngine:
         self.eos_id = eos_id
         self.decode_chunk = max(1, decode_chunk)
         self.scheduler = PyScheduler(n_slots, self.buckets)
+        # -- speculative decoding (module docstring): the draft length
+        # k_max, the n-gram size, the delivered tokens and verify rounds,
+        # the adaptive draft length (off, or k_max 1: static k) and the
+        # EMA of tokens per round
+        self.spec = speculative
+        self.spec_ngram = spec_ngram
+        self._spec_tokens = 0
+        self._spec_verifies = 0
+        self.spec_adaptive = bool(spec_adaptive and speculative
+                                  and speculative > 1)
+        self._spec_adapt = (AdaptiveDraftLen(speculative, n_slots)
+                            if self.spec_adaptive else None)
+        self._spec_last_k = speculative or 0
+        self._spec_round_ema: float | None = None
         # -- the radix prefix cache (module docstring); the store holds
         # max_prefixes largest-bucket prefixes' worth of blocks unless
         # prefix_cache_blocks says otherwise
@@ -218,6 +338,7 @@ class LLMEngine:
                                 device=dev)
         self._active_dev = torch.zeros(n_slots, dtype=torch.bool, device=dev)
         self._slot_ids = torch.arange(n_slots, device=dev)
+        self._hist_pos = torch.arange(max_len, device=dev)[None]
         # -- the counter-based sampler (module docstring)
         self._draws = torch.zeros((), dtype=torch.long, device=dev)
         self._seed_key = _mix32(int(sample_seed) & _M32)
@@ -707,6 +828,10 @@ class LLMEngine:
             out_np = out.cpu().numpy()    # one fetch per wave
             for i, a in enumerate(wave):
                 self._host_lengths[a.slot] = len(self._prompts[a.req_id])
+                if self._spec_adapt is not None:
+                    # a new occupant drafts optimistically until its own
+                    # rounds re-anchor the slot's estimate
+                    self._spec_adapt.reset_slot(a.slot)
                 tok, lp, top = self._unpack_out(out_np[i])
                 self._record_token(a.req_id, a.slot, tok, lp, top,
                                    first_token=True)
@@ -782,10 +907,13 @@ class LLMEngine:
         return self._cached_prefix.get(req_id, 0)
 
     def metrics(self) -> dict[str, Any]:
-        """The prefill and prefix-cache counters under the JAX engine's
-        keys: prefill_tokens_computed always; with the cache, the hit and
-        miss counts, the stored blocks and `prefix_cache` (the radix
-        stats with the per-request rates and the tokens saved)."""
+        """The prefill, prefix-cache and speculation counters under the
+        JAX engine's keys: prefill_tokens_computed always; with the cache,
+        the hit and miss counts, the stored blocks and `prefix_cache` (the
+        radix stats with the per-request rates and the tokens saved); with
+        speculation, the verify rounds, the delivered tokens and their
+        ratio, k_max, the tokens-per-round estimate and, when adaptive,
+        the last draft length and the mean acceptance EMA."""
         out: dict[str, Any] = {
             "prefill_tokens_computed": self._prefill_computed_tokens}
         if self.kvcache is not None:
@@ -803,6 +931,18 @@ class LLMEngine:
                 "prefill_tokens_computed": self._prefill_computed_tokens,
                 "prefill_tokens_saved": self._prefill_reused_tokens,
             }
+        if self.spec:
+            out["spec_verify_rounds"] = self._spec_verifies
+            out["spec_tokens_emitted"] = self._spec_tokens
+            # 1.0: no draft accepted; k_max + 1: every draft accepted
+            out["spec_tokens_per_round"] = round(
+                self._spec_tokens / max(1, self._spec_verifies), 3)
+            out["spec_draft_k_max"] = self.spec
+            out["spec_est_round_tokens"] = round(self._est_round_tokens(), 3)
+            if self._spec_adapt is not None:
+                out["spec_draft_k_last"] = self._spec_last_k
+                out["spec_accept_ema"] = round(
+                    float(np.mean(self._spec_adapt.ema)), 3)
         return out
 
     # -- prefill -------------------------------------------------------------
@@ -820,10 +960,11 @@ class LLMEngine:
             tokens[i, :len(p)] = torch.tensor(p)
         plens = [len(self._prompts[a.req_id]) for a in wave]
         self._prefill_computed_tokens += sum(plens)
-        x, (ks, vs) = llama.prefill_hidden(self.params, tokens.to(dev),
-                                           self.cfg)
+        tokens = tokens.to(dev)
+        x, (ks, vs) = llama.prefill_hidden(self.params, tokens, self.cfg)
         for i, a in enumerate(wave):
             self._cache_write(a.slot, 0, bucket, ks[:, i], vs[:, i])
+            self._hist_write(a.slot, 0, tokens[i])
         rows = torch.arange(len(wave), device=dev)
         last = x[rows, torch.tensor(plens, device=dev) - 1]
         return self._prefill_finish(last, wave, plens)
@@ -848,13 +989,18 @@ class LLMEngine:
             plens.append(p + len(tail))
         k_prefix, v_prefix = self._stack_prefix(
             [self._materialize_prefix(payloads) for _, payloads in pairs])
+        tokens = tokens.to(dev)
         x, ks, vs = llama.prefill_continue_hidden(
-            self.params, tokens.to(dev), k_prefix, v_prefix, self.cfg)
+            self.params, tokens, k_prefix, v_prefix, self.cfg)
         for i, a in enumerate(wave):
             if self._cont_writes_prefix:
                 self._cache_write(a.slot, 0, p, k_prefix[:, i],
                                   v_prefix[:, i])
             self._cache_write(a.slot, p, t, ks[:, i], vs[:, i])
+            # the history gets the prefix tokens too: the KV alone cannot
+            # give them to the drafter
+            self._hist_write(a.slot, 0, self._prompts[a.req_id][:p])
+            self._hist_write(a.slot, p, tokens[i])
         rows = torch.arange(len(wave), device=dev)
         last = x[rows, torch.tensor(plens, device=dev) - p - 1]
         return self._prefill_finish(last, wave, plens)
@@ -894,10 +1040,10 @@ class LLMEngine:
             self.kvcache.release(m)
         self._prefill_computed_tokens += n - done
         if done == 0:
-            x, (ks, vs) = llama.prefill_hidden(
-                self.params, torch.tensor([prompt[:big]], device=dev),
-                self.cfg)
+            head = torch.tensor([prompt[:big]], device=dev)
+            x, (ks, vs) = llama.prefill_hidden(self.params, head, self.cfg)
             self._cache_write(slot, 0, big, ks[:, 0], vs[:, 0])
+            self._hist_write(slot, 0, head[0])
             done = big
         last = None
         for chunk_len, t in self._chunk_plan_from(n, done):
@@ -907,13 +1053,16 @@ class LLMEngine:
                 if self._cont_writes_prefix:
                     self._cache_write(slot, 0, done, k_prefix[:, 0],
                                       v_prefix[:, 0])
+                self._hist_write(slot, 0, prompt[:done])
             else:
                 k_prefix, v_prefix = self._extract_prefix(slot, done)
             tail = torch.zeros((1, t), dtype=torch.long)
             tail[0, :chunk_len] = torch.tensor(prompt[done:done + chunk_len])
+            tail = tail.to(dev)
             x, ks, vs = llama.prefill_continue_hidden(
-                self.params, tail.to(dev), k_prefix, v_prefix, self.cfg)
+                self.params, tail, k_prefix, v_prefix, self.cfg)
             self._cache_write(slot, done, t, ks[:, 0], vs[:, 0])
+            self._hist_write(slot, done, tail[0])
             last = x[:, chunk_len - 1]
             done += chunk_len
         return self._prefill_finish(last, [action], [n])
@@ -941,9 +1090,31 @@ class LLMEngine:
         return self._pack_out(toks, logits)
 
     def _alloc_cache(self) -> dict:
-        """The KV cache: a slab [L, n_slots, max_len, kv, hd]."""
-        return llama.init_cache(self.cfg, self.n_slots, self.max_len,
-                                self.kv_quantize, device=self.device)
+        """The KV cache: a slab [L, n_slots, max_len, kv, hd], and with
+        speculation the token history (`_alloc_hist`)."""
+        cache = llama.init_cache(self.cfg, self.n_slots, self.max_len,
+                                 self.kv_quantize, device=self.device)
+        if self.spec:
+            cache["hist"] = self._alloc_hist()
+        return cache
+
+    def _alloc_hist(self) -> torch.Tensor:
+        """The token history [n_slots, max_len] int32 that the drafter
+        reads: each slot's prompt and delivered tokens at their positions,
+        mirrored from every prefill and verify round (the JAX engine's
+        `hist`). Past a slot's length it holds stale tokens the drafter
+        masks."""
+        return torch.zeros((self.n_slots, self.max_len), dtype=torch.int32,
+                           device=self.device)
+
+    def _hist_write(self, slot: int, start: int, tokens) -> None:
+        """With speculation, tokens (a device tensor or a list) into the
+        slot's history from position `start`; a no-op without."""
+        if not self.spec or len(tokens) == 0:
+            return
+        if not isinstance(tokens, torch.Tensor):
+            tokens = torch.tensor(tokens, device=self.device)
+        self.cache["hist"][slot, start:start + len(tokens)] = tokens
 
     def _cache_write(self, slot: int, start: int, count: int,
                      ks: torch.Tensor, vs: torch.Tensor) -> None:
@@ -1100,12 +1271,92 @@ class LLMEngine:
                                                self.last_tokens))
         return torch.stack(outs)
 
+    def _spec_body(self, steps: int, span: int, kd: int,
+                   sample: bool) -> torch.Tensor:
+        """`steps` speculative verify rounds over every slot at attention
+        span `span` with kd drafts (the JAX `_spec_decode`), reading and
+        updating the static slot state in place. Each round records the
+        pending token into the history (inactive slots write nothing),
+        drafts kd tokens (`_ngram_draft`), zeroes the count of sampled and
+        penalized rows (their penalties change per token, so they decode
+        one token a round), verifies [last ++ drafts] in one
+        `llama.verify_step`, accepts the leading run of drafts the greedy
+        prediction matches, takes the bonus token from the prediction
+        after that run (from `_choose` at position lengths + 1 for sampled
+        and penalized rows), counts the emitted tokens for the penalties,
+        writes the accepted drafts into the history and advances lengths
+        by n_acc + 1. Returns [steps, n_slots, 1 + (kd + 1) * cols]: each
+        round's emit count ++ `_pack_out` of its kd + 1 emit positions
+        (emitted token j's distribution is verify row j).
+
+        sample=False, for batches with no sampled or penalized row, skips
+        `_choose` and the penalty counts, as `_decode_body` does."""
+        n, dev = self.n_slots, self.device
+        active = self._active_dev
+        hist = self.cache["hist"]
+        pos = self._hist_pos
+        temps = self.samp[:, 0]
+        pens = (self.samp[:, 3] != 0) | (self.samp[:, 4] != 0)
+        drafting = active & (temps <= 0) & ~pens
+        jk = torch.arange(kd, device=dev)[None]
+        jj = torch.arange(kd + 1, device=dev)[None]
+        pad = torch.zeros((n, 1), dtype=torch.long, device=dev)
+        outs = []
+        for _ in range(steps):
+            lens = self.lengths.long()[:, None]
+            last = self.last_tokens
+            hist.copy_(torch.where(active[:, None] & (pos == lens),
+                                   last[:, None].to(hist.dtype), hist))
+            drafts, count = _ngram_draft(hist, self.lengths, kd,
+                                         self.spec_ngram)
+            drafts = drafts.long()
+            count = torch.where(drafting, count, 0)
+            logits = llama.verify_step(
+                self.params, torch.cat([last[:, None], drafts], dim=1),
+                self.cache, self.lengths, self.cfg, span=span)
+            preds = torch.argmax(logits, dim=-1)            # [B, kd + 1]
+            match = (preds[:, :kd] == drafts) & (jk < count[:, None])
+            n_acc = torch.cumprod(match.long(), dim=1).sum(dim=1)
+            bonus = preds.gather(1, n_acc[:, None])[:, 0]
+            if sample:
+                chosen = self._choose(logits[:, 0], self.samp,
+                                      self._slot_ids, self._cnt,
+                                      self.lengths + 1, True)
+                bonus = torch.where((temps > 0) | pens, chosen, bonus)
+            emit = torch.where(
+                jj < n_acc[:, None], torch.cat([drafts, pad], dim=1),
+                torch.where(jj == n_acc[:, None], bonus[:, None], 0))
+            emit_count = torch.where(active, n_acc + 1, 0)
+            if sample:
+                self._cnt.scatter_add_(
+                    1, emit, (jj < emit_count[:, None]).to(self._cnt.dtype))
+            # the accepted drafts enter the history; the bonus lands there
+            # next round, as the pending token
+            off = pos - lens - 1
+            accepted = active[:, None] & (off >= 0) & (off < n_acc[:, None])
+            hist.copy_(torch.where(
+                accepted, drafts.gather(1, off.clamp(0, kd - 1)).to(
+                    hist.dtype), hist))
+            self.lengths += emit_count.to(torch.int32)
+            self.last_tokens.copy_(torch.where(active, bonus, last))
+            rows = self._pack_out(emit, logits)        # [B, kd + 1, cols]
+            outs.append(torch.cat([emit_count[:, None].float(),
+                                   rows.reshape(n, -1)], dim=1))
+        return torch.stack(outs)
+
     def _chunk_state(self) -> list[torch.Tensor]:
         """The slot state a decode chunk changes besides the KV rows it
-        writes."""
-        return [self.lengths, self.last_tokens, self._cnt, self._draws]
+        writes (and, with speculation, the token history)."""
+        state = [self.lengths, self.last_tokens, self._cnt, self._draws]
+        return state + ([self.cache["hist"]] if self.spec else [])
 
-    def _capture(self, key: tuple[int, int, bool]) -> _GraphProgram:
+    def _body(self, key: tuple):
+        """The eager body of program `key`: (steps, span, sample) a decode
+        chunk, (steps, span, kd, sample) a chunk of verify rounds."""
+        fn = self._spec_body if len(key) == 4 else self._decode_body
+        return functools.partial(fn, *key)
+
+    def _capture(self, key: tuple) -> _GraphProgram:
         """Capture the decode chunk `key` as a CUDA graph in the engine's
         pool. The body runs once first on a side stream (first-use work
         must not happen inside a capture), and the slot state it changed
@@ -1113,7 +1364,7 @@ class LLMEngine:
         KV rows that run wrote are written again, with the same values, by
         the replay that follows. A capture that fails raises."""
         dev = self.device
-        body = functools.partial(self._decode_body, *key)
+        body = self._body(key)
         counts = _build.snapshot_counts()
         saved = [t.clone() for t in self._chunk_state()]
         current = torch.cuda.current_stream(dev)
@@ -1137,13 +1388,14 @@ class LLMEngine:
         """The decode program (steps, span, sample), made on first use: a
         captured graph on a CUDA engine, the eager body on a CPU one (the
         JAX `_decode_fn`)."""
-        key = (steps, span, sample)
+        return self._program((steps, span, sample))
+
+    def _program(self, key: tuple):
+        """Program `key` (`_body`), made on first use."""
         prog = self._programs.get(key)
         if prog is None:
-            if self.device.type == "cuda":
-                prog = self._capture(key)
-            else:
-                prog = functools.partial(self._decode_body, *key)
+            prog = (self._capture(key) if self.device.type == "cuda"
+                    else self._body(key))
             self._programs[key] = prog
         return prog
 
@@ -1164,13 +1416,27 @@ class LLMEngine:
             self._active_dev.copy_(active)
         return self._decode_fn(steps, span, sample)()
 
+    def _spec_chunk(self, steps: int, span: int, kd: int,
+                    active: torch.Tensor, sample: bool = True
+                    ) -> torch.Tensor:
+        """Run the verify program (steps, span, kd, sample) once (the JAX
+        `_spec_fn`'s program), as `_decode_chunk` runs a decode program;
+        returns its rows [steps, n_slots, 1 + (kd + 1) * cols] on the
+        device, not fetched."""
+        if active is not self._active_dev:
+            self._active_dev.copy_(active)
+        return self._program((steps, span, kd, sample))()
+
     def warmup(self) -> None:
         """Run each prefill bucket once and make the decode menu (the JAX
         engine's combos: every (chunk, span) pair when there are at most
         16, else every chunk at full span plus the largest chunk at every
         span; each in both variants), capturing every graph on a CUDA
-        engine so live traffic never captures. Slot state is junk while it
-        runs and reset in place after; call only while idle."""
+        engine so live traffic never captures. With speculation the menu
+        is the verify programs instead (the JAX spec menu): the combos at
+        k_max, then each smaller menu k at full span for the largest chunk
+        and for chunk 1. Slot state is junk while it runs and reset in
+        place after; call only while idle."""
         if self._pending is not None or any(
                 self.scheduler.slot_request(s) >= 0
                 for s in range(self.n_slots)):
@@ -1196,9 +1462,19 @@ class LLMEngine:
             combos = ([(c, self.max_len) for c in chunks]
                       + [(chunks[-1], s) for s in spans[:-1]])
         self._active_dev.zero_()
-        for c, span in combos:
-            for sample in (True, False):
-                self._decode_chunk(c, span, self._active_dev, sample)
+        if self.spec:
+            menu = [(c, span, self.spec) for c, span in combos]
+            if self._spec_adapt is not None:
+                menu += [(c, self.max_len, kd)
+                         for kd in self._spec_adapt.menu[:-1]
+                         for c in sorted({chunks[-1], 1})]
+            for c, span, kd in menu:
+                for sample in (True, False):
+                    self._spec_chunk(c, span, kd, self._active_dev, sample)
+        else:
+            for c, span in combos:
+                for sample in (True, False):
+                    self._decode_chunk(c, span, self._active_dev, sample)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.lengths.zero_()
@@ -1215,22 +1491,29 @@ class LLMEngine:
     # -- decode --------------------------------------------------------------
 
     def _do_decode(self) -> None:
-        """Dispatch one chunk of k decode steps over every slot; under
-        pipeline_decode, then fetch and replay the chunk before it. k is
-        the largest power of two <= decode_chunk that fits the cache
+        """Dispatch one chunk of k decode steps (verify rounds, with
+        speculation) over every slot; under pipeline_decode, then fetch
+        and replay the chunk before it. k is the largest power of two <=
+        decode_chunk whose rows (k x (kd + 1) with kd drafts) fit the cache
         headroom of the fullest slot (counting the rows of the chunk in
-        flight) and is not past every request's remaining budget (less
-        what the chunk in flight will deliver)."""
+        flight) and that the likely tokens of k - 1 rounds do not already
+        cover for every request's remaining budget (less what the chunk in
+        flight will deliver). kd is the adaptive policy's pick over the
+        drafting slots (the JAX `_do_decode`)."""
         if self._pending is not None:
             # nothing left for a new chunk to do: every budget is met by
-            # the chunk in flight, or a slot has no room past its rows
+            # the chunk in flight (with speculation: likely met, by the
+            # tokens its rounds should deliver), or a slot has no room
+            # past its rows
             psr, psteps = self._pending[:2]
             full = max((int(self._host_lengths[s] + self._inflight[s])
                         for s in range(self.n_slots) if psr[s] >= 0),
                        default=0) >= self.max_len
             need = [self._max_new[r] - len(self._results[r])
                     for r in psr if r >= 0 and r in self._max_new]
-            if full or all(n <= psteps for n in need):
+            likely = psteps * self._est_round_tokens() * 1.25
+            if full or all(n <= psteps for n in need) or (
+                    self.spec and all(n <= likely for n in need)):
                 self._drain_pending()
                 return
         slot_req = self._mask_unfunded(
@@ -1238,6 +1521,12 @@ class LLMEngine:
         active = np.array([r >= 0 for r in slot_req], bool)
         if not active.any():
             return   # every live slot waits for KV blocks (paged engine)
+        kd = self.spec or 0
+        if self._spec_adapt is not None:
+            kd = self._spec_adapt.pick(
+                [s for s, r in enumerate(slot_req)
+                 if r >= 0 and self._draftable(r)])
+        per_tok = kd + 1 if self.spec else 1
         credit = [0] * self.n_slots
         if self._pending is not None:
             psr, psteps = self._pending[:2]
@@ -1250,26 +1539,42 @@ class LLMEngine:
         planned = self._host_lengths + self._inflight
         longest = int(planned[active].max())
         headroom = self.max_len - longest
+        est = self._est_round_tokens()
         k = 1
-        while (k * 2 <= self.decode_chunk and k * 2 <= headroom
-               and k < remaining):
+        while (k * 2 <= self.decode_chunk and k * 2 * per_tok <= headroom
+               and k * est < remaining):
             k *= 2
-        span = self._pick_span(min(longest + k, self.max_len))
+        span = self._pick_span(min(longest + k * per_tok, self.max_len))
         samp = self._samp_host[active]
         sample = bool(((samp[:, 0] > 0) | (samp[:, 3] != 0)
                        | (samp[:, 4] != 0)).any())
-        if self._warmed and (k, span, sample) not in self._programs:
-            span = self.max_len   # never capture after warmup
+        # never capture after warmup: a key outside the warmed menu takes
+        # the full span; a verify key cold there too takes static k_max at
+        # full span (every chunk is warm there, and a shorter span would
+        # not cover k_max's rows), its chunk shrunk to fit the headroom
+        if self.spec:
+            if self._warmed and (k, span, kd, sample) not in self._programs:
+                if (k, self.max_len, kd, sample) not in self._programs:
+                    kd = self.spec
+                    while k > 1 and k * (kd + 1) > headroom:
+                        k //= 2
+                span = self.max_len
+            per_tok = kd + 1
+        elif self._warmed and (k, span, sample) not in self._programs:
+            span = self.max_len
+        self._spec_last_k = kd
         t_dispatch = time.perf_counter()
-        out = self._decode_chunk(k, span, self._active_for(active), sample)
+        act = self._active_for(active)
+        out = (self._spec_chunk(k, span, kd, act, sample) if self.spec
+               else self._decode_chunk(k, span, act, sample))
         handle = self._stage_out(out)
         self._perf["dispatch_s"] += time.perf_counter() - t_dispatch
         self._perf["decode_chunks"] += 1
         self._perf["decode_steps"] += k
-        rows_added = np.where(active, k, 0)
+        rows_added = np.where(active, k * per_tok, 0)
         self._inflight += rows_added
         prev = self._pending
-        self._pending = (slot_req, k, handle, rows_added)
+        self._pending = (slot_req, k, handle, rows_added, kd)
         if not self.pipeline_decode:
             self._drain_pending()
         elif prev is not None:
@@ -1306,7 +1611,7 @@ class LLMEngine:
         `slot_req` is the slot map at dispatch: a slot that has changed
         hands since (a cancellation while the chunk was in flight) is
         skipped, as is a slot past its request's end."""
-        slot_req, _, (buf, event), rows_added = pending
+        slot_req, _, (buf, event), rows_added, kd = pending
         t_replay = time.perf_counter()
         if event is not None:
             event.synchronize()
@@ -1318,10 +1623,27 @@ class LLMEngine:
             for slot, req in enumerate(slot_req):
                 if req < 0 or slot in done_slots or not alive[slot]:
                     continue
-                self._host_lengths[slot] += 1
-                tok, lp, top = self._unpack_out(row[slot])
-                if self._record_token(req, slot, tok, lp, top):
-                    done_slots.add(slot)
+                if not self.spec:
+                    self._host_lengths[slot] += 1
+                    tok, lp, top = self._unpack_out(row[slot])
+                    if self._record_token(req, slot, tok, lp, top):
+                        done_slots.add(slot)
+                    continue
+                # a verify round: its count of tokens in order; a finish
+                # drops the rest
+                cnt = int(row[slot, 0])
+                emits = row[slot, 1:].reshape(kd + 1, -1)
+                self._spec_verifies += 1
+                self._observe_round_tokens(cnt)
+                if self._spec_adapt is not None:
+                    self._spec_adapt.observe(slot, cnt - 1, kd)
+                for j in range(cnt):
+                    self._host_lengths[slot] += 1
+                    self._spec_tokens += 1
+                    tok, lp, top = self._unpack_out(emits[j])
+                    if self._record_token(req, slot, tok, lp, top):
+                        done_slots.add(slot)
+                        break
         self._inflight = np.maximum(self._inflight - rows_added, 0)
         self._perf["fetch_replay_s"] += time.perf_counter() - t_replay
 
@@ -1335,6 +1657,31 @@ class LLMEngine:
             self._upload(self._active_dev, active)
             self._perf["active_uploads"] += 1
         return self._active_dev
+
+    def _draftable(self, req_id: int) -> bool:
+        """True when the request's rows draft: greedy and penalty-free,
+        the predicate the verify body applies per row."""
+        t = self._req_samp.get(req_id)
+        return t is None or (t[0] <= 0 and t[3] == 0 and t[4] == 0)
+
+    def _observe_round_tokens(self, n: int) -> None:
+        """Fold one verify round's delivered tokens into the EMA that chunk
+        sizing and the drain guard read."""
+        if self._spec_round_ema is None:
+            self._spec_round_ema = float(n)
+        else:
+            self._spec_round_ema += SPEC_EMA_ALPHA * (
+                n - self._spec_round_ema)
+
+    def _est_round_tokens(self) -> float:
+        """Expected delivered tokens per decode round: 1 without
+        speculation; with it, the EMA of tokens per verify round, k_max + 1
+        before any round, within [1, k_max + 1]."""
+        if not self.spec:
+            return 1.0
+        if self._spec_round_ema is None:
+            return float(self.spec + 1)
+        return min(float(self.spec + 1), max(1.0, self._spec_round_ema))
 
     def _mask_unfunded(self, slot_req: list[int]) -> list[int]:
         """Decode planning sees a slot whose prefill is held (paged

@@ -118,8 +118,12 @@ class PagedLLMEngine(LLMEngine):
     # -- cache layout --------------------------------------------------------
 
     def _alloc_cache(self) -> dict:
+        """The pool's buffers, the device table and, with speculation, the
+        slab engine's token history (a slot's tokens are not paged)."""
         cache = self._pool.device_buffers(self.device)
         cache["tbl"] = torch.tensor(self._tbl_host, device=self.device)
+        if self.spec:
+            cache["hist"] = self._alloc_hist()
         return cache
 
     def _tbl_sync(self) -> None:

@@ -47,7 +47,7 @@ from kubeflow_tpu_torch.serving.tokenizer import ByteTokenizer
 CONFIG_KEYS = ("quantize", "kv_quantize", "n_slots", "max_len", "buckets",
                "decode_chunk", "pipeline_decode", "logprobs_topk",
                "prefix_cache", "max_prefixes", "prefix_cache_blocks",
-               "timeout_s")
+               "speculative", "spec_ngram", "spec_adaptive", "timeout_s")
 
 
 class BadRequest(ValueError):
