@@ -122,6 +122,35 @@ Phases, in order; any failure exits non-zero before the result line:
       burst with and without speculation, the spec_* metrics, warmups and
       graph pools; then K2 and K2-paged against their plain versions at
       each verify S_v the runs launched;
+  (e6) dataplane: an InferenceService's path through the port. chip_smoke's
+      own safetensors writer puts a Llama-3-8B-shaped HF directory of
+      random bf16 weights from --seed (the published config.json fields,
+      4 shards and the index, no tokenizer; fewer layers only when the
+      temp directory's disk cannot hold 16.06 GB) into a temp directory;
+      an LLMModel over it with the ISVC's config as written
+      (examples/llama-8b-serving-isvc.yaml, plus device, a 1 s SSE
+      keepalive and compile_cache in the temp directory) loads it
+      (load_hf straight to the card, int8 as it lands) and warms up:
+      load_hf seconds and GB/s, warmup seconds, resident GB and the
+      graph pool, the compile_cache holding the six libraries, and
+      embed, final_norm, wq[0], w_down[-1] and lm_head bit for bit the
+      written tensors (int8 leaves as quantize_int8 of them). Through the
+      port's server, with the engine held at a gate so each burst is
+      submitted whole and in order: (e3)'s 16 prompts as concurrent SSE
+      streams read by chip_smoke's own SSE reader (one [DONE] each, 48
+      tokens, client-side TTFT mean/p50/max from the first data event and
+      decode tokens/s), the same 16 buffered from the same engine state
+      (tokens equal row by row), a chat stream beside a client that
+      hangs up after 4 tokens (ended cancelled), K1, K2 and K3 launched
+      and no capture after warmup; then the streams again with a one-shot
+      backend_crash from a duck-typed injector once every stream has 8
+      tokens: one restart, keepalive comments in every stream, each
+      stream's tokens its uncrashed ones (or first different at a top-2
+      gap under E5_GAP, counted as a replay_mismatch), the outage, and
+      torch.cuda.memory_allocated() after the restart equal to before
+      within the graph pool; /metrics' TTFT count equal to the requests
+      served; after unload(), memory back to its value before (e6) once
+      the cuBLAS workspaces are cleared;
   (f) engine shapes: every kernel again against its plain version, at
       each argument shape the wrappers recorded in (e) (prefill waves,
       decode spans, lm_head rows, the paged engine's K2-paged launches),
@@ -146,7 +175,8 @@ Phases, in order; any failure exits non-zero before the result line:
       against its plain version at each shape the paged call launched it
       at;
   (g) server: three concurrent /openai/v1/completions requests against
-      the port's HTTP server over that engine;
+      the port's HTTP server over an LLMModel of (e)'s weights and
+      settings, warmed up at load;
   (h) training kernels: flash-attention forward (B1), dq (B2) and dk/dv
       (B3) against their plain versions at B=2 H=32 D=128 — S=4096
       causal, S=4000 causal with two documents per row, S=1024
@@ -193,6 +223,7 @@ import argparse
 import dataclasses
 import functools
 import gc
+import http.client
 import json
 import math
 import os
@@ -200,6 +231,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -216,6 +248,7 @@ from kubeflow_tpu_torch.ops import flash_prefill as fp
 from kubeflow_tpu_torch.ops import quant
 from kubeflow_tpu_torch.ops import quant_matmul as qm
 from kubeflow_tpu_torch.serving.llm import LLMEngine
+from kubeflow_tpu_torch.serving.llm_runtime import LLMModel
 from kubeflow_tpu_torch.serving.paged import PagedLLMEngine
 from kubeflow_tpu_torch.serving.server import CompletionServer
 from kubeflow_tpu_torch.training import data as train_data
@@ -2460,6 +2493,577 @@ def verify_shape_phase(gen, shapes) -> dict:
     return out
 
 
+# (e6): the dataplane. The ISVC's config as written in
+# examples/llama-8b-serving-isvc.yaml:28-45 (a test holds the two equal);
+# the phase adds device, and a 1 s SSE keepalive so the crash's outage
+# shows keepalives, and points compile_cache into the temp directory (the
+# run writes nothing outside its checkout and its TMPDIR)
+E6_ISVC = {"quantize": "int8", "kv_quantize": "int8", "n_slots": 16,
+           "max_len": 2048, "buckets": [128, 512, 1024], "decode_chunk": 8,
+           "pipeline_decode": True, "prefix_cache": True, "speculative": 6,
+           "logprobs_topk": 5, "compile_cache": "/var/cache/ktpu-xla",
+           "timeout_s": 120}
+# the config.json fields of the published meta-llama/Meta-Llama-3-8B
+E6_HF_CONFIG = {"architectures": ["LlamaForCausalLM"],
+                "model_type": "llama", "vocab_size": 128256,
+                "hidden_size": 4096, "intermediate_size": 14336,
+                "num_hidden_layers": 32, "num_attention_heads": 32,
+                "num_key_value_heads": 8, "max_position_embeddings": 8192,
+                "rope_theta": 500000.0, "rms_norm_eps": 1e-05,
+                "hidden_act": "silu", "tie_word_embeddings": False,
+                "bos_token_id": 128000, "eos_token_id": 128001,
+                "torch_dtype": "bfloat16"}
+E6_SHARDS = 4
+E6_KEEPALIVE_S = 1.0
+E6_CRASH_AT = 8          # crash once every stream has this many tokens
+E6_DISCONNECT_AT = 4     # the disconnecting client leaves after these
+
+
+def clear_cublas_workspaces() -> None:
+    """Free the cuBLAS workspaces (torch keeps one per thread and stream
+    that ran a GEMM, in its allocator): what an unload leaves is then the
+    model's own."""
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+
+
+def hf_tensors(cfg) -> list[tuple[str, tuple, int]]:
+    """(name, HF shape [out, in], fan_in) of every tensor of a Llama
+    checkpoint, in the published files' order; norms have fan_in 0."""
+    d, f, kv = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.head_dim
+    out = [("model.embed_tokens.weight", (cfg.vocab_size, d), d)]
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", (d,), 0),
+                (p + "self_attn.q_proj.weight", (d, d), d),
+                (p + "self_attn.k_proj.weight", (kv, d), d),
+                (p + "self_attn.v_proj.weight", (kv, d), d),
+                (p + "self_attn.o_proj.weight", (d, d), d),
+                (p + "post_attention_layernorm.weight", (d,), 0),
+                (p + "mlp.gate_proj.weight", (f, d), d),
+                (p + "mlp.up_proj.weight", (f, d), d),
+                (p + "mlp.down_proj.weight", (d, f), f)]
+    return out + [("model.norm.weight", (d,), 0),
+                  ("lm_head.weight", (cfg.vocab_size, d), d)]
+
+
+def write_hf_checkpoint(path, cfg, hf_config, seed, keep=()) -> dict:
+    """chip_smoke's own safetensors writer: a Llama checkpoint of random
+    bf16 weights (normal / sqrt(fan_in), unit norms) from `seed`, made on
+    the card tensor by tensor, in E6_SHARDS files plus the index. Returns
+    the tensors named in `keep` (on the card) and the bytes written."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    tensors = hf_tensors(cfg)
+    per = -(-len(tensors) // E6_SHARDS)
+    weight_map, kept, total = {}, {}, 0
+    for s in range(E6_SHARDS):
+        part = tensors[s * per:(s + 1) * per]
+        fname = f"model-{s + 1:05d}-of-{E6_SHARDS:05d}.safetensors"
+        header, off = {"__metadata__": {"format": "pt"}}, 0
+        for name, shape, _ in part:
+            n = math.prod(shape) * 2
+            header[name] = {"dtype": "BF16", "shape": list(shape),
+                            "data_offsets": [off, off + n]}
+            off += n
+            weight_map[name] = fname
+        head = json.dumps(header).encode()
+        head += b" " * (-len(head) % 8)
+        with open(os.path.join(path, fname), "wb") as fh:
+            fh.write(len(head).to_bytes(8, "little") + head)
+            for name, shape, fan_in in part:
+                t = (torch.randn(shape, generator=gen, device=DEV)
+                     / fan_in ** 0.5 if fan_in
+                     else torch.ones(shape, device=DEV)).to(torch.bfloat16)
+                if name in keep:
+                    kept[name] = t
+                fh.write(t.view(torch.uint8).cpu().numpy())
+        total += 8 + len(head) + off
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as fh:
+        json.dump({"metadata": {"total_size": total - 8 * E6_SHARDS},
+                   "weight_map": weight_map}, fh)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(hf_config, fh)
+    return {"kept": kept, "bytes": total}
+
+
+class SSEStream:
+    """chip_smoke's own SSE reader: one streaming completion on a thread
+    of its own, recording the token ids, the first data event's instant,
+    keepalive comments, [DONE] lines, errors and the finish; with
+    `leave_after` it closes the connection once that many tokens came."""
+
+    def __init__(self, port, body, path="/openai/v1/completions",
+                 leave_after=None, on_token=None):
+        self.port, self.body, self.path = port, dict(body, stream=True), path
+        self.leave_after, self.on_token = leave_after, on_token
+        self.tokens, self.lps, self.token_t = [], [], []
+        self.keepalives = self.done = 0
+        self.errors, self.finish, self.usage, self.text = [], None, None, ""
+        self.status = self.t_first = self.t_send = self.t_end = None
+        self.headers = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self):
+        self.thread.start()
+        return self
+
+    def _run(self):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=600)
+        resp = None
+        try:
+            self.t_send = time.monotonic()
+            conn.request("POST", self.path, json.dumps(self.body).encode(),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            self.status = resp.status
+            self.headers.set()
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                if line.startswith(b":"):
+                    self.keepalives += 1
+                    continue
+                if not line.startswith(b"data: "):
+                    continue
+                data = line[6:].strip()
+                if self.t_first is None:
+                    self.t_first = time.monotonic()
+                if data == b"[DONE]":
+                    self.done += 1
+                    continue
+                chunk = json.loads(data)
+                if "error" in chunk:
+                    self.errors.append(chunk["error"])
+                    continue
+                self.usage = chunk.get("usage") or self.usage
+                for ch in chunk["choices"]:
+                    if ch.get("token_id") is not None:
+                        self.tokens.append(ch["token_id"])
+                        self.lps.append(ch.get("logprob"))
+                        self.token_t.append(time.monotonic())
+                        if self.on_token is not None:
+                            self.on_token()
+                    self.text += (ch.get("text")
+                                  or (ch.get("delta") or {}).get("content")
+                                  or "")
+                    self.finish = ch.get("finish_reason") or self.finish
+                if (self.leave_after is not None
+                        and len(self.tokens) >= self.leave_after):
+                    break
+        finally:
+            self.t_end = time.monotonic()
+            self.headers.set()
+            if resp is not None:
+                resp.close()   # with Connection: close it owns the socket
+            conn.close()
+
+
+class EngineGate:
+    """Holds a supervised model's engine loop between steps, so a burst
+    is submitted whole, in a fixed order, before the engine takes any of
+    it: the waves and the slot order are then the same in every run."""
+
+    def __init__(self, sup):
+        self.sup, self._step = sup, sup.step
+        self.is_open, self.parked = threading.Event(), threading.Event()
+        sup.step = self._gated
+
+    def _gated(self):
+        if not self.is_open.is_set():
+            self.parked.set()
+            self.is_open.wait()
+            self.parked.clear()
+        return self._step()
+
+    def close(self):
+        """Returns once the engine loop waits at the gate."""
+        self.is_open.clear()
+        check(self.parked.wait(timeout=120), "e6: the engine loop did not "
+                                              "reach the gate")
+
+    def remove(self):
+        del self.sup.step
+        self.is_open.set()
+
+
+def e6_submit(model, start_one, n):
+    """Start n requests in order, each once the previous was accepted."""
+    sup = model.supervisor
+    out = []
+    for i in range(n):
+        before = sup.accounting()["accepted"]
+        out.append(start_one(i))
+        t = time.monotonic()
+        while sup.accounting()["accepted"] == before:
+            check(time.monotonic() - t < 60, f"e6: request {i} never "
+                                              "accepted")
+            time.sleep(0.0005)
+    return out
+
+
+def e6_reset(model, gate):
+    """Between runs: park the engine, evict the prefix store, and start
+    speculation from a new engine's estimates (see e5_run)."""
+    gate.close()
+    eng = model.engine
+    eng.kvcache.evict(10**9)
+    eng._spec_round_ema = None
+    eng._spec_adapt.ema[:] = eng.spec
+
+
+def e6_bodies(prompts, kws, **extra):
+    bodies = []
+    for p, kw in zip(prompts, kws):
+        body = {"model": "llama3-8b", "prompt": p, "max_tokens": E3_NEW,
+                **extra}
+        body.update({k: v for k, v in kw.items()
+                     if k in ("temperature", "top_p", "seed",
+                              "presence_penalty", "frequency_penalty")})
+        bodies.append(body)
+    return bodies
+
+
+def e6_stream_run(model, gate, server, bodies, crash=None):
+    """The burst as concurrent SSE streams, submitted in order behind the
+    gate (with `crash`, a CrashOnce watching them); returns the streams
+    and the client-side stats from the gate's opening: TTFT (the first
+    data event) mean, p50 and max, and decode tokens/s once every stream
+    had its first token."""
+    on_token = crash.on_token if crash is not None else None
+    streams = e6_submit(model, lambda i: SSEStream(
+        server.port, bodies[i], on_token=on_token).start(), len(bodies))
+    if crash is not None:
+        crash.streams = streams
+    t_open = time.monotonic()
+    gate.is_open.set()
+    for st in streams:
+        st.thread.join(timeout=600)
+        check(not st.thread.is_alive(), "e6: a stream did not end")
+    ttft = sorted(st.t_first - t_open for st in streams)
+    t_all = max(st.token_t[0] for st in streams)
+    t_end = max(st.token_t[-1] for st in streams)
+    n = sum(len(st.tokens) for st in streams)
+    return streams, {"ttft_mean_s": sum(ttft) / len(ttft),
+                     "ttft_p50_s": ttft[len(ttft) // 2],
+                     "ttft_max_s": ttft[-1],
+                     "decode_tok_s": (n - len(streams)) / (t_end - t_all),
+                     "tokens": n}
+
+
+def post_json(url, body, timeout=600):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def ttft_count(url) -> int:
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    m = re.search(r'^serving_ttft_seconds_count\{component="engine"\} (\d+)$',
+                  text, re.M)
+    return int(m.group(1)) if m else 0
+
+
+def dataplane_phase(seed: int, n_layers: int | None = None):
+    """(e6): see the module docstring. `n_layers` cuts the depth (the
+    temp directory's free disk decides it when None)."""
+    clear_cublas_workspaces()
+    mem0 = torch.cuda.memory_allocated()
+    hf_config = dict(E6_HF_CONFIG)
+    root = tempfile.mkdtemp(prefix="chip-smoke-e6-")
+    try:
+        free = shutil.disk_usage(root).free
+        full = llama.LlamaConfig.llama3_8b()
+        per_layer = sum(math.prod(s) * 2 for n, s, _ in hf_tensors(
+            dataclasses.replace(full, n_layers=1)) if ".layers." in n)
+        fixed = 2 * full.vocab_size * full.d_model * 2
+        if n_layers is None:
+            n_layers = min(full.n_layers,
+                           int((free - (2 << 30) - fixed) // per_layer))
+        check(n_layers >= 1, f"e6: {free / 1e9:.1f} GB free in {root}")
+        hf_config["num_hidden_layers"] = n_layers
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        print(f"e6: {free / 1e9:.2f} GB free in the temp directory; "
+              f"Llama-3-8B width at {n_layers} of 32 layers "
+              f"({(fixed + n_layers * per_layer) / 1e9:.2f} GB of bf16)",
+              flush=True)
+        ckpt = os.path.join(root, "llama-3-8b")
+        os.makedirs(ckpt)
+        keep = ("model.embed_tokens.weight", "model.norm.weight",
+                "model.layers.0.self_attn.q_proj.weight",
+                f"model.layers.{n_layers - 1}.mlp.down_proj.weight",
+                "lm_head.weight")
+        t = time.monotonic()
+        written = write_hf_checkpoint(ckpt, cfg, hf_config, seed + 6, keep)
+        write_s = time.monotonic() - t
+        print(f"e6: wrote {written['bytes'] / 1e9:.3f} GB in {E6_SHARDS} "
+              f"shards + index in {write_s:.2f} s", flush=True)
+        dataplane_serve(ckpt, cfg, written, seed, root, mem0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class CrashOnce:
+    """A duck-typed fault injector: one `backend_crash`, due at the first
+    supervised step after it is armed."""
+
+    def __init__(self, model):
+        self.model, self.streams, self.fired_at = model, [], None
+        self._lock = threading.Lock()
+        self._armed = False
+
+    def on_token(self):
+        """Arms the crash once every stream has E6_CRASH_AT tokens."""
+        with self._lock:
+            if self._armed or not self.streams or any(
+                    len(st.tokens) < E6_CRASH_AT for st in self.streams):
+                return
+            self._armed = True
+        self.model.supervisor.arm_faults(self)
+
+    def start(self):
+        pass
+
+    def due_one_shots(self, kind):
+        if kind != "backend_crash" or self.fired_at is not None:
+            return []
+        self.fired_at = time.monotonic()
+        return [kind]
+
+    def active(self, kind):
+        return None
+
+    def clear(self, event):
+        pass
+
+
+def dataplane_serve(ckpt, cfg, written, seed, root, mem0):
+    """(e6) from the written checkpoint on: load, the bit check, the
+    streamed and buffered bursts, chat and a disconnect, the crash, and
+    the unload."""
+    old_root = _build.BUILD_ROOT
+    cache_dir = os.path.join(root, "compile-cache")
+    isvc = dict(E6_ISVC, compile_cache=cache_dir,
+                sse_keepalive_s=E6_KEEPALIVE_S, device=DEV)
+    t = time.monotonic()
+    model = LLMModel("llama3-8b", ckpt, **isvc)
+    model.load()
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t
+    kept = written.pop("kept")
+    resident = (torch.cuda.memory_allocated() - mem0
+                - sum(x.nbytes for x in kept.values()))
+    ls = model.load_stats
+    g = model.engine.graph_stats()
+    libs = os.listdir(os.path.join(cache_dir, _build._source_hash()))
+    check(sorted(libs) == sorted(f"lib{n}.so" for n in _build.SOURCES),
+          f"e6: compile_cache holds {libs}")
+    print(f"e6 load: LLMModel.load {load_s:.2f} s: load_hf "
+          f"{ls['seconds']:.2f} s for {ls['bytes'] / 1e9:.3f} GB "
+          f"({ls['bytes'] / 1e9 / ls['seconds']:.2f} GB/s, int8 as it "
+          f"lands), engine build + warmup {load_s - ls['seconds']:.2f} s "
+          f"({g['captures']} graphs); resident {resident / 1e9:.3f} GB; "
+          f"graph pool {g['pool_bytes'] / 1e6:.1f} MB; compile_cache "
+          f"{len(libs)} libraries", flush=True)
+    p = model.engine.params
+    L = cfg.n_layers
+
+    def same(got, want, what):
+        check(torch.equal(got, want), f"e6: loaded {what} differs from "
+                                      "the written tensor")
+
+    same(p["embed"], kept["model.embed_tokens.weight"].float(), "embed")
+    same(p["final_norm"], kept["model.norm.weight"].float(), "final_norm")
+    for name, leaf, i in (("model.layers.0.self_attn.q_proj.weight", "wq",
+                           0),
+                          (f"model.layers.{L - 1}.mlp.down_proj.weight",
+                           "w_down", L - 1)):
+        want = quant.quantize_int8(kept[name].t().float())
+        same(p["layers"][leaf]["q"][i], want["q"], f"{leaf}[{i}].q")
+        same(p["layers"][leaf]["s"][i], want["s"], f"{leaf}[{i}].s")
+    want = quant.quantize_int8(kept["lm_head.weight"].t().float())
+    same(p["lm_head"]["q"], want["q"], "lm_head.q")
+    same(p["lm_head"]["s"], want["s"], "lm_head.s")
+    del kept, want, p
+    print("e6: embed, final_norm, wq[0], w_down[-1] and lm_head bit for "
+          "bit the written tensors (int8 leaves as quantize_int8 of them)",
+          flush=True)
+
+    gen = torch.Generator().manual_seed(seed + 3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in E3_PLENS]
+    kws = e3_kwargs()
+    bodies = e6_bodies(prompts, kws)
+    server = CompletionServer(model).start()
+    sup = model.supervisor
+    gate = EngineGate(sup)
+    try:
+        gate.close()
+        ttft0 = ttft_count(server.url)
+        captures = model.engine.graph_stats()["captures"]
+        _build.reset_launches()
+        # A: the burst as SSE streams
+        streams, stats = e6_stream_run(model, gate, server, bodies)
+        for i, st in enumerate(streams):
+            check(st.status == 200 and st.done == 1 and not st.errors
+                  and st.finish == "length" and len(st.tokens) == E3_NEW
+                  and st.usage["completion_tokens"] == len(st.tokens),
+                  f"e6: stream {i}: status {st.status}, {st.done} [DONE], "
+                  f"errors {st.errors}, finish {st.finish}, "
+                  f"{len(st.tokens)} tokens, usage {st.usage}")
+        # B: the same burst buffered, from the same engine state
+        e6_reset(model, gate)
+        results = [None] * len(bodies)
+
+        def post(i):
+            def run():
+                results[i] = post_json(
+                    server.url + "/openai/v1/completions",
+                    dict(bodies[i], logprobs=2))
+            th = threading.Thread(target=run, daemon=True)
+            th.start()
+            return th
+
+        threads = e6_submit(model, post, len(bodies))
+        gate.is_open.set()
+        for th in threads:
+            th.join(timeout=600)
+        buffered = [r["choices"][0] for r in results]
+        for i, (st, ch) in enumerate(zip(streams, buffered)):
+            check(st.tokens == ch["token_ids"],
+                  f"e6: row {i}: streamed tokens differ from the buffered "
+                  f"ones at {first_diff(st.tokens, ch['token_ids'])}")
+        # C: a chat stream beside a client that leaves mid-stream
+        e6_reset(model, gate)
+        cancelled = sup.accounting()["cancelled"]
+        gate.is_open.set()
+        chat = SSEStream(server.port, {
+            "model": "llama3-8b", "max_tokens": 24,
+            "messages": [{"role": "system", "content": "You are terse."},
+                         {"role": "user", "content": "Name three rivers."}]},
+            path="/openai/v1/chat/completions").start()
+        gone = SSEStream(server.port, dict(bodies[0], max_tokens=400),
+                         leave_after=E6_DISCONNECT_AT).start()
+        for st in (chat, gone):
+            st.thread.join(timeout=600)
+        t = time.monotonic()
+        while sup.accounting()["in_flight"]:
+            check(time.monotonic() - t < 60, "e6: the left request never "
+                                             "ended")
+            time.sleep(0.01)
+        acc = sup.accounting()
+        check(chat.status == 200 and chat.done == 1 and not chat.errors
+              and len(chat.tokens) == 24 and chat.finish == "length",
+              f"e6: chat: {chat.status} {chat.done} {chat.errors} "
+              f"{len(chat.tokens)} {chat.finish}")
+        check(acc["cancelled"] == cancelled + 1 and gone.done == 0
+              and len(gone.tokens) >= E6_DISCONNECT_AT,
+              f"e6: the disconnected request: cancelled "
+              f"{acc['cancelled'] - cancelled}, {len(gone.tokens)} tokens")
+        launches = dict(_build.LAUNCHES)
+        for name in SERVING_KERNELS:
+            check(launches[name] > 0, f"e6: {name} was never launched")
+        check(model.engine.graph_stats()["captures"] == captures,
+              "e6: a decode graph was captured after warmup")
+        # D: the burst again, crashed once every stream has tokens
+        e6_reset(model, gate)
+        mem_idle = torch.cuda.memory_allocated()
+        pool = model.engine.graph_stats()["pool_bytes"]
+        crash = CrashOnce(model)
+        before = sup.accounting()
+        factory, rebuilt = sup._factory, []
+
+        def timed_factory():   # the restart's engine build + warmup
+            t0 = time.monotonic()
+            eng = factory()
+            rebuilt.append(time.monotonic() - t0)
+            return eng
+
+        sup._factory = timed_factory
+        d_streams, d_stats = e6_stream_run(model, gate, server, bodies,
+                                           crash=crash)
+        acc = sup.accounting()
+        outage = acc["outages"][-1]
+        sup._factory = factory
+        del factory, timed_factory   # they hold the params
+        e6_reset(model, gate)
+        mem_after = torch.cuda.memory_allocated()
+        check(acc["restarts"] == before["restarts"] + 1
+              and crash.fired_at is not None,
+              f"e6: restarts {acc['restarts'] - before['restarts']}")
+        check(model.engine.graph_stats()["captures"] == captures,
+              "e6: the restarted engine captured other graphs")
+        diffs = {}
+        for i, (st, ref) in enumerate(zip(d_streams, streams)):
+            check(st.status == 200 and st.done == 1 and not st.errors
+                  and st.keepalives > 0 and len(st.tokens) == E3_NEW,
+                  f"e6 crash: stream {i}: {st.status}, {st.done} [DONE], "
+                  f"errors {st.errors}, {st.keepalives} keepalives, "
+                  f"{len(st.tokens)} tokens")
+            j = first_diff(st.tokens, ref.tokens)
+            if j is not None:
+                top = sorted(buffered[i]["logprobs"]["top_logprobs"][j]
+                             .values(), reverse=True)
+                diffs[i] = {"at": j, "gap": top[0] - top[1]}
+                check(top[0] - top[1] < E5_GAP or i in E3_SEEDED
+                      or i in E3_PENALIZED,
+                      f"e6 crash: row {i} differs from its uncrashed "
+                      f"tokens at {j}, top-2 gap {top[0] - top[1]:.4f}")
+        replays = {k: acc[k] - before[k] for k in
+                   ("replayed", "replay_verified", "replay_mismatch")}
+        check(replays["replay_mismatch"] >= len(diffs)
+              and replays["replayed"] == len(bodies),
+              f"e6 crash: replays {replays}, rows differing {diffs}")
+        check(abs(mem_after - mem_idle) <= pool,
+              f"e6 crash: allocated {mem_idle} before, {mem_after} after "
+              f"the restart (graph pool {pool})")
+        gaps = [b - a for st in d_streams
+                for a, b in zip(st.token_t, st.token_t[1:])]
+        served = ttft_count(server.url) - ttft0
+        n_req = 2 * len(bodies) + 2 + len(bodies)
+        check(served == n_req, f"e6: /metrics counts {served} TTFTs for "
+                               f"{n_req} requests")
+    finally:
+        gate.remove()
+        server.stop()
+        model.unload()
+        _build.set_build_root(old_root)
+    del model, server, gate, sup
+    gc.collect()
+    mem_end = torch.cuda.memory_allocated()
+    clear_cublas_workspaces()
+    mem_clear = torch.cuda.memory_allocated()
+    check(mem_clear == mem0,
+          f"e6: {mem_clear - mem0} bytes still allocated after unload() "
+          "(the cuBLAS workspaces cleared)")
+    print(f"e6 burst (SSE, 16 streams, client-side from the gate's "
+          f"opening): {json.dumps(stats)}", flush=True)
+    print(f"e6: streamed tokens equal the buffered ones (16/16 rows); one "
+          f"[DONE] a stream; chat {len(chat.tokens)} tokens; the client "
+          f"that left after {len(gone.tokens)} tokens ended cancelled; "
+          f"launches {json.dumps(launches)}; no capture after warmup",
+          flush=True)
+    print(f"e6 crash: outage {outage['mttr_s']:.3f} s (detected to "
+          f"replayed, backoff {outage['backoff_s']} s, engine build + "
+          f"warmup {rebuilt[0]:.3f} s), the longest "
+          f"silence a client saw {max(gaps):.3f} s, keepalives per stream "
+          f"{[st.keepalives for st in d_streams]}; replays "
+          f"{json.dumps(replays)}; rows differing from the uncrashed run "
+          f"{json.dumps(diffs)}; TTFT mean {d_stats['ttft_mean_s']:.4f} s; "
+          f"allocated "
+          f"{mem_idle / 1e9:.4f} GB before the crash, {mem_after / 1e9:.4f}"
+          f" GB after the restart (graph pool {pool / 1e6:.1f} MB); "
+          f"after unload() {(mem_end - mem0) / 1e6:+.1f} MB against before "
+          f"(e6), {mem_clear - mem0:+d} bytes once the cuBLAS workspaces "
+          f"(one a thread) are cleared; /metrics TTFT count +{served}",
+          flush=True)
+
+
 def fill_tables(engine, seed: int = 5) -> None:
     """A paged engine's slot tables filled with a shuffled permutation of
     its pool blocks (an idle engine leaves every row at block 0), in place:
@@ -2814,8 +3418,13 @@ def paged_prefill_shape_phase(gen, shapes) -> dict:
 
 
 def server_phase(engine) -> None:
-    server = CompletionServer(engine, model="llama3-8b",
-                              tokenizer=IdTokenizer()).start()
+    """(g): three concurrent completions through the port's server, over
+    an LLMModel of (e)'s weights and settings (warmed up at load)."""
+    server = CompletionServer.from_config(
+        engine.params, engine.cfg,
+        {"n_slots": 8, "max_len": 2048, "buckets": [128, 512, 1024],
+         "decode_chunk": 8, "kv_quantize": "int8"},
+        device=DEV, model="llama3-8b", tokenizer=IdTokenizer()).start()
     results: list = [None] * 3
     try:
         def post(i):
@@ -2978,6 +3587,7 @@ def main(argv=None) -> int:
     e5_shapes = phase("e5 speculation", spec_phase, engine, args.seed)
     verify_cases = phase("e5 verify shapes", verify_shape_phase, gen,
                          e5_shapes)
+    phase("e6 dataplane", dataplane_phase, args.seed)
     cases = {"quant_matmul": k1_step,
              **phase("f engine shapes", engine_shape_phase, gen, shapes)}
     phase("f step breakdown", step_breakdown, engine)

@@ -29,13 +29,17 @@ sharing:
 One root per namespace (the JAX engine's adapter id; always 0 in the
 port's engines): a prefix computed through one adapter is wrong KV for
 another. Capacity and eviction are shared across namespaces. The
-module touches no device and is testable with plain Python payloads.
+module touches no device and is testable with plain Python payloads;
+each hit, miss, insert and eviction also counts in the process's
+`kvcache_prefix_events_total` (obs/metrics.py).
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Any, Callable, Sequence
+
+from kubeflow_tpu_torch.obs import metrics as obs_metrics
 
 
 class Block:
@@ -222,6 +226,7 @@ class RadixKVCache:
                     self._inserted_blocks += 1
                     new_blocks += 1
                     self._row(tenant)["inserted_blocks"] += 1
+                    obs_metrics.PREFIX_EVENTS.inc(event="insert")
                 else:
                     self._touch(child)
                 node = child
@@ -250,6 +255,7 @@ class RadixKVCache:
         victim.block.payload = None   # drop the block's tensors now
         self._n_blocks -= 1
         self._evicted_blocks += 1
+        obs_metrics.PREFIX_EVENTS.inc(event="evict")
         return True
 
     def evict(self, n_blocks: int) -> int:
@@ -281,10 +287,12 @@ class RadixKVCache:
             row = self._row(tenant)
             row["hits"] += 1
             row["reused_tokens"] += reused_tokens
+        obs_metrics.PREFIX_EVENTS.inc(event="hit")
 
     def record_miss(self, tenant: str | None) -> None:
         with self._lock:
             self._row(tenant)["misses"] += 1
+        obs_metrics.PREFIX_EVENTS.inc(event="miss")
 
     @property
     def n_blocks(self) -> int:

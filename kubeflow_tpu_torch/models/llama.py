@@ -21,6 +21,9 @@ and rewriting it per step would double the step's memory traffic.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
 from typing import Any
 
 import torch
@@ -29,6 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch.models import safetensors
 from kubeflow_tpu_torch.ops import quant
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.flash_decode import flash_decode_attention
@@ -123,6 +127,15 @@ class LlamaConfig:
                            max_seq_len=128, rope_theta=10000.0)
 
 
+def matmul_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
+    """Each layer's matmul weight as [in, out] (its fan-in is `in`)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    return {"wq": (d, nh * hd), "wk": (d, nkv * hd), "wv": (d, nkv * hd),
+            "wo": (nh * hd, d), "w_gate": (d, f), "w_up": (d, f),
+            "w_down": (f, d)}
+
+
 def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
          quantize: str | None = None) -> Params:
     """Random params (normal / sqrt(fan_in), unit norms) from `seed`,
@@ -134,9 +147,7 @@ def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
         raise ValueError(f"unknown quantize mode {quantize!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
-    nh, nkv, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
-    pd = cfg.param_dtype
+    d, L, pd = cfg.d_model, cfg.n_layers, cfg.param_dtype
 
     def dense(shape, fan_in):
         return torch.randn(shape, generator=gen, device=dev) / fan_in ** 0.5
@@ -145,10 +156,8 @@ def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
         w = dense(shape, fan_in)
         return quant.quantize_int8(w) if quantize else w.to(pd)
 
-    shapes = {"wq": ((d, nh * hd), d), "wk": ((d, nkv * hd), d),
-              "wv": ((d, nkv * hd), d), "wo": ((nh * hd, d), nh * hd),
-              "w_gate": ((d, f), d), "w_up": ((d, f), d),
-              "w_down": ((f, d), f)}
+    shapes = {name: (shape, shape[0])
+              for name, shape in matmul_shapes(cfg).items()}
     layers: Params = {}
     for name, (shape, _) in shapes.items():
         if quantize:
@@ -635,3 +644,168 @@ def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
         x = x + quant.matmul(out, layer["wo"], cfg.dtype)
         x = _mlp(cfg, x, layer)
     return x
+
+
+# -- HuggingFace checkpoints (the JAX package's load_hf) ---------------------
+# HF Llama uses the rotate_half RoPE of ops/rope.py, so the mapping is a
+# renaming plus the torch Linear [out, in] -> x @ W [in, out] transpose;
+# per-layer tensors stack on the leading [L, ...] axis.
+
+#: stacked-layer leaf -> (HF per-layer name, transposed)
+_HF_LAYER_MAP = {
+    "wq": ("model.layers.{i}.self_attn.q_proj.weight", True),
+    "wk": ("model.layers.{i}.self_attn.k_proj.weight", True),
+    "wv": ("model.layers.{i}.self_attn.v_proj.weight", True),
+    "wo": ("model.layers.{i}.self_attn.o_proj.weight", True),
+    "w_gate": ("model.layers.{i}.mlp.gate_proj.weight", True),
+    "w_up": ("model.layers.{i}.mlp.up_proj.weight", True),
+    "w_down": ("model.layers.{i}.mlp.down_proj.weight", True),
+    "attn_norm": ("model.layers.{i}.input_layernorm.weight", False),
+    "mlp_norm": ("model.layers.{i}.post_attention_layernorm.weight", False),
+}
+
+
+def is_hf_checkpoint(path: str) -> bool:
+    """True for a HuggingFace model directory (config.json + safetensors)."""
+    return (os.path.isdir(path)
+            and os.path.exists(os.path.join(path, "config.json"))
+            and bool(glob.glob(os.path.join(path, "*.safetensors"))))
+
+
+def config_from_hf(path: str, **overrides: Any) -> LlamaConfig:
+    """LlamaConfig from an HF config.json (Llama-family field names)."""
+    with open(os.path.join(path, "config.json")) as f:
+        hf = json.load(f)
+    heads = hf["num_attention_heads"]
+    fields = dict(
+        vocab_size=hf["vocab_size"],
+        d_model=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=heads,
+        n_kv_heads=hf.get("num_key_value_heads", heads),
+        d_ff=hf["intermediate_size"],
+        max_seq_len=hf.get("max_position_embeddings", 8192),
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+    )
+    fields.update(overrides)
+    return LlamaConfig(**fields)
+
+
+def _hf_weight_map(path: str) -> dict[str, str]:
+    """Tensor name -> file name, from model.safetensors.index.json for a
+    sharded directory, else from the headers of every *.safetensors."""
+    index = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            return json.load(f)["weight_map"]
+    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no *.safetensors under {path}")
+    weight_map = {}
+    for fn in files:
+        with safetensors.SafeFile(fn) as f:
+            weight_map.update((k, os.path.basename(fn)) for k in f.keys())
+    return weight_map
+
+
+def load_hf(path: str, cfg: LlamaConfig | None = None, *, device="cuda",
+            quantize: str | None = None, mesh=None
+            ) -> tuple[Params, LlamaConfig]:
+    """An HF Llama checkpoint directory as init()-shaped params: (params,
+    cfg), every leaf in cfg.param_dtype, bit for bit the JAX `load_hf`'s.
+    Takes sharded directories (model.safetensors.index.json) and tied
+    embeddings (no lm_head.weight: embed transposed).
+
+    Tensors go from the memory-mapped file to the device as stored (bf16
+    for a published checkpoint), one leaf of one layer at a time, and are
+    widened and transposed there, so the host never holds an f32 copy of
+    the model (the JAX loader's f32 stack of an 8B model is 32 GB). With
+    quantize="int8" each layer's matmul weights and the lm_head are
+    quantized as they arrive (`quantize_params` of the loaded params, bit
+    for bit), so the full-width weights never exist on the device at once.
+    Every tensor's shape is checked against init()'s before any is read."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    if mesh is not None:
+        raise ValueError(
+            "load_hf(mesh=...): sharded parameters are not ported yet "
+            "(ROADMAP.md queue A6, parallelism)")
+    if cfg is None:
+        cfg = config_from_hf(path)
+    dev = resolve_device(device)
+    weight_map = _hf_weight_map(path)
+    handles: dict[str, safetensors.SafeFile] = {}
+
+    def handle(name: str) -> safetensors.SafeFile:
+        if name not in weight_map:
+            raise KeyError(f"{name} missing from checkpoint {path}")
+        fn = weight_map[name]
+        if fn not in handles:
+            handles[fn] = safetensors.SafeFile(os.path.join(path, fn))
+        return handles[fn]
+
+    def check(name: str, want: tuple, transpose: bool) -> None:
+        got = handle(name).shape(name)
+        got = tuple(reversed(got)) if transpose else tuple(got)
+        if got != tuple(want):
+            raise ValueError(f"shape mismatch: {name} {got} != {want}")
+
+    def tensor(name: str, transpose: bool) -> torch.Tensor:
+        """The stored tensor on the device, widened to f32 (exact from
+        bf16, f16 and f32) and transposed there."""
+        t = handle(name).get_tensor(name).to(dev, copy=True).float()
+        return t.t() if transpose else t
+
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    pd = cfg.param_dtype
+    tied = "lm_head.weight" not in weight_map
+    shapes = dict(matmul_shapes(cfg), attn_norm=(d,), mlp_norm=(d,))
+    try:
+        check("model.embed_tokens.weight", (V, d), False)
+        check("model.norm.weight", (d,), False)
+        if not tied:
+            check("lm_head.weight", (d, V), True)
+        for leaf, (tpl, transpose) in _HF_LAYER_MAP.items():
+            for i in range(L):
+                check(tpl.format(i=i), shapes[leaf], transpose)
+
+        def as_param(w: torch.Tensor, quantized: bool):
+            # quantize_params quantizes the leaf as it is stored, in pd
+            w = w.to(pd).contiguous()
+            return quant.quantize_int8(w) if quantized else w
+
+        embed = tensor("model.embed_tokens.weight", False).to(pd)
+        head = (embed.t() if tied else tensor("lm_head.weight", True))
+        layers: Params = {}
+        for leaf, (tpl, transpose) in _HF_LAYER_MAP.items():
+            quantized = quantize is not None and leaf in QUANT_LEAVES
+            if quantized:
+                out = shapes[leaf][1]
+                layers[leaf] = {
+                    "q": torch.empty((L, *shapes[leaf]), dtype=torch.int8,
+                                     device=dev),
+                    "s": torch.empty((L, out), dtype=torch.float32,
+                                     device=dev)}
+            else:
+                layers[leaf] = torch.empty((L, *shapes[leaf]), dtype=pd,
+                                           device=dev)
+            for i in range(L):
+                w = as_param(tensor(tpl.format(i=i), transpose), quantized)
+                if quantized:
+                    layers[leaf]["q"][i] = w["q"]
+                    layers[leaf]["s"][i] = w["s"]
+                else:
+                    layers[leaf][i] = w
+        params: Params = {
+            "embed": embed,
+            "layers": layers,
+            "final_norm": tensor("model.norm.weight", False).to(pd),
+            "lm_head": as_param(head, quantize is not None),
+        }
+    finally:
+        # drop the mappings now: a long-lived server would otherwise keep
+        # every shard file mapped
+        for h in handles.values():
+            h.close()
+    return params, cfg

@@ -118,6 +118,28 @@ def _lib_path(name: str) -> Path:
     return BUILD_ROOT / _source_hash() / f"lib{name}.so"
 
 
+def set_build_root(path: str | os.PathLike) -> Path:
+    """Keep the libraries under `path` from now on, under the same source
+    hash (a predictor's `compile_cache`): the libraries built so far for
+    the current sources are copied there, and later builds are written
+    there, so a restarted process that points at the same directory finds
+    every library and runs no nvcc. Libraries already loaded stay
+    loaded."""
+    global BUILD_ROOT
+    new = Path(path)
+    with _lock:
+        src, dst = BUILD_ROOT / _source_hash(), new / _source_hash()
+        if src != dst and src.is_dir():
+            for lib in src.glob("lib*.so"):
+                if not (dst / lib.name).exists():
+                    dst.mkdir(parents=True, exist_ok=True)
+                    tmp = dst / f"{lib.name}.{os.getpid()}.tmp"
+                    shutil.copyfile(lib, tmp)
+                    os.replace(tmp, dst / lib.name)
+        BUILD_ROOT = new
+    return new
+
+
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
     out = _lib_path(name)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -82,12 +82,23 @@ The verify programs are keyed (steps, span, kd, sample), captured as
 graphs by `warmup()` in place of the decode menu, with the JAX fallbacks
 after it: a cold key takes full span, then static k_max at full span.
 
-Not in this engine yet: streaming and adapters.
+Observability (the JAX engine's): `submit` counts the request and keeps
+its trace id; the decode loop only bumps a `StepAggregator`; at finish
+the engine observes TTFT, TPOT and queue wait into the obs/metrics.py
+histograms and, for a sampled trace, records its queue, prefill and decode
+spans from the timestamps it kept (`_obs_finish`); the scheduler's queue
+depth and the prefix store's free blocks are gauges a scrape hook
+refreshes (`_obs_publish`). `request_timing` reports the same instants
+and the phase split, and `close()` frees the KV cache, the graphs and
+their pool.
+
+Not in this engine yet: adapters and tenant fairness.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import math
 import threading
 import time
@@ -99,6 +110,8 @@ import torch
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.kvcache import RadixKVCache
 from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.obs import metrics as obs_metrics
+from kubeflow_tpu_torch.obs.trace import TRACER, StepAggregator
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.serving.scheduler import (DecodeAction,
                                                   PrefillAction,
@@ -111,6 +124,12 @@ def _to_device(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _leaves(tree: Any) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
 
 
 def _fold_seed24(seed: int) -> int:
@@ -247,6 +266,8 @@ class LLMEngine:
     #: the radix namespace of every request (the JAX engine's adapter
     #: id; the port has no adapters)
     _prefix_ns = 0
+    #: the obs component label and the name of the engine's spans
+    role = "engine"
 
     def __init__(self, params, cfg: llama.LlamaConfig, *, n_slots: int = 4,
                  max_len: int = 512, buckets: Sequence[int] = (64, 128, 256),
@@ -286,6 +307,8 @@ class LLMEngine:
         self.buckets = tuple(sorted(buckets))
         self.eos_id = eos_id
         self.decode_chunk = max(1, decode_chunk)
+        # set_decode_chunk's ceiling once warmup() has captured the menu
+        self._decode_chunk_warm = self.decode_chunk
         self.scheduler = PyScheduler(n_slots, self.buckets)
         # -- speculative decoding (module docstring): the draft length
         # k_max, the n-gram size, the delivered tokens and verify rounds,
@@ -372,7 +395,10 @@ class LLMEngine:
         self._toplogprobs: dict[int, list[dict[int, float]]] = {}
         self._finish_reasons: dict[int, str] = {}
         self._submit_t: dict[int, float] = {}
+        self._prefill_start_t: dict[int, float] = {}
         self._first_token_t: dict[int, float] = {}
+        self._finish_t: dict[int, float] = {}
+        self._req_plen: dict[int, int] = {}
         self._done: set[int] = set()
         self._cancel_pending: list[int] = []
         self._deadlines: dict[int, float] = {}
@@ -380,6 +406,13 @@ class LLMEngine:
         self._perf = {"dispatch_s": 0.0, "fetch_replay_s": 0.0,
                       "decode_chunks": 0, "decode_steps": 0,
                       "active_uploads": 0}
+        # -- observability (module docstring): trace ids, the decode
+        # loop's counters and their snapshot at each traced request's
+        # first token, and the scrape hook (weakref-held)
+        self._req_trace: dict[int, str] = {}
+        self._decode_agg = StepAggregator()
+        self._decode_mark: dict[int, tuple[int, int]] = {}
+        obs_metrics.add_scrape_hook(self, LLMEngine._obs_publish)
 
     def _samp_reset(self) -> np.ndarray:
         """Idle per-slot sampling state: all zero (greedy, filters and
@@ -671,7 +704,7 @@ class LLMEngine:
                frequency_penalty: float = 0.0, seed: int | None = None,
                stop: Sequence[Sequence[int]] | None = None,
                deadline_s: float | None = None,
-               tenant: str | None = None) -> int:
+               tenant: str | None = None, trace: str | None = None) -> int:
         """Queue one request. A prompt longer than the largest bucket is
         chunked; PromptTooLong when it is empty or its chain cannot fit
         max_len, QueueFull when the queue is full, ValueError for bad
@@ -681,7 +714,8 @@ class LLMEngine:
         that end the request (finish reason "stop") and are removed from
         the result; `deadline_s`: past it the request is cancelled at the
         next step; `tenant`: the name the prefix cache's per-tenant rows
-        count the request under."""
+        count the request under; `trace`: its trace id (obs/trace.py),
+        under which its spans are recorded at finish when sampled."""
         (temperature, top_k, top_p, presence_penalty, frequency_penalty,
          seed, stop_seqs) = self._validate_submit(
             prompt, temperature, top_k, top_p, presence_penalty,
@@ -709,7 +743,11 @@ class LLMEngine:
             self._logprobs[rid] = []
             if self.logprobs_topk:
                 self._toplogprobs[rid] = []
+            self._req_plen[rid] = len(prompt)
             self._submit_t[rid] = time.monotonic()
+            if trace is not None:
+                self._req_trace[rid] = trace
+        obs_metrics.REQUESTS.inc(component=self.role, event="submitted")
         return rid
 
     def cancel(self, req_id: int) -> bool:
@@ -762,6 +800,11 @@ class LLMEngine:
             if not isinstance(nxt, PrefillAction):
                 break    # a decode pass re-derives from slot state later
             actions.append(nxt)
+        t_prefill = time.monotonic()
+        for a in actions:
+            # the request left the queue now (a held paged prefill keeps
+            # its first pop)
+            self._prefill_start_t.setdefault(a.req_id, t_prefill)
         actions = self._admit_prefills(actions)
         if actions:
             self._run_prefill_actions(actions)
@@ -897,7 +940,9 @@ class LLMEngine:
         for d in (self._results, self._logprobs, self._toplogprobs,
                   self._finish_reasons, self._submit_t,
                   self._first_token_t, self._req_tenant,
-                  self._cached_prefix):
+                  self._cached_prefix, self._prefill_start_t,
+                  self._finish_t, self._req_plen, self._req_trace,
+                  self._decode_mark):
             d.pop(req_id, None)
 
     def cached_tokens(self, req_id: int) -> int:
@@ -905,6 +950,148 @@ class LLMEngine:
         request (the OpenAI usage `cached_tokens`): 0 before its prefill,
         on a miss and with the cache off."""
         return self._cached_prefix.get(req_id, 0)
+
+    def request_timing(self, req_id: int) -> dict[str, Any]:
+        """One request's wall-clock record (the JAX `request_timing`):
+        submit, first-token and finish instants (time.monotonic; None
+        until they happen), tenant, tokens so far, prompt_len,
+        cached_prefix_len and prefill_tokens, and the phase split:
+        queue_wait_ms (submit to the prefill leaving the queue),
+        prefill_ms (to the first token) and decode_ms (to the finish),
+        each None until its boundary lands. Read before release()."""
+        plen = self._req_plen.get(req_id)
+        cached = self._cached_prefix.get(req_id, 0)
+        sub = self._submit_t.get(req_id)
+        pstart = self._prefill_start_t.get(req_id)
+        first = self._first_token_t.get(req_id)
+        fin = self._finish_t.get(req_id)
+
+        def ms(a, b):
+            return (round((b - a) * 1e3, 3)
+                    if a is not None and b is not None else None)
+
+        return {"submit_s": sub, "first_token_s": first, "finish_s": fin,
+                "tenant": self._req_tenant.get(req_id),
+                "n_tokens": len(self._results.get(req_id, ())),
+                "prompt_len": plen, "cached_prefix_len": cached,
+                "prefill_tokens": (plen - cached if plen is not None
+                                   else None),
+                "queue_wait_ms": ms(sub, pstart),
+                "prefill_ms": ms(pstart, first),
+                "decode_ms": ms(first, fin)}
+
+    def set_tenant_limits(self, max_active_per_tenant: int = 0,
+                          max_queued_per_tenant: int = 0) -> None:
+        raise NotImplementedError(
+            "per-tenant fairness and admission caps come with the C++ "
+            "scheduler binding (ROADMAP.md queue A1.f)")
+
+    @property
+    def decode_chunk_max(self) -> int:
+        """The largest decode chunk set_decode_chunk may pick: after
+        warmup() the largest captured chunk, so live traffic never
+        captures."""
+        return self._decode_chunk_warm
+
+    def set_decode_chunk(self, chunk: int) -> int:
+        """Re-pick the decode chunk length (the JAX SLO controller's
+        surface), applied at the next chunk; after warmup() clamped to
+        the captured menu. Returns the value applied."""
+        chunk = max(1, int(chunk))
+        if self._warmed:
+            chunk = min(chunk, self._decode_chunk_warm)
+        self.decode_chunk = chunk
+        return chunk
+
+    def mesh_info(self) -> dict[str, Any]:
+        """The /healthz `mesh` section for the one layout the port has:
+        one device, and the params' bytes."""
+        leaves = [] if self.params is None else _leaves(self.params)
+        return {"layout": "single", "axes": {}, "device_count": 1,
+                "params_bytes": int(sum(t.nbytes for t in leaves))}
+
+    def close(self) -> None:
+        """Free the device state now: the captured graphs and their pool,
+        the KV cache, the prefix store's blocks, the slot state and this
+        engine's reference to the params (the caller's own reference
+        keeps them). The graphs reference the engine, so `del engine`
+        alone would leave all of it to a full gc pass; a restarted
+        engine then fits where this one was. The engine is unusable
+        after."""
+        if self.device.type == "cuda":
+            # a pipelined chunk may still run: let it finish before its
+            # buffers and graphs go
+            torch.cuda.synchronize(self.device)
+        self._programs.clear()
+        self._pending = None
+        self.kvcache = None
+        self._host_out = []
+        obs_metrics.remove_scrape_hooks(self)
+        for name, value in list(vars(self).items()):
+            if isinstance(value, torch.Tensor) or name in (
+                    "cache", "params", "_graph_pool"):
+                setattr(self, name, None)
+        gc.collect()
+
+    def _obs_publish(self) -> None:
+        """Scrape hook: refresh this engine's queue-depth gauges, the
+        attention path it runs and the prefix store's free blocks."""
+        s = self.scheduler.stats()
+        obs_metrics.SCHED_QUEUED.set(s.queued, engine=self.role)
+        obs_metrics.SCHED_ACTIVE.set(s.active, engine=self.role)
+        obs_metrics.INFLIGHT.set(s.queued + s.active, component=self.role)
+        # the hand-written kernels on the card, their plain versions on
+        # the CPU
+        impl = "flash" if self.device.type == "cuda" else "plain"
+        for phase in ("decode", "prefill"):
+            obs_metrics.ATTENTION_IMPL.set(1, engine=self.role, phase=phase,
+                                           impl=impl)
+        if self.kvcache is not None:
+            st = self.kvcache.stats()
+            obs_metrics.KV_FREE_BLOCKS.set(st["free_blocks"],
+                                           engine=self.role)
+            obs_metrics.KV_WATERMARK_FRAC.set(st["watermark_frac"],
+                                              engine=self.role)
+
+    def _obs_finish(self, req_id: int) -> None:
+        """A finished request's telemetry, once: the lifecycle counter,
+        the TTFT, TPOT and queue-wait histograms and, for a sampled trace,
+        its queue, prefill and decode spans from the kept timestamps."""
+        reason = self._finish_reasons.get(req_id, "length")
+        obs_metrics.REQUESTS.inc(component=self.role, event=reason)
+        sub = self._submit_t.get(req_id)
+        pstart = self._prefill_start_t.get(req_id)
+        first = self._first_token_t.get(req_id)
+        fin = self._finish_t.get(req_id)
+        n_tok = len(self._results.get(req_id, ()))
+        if sub is not None and first is not None:
+            obs_metrics.TTFT_SECONDS.observe(first - sub,
+                                             component=self.role)
+        if sub is not None and pstart is not None:
+            obs_metrics.QUEUE_WAIT_SECONDS.observe(pstart - sub,
+                                                   component=self.role)
+        if first is not None and fin is not None and n_tok >= 2:
+            obs_metrics.TPOT_SECONDS.observe((fin - first) / (n_tok - 1),
+                                             component=self.role)
+        trace = self._req_trace.pop(req_id, None)
+        mark = self._decode_mark.pop(req_id, None)
+        if trace is None or not TRACER.sampled(trace):
+            return
+        tenant = self._req_tenant.get(req_id)
+        TRACER.record_span(f"{self.role}.queue", "queue", trace, sub,
+                           pstart, tenant=tenant)
+        TRACER.record_span(f"{self.role}.prefill", "prefill", trace,
+                           pstart, first, prompt_len=self._req_plen.get(
+                               req_id),
+                           cached_prefix_len=self._cached_prefix.get(
+                               req_id, 0))
+        attrs: dict[str, Any] = {"n_tokens": n_tok, "finish_reason": reason,
+                                 "tenant": tenant}
+        if mark is not None:
+            attrs.update(StepAggregator.window(
+                mark, self._decode_agg.snapshot()))
+        TRACER.record_span(f"{self.role}.decode", "decode", trace, first,
+                           fin, **attrs)
 
     def metrics(self) -> dict[str, Any]:
         """The prefill, prefix-cache and speculation counters under the
@@ -1486,6 +1673,7 @@ class LLMEngine:
         self._host_lengths[:] = 0
         self._inflight[:] = 0
         self._active_host = None
+        self._decode_chunk_warm = self.decode_chunk
         self._warmed = True
 
     # -- decode --------------------------------------------------------------
@@ -1571,6 +1759,7 @@ class LLMEngine:
         self._perf["dispatch_s"] += time.perf_counter() - t_dispatch
         self._perf["decode_chunks"] += 1
         self._perf["decode_steps"] += k
+        self._decode_agg.note_step(int(active.sum()) * k * per_tok, steps=k)
         rows_added = np.where(active, k * per_tok, 0)
         self._inflight += rows_added
         prev = self._pending
@@ -1695,6 +1884,8 @@ class LLMEngine:
         """Append one token; True when it finished the request."""
         if first_token:
             self._first_token_t[req_id] = time.monotonic()
+            if req_id in self._req_trace:
+                self._decode_mark[req_id] = self._decode_agg.snapshot()
         res = self._results[req_id]
         res.append(token)
         self._logprobs[req_id].append(lp)
@@ -1728,7 +1919,9 @@ class LLMEngine:
     def _forget(self, req_id: int) -> None:
         """Mark a request finished and drop what only a running request
         needs; its results stay until release()."""
+        self._finish_t[req_id] = time.monotonic()
         self._done.add(req_id)
         for d in (self._prompts, self._max_new, self._req_samp,
                   self._req_stop, self._deadlines):
             d.pop(req_id, None)
+        self._obs_finish(req_id)

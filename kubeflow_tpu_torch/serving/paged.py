@@ -436,3 +436,10 @@ class PagedLLMEngine(LLMEngine):
         out["kv_pool"] = self._pool.stats()
         out["held_prefills"] = len(self._held)
         return out
+
+    def close(self) -> None:
+        """The slab engine's close, and the block pool's buffers."""
+        self._held = []
+        self._deferred_derefs = []
+        super().close()
+        self._pool = None

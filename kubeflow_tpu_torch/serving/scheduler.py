@@ -29,6 +29,12 @@ class DecodeAction:
     active: int
 
 
+@dataclasses.dataclass(frozen=True)
+class Stats:
+    queued: int
+    active: int
+
+
 class QueueFull(RuntimeError):
     pass
 
@@ -104,6 +110,12 @@ class PyScheduler:
         with self._mu:
             sl = self._slots[slot]
             return sl.req_id if sl.active else -1
+
+    def stats(self) -> Stats:
+        """Requests waiting for a slot and requests holding one."""
+        with self._mu:
+            return Stats(len(self._queue),
+                         sum(s.active for s in self._slots))
 
     def cancel(self, req_id: int) -> str | None:
         """"queued" (removed from the queue), "active" (its slot freed)

@@ -1,77 +1,122 @@
-"""OpenAI-style completion server over one LLMEngine (counterpart of the
-completion and readiness routes of kubeflow_tpu/serving/server.py):
+"""The port's model server: the LLM routes of kubeflow_tpu/serving/
+server.py's `ModelServer`, over `serving/llm_runtime.py` `LLMModel`s.
 
-    POST /openai/v1/completions   {"prompt": str | [ids], "max_tokens",
-                                   "temperature", "top_k", "top_p", "stop",
-                                   "presence_penalty", "frequency_penalty",
-                                   "seed", "logprobs", "timeout", "user"}
-         -> {"choices": [{"text", "token_ids", "finish_reason",
-                          "logprobs"?}],
-             "usage": {"prompt_tokens", "completion_tokens",
-                       "total_tokens", "cached_tokens"?,
-                       "prompt_tokens_details"?: {"cached_tokens"}}}
-    GET  /v2/health/ready         -> {"ready": true}
+    POST /openai/v1/completions        {"model"?, "prompt": str | [ids],
+                                        "max_tokens", "temperature",
+                                        "top_k", "top_p", "stop",
+                                        "presence_penalty",
+                                        "frequency_penalty", "seed",
+                                        "logprobs", "n", "best_of", "echo",
+                                        "timeout", "user", "stream"}
+    POST /openai/v1/chat/completions   the same with "messages" for
+                                        "prompt" (no echo)
+    POST /v1/models/<m>:predict        {"instances": [{"prompt_tokens",
+                                        "max_new_tokens", ...}, ...]}
+    GET  /v1/models | /v2/models       the model's name
+    GET  /v2/models/<m> | /v2/models/<m>/ready
+    GET  /v2/health/live | /v2/health/ready
+    GET  /healthz                      liveness, uptime, build stamp, and
+                                        the model's prefix cache,
+                                        supervisor, device layout and SLO
+                                        window
+    GET  /metrics                      Prometheus text (obs/metrics.py)
 
-`stop` is a string, or a list of up to 8 strings (encoded by the
-server's tokenizer) or token-id lists. `logprobs` true returns each
-token's logprob; an int N (at most the engine's logprobs_topk) adds the
-top-N alternatives, as OpenAI's `logprobs` object (`tokens`,
-`token_logprobs`, `top_logprobs` keyed by token id). A request's
-`timeout` seconds, or else the server's `timeout_s` (the ISVC key),
-becomes the engine's deadline: past it the request ends "cancelled".
-`user` (1..256 characters) is the engine's tenant, the row the prefix
-cache counts the request under. On an engine with the prefix cache,
-`usage` carries the prompt tokens whose KV the cache supplied, as
-`cached_tokens` and under `prompt_tokens_details`.
+The wire format is the JAX server's. A non-streaming answer is one JSON
+object whose choices carry "text" (or a chat "message"), "token_ids",
+"finish_reason" and, with `logprobs`, "token_ids"/"tokens"/
+"token_logprobs" and the top-N alternatives keyed by token id; `usage`
+has prompt, completion and total tokens, `cached_tokens` (and under
+`prompt_tokens_details`) on a prefix-cache model, `cancelled` when a
+returned choice was. With "stream": true the answer is server-sent
+events: one `data: {...}` chunk per token with its text delta and
+token_id (and logprob), `: keepalive` comments while the supervisor
+restarts the engine, a final chunk with the finish_reason and the usage,
+then one `data: [DONE]`; a failure after the headers is an error event
+before the [DONE]. A client that hangs up mid-stream is noticed before
+the next write (`_client_gone`) and its request cancelled.
 
-A `ThreadingHTTPServer` answers each request on its own thread; one
-engine thread runs `engine.step()` while there is work and sleeps on a
-condition variable otherwise. Non-streaming only.
+The server holds one model (a replica of one InferenceService). Two
+deliberate differences from the JAX server: "model" may be left out,
+and `stop` may also give token-id lists. The server speaks to engines only through the model: it names no
+engine class, and `from_config` builds an `LLMModel`, whose supervisor
+factory is where an engine is made. The V2 tensor `infer` route, gRPC,
+dynamic batching and the payload logger are not ported (ROADMAP.md
+queue A1.f).
 """
 
 from __future__ import annotations
 
 import json
+import math
+import select
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
-from kubeflow_tpu_torch.models import llama
-from kubeflow_tpu_torch.serving.llm import LLMEngine
+from kubeflow_tpu_torch.obs import metrics as obs_metrics
+from kubeflow_tpu_torch.obs.build import build_stamp
+from kubeflow_tpu_torch.obs.metrics import render_metrics
+from kubeflow_tpu_torch.obs.trace import TRACE_HEADER, TRACER, new_trace_id
+from kubeflow_tpu_torch.serving.llm_runtime import (LLMModel, ModelError,
+                                                    ProtocolError)
 from kubeflow_tpu_torch.serving.scheduler import PromptTooLong, QueueFull
-from kubeflow_tpu_torch.serving.tokenizer import ByteTokenizer
-
-#: the engine settings a serving config may carry (the keys of
-#: examples/llama-8b-serving-isvc.yaml that this engine implements)
-CONFIG_KEYS = ("quantize", "kv_quantize", "n_slots", "max_len", "buckets",
-               "decode_chunk", "pipeline_decode", "logprobs_topk",
-               "prefix_cache", "max_prefixes", "prefix_cache_blocks",
-               "speculative", "spec_ngram", "spec_adaptive", "timeout_s")
+from kubeflow_tpu_torch.serving.tokenizer import (StreamDecoder,
+                                                  chat_prompt_ids)
 
 
-class BadRequest(ValueError):
-    """A malformed request (HTTP 400)."""
+class NotReadyError(Exception):
+    """The model exists but cannot serve yet (HTTP 503, retryable)."""
+
+
+#: the exceptions that answer a completion with a status of their own;
+#: any other (an engine fault) is a 500
+_COMPLETION_ERRORS = (ProtocolError, ModelError, NotReadyError,
+                      PromptTooLong, QueueFull)
+
+
+def _client_gone(sock) -> bool:
+    """True when the streaming client hung up. A write into a dead socket
+    fails only once the kernel's send buffer fills, so without this an
+    abandoned stream decodes on for many chunks. The request body was
+    read whole and an SSE client sends nothing more (Connection: close),
+    so a readable socket means EOF or RST (or a stray byte, treated the
+    same, since MSG_PEEK never drains it). A client that half-closes its
+    write side and keeps reading is treated as gone too."""
+    try:
+        r, _, _ = select.select([sock], [], [], 0)
+        if not r:
+            return False
+        sock.recv(1, socket.MSG_PEEK | socket.MSG_DONTWAIT)
+    except (BlockingIOError, InterruptedError):
+        return False   # a spurious wakeup or EINTR: still there
+    except (OSError, ValueError):
+        return True    # closed or invalid descriptor
+    return True
 
 
 class CompletionServer:
-    def __init__(self, engine: LLMEngine, *, model: str = "llama",
-                 tokenizer: Any = None, host: str = "127.0.0.1",
-                 port: int = 0, timeout_s: float | None = None):
-        if timeout_s is not None and not timeout_s > 0:
-            raise ValueError("timeout_s must be positive")
-        self.engine = engine
-        self.timeout_s = timeout_s
+    """A threaded HTTP server over one LLMModel (each request on its own
+    thread; the model steps its engine on its own). A model not loaded
+    yet is loaded here, and unloaded by stop()."""
+
+    def __init__(self, model, *, name: str = "kubeflow-tpu-torch-server",
+                 host: str = "127.0.0.1", port: int = 0):
         self.model = model
-        self.tokenizer = tokenizer or ByteTokenizer()
-        self._cv = threading.Condition()
-        self._stopping = threading.Event()
-        self._engine_error: BaseException | None = None
-        self._engine_thread: threading.Thread | None = None
-        self._http_thread: threading.Thread | None = None
+        self.name = name
+        self._owns_model = not model.ready
+        if self._owns_model:
+            t0 = time.monotonic()
+            model.load()
+            obs_metrics.MODEL_LOAD_SECONDS.observe(
+                time.monotonic() - t0, model=model.name)
+        obs_metrics.MODEL_READY.set(int(model.ready), model=model.name)
         server = self
 
         class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
             def log_message(self, *args):
                 pass
 
@@ -84,44 +129,87 @@ class CompletionServer:
                 self.wfile.write(body)
 
             def do_GET(self):
-                if self.path == "/v2/health/ready":
-                    ready = server.ready
-                    self._send(200 if ready else 503, {"ready": ready})
-                else:
-                    self._send(404, {"error": f"no route {self.path}"})
+                try:
+                    if self.path == "/metrics":
+                        body = render_metrics().encode()
+                        self.send_response(200)
+                        self.send_header("Content-Type",
+                                         "text/plain; version=0.0.4")
+                        self.send_header("Content-Length", str(len(body)))
+                        self.end_headers()
+                        self.wfile.write(body)
+                        return
+                    self._send(*server._handle_get(self.path))
+                except Exception as e:
+                    self._send(500, {"error": str(e)})
 
             def do_POST(self):
-                if self.path != "/openai/v1/completions":
-                    return self._send(404, {"error": f"no route {self.path}"})
-                raw = self.rfile.read(int(self.headers.get("Content-Length",
-                                                           0)))
                 try:
-                    body = json.loads(raw) if raw else {}
-                    self._send(200, server.complete(body))
-                except (BadRequest, PromptTooLong, json.JSONDecodeError) as e:
-                    self._send(400, {"error": str(e)})
-                except QueueFull as e:
-                    self._send(503, {"error": str(e)})
-                except Exception as e:   # answer, keep serving
-                    self._send(500, {"error": repr(e)})
+                    raw = self.rfile.read(
+                        int(self.headers.get("Content-Length", 0)))
+                    if self.path in ("/openai/v1/completions",
+                                     "/openai/v1/chat/completions"):
+                        chat = self.path.endswith("chat/completions")
+                        try:
+                            body = json.loads(raw) if raw else {}
+                        except json.JSONDecodeError as e:
+                            return self._send(400,
+                                              {"error": f"bad json: {e}"})
+                        if not isinstance(body, dict):
+                            return self._send(
+                                400, {"error": "body must be an object"})
+                        # the caller's trace id, or minted here, the edge
+                        trace = (self.headers.get(TRACE_HEADER)
+                                 or new_trace_id())
+                        if body.get("stream"):
+                            return server._stream_completion(self, body,
+                                                             chat, trace)
+                        return self._send(
+                            *server._completion(body, chat, trace))
+                    self._send(*server._handle_post(self.path, raw))
+                except Exception as e:
+                    self._send(500, {"error": str(e)})
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)
         self.port = self._httpd.server_address[1]
+        self._thread: threading.Thread | None = None
+        self._t_start = time.monotonic()
+        self._stopped = False
 
     @classmethod
-    def from_config(cls, params, cfg: llama.LlamaConfig,
-                    config: dict[str, Any], *, device="cuda",
-                    **kw) -> "CompletionServer":
-        """Server over a new engine built from a serving config dict."""
-        unknown = set(config) - set(CONFIG_KEYS)
-        if unknown:
-            raise ValueError(f"unsupported config keys {sorted(unknown)}")
-        eng_kw = dict(config)
-        if "buckets" in eng_kw:
-            eng_kw["buckets"] = tuple(eng_kw["buckets"])
-        if "timeout_s" in eng_kw:
-            kw.setdefault("timeout_s", eng_kw.pop("timeout_s"))
-        return cls(LLMEngine(params, cfg, device=device, **eng_kw), **kw)
+    def from_config(cls, params, cfg, config: dict[str, Any], *,
+                    device="cuda", model: str = "llama",
+                    tokenizer: Any = None, **kw) -> "CompletionServer":
+        """A server over a new LLMModel of `params`/`cfg` built from a
+        serving config dict (the LLMModel keys), loaded now."""
+        m = LLMModel(model, params=params, llama_config=cfg, device=device,
+                     tokenizer=tokenizer, **config)
+        return cls(m, **kw)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def start(self) -> "CompletionServer":
+        self._t_start = time.monotonic()
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True,
+                                        name=f"model-server-{self.port}")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop serving, and unload the model if this server loaded it."""
+        self._stopped = True
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._owns_model:
+            self._owns_model = False
+            self.model.unload()
+            obs_metrics.MODEL_READY.set(0, model=self.model.name)
+
+    @property
+    def alive(self) -> bool:
+        return (not self._stopped and self._thread is not None
+                and self._thread.is_alive())
 
     @property
     def url(self) -> str:
@@ -129,155 +217,479 @@ class CompletionServer:
         return f"http://{host}:{port}"
 
     @property
-    def ready(self) -> bool:
-        return (self._engine_thread is not None
-                and self._engine_thread.is_alive()
-                and self._engine_error is None)
+    def engine(self):
+        """The model's live engine (see LLMModel.engine)."""
+        return self.model.engine
 
-    def start(self) -> "CompletionServer":
-        self._engine_thread = threading.Thread(target=self._engine_loop,
-                                               name="engine", daemon=True)
-        self._engine_thread.start()
-        self._http_thread = threading.Thread(
-            target=self._httpd.serve_forever, name="http", daemon=True)
-        self._http_thread.start()
-        return self
-
-    def stop(self) -> None:
-        self._stopping.set()
-        with self._cv:
-            self._cv.notify_all()
-        self._httpd.shutdown()
-        self._httpd.server_close()
-        for t in (self._engine_thread, self._http_thread):
-            if t is not None:
-                t.join(timeout=30)
-
-    def _engine_loop(self) -> None:
-        while not self._stopping.is_set():
-            try:
-                busy = self.engine.step()
-            except Exception as e:    # the engine is dead: fail waiters
-                self._engine_error = e
-                with self._cv:
-                    self._cv.notify_all()
-                raise
-            with self._cv:
-                self._cv.notify_all()
-                if not busy:
-                    self._cv.wait(timeout=0.05)
-
-    def _stop_sequences(self, stop: Any) -> list[list[int]] | None:
-        """`stop` as token sequences: a string, or a list of up to 8
-        strings (encoded by the tokenizer) or lists of token ids."""
-        if stop is None:
-            return None
-        if isinstance(stop, str):
-            stop = [stop]
-        if not isinstance(stop, list) or not 1 <= len(stop) <= 8:
-            raise BadRequest(
-                "stop must be a non-empty string or a list of up to 8")
-        seqs = []
-        for item in stop:
-            if isinstance(item, str) and item:
-                seqs.append(self.tokenizer.encode(item))
-            elif (isinstance(item, list) and item
-                  and all(isinstance(t, int) and not isinstance(t, bool)
-                          for t in item)):
-                seqs.append(list(item))
-            else:
-                raise BadRequest("each stop must be a non-empty string or "
-                                 "a non-empty list of token ids")
-        return seqs
-
-    def _logprobs_n(self, body: dict) -> int | None:
-        """None: no logprobs; 0: the chosen tokens'; N: also the top N."""
-        lp = body.get("logprobs")
-        if lp is None or lp is False:
-            return None
-        if lp is True:
-            return 0
-        if not isinstance(lp, int) or lp < 0:
-            raise BadRequest("logprobs must be a bool or a non-negative int")
-        if lp > self.engine.logprobs_topk:
-            raise BadRequest(
-                f"logprobs top-N must be 0..{self.engine.logprobs_topk} "
-                "(the engine's logprobs_topk build setting)")
-        return lp
-
-    def complete(self, body: Any) -> dict[str, Any]:
-        """One completion request, answered when the engine finishes it."""
-        if not isinstance(body, dict):
-            raise BadRequest("body must be an object")
-        prompt = body.get("prompt", "")
-        if isinstance(prompt, str):
-            ids = self.tokenizer.encode(prompt)
-        elif isinstance(prompt, list) and all(isinstance(t, int)
-                                              for t in prompt):
-            ids = list(prompt)
-        else:
-            raise BadRequest("prompt must be a string or a list of ids")
-        if not ids:
-            raise BadRequest("prompt must be non-empty")
-        stop = self._stop_sequences(body.get("stop"))
-        lp_n = self._logprobs_n(body)
-        seed = body.get("seed")
-        if seed is not None and (not isinstance(seed, int)
-                                 or isinstance(seed, bool) or seed < 0):
-            raise BadRequest("seed must be a non-negative integer")
-        deadline = body.get("timeout", self.timeout_s)
-        user = body.get("user")
-        if user is not None and (not isinstance(user, str)
-                                 or not 1 <= len(user) <= 256):
-            raise BadRequest("user must be a string of 1..256 chars")
+    def permanently_failed(self) -> bool:
+        """True when the model's supervisor has used up its restarts: the
+        replica can never serve again (/v2/health/ready)."""
         try:
-            rid = self.engine.submit(
-                ids, int(body.get("max_tokens", 16)),
-                temperature=float(body.get("temperature", 0.0)),
-                top_k=int(body.get("top_k", 0)),
-                top_p=float(body.get("top_p", 1.0)),
-                presence_penalty=float(body.get("presence_penalty", 0.0)),
-                frequency_penalty=float(body.get("frequency_penalty", 0.0)),
-                seed=seed, stop=stop,
-                deadline_s=None if deadline is None else float(deadline),
-                tenant=user)
-        except (TypeError, ValueError) as e:
-            if isinstance(e, PromptTooLong):
-                raise
-            raise BadRequest(str(e)) from e
-        with self._cv:
-            self._cv.notify_all()
-            while not self.engine.is_done(rid):
-                if self._engine_error is not None:
-                    raise RuntimeError("engine failed") from \
-                        self._engine_error
-                if self._stopping.is_set():
-                    raise RuntimeError("server stopped")
-                self._cv.wait(timeout=1.0)
-        tokens = self.engine.result(rid)
-        reason = self.engine.finish_reason(rid)
-        choice: dict[str, Any] = {"index": 0,
-                                  "text": self.tokenizer.decode(tokens),
-                                  "token_ids": tokens,
+            sup = (self.model.metrics() or {}).get("supervisor")
+        except Exception:
+            return False   # a model without metrics is not a verdict
+        return bool(sup and sup.get("permanent_failed"))
+
+    @property
+    def ready(self) -> bool:
+        return self.model.ready and not self.permanently_failed()
+
+    def _model(self, name: str | None):
+        if name is not None and name != self.model.name:
+            raise ModelError(f"model {name!r} not found")
+        return self.model
+
+    # -- routing --------------------------------------------------------------
+
+    def health(self) -> dict[str, Any]:
+        """The /healthz payload: answering at all means the serving thread
+        is alive; then the model's prefix cache counters, supervisor
+        recovery state, device layout and SLO window."""
+        body: dict[str, Any] = {
+            "alive": self.alive, "name": self.name,
+            "uptime_s": round(time.monotonic() - self._t_start, 3),
+            "build": build_stamp()}
+        mname, model = self.model.name, self.model
+        try:
+            mm = model.metrics() or {}
+        except Exception:
+            return body   # liveness answers even if the model is broken
+        try:
+            s = model.slo_tracker.summary()
+            if s["aggregate"]["n"]:
+                body["slo"] = {mname: s}
+        except Exception:
+            pass
+        if mm.get("prefix_cache"):
+            body["kv_cache"] = {mname: dict(
+                mm["prefix_cache"], kv_layout=mm.get("kv_layout", "slab"))}
+        if mm.get("mesh"):
+            body["mesh"] = {mname: mm["mesh"]}
+        sup = mm.get("supervisor")
+        if sup:
+            body["supervisor"] = {mname: {
+                "restarts": sup.get("restarts", 0),
+                "permanent_failed": bool(sup.get("permanent_failed",
+                                                 False)),
+                "last_mttr_s": sup.get("last_mttr_s"),
+                "journal_depth": sup.get("journal_depth", 0),
+                "in_flight": sup.get("in_flight", 0),
+                "degraded_rejections": sup.get("shed", 0)}}
+        return body
+
+    def _handle_get(self, path: str) -> tuple[int, dict[str, Any]]:
+        if path == "/healthz":
+            return 200, self.health()
+        if path in ("/", "/v2"):
+            return 200, {"name": self.name, "version": "2",
+                         "extensions": ["health", "models", "metrics"]}
+        if path == "/v2/health/live":
+            return 200, {"live": True}
+        if path == "/v2/health/ready":
+            ready = self.ready
+            return (200 if ready else 503), {"ready": ready}
+        if path in ("/v1/models", "/v2/models"):
+            return 200, {"models": [self.model.name]}
+        parts = path.strip("/").split("/")
+        if len(parts) >= 3 and parts[:2] == ["v2", "models"]:
+            name, m = parts[2], self.model
+            if len(parts) == 4 and parts[3] == "ready":
+                ok = name == m.name and m.ready
+                return (200 if ok else 503), {"name": name, "ready": ok}
+            if len(parts) == 3:
+                if name != m.name:
+                    return 404, {"error": f"model {name!r} not found"}
+                return 200, {"name": name, "platform": "pytorch-cuda",
+                             "inputs": m.input_spec(),
+                             "outputs": m.output_spec()}
+        return 404, {"error": f"no route {path}"}
+
+    def _handle_post(self, path: str, raw: bytes
+                     ) -> tuple[int, dict[str, Any]]:
+        try:
+            body = json.loads(raw) if raw else {}
+        except json.JSONDecodeError as e:
+            return 400, {"error": f"bad json: {e}"}
+        parts = path.strip("/").split("/")
+        try:
+            if len(parts) == 3 and parts[:2] == ["v1", "models"]:
+                name, _, verb = parts[2].partition(":")
+                return self._v1(name, verb or "predict", body)
+        except ProtocolError as e:
+            return 400, {"error": str(e)}
+        except ModelError as e:
+            return 404, {"error": str(e)}
+        return 404, {"error": f"no route {path}"}
+
+    # -- OpenAI-style completions --------------------------------------------
+
+    def _completion_request(self, body: dict[str, Any], chat: bool = False):
+        """The request as (model, payload); raises ProtocolError (400),
+        ModelError (404) or NotReadyError (503)."""
+        m = self._model(body.get("model"))
+        if not m.ready:
+            raise NotReadyError(f"model {m.name!r} is not ready")
+        if chat:
+            messages = body.get("messages")
+            if not isinstance(messages, list) or not messages:
+                raise ProtocolError('"messages" must be a non-empty list')
+            for msg in messages:
+                if not (isinstance(msg, dict)
+                        and isinstance(msg.get("role"), str)
+                        and isinstance(msg.get("content"), str)):
+                    raise ProtocolError(
+                        "each message needs string role and content")
+            try:
+                ids = chat_prompt_ids(m.tokenizer, messages)
+            except Exception as e:
+                raise ProtocolError(
+                    f"chat template rejected messages: {e}") from e
+        else:
+            prompt = body.get("prompt", "")
+            if isinstance(prompt, list):
+                if not all(isinstance(t, int) for t in prompt):
+                    raise ProtocolError(
+                        "prompt must be a string or a list of token ids "
+                        "(batched string prompts are not supported)")
+                ids = list(prompt)
+            elif isinstance(prompt, str):
+                ids = m.tokenizer.encode(prompt)
+            else:
+                raise ProtocolError("prompt must be a string or token ids")
+        if not ids:
+            raise ProtocolError("prompt must be non-empty")
+        try:
+            max_new = int(body.get("max_tokens", 16))
+        except (TypeError, ValueError):
+            raise ProtocolError("max_tokens must be an int") from None
+        try:
+            temperature = float(body.get("temperature", 0.0))
+        except (TypeError, ValueError):
+            raise ProtocolError("temperature must be a number") from None
+        if not (math.isfinite(temperature) and 0 <= temperature <= 100):
+            raise ProtocolError("temperature must be finite and in [0, 100]")
+        payload: dict[str, Any] = {"prompt_tokens": ids,
+                                   "max_new_tokens": max_new,
+                                   "temperature": temperature}
+        try:
+            top_k = int(body.get("top_k", 0))
+        except (TypeError, ValueError):
+            raise ProtocolError("top_k must be an int") from None
+        kmax = m._sample_k_max
+        if not 0 <= top_k <= kmax:
+            raise ProtocolError(f"top_k must be 0..{kmax}")
+        try:
+            top_p = float(body.get("top_p", 1.0))
+        except (TypeError, ValueError):
+            raise ProtocolError("top_p must be a number") from None
+        if not (math.isfinite(top_p) and 0 < top_p <= 1):
+            raise ProtocolError("top_p must be in (0, 1]")
+        stop = body.get("stop")
+        if stop is not None:
+            if isinstance(stop, str):
+                stop = [stop]
+            if (not isinstance(stop, list) or not 1 <= len(stop) <= 8
+                    or not all((isinstance(s, str) and s)
+                               or (isinstance(s, list) and s
+                                   and all(isinstance(t, int)
+                                           and not isinstance(t, bool)
+                                           for t in s))
+                               for s in stop)):
+                raise ProtocolError(
+                    "stop must be a non-empty string or a list of up to 8 "
+                    "strings or token-id lists")
+            payload["stop"] = stop
+        lp_req = body.get("logprobs", False)
+        if lp_req is not None and not isinstance(lp_req, (bool, int)):
+            raise ProtocolError("logprobs must be a bool or an int")
+        lp_n = int(lp_req or 0) if not isinstance(lp_req, bool) else 0
+        if lp_n < 0 or lp_n > m._logprobs_topk:
+            raise ProtocolError(
+                f"logprobs top-N must be 0..{m._logprobs_topk}"
+                " (the engine's logprobs_topk build setting)")
+        payload["want_logprobs"] = bool(lp_req)
+        payload["logprobs_n"] = lp_n
+        payload["top_k"] = top_k
+        payload["top_p"] = top_p
+        for fname in ("presence_penalty", "frequency_penalty"):
+            try:
+                v = float(body.get(fname, 0.0))
+            except (TypeError, ValueError):
+                raise ProtocolError(f"{fname} must be a number") from None
+            if not (math.isfinite(v) and -2 <= v <= 2):
+                raise ProtocolError(f"{fname} must be in [-2, 2]")
+            payload[fname] = v
+        seed = body.get("seed")
+        if seed is not None:
+            if not isinstance(seed, int) or isinstance(seed, bool) \
+                    or seed < 0:
+                raise ProtocolError("seed must be a non-negative integer")
+            payload["seed"] = seed
+        # OpenAI `user` is the engine's tenant (the prefix cache's rows)
+        user = body.get("user")
+        if user is not None:
+            if not isinstance(user, str) or not 1 <= len(user) <= 256:
+                raise ProtocolError("user must be a string of 1..256 chars")
+            payload["tenant"] = user
+        try:
+            n = int(body.get("n", 1))
+            best_of = int(body.get("best_of", n))
+        except (TypeError, ValueError):
+            raise ProtocolError("n/best_of must be integers") from None
+        if not 1 <= n <= 8:
+            raise ProtocolError("n must be 1..8")
+        if not n <= best_of <= 8:
+            raise ProtocolError("best_of must be n..8")
+        payload["n"] = n
+        payload["best_of"] = best_of
+        echo = body.get("echo", False)
+        if not isinstance(echo, bool):
+            raise ProtocolError("echo must be a boolean")
+        if echo and chat:
+            raise ProtocolError("echo is not supported for chat")
+        payload["echo"] = echo
+        if body.get("timeout") is not None:
+            try:
+                payload["deadline_s"] = float(body["timeout"])
+            except (TypeError, ValueError):
+                raise ProtocolError("timeout must be a number") from None
+            if payload["deadline_s"] <= 0:
+                raise ProtocolError("timeout must be positive")
+        return m, payload
+
+    @staticmethod
+    def _completion_error(e: Exception) -> tuple[int, dict[str, Any]]:
+        code = (404 if isinstance(e, ModelError)
+                else 503 if isinstance(e, (NotReadyError, QueueFull))
+                else 400)   # ProtocolError / PromptTooLong
+        return code, {"error": str(e)}
+
+    def _build_choice(self, m, payload: dict[str, Any],
+                      result: dict[str, Any], index: int,
+                      chat: bool) -> dict[str, Any]:
+        """One OpenAI choice from an engine result. With echo the prompt
+        tokens lead the completion, their logprobs null."""
+        tokens, reason = result["token_ids"], result["finish_reason"]
+        prompt_ids = list(payload["prompt_tokens"])
+        echo = bool(payload.get("echo"))
+        out_tokens = (prompt_ids + tokens) if echo else tokens
+        text = m.tokenizer.decode(out_tokens)
+        choice: dict[str, Any] = {"index": index, "token_ids": out_tokens,
                                   "finish_reason": reason}
-        if lp_n is not None:
-            logprobs: dict[str, Any] = {
-                "tokens": [self.tokenizer.decode([t]) for t in tokens],
-                "token_logprobs": self.engine.result_logprobs(rid),
-                "top_logprobs": None}
-            if lp_n:
-                logprobs["top_logprobs"] = [
+        if payload.get("want_logprobs"):
+            pad: list[Any] = [None] * len(prompt_ids) if echo else []
+            lp: dict[str, Any] = {
+                "token_ids": out_tokens,
+                "tokens": [m.tokenizer.decode([t]) for t in out_tokens],
+                "token_logprobs": pad + result["logprobs"]}
+            n = payload.get("logprobs_n", 0)
+            if n:
+                lp["top_logprobs"] = pad + [
                     {str(t): v for t, v in sorted(
-                        d.items(), key=lambda kv: -kv[1])[:lp_n]}
-                    for d in self.engine.result_top_logprobs(rid)]
-            choice["logprobs"] = logprobs
-        usage = {"prompt_tokens": len(ids), "completion_tokens": len(tokens),
-                 "total_tokens": len(ids) + len(tokens)}
-        if self.engine.prefix_cache_enabled:
-            cached = min(len(ids), self.engine.cached_tokens(rid))
+                        d.items(), key=lambda kv: -kv[1])[:n]}
+                    for d in result["top_logprobs"]]
+            choice["logprobs"] = lp
+        if chat:
+            choice["message"] = {"role": "assistant", "content": text}
+        else:
+            choice["text"] = text
+        return choice
+
+    def _completion(self, body: dict[str, Any], chat: bool = False,
+                    trace: str | None = None) -> tuple[int, dict[str, Any]]:
+        t0 = time.perf_counter()
+        t_mono = time.monotonic()
+        try:
+            m, payload = self._completion_request(body, chat)
+            if trace:
+                payload["trace"] = str(trace)
+            best_of = payload.get("best_of", 1)
+            if best_of <= 1:
+                results = [m.complete(payload)]
+            else:
+                # best_of clones share the batch; seeded clones take
+                # seed + i, so their samples differ reproducibly
+                seed = payload.get("seed")
+                clones = [dict(payload) if seed is None
+                          else dict(payload, seed=seed + i)
+                          for i in range(best_of)]
+                results = m.complete_many(clones)
+        except _COMPLETION_ERRORS as e:
+            return self._completion_error(e)
+        self._observe(m.name, "completions", time.perf_counter() - t0)
+        TRACER.record_span("server.http", "http", trace, t_mono,
+                           time.monotonic(), model=m.name,
+                           verb="completions", streamed=False)
+        n_choices = payload.get("n", 1)
+        if len(results) > 1:
+            # best_of: the n best by mean logprob
+            def score(r):
+                lps = r["logprobs"]
+                return sum(lps) / max(1, len(lps))
+
+            results = sorted(results, key=score, reverse=True)
+        gen_tokens = sum(len(r["token_ids"]) for r in results)
+        choices = [self._build_choice(m, payload, r, i, chat)
+                   for i, r in enumerate(results[:n_choices])]
+        usage = {"prompt_tokens": len(payload["prompt_tokens"]),
+                 "completion_tokens": gen_tokens,
+                 "total_tokens":
+                     len(payload["prompt_tokens"]) + gen_tokens}
+        # one prompt, one number: the most any candidate reused
+        if any("cached_tokens" in r for r in results):
+            cached = min(usage["prompt_tokens"],
+                         max(r.get("cached_tokens") or 0 for r in results))
             usage["cached_tokens"] = cached
             usage["prompt_tokens_details"] = {"cached_tokens": cached}
-        self.engine.release(rid)
-        return {"id": f"cmpl-{rid}", "object": "text_completion",
-                "created": int(time.time()), "model": self.model,
-                "choices": [choice], "usage": usage}
+        n_cancelled = sum(r["finish_reason"] == "cancelled"
+                          for r in results[:n_choices])
+        if n_cancelled:
+            usage["cancelled"] = n_cancelled
+        timing = next((r["timing"] for r in results if r.get("timing")),
+                      None)
+        if timing:
+            for k, v in timing.items():
+                if v is not None:
+                    usage[k] = v
+        return 200, {
+            "object": "chat.completion" if chat else "text_completion",
+            "model": m.name, "choices": choices, "usage": usage}
+
+    def _stream_completion(self, handler, body: dict[str, Any],
+                           chat: bool = False,
+                           trace: str | None = None) -> None:
+        """Server-sent events (module docstring). Connection: close, so
+        the chunks go out as written, without chunked framing."""
+        finish: list[str] = []
+        t_mono = time.monotonic()
+        try:
+            m, payload = self._completion_request(body, chat)
+            if trace:
+                payload["trace"] = str(trace)
+            if payload.get("best_of", 1) > 1 or payload.get("n", 1) > 1:
+                raise ProtocolError(
+                    "streaming supports n=1 / best_of=1 only")
+            # m.stream submits now: PromptTooLong and QueueFull raise
+            # here, before the 200 and the SSE headers
+            stream_info: dict[str, Any] = {}
+            token_iter = m.stream(payload, on_finish=finish.append,
+                                  info=stream_info)
+        except _COMPLETION_ERRORS as e:
+            return handler._send(*self._completion_error(e))
+        t0 = time.perf_counter()
+        handler.send_response(200)
+        handler.send_header("Content-Type", "text/event-stream")
+        handler.send_header("Cache-Control", "no-cache")
+        handler.send_header("Connection", "close")
+        handler.end_headers()
+        handler.close_connection = True
+        decoder = StreamDecoder(m.tokenizer)
+        first = [True]
+        want_lp = payload.get("want_logprobs")
+        n_sent = 0
+
+        def chunk_of(text: str, token_id: int | None = None,
+                     reason: str | None = None,
+                     logprob: float | None = None,
+                     usage: dict[str, Any] | None = None) -> bytes:
+            choice: dict[str, Any] = {"index": 0, "finish_reason": reason}
+            if chat:
+                choice["delta"] = ({"role": "assistant", "content": text}
+                                   if first[0] else {"content": text})
+                first[0] = False
+            else:
+                choice["text"] = text
+            if token_id is not None:
+                choice["token_id"] = token_id
+            if logprob is not None:
+                choice["logprob"] = logprob
+            out: dict[str, Any] = {
+                "object": ("chat.completion.chunk" if chat
+                           else "text_completion.chunk"),
+                "model": m.name, "choices": [choice]}
+            if usage is not None:
+                out["usage"] = usage
+            return ("data: " + json.dumps(out) + "\n\n").encode()
+
+        try:   # past the headers a disconnect must not reach do_POST's 500
+            if payload.get("echo"):
+                handler.wfile.write(chunk_of(
+                    m.tokenizer.decode(list(payload["prompt_tokens"]))))
+                handler.wfile.flush()
+            try:
+                for tok, lp in token_iter:
+                    if _client_gone(handler.connection):
+                        raise BrokenPipeError("stream client disconnected")
+                    if tok is None:
+                        # a keepalive sentinel (the supervisor is
+                        # restarting the engine): an SSE comment, which
+                        # also probes the socket
+                        handler.wfile.write(b": keepalive\n\n")
+                        handler.wfile.flush()
+                        continue
+                    n_sent += 1
+                    handler.wfile.write(chunk_of(
+                        decoder.push(tok), token_id=int(tok),
+                        logprob=(float(lp) if want_lp else None)))
+                    handler.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError, OSError):
+                raise   # the socket died: to the disconnect path below
+            except Exception as e:
+                handler.wfile.write(
+                    f"data: {json.dumps({'error': str(e)})}\n\n".encode())
+            else:
+                tail = decoder.flush()
+                reason = finish[0] if finish else "length"
+                n_prompt = len(payload["prompt_tokens"])
+                usage = {"prompt_tokens": n_prompt,
+                         "completion_tokens": n_sent,
+                         "total_tokens": n_prompt + n_sent}
+                if "cached_tokens" in stream_info:
+                    usage["cached_tokens"] = stream_info["cached_tokens"]
+                    usage["prompt_tokens_details"] = {
+                        "cached_tokens": stream_info["cached_tokens"]}
+                for k, v in (stream_info.get("timing") or {}).items():
+                    if v is not None:
+                        usage[k] = v
+                if reason == "cancelled":
+                    usage["cancelled"] = 1
+                handler.wfile.write(chunk_of(tail, reason=reason,
+                                             usage=usage))
+            handler.wfile.write(b"data: [DONE]\n\n")
+            handler.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError, OSError):
+            return   # the client left; closing the generator cancels
+        finally:
+            # a no-op for a drained generator; a live one (the client
+            # left) cancels its request and leaves it to the engine thread
+            token_iter.close()
+        self._observe(m.name, "completions", time.perf_counter() - t0)
+        TRACER.record_span("server.http", "http", trace, t_mono,
+                           time.monotonic(), model=m.name,
+                           verb="completions", streamed=True,
+                           tokens_sent=n_sent)
+
+    # -- V1 predict ------------------------------------------------------------
+
+    def _v1(self, name: str, verb: str, body: dict[str, Any]
+            ) -> tuple[int, dict[str, Any]]:
+        model = self._model(name)
+        if not model.ready:
+            return 503, {"error": f"model {name!r} not ready"}
+        if not isinstance(body, dict) or "instances" not in body:
+            raise ProtocolError('V1 request must carry "instances"')
+        t0 = time.perf_counter()
+        payload = model.preprocess(body["instances"])
+        if verb == "predict":
+            result = model.predict(payload)
+        elif verb == "explain":
+            result = model.explain(payload)
+        else:
+            return 400, {"error": f"unknown verb {verb!r}"}
+        result = model.postprocess(result)
+        self._observe(name, verb, time.perf_counter() - t0)
+        return 200, {"predictions": result}
+
+    def _observe(self, model: str, verb: str, dt: float) -> None:
+        obs_metrics.HTTP_REQUESTS.inc(model=model, verb=verb)
+        obs_metrics.HTTP_LATENCY.observe(dt, model=model, verb=verb)

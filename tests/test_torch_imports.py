@@ -33,3 +33,15 @@ def test_no_jax_or_reference_imports(path):
     bad = [n for n in _imports(path)
            if n.split(".")[0] in BANNED]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_the_dataplane_modules_are_scanned():
+    """The serving dataplane's modules are among the scanned files: the
+    port's own copies of the obs layer, its safetensors reader, the
+    supervisor and the predictor."""
+    port = ROOT / "kubeflow_tpu_torch"
+    for rel in ("obs/metrics.py", "obs/trace.py", "obs/slo.py",
+                "models/safetensors.py", "serving/agent.py",
+                "serving/llm_runtime.py", "serving/server.py",
+                "serving/tokenizer.py"):
+        assert port / rel in FILES, rel

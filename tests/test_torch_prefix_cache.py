@@ -154,16 +154,17 @@ def test_server_usage_cached_tokens_and_tenant(tiny):
         with pytest.raises(urllib.error.HTTPError) as e:
             post({"prompt": prompt, "max_tokens": 3, "user": ""})
         assert e.value.code == 400
+        # read before stop(), which unloads the server's model
+        row = server.engine.metrics()["prefix_cache"]["per_tenant"]["acme"]
     finally:
         server.stop()
     assert [u["cached_tokens"] for u in usages] == [0, 16]
     assert usages[1]["prompt_tokens_details"] == {"cached_tokens": 16}
     assert usages[1]["prompt_tokens"] == 19
-    row = server.engine.metrics()["prefix_cache"]["per_tenant"]["acme"]
     assert row == {"hits": 1, "misses": 1, "reused_tokens": 16,
                    "inserted_blocks": 2}
-    plain = CompletionServer(LLMEngine(tparams, tcfg, device="cpu",
-                                       **ENGINE)).start()
+    plain = CompletionServer.from_config(tparams, tcfg, ENGINE,
+                                         device="cpu").start()
     try:
         usage = post({"prompt": prompt, "max_tokens": 2}, plain)["usage"]
     finally:
