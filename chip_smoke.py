@@ -151,6 +151,37 @@ Phases, in order; any failure exits non-zero before the result line:
       within the graph pool; /metrics' TTFT count equal to the requests
       served; after unload(), memory back to its value before (e6) once
       the cuBLAS workspaces are cleared;
+  (e7) scenarios: committed loadgen traffic through the port's runner
+      (kubeflow_tpu_torch/loadgen) into a slab LLMEngine with the
+      flagship settings and the prefix cache over (e)'s weights, behind an
+      EngineSupervisor (degraded-mode ShedPolicy: t0 above the threshold)
+      whose factory builds it, warmed up, its scheduler the C++ core
+      (NativeScheduler): (e7.a) run_scenario of `steady`; (e7.b) of
+      `multi_tenant_lora` without adapters (its caps 2/32, six tenants:
+      the per-tenant table and Jain's index), then a flood of 64 t0 and 8
+      t1 requests submitted whole under set_tenant_limits(2, 32): 32 of
+      t0's refused with TenantOverQuota and none of t1's, t1's largest
+      queue wait under t0's median, every request terminal; (e7.c)
+      `steady` with a second tenant and the committed `crash_midstream`
+      script (the restart backoff E7_BACKOFF_S; the crash, once due, held
+      until a stream holds delivered tokens): one restart, nothing lost,
+      shedding only of t1 and only between the crash and the restart,
+      every delivered prefix replayed and verified (or counted a mismatch
+      as the supervisor counts it), every accepted request's tokens and
+      every delivered prefix (a)'s or first different at a top-2 gap
+      under E5_GAP where its prefill wave had (a)'s (bucket, rows), under
+      E7_OTHER_GAP where it had another shape (past 128 rows a wave
+      projects through cuBLAS, whose rows depend on the wave's size); as
+      witness, every request that differs after a wave of another shape
+      (and every mismatched replay) runs again on the restarted engine in
+      waves of both shapes and gives each run's tokens exactly; (e7.d)
+      run_trace_http of `steady` through the port's server over an
+      LLMModel of the same settings:
+      one [DONE] and the budget's tokens a stream, client TTFT from the
+      first data event. Each replay prints its trace_sha256 (the pinned
+      E7_TRACES), TTFT and TPOT p50/p99, attainment, goodput, completed,
+      rejected and seconds, and holds K1, K2 and K3 launched and no
+      capture after warmup;
   (f) engine shapes: every kernel again against its plain version, at
       each argument shape the wrappers recorded in (e) (prefill waves,
       decode spans, lm_head rows, the paged engine's K2-paged launches),
@@ -239,6 +270,8 @@ import urllib.request
 import torch
 import torch.nn.functional as F
 
+from kubeflow_tpu_torch import loadgen
+from kubeflow_tpu_torch.chaos import FaultInjector
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.obs.build import build_stamp
 from kubeflow_tpu_torch.ops import _build
@@ -247,9 +280,13 @@ from kubeflow_tpu_torch.ops import flash_decode as fd
 from kubeflow_tpu_torch.ops import flash_prefill as fp
 from kubeflow_tpu_torch.ops import quant
 from kubeflow_tpu_torch.ops import quant_matmul as qm
+from kubeflow_tpu_torch.serving.agent import EngineSupervisor
 from kubeflow_tpu_torch.serving.llm import LLMEngine
 from kubeflow_tpu_torch.serving.llm_runtime import LLMModel
 from kubeflow_tpu_torch.serving.paged import PagedLLMEngine
+from kubeflow_tpu_torch.serving.scheduler import (NativeScheduler,
+                                                  ShedPolicy, TenantOverQuota,
+                                                  TenantShed)
 from kubeflow_tpu_torch.serving.server import CompletionServer
 from kubeflow_tpu_torch.training import data as train_data
 from kubeflow_tpu_torch.training import mfu
@@ -3064,6 +3101,521 @@ def dataplane_serve(ckpt, cfg, written, seed, root, mem0):
           flush=True)
 
 
+# -- (e7) scenarios: committed traffic through the runner, the supervisor
+# and the tenant-fair native scheduler ----------------------------------------
+
+#: the committed traces (e7) replays, with the only overrides it gives
+#: (through load_scenario's keywords) and their sha256, which
+#: tests/test_torch_loadgen.py pins against the JAX package's traces
+E7_TRACES = {
+    "steady": ("steady", {},
+               "2d3f20c1952fddd2e7b19e2591c60d39"
+               "bc26234995496f4b841442b0b64cae0d"),
+    "steady_two_tenants": ("steady", {"n_tenants": 2},
+                           "8ca0673d417454beea39a3c36d152b3f"
+                           "a3a5b481382652f6a35940146d518310"),
+    "multi_tenant_lora": ("multi_tenant_lora", {"adapters": []},
+                          "5d99a79ed46a0c5016c76ce4cc335323"
+                          "8ae7c1af7ccb58982bbac9e15a911b88"),
+}
+#: (e7.b)'s flood: t0's and t1's requests, submitted whole before a step,
+#: under the multi_tenant_lora caps
+E7_FLOOD = (64, 8)
+E7_CAPS = (2, 32)
+E7_FLOOD_PLEN = (30, 200)
+E7_FLOOD_NEW = 16
+#: (e7.c): t0 ranks above the shed threshold, t1 (the default) below
+E7_SHED = ShedPolicy(priorities=(("t0", 1),))
+#: (e7.c)'s restart backoff. The restart's warmup runs inside one step()
+#: and so holds the runner's arrivals back; the backoff is the part of the
+#: outage in which they meet degraded-mode admission (5 of t1's arrivals
+#: in the committed trace fall in the 3 s after the crash instant)
+E7_BACKOFF_S = 3.0
+#: one replay's wall budget: the 30 s window, a restart and the drain
+E7_WALL_S = 300.0
+#: (e7.c)'s bound on the top-2 gap at a request's first difference from
+#: its uncrashed tokens where its prefill wave had another (bucket, rows)
+#: than its uncrashed run's (E5_GAP bounds the same-shape ones). Each
+#: such request is also run again in waves of both shapes (e7_witness),
+#: which must give both runs' tokens exactly; the bound is the guard
+#: against a gross error. The largest such gap seen on an H100 was
+#: 0.0753 nats
+E7_OTHER_GAP = 0.2
+
+
+class E7Tap:
+    """The supervisor as the runner sees it, keeping each request's tokens
+    and top logprobs (by prompt) when the runner releases it, and each
+    TenantShed refusal with its tenant, whether the supervisor was
+    degraded, and when. `waves` is filled by the engines the factory
+    builds (scenario_phase): each prompt's prefill waves as (bucket,
+    rows), in order. A fault script the runner arms goes through
+    E7HeldCrash (`held`)."""
+
+    def __init__(self, sup):
+        self.sup = sup
+        self._prompt: dict[int, tuple] = {}
+        self.rows: dict[tuple, tuple] = {}
+        self.shed: list[tuple] = []
+        self.waves: dict[tuple, list] = {}
+        self.held = None
+
+    def __getattr__(self, name):
+        return getattr(self.sup, name)
+
+    def arm_faults(self, script):
+        self.held = E7HeldCrash(FaultInjector(script), self.sup)
+        self.sup.arm_faults(self.held)
+        return self
+
+    def submit(self, prompt, *a, **kw):
+        try:
+            rid = self.sup.submit(prompt, *a, **kw)
+        except TenantShed:
+            self.shed.append((kw.get("tenant"), self.sup.degraded,
+                              time.monotonic()))
+            raise
+        self._prompt[rid] = tuple(prompt)
+        return rid
+
+    def release(self, rid):
+        self.rows[self._prompt.pop(rid)] = (
+            self.sup.result(rid), self.sup.result_top_logprobs(rid))
+        self.sup.release(rid)
+
+
+class E7HeldCrash:
+    """(e7.c)'s injector: the script's, but a crash that falls due is held
+    until a journaled stream holds delivered tokens, so that the restart
+    replays a delivered prefix and verifies it. `delivered` keeps, at the
+    crash, each such stream's prompt and tokens."""
+
+    def __init__(self, injector, sup):
+        self.injector = injector
+        self.sup = sup
+        self.delivered: dict[tuple, list] = {}
+
+    def __getattr__(self, name):
+        return getattr(self.injector, name)
+
+    def due_one_shots(self, kind, *a, **kw):
+        if kind != "backend_crash":
+            return self.injector.due_one_shots(kind, *a, **kw)
+        streams = {tuple(e.prompt): list(e.tokens)
+                   for e in self.sup._journal.values()
+                   if not e.terminal and e.tokens}
+        if not streams or not self.injector.due_one_shots(kind, *a, **kw):
+            return False
+        self.delivered = streams
+        return True
+
+
+def pct(xs, q):
+    """The q-th percentile of xs (nearest rank), or None when empty."""
+    if not xs:
+        return None
+    xs = sorted(xs)
+    return round(xs[max(0, math.ceil(q / 100 * len(xs)) - 1)], 3)
+
+
+def e7_summary(records, aggregate) -> dict:
+    """A replay's SLO line: TTFT (from the scheduled arrival) and TPOT
+    p50/p99 over its records, attainment, goodput, completed, rejected."""
+    ttft = [t for r in records if (t := r.ttft_ms()) is not None]
+    tpot = [t for r in records if (t := r.tpot_ms()) is not None]
+    return {"requests": aggregate["n_requests"],
+            "ttft_p50_ms": pct(ttft, 50), "ttft_p99_ms": pct(ttft, 99),
+            "tpot_p50_ms": pct(tpot, 50), "tpot_p99_ms": pct(tpot, 99),
+            "slo_attainment": aggregate["slo_attainment"],
+            "goodput_tok_per_s": aggregate["goodput_tok_per_s"],
+            "throughput_tok_per_s": aggregate["throughput_tok_per_s"],
+            "completed": aggregate["completed"],
+            "rejected": aggregate["rejected"]}
+
+
+def e7_replay(tap, key, label, **kw):
+    """run_scenario of one (e7) trace through the port's runner, the
+    prefix store emptied first: the trace's sha256 the pinned one, no
+    time-out, K1, K2 and K3 launched, and no capture after warmup (the
+    engine that ends the run holds the warmed menu, every key captured
+    once). Returns run_scenario's record, the runner's records (its
+    summary keeps p50/p95 only) and the trace."""
+    name, over, sha = E7_TRACES[key]
+    scenario = loadgen.load_scenario(name, **over)
+    trace = loadgen.generate_trace(scenario.trace)
+    keys = tap.sup.engine.graph_stats()["keys"]
+    tap.sup.engine.kvcache.evict(10**9)
+    records = []
+    run_trace = loadgen.runner.run_trace
+
+    def run_trace_kept(*a, **rkw):
+        res = run_trace(*a, **rkw)
+        records.extend(res["records"])
+        return res
+
+    _build.reset_launches()
+    t0 = time.monotonic()
+    loadgen.runner.run_trace = run_trace_kept
+    try:
+        out = loadgen.run_scenario(tap, scenario, max_wall_s=E7_WALL_S, **kw)
+    finally:
+        loadgen.runner.run_trace = run_trace
+    sec = time.monotonic() - t0
+    launches = {n: _build.LAUNCHES[n] for n in SERVING_KERNELS}
+    g = tap.sup.engine.graph_stats()
+    check(out["trace_sha256"] == sha,
+          f"{label}: trace sha256 {out['trace_sha256']}, pinned {sha}")
+    check(not out["timed_out"], f"{label}: the replay ran out of time")
+    check(g["keys"] == keys and g["captures"] == len(keys),
+          f"{label}: a decode graph was captured after warmup")
+    for n, c in launches.items():
+        check(c > 0, f"{label}: kernel {n} was never launched")
+    check(len(records) == len(trace.requests),
+          f"{label}: {len(records)} records for {len(trace.requests)} "
+          "requests")
+    print(f"{label} {name} {json.dumps(over)}: trace_sha256 "
+          f"{out['trace_sha256']}, {len(trace.requests)} requests, "
+          f"{sec:.2f} s; {json.dumps(e7_summary(records, out['aggregate']))}"
+          f"; launches {json.dumps(launches)}", flush=True)
+    return out, records, trace
+
+
+def e7_flood(sup, seed: int) -> None:
+    """(e7.b)'s flood: E7_FLOOD requests of t0 and t1 submitted whole
+    before a step under E7_CAPS; 32 of t0's refused with TenantOverQuota
+    and none of t1's, t1's largest queue wait under t0's median (the fair
+    pop), every accepted request terminal."""
+    gen = torch.Generator().manual_seed(seed + 7)
+    n0, n1 = E7_FLOOD
+    tenants = ["t0"] * n0 + ["t1"] * n1
+    vocab = sup.engine.cfg.vocab_size
+    prompts = [torch.randint(1, vocab, (int(n),), generator=gen).tolist()
+               for n in torch.randint(*E7_FLOOD_PLEN, (len(tenants),),
+                                      generator=gen)]
+    before = sup.accounting()
+    _build.reset_launches()
+    t0 = time.monotonic()
+    sup.set_tenant_limits(*E7_CAPS)
+    rids, refused = [], {"t0": 0, "t1": 0}
+    try:
+        for p, t in zip(prompts, tenants):
+            try:
+                rids.append((t, sup.submit(p, E7_FLOOD_NEW, tenant=t)))
+            except TenantOverQuota:
+                refused[t] += 1
+        sup.run_until_idle()
+    finally:
+        sup.set_tenant_limits(0, 0)
+    sec = time.monotonic() - t0
+    waits = {"t0": [], "t1": []}
+    for t, rid in rids:
+        check(sup.is_done(rid) and len(sup.result(rid)) == E7_FLOOD_NEW,
+              f"e7.b flood: request {rid} of {t} did not complete")
+        waits[t].append(sup.request_timing(rid)["queue_wait_ms"])
+        sup.release(rid)
+    acc = sup.accounting()
+    check(refused == {"t0": n0 - E7_CAPS[1], "t1": 0},
+          f"e7.b flood: refused {refused}")
+    check(max(waits["t1"]) < pct(waits["t0"], 50),
+          f"e7.b flood: t1's largest queue wait {max(waits['t1'])} ms is "
+          f"not under t0's median {pct(waits['t0'], 50)} ms")
+    check(acc["lost"] == 0 and acc["in_flight"] == 0
+          and acc["completed"] - before["completed"] == len(rids),
+          f"e7.b flood: accounting {acc}")
+    launches = {n: _build.LAUNCHES[n] for n in SERVING_KERNELS}
+    for n, c in launches.items():
+        check(c > 0, f"e7.b flood: kernel {n} was never launched")
+    print(f"e7.b flood: {n0} t0 + {n1} t1 requests x {E7_FLOOD_NEW} tokens "
+          f"under caps {E7_CAPS}, {sec:.2f} s: refused {json.dumps(refused)};"
+          f" queue wait ms t1 max {max(waits['t1'])}, t0 p50 "
+          f"{pct(waits['t0'], 50)}, t0 max {max(waits['t0'])}; launches "
+          f"{json.dumps(launches)}", flush=True)
+
+
+def e7_diff(toks, ref, top) -> dict | None:
+    """Where toks first part from ref (over toks' length) and the top-2
+    gap of `top` there, or None when they agree."""
+    j = first_diff(toks, ref[:len(toks)])
+    if j is None:
+        return None
+    lp = sorted(top[j].values(), reverse=True)
+    return {"at": j, "gap": round(lp[0] - lp[1], 5)}
+
+
+def e7_crash_check(tap, out, uncrashed, before, label) -> dict:
+    """(e7.c)'s holds: one restart, nothing lost, shedding only of t1 and
+    only inside the outage; a crash that found streams holding delivered
+    tokens, each replayed and verified or counted a mismatch as the
+    supervisor counts; each accepted greedy request's tokens, and each
+    delivered prefix, its uncrashed ones or first different at a top-2
+    gap under E5_GAP where its prefill wave had the uncrashed run's
+    (bucket, rows), under E7_OTHER_GAP where it had another shape (a
+    prefill wider than K1's 128 rows projects through cuBLAS, whose bf16
+    rows depend on the wave's size). Returns the record and the prompts
+    e7_witness runs again: every request that differs after a wave of
+    another shape, and every mismatched replay."""
+    acc = out["chaos"]["accounting"]
+    sup = tap.sup
+    outage = sup.outages[-1]
+    check(acc["restarts"] - before["restarts"] == 1,
+          f"{label}: {acc['restarts'] - before['restarts']} restarts")
+    check(acc["lost"] == 0 and acc["in_flight"] == 0,
+          f"{label}: accounting {acc}")
+    shed = acc["shed"] - before["shed"]
+    check(shed > 0 and shed == len(tap.shed)
+          == out["aggregate"]["rejected"],
+          f"{label}: shed {shed}, refusals seen {len(tap.shed)}, rejected "
+          f"{out['aggregate']['rejected']}")
+    check(all(t == "t1" and down
+              and outage["detected_s"] <= at <= outage["recovered_s"]
+              for t, down, at in tap.shed),
+          f"{label}: shed outside the outage or of t0: {tap.shed}")
+    check(out["per_tenant"]["t0"]["rejected"] == 0,
+          f"{label}: t0 lost requests: {out['per_tenant']['t0']}")
+    ref_rows, ref_waves = uncrashed
+    replays = {k: acc[k] - before[k] for k in
+               ("replayed", "replay_verified", "replay_mismatch")}
+    delivered = tap.held.delivered
+    mismatched = [p for p, d in delivered.items()
+                  if tap.rows[p][0][:len(d)] != d]
+    check(replays["replayed"] == len(delivered) > 0
+          and replays["replay_mismatch"] == len(mismatched)
+          and replays["replay_verified"] + len(mismatched)
+          == len(delivered),
+          f"{label}: replays {replays}, streams holding tokens at the "
+          f"crash {len(delivered)}, their prefixes regenerated otherwise "
+          f"{len(mismatched)}")
+    bad, same, other, prefixes = [], [], [], []
+    n_same_wave = 0
+    for prompt, (toks, top) in tap.rows.items():
+        ref = ref_rows[prompt][0]
+        wave, ref_wave = tap.waves[prompt][-1], ref_waves[prompt][-1]
+        n_same_wave += wave == ref_wave
+        d = e7_diff(toks, ref, top)
+        if d is None:
+            continue
+        d.update(wave=wave, uncrashed_wave=ref_wave)
+        (same if wave == ref_wave else other).append((d, prompt))
+        if d["gap"] >= (E5_GAP if wave == ref_wave else E7_OTHER_GAP):
+            bad.append(d)
+    for prompt, toks in delivered.items():
+        ref, ref_top = ref_rows[prompt]
+        wave, ref_wave = tap.waves[prompt][0], ref_waves[prompt][-1]
+        d = e7_diff(toks, ref, ref_top)
+        if d is None:
+            continue
+        d.update(delivered=len(toks), wave=wave, uncrashed_wave=ref_wave)
+        prefixes.append(d)
+        if d["gap"] >= (E5_GAP if wave == ref_wave else E7_OTHER_GAP):
+            bad.append(d)
+    check(len(tap.rows) > 0, f"{label}: no request compared")
+    check(not bad, f"{label}: first differences from the uncrashed tokens "
+          f"past their bound (E5_GAP for a wave of the uncrashed shape, "
+          f"E7_OTHER_GAP for another): {bad}")
+    witness = [p for _, p in other] + [p for p in mismatched
+                                       if p not in [q for _, q in other]]
+    gaps = [lp[0] - lp[1] for toks, top in tap.rows.values() for t in top
+            for lp in [sorted(t.values(), reverse=True)]]
+    record = {"restarts": 1, "shed": shed, "compared": len(tap.rows),
+              "same_wave_shape": n_same_wave,
+              "differing_same_wave": [d for d, _ in same],
+              "differing_other_wave": [d for d, _ in other],
+              "other_wave_gaps_over_e5_gap": sum(
+                  d["gap"] >= E5_GAP for d, _ in other),
+              "delivered_prefixes_differing": prefixes,
+              "positions_with_gap_under_e7_other_gap": round(
+                  sum(g < E7_OTHER_GAP for g in gaps) / len(gaps), 4),
+              "mttr_s": outage.get("mttr_s"), "replays": replays}
+    return record, witness
+
+
+def e7_witness_run(eng, waves, prompt, n_new, shape, seed) -> list:
+    """`prompt`'s greedy tokens from `eng` with the prompt prefilled in a
+    wave of `shape` (bucket, rows): submitted with rows - 1 fillers of its
+    length before a step, the prefix store emptied first."""
+    bucket, rows = shape
+    gen = torch.Generator().manual_seed(seed)
+    eng.kvcache.evict(10**9)
+    rid = eng.submit(list(prompt), n_new)
+    fill = [eng.submit(torch.randint(1, eng.cfg.vocab_size, (len(prompt),),
+                                     generator=gen).tolist(), 1)
+            for _ in range(rows - 1)]
+    eng.run_until_idle()
+    got = waves[tuple(prompt)][-1]
+    check(got == shape, f"e7.c witness: prefilled in a wave {got}, "
+          f"wanted {shape}")
+    toks = eng.result(rid)
+    for r in (rid, *fill):
+        eng.release(r)
+    return toks
+
+
+def e7_witness(eng, tap, uncrashed, prompts, seed) -> list:
+    """The wave shape decides a request's tokens: each of `prompts`, run
+    again on `eng` in a wave of its (e7.c) shape, gives its (e7.c) tokens,
+    and in a wave of its uncrashed shape its uncrashed ones, exactly."""
+    ref_rows, ref_waves = uncrashed
+    seen = []
+    for k, prompt in enumerate(prompts):
+        toks, ref = tap.rows[prompt][0], ref_rows[prompt][0]
+        shapes = (tap.waves[prompt][-1], ref_waves[prompt][-1])
+        for shape, want, what in zip(shapes, (toks, ref),
+                                     ("e7.c", "uncrashed")):
+            got = e7_witness_run(eng, tap.waves, prompt, len(want), shape,
+                                 seed + k)
+            check(got == want, f"e7.c witness: in a wave {shape} the "
+                  f"tokens first differ from the {what} run's at "
+                  f"{first_diff(got, want)}")
+        seen.append({"crashed_wave": shapes[0], "uncrashed_wave": shapes[1],
+                     "first_diff": first_diff(toks, ref)})
+    return seen
+
+
+def e7_http(engine, seed: int) -> dict:
+    """(e7.d): steady's trace through the port's server and its SSE client
+    (run_trace_http): every stream 200 with one [DONE] and its tokens;
+    client TTFT from the first data event."""
+    name, over, sha = E7_TRACES["steady"]
+    trace = loadgen.generate_trace(loadgen.load_scenario(name, **over).trace)
+    check(loadgen.trace_sha256(trace) == sha, "e7.d: trace sha256")
+    t0 = time.monotonic()
+    server = CompletionServer.from_config(
+        engine.params, engine.cfg,
+        dict(FLAGSHIP, buckets=list(FLAGSHIP["buckets"]), prefix_cache=True),
+        device=DEV, model="llama3-8b", tokenizer=IdTokenizer()).start()
+    load_s = time.monotonic() - t0
+    try:
+        eng = server.model.engine
+        keys = eng.graph_stats()["keys"]
+        _build.reset_launches()
+        t1 = time.monotonic()
+        out = loadgen.run_trace_http(server.port, trace, model="llama3-8b",
+                                     max_wall_s=E7_WALL_S, timeout_s=300.0)
+        sec = time.monotonic() - t1
+        launches = {n: _build.LAUNCHES[n] for n in SERVING_KERNELS}
+        g = eng.graph_stats()
+        check(g["keys"] == keys and g["captures"] == len(keys),
+              "e7.d: a decode graph was captured after warmup")
+    finally:
+        server.stop()
+    check(not out["timed_out"], "e7.d: the replay ran out of time")
+    for r in trace.requests:
+        st = out["streams"][r.index]
+        check(st["status"] == 200 and st["done_count"] == 1
+              and st["usage_count"] == 1 and not st["errors"]
+              and len(st["token_ids"]) == r.max_new_tokens,
+              f"e7.d: stream {r.index}: status {st['status']}, "
+              f"{st['done_count']} [DONE], errors {st['errors']}, "
+              f"{len(st['token_ids'])}/{r.max_new_tokens} tokens")
+    for n, c in launches.items():
+        check(c > 0, f"e7.d: kernel {n} was never launched")
+    agg = out["summary"]["aggregate"]
+    check(agg["completed"] == len(trace.requests), f"e7.d: {agg}")
+    ttft = [(st["t_first_token_s"] - st["t_request_s"]) * 1e3
+            for st in out["streams"].values()]
+    line = dict(e7_summary(out["records"], agg),
+                client_ttft_p50_ms=pct(ttft, 50),
+                client_ttft_p99_ms=pct(ttft, 99))
+    print(f"e7.d run_trace_http steady: trace_sha256 {sha}, "
+          f"{len(trace.requests)} SSE streams, one [DONE] each; server "
+          f"load {load_s:.2f} s, replay {sec:.2f} s; {json.dumps(line)} "
+          f"(client TTFT from the request to the first data event; the "
+          f"record's from the scheduled arrival); launches "
+          f"{json.dumps(launches)}", flush=True)
+    return line
+
+
+def scenario_phase(engine, seed: int) -> dict:
+    """(e7): a slab LLMEngine with the flagship settings and the prefix
+    cache over (e)'s weights, behind an EngineSupervisor (with E7_SHED)
+    whose factory builds it, warmed up: (e7.a) steady through the runner;
+    (e7.b) multi_tenant_lora without adapters (its caps 2/32) and the
+    flood; (e7.c) steady with a second tenant and crash_midstream; (e7.d)
+    steady through the port's server and SSE client."""
+    seconds = {}
+    t = time.monotonic()
+    built = []
+    waves: dict[tuple, list] = {}
+
+    def factory():
+        eng = LLMEngine(engine.params, engine.cfg, device=DEV,
+                        prefix_cache=True, **FLAGSHIP)
+        dispatch = eng._dispatch_prefill_wave
+
+        def dispatch_seen(bucket, wave):
+            for a in wave:
+                waves.setdefault(tuple(eng._prompts[a.req_id]), []).append(
+                    (bucket, len(wave)))
+            return dispatch(bucket, wave)
+
+        eng._dispatch_prefill_wave = dispatch_seen
+        built.append(eng)
+        return eng
+
+    sup = EngineSupervisor(factory, warm=True, shed_policy=E7_SHED)
+    g = sup.engine.graph_stats()
+    check(type(sup.engine.scheduler) is NativeScheduler,
+          f"e7: the engine's scheduler is {type(sup.engine.scheduler)}")
+    check(g["captures"] == len(g["keys"]) > 0, "e7: warmup captured no graph")
+    seconds["warmup"] = round(time.monotonic() - t, 2)
+    print(f"e7: supervised slab engine (flagship + prefix cache), "
+          f"scheduler {type(sup.engine.scheduler).__name__}, built and "
+          f"warmed in {seconds['warmup']} s, {g['captures']} graphs",
+          flush=True)
+    tap = E7Tap(sup)
+    tap.waves = waves
+    t = time.monotonic()
+    _, _, steady = e7_replay(tap, "steady", "e7.a")
+    uncrashed = (dict(tap.rows), {k: list(v) for k, v in waves.items()})
+    check(len(uncrashed[0]) == len(steady.requests),
+          "e7.a: a request was not released")
+    seconds["a"] = round(time.monotonic() - t, 2)
+    t = time.monotonic()
+    out, _, _ = e7_replay(tap, "multi_tenant_lora", "e7.b")
+    agg = out["aggregate"]
+    print("e7.b per tenant: " + json.dumps(
+        {k: {f: v[f] for f in ("offered", "completed", "rejected",
+                               "slo_attainment", "ttft_p50_ms",
+                               "service_ratio")}
+         for k, v in out["per_tenant"].items()})
+        + f"; Jain's index {agg['fairness_jain']}, min/max "
+        f"{agg['fairness_min_over_max']}", flush=True)
+    check(len(out["per_tenant"]) == 6 and agg["completed"]
+          + agg["rejected"] == agg["n_requests"],
+          f"e7.b: {json.dumps(agg)}")
+    e7_flood(sup, seed)
+    seconds["b"] = round(time.monotonic() - t, 2)
+    t = time.monotonic()
+    before = sup.accounting()
+    tap.rows.clear()
+    waves.clear()
+    sup.backoff_base_s = sup.backoff_cap_s = E7_BACKOFF_S
+    out, _, _ = e7_replay(tap, "steady_two_tenants", "e7.c",
+                          fault_script="crash_midstream")
+    crash, witness = e7_crash_check(tap, out, uncrashed, before, "e7.c")
+    sec_c = time.monotonic() - t
+    check(len(built) == 2 and sup.engine is built[1],
+          f"e7.c: {len(built)} engines built")
+    print(f"e7.c crash_midstream: script sha256 "
+          f"{out['chaos']['script_sha256']}, fired (held until a stream "
+          f"held tokens) {json.dumps(out['chaos']['events_fired'])}; "
+          f"{json.dumps(crash)}", flush=True)
+    seen = e7_witness(sup.engine, tap, uncrashed, witness, seed)
+    print(f"e7.c witness: {len(seen)} requests run again on the restarted "
+          f"engine in waves of their e7.c and uncrashed shapes give those "
+          f"runs' tokens exactly, {time.monotonic() - t - sec_c:.2f} s: "
+          f"{json.dumps(seen)}", flush=True)
+    seconds["c"] = round(time.monotonic() - t, 2)
+    sup.close()
+    del built[:], tap, sup
+    gc.collect()
+    t = time.monotonic()
+    e7_http(engine, seed)
+    seconds["d"] = round(time.monotonic() - t, 2)
+    print(f"e7 seconds: {json.dumps(seconds)}", flush=True)
+    return seconds
+
+
 def fill_tables(engine, seed: int = 5) -> None:
     """A paged engine's slot tables filled with a shuffled permutation of
     its pool blocks (an idle engine leaves every row at block 0), in place:
@@ -3512,9 +4064,17 @@ cs.trainer_phase(seed, {n: case[n]["shape_key"] for n in
 """
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def ab_main(other: str, seed: int) -> int:
     """--ab: the other tree and this one in turns, each in its own
     process; stops at the first run that fails."""
+    print(card_line(), flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(other)
     check(os.path.isfile(os.path.join(other, "chip_smoke.py")),
@@ -3546,10 +4106,7 @@ def main(argv=None) -> int:
     # f32 references run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+    print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           "allow_tf32 matmul=False cudnn=False", flush=True)
     print(f"build stamp: {json.dumps(build_stamp())}", flush=True)
@@ -3588,6 +4145,7 @@ def main(argv=None) -> int:
     verify_cases = phase("e5 verify shapes", verify_shape_phase, gen,
                          e5_shapes)
     phase("e6 dataplane", dataplane_phase, args.seed)
+    phase("e7 scenarios", scenario_phase, engine, args.seed)
     cases = {"quant_matmul": k1_step,
              **phase("f engine shapes", engine_shape_phase, gen, shapes)}
     phase("f step breakdown", step_breakdown, engine)

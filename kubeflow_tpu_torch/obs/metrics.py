@@ -251,6 +251,9 @@ SCHED_QUEUED = REGISTRY.gauge(
     "scheduler_queued", "Requests waiting for admission", ["engine"])
 SCHED_ACTIVE = REGISTRY.gauge(
     "scheduler_active", "Requests holding decode slots", ["engine"])
+SCHED_SHED = REGISTRY.counter(
+    "scheduler_shed_total", "Requests shed by degraded-mode policy",
+    ["engine"])
 # -- SLO burn (scrape-hook fed from SloBurnTracker) ---------------------------
 SLO_ATTAINMENT = REGISTRY.gauge(
     "slo_attainment", "Windowed SLO attainment per tenant", ["tenant"])

@@ -1,7 +1,8 @@
 """Online SLO burn accounting (counterpart of kubeflow_tpu/obs/slo.py):
 sliding-window per-tenant TTFT/TPOT attainment and error-budget burn
-rate, scored request by request with the JAX package's predicate
-(`request_meets`, a copy of kubeflow_tpu/loadgen/slo.py's).
+rate, scored request by request with the replay accounting's predicate
+(`loadgen.slo.request_meets`), so the online and offline surfaces can
+never drift.
 
 Burn rate is the SRE definition: with an error budget ``budget`` (the
 tolerated miss fraction, default 1%), ``burn = miss_rate / budget``; 1.0
@@ -15,18 +16,7 @@ import time
 from collections import OrderedDict, deque
 from typing import Any
 
-
-def request_meets(ttft_ms: float | None, tpot_ms: float | None, *,
-                  ttft_slo_ms: float, tpot_slo_ms: float,
-                  completed: bool = True) -> bool:
-    """The SLO predicate: completed normally, TTFT within bound, and TPOT
-    within bound when defined (single-token requests have no TPOT)."""
-    if not completed:
-        return False
-    if ttft_ms is None or ttft_ms > ttft_slo_ms:
-        return False
-    return tpot_ms is None or tpot_ms <= tpot_slo_ms
-
+from kubeflow_tpu_torch.loadgen.slo import request_meets
 
 #: aggregate pseudo-tenant key in summaries and gauge labels
 AGGREGATE = "_aggregate"

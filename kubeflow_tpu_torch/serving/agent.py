@@ -18,11 +18,16 @@ and everything in flight ends `cancelled`. Every accepted request reaches
 a terminal state (completed, cancelled or rejected), and `accounting()`
 shows that none was lost.
 
+While the backend is down, admission runs in degraded mode: a
+`ShedPolicy` sheds the tenants it ranks below its threshold (each a
+`TenantShed` refusal, counted as `shed`) so the capacity that comes back
+serves the tenants ranked highest. Tenant limits (`set_tenant_limits`)
+are kept and applied again to every restarted engine.
+
 The fault injector is duck-typed (`start`, `due_one_shots`, `active`,
-`clear`), so kubeflow_tpu.chaos's `FaultInjector` drives this supervisor
-as it drives the JAX one. Degraded-mode shedding and tenant limits wait
-for the C++ scheduler binding (ROADMAP.md A1.f); the payload logger and
-the multi-model agent are not ported.
+`clear`), so the port's `chaos.FaultInjector` (and the JAX package's)
+drives this supervisor. The payload logger and the multi-model agent are
+not ported (ROADMAP.md queue A1.h).
 """
 
 from __future__ import annotations
@@ -32,9 +37,10 @@ import threading
 import time
 from typing import Any, Callable
 
+from kubeflow_tpu_torch.chaos import FaultInjector, FaultScript
 from kubeflow_tpu_torch.obs import metrics as obs_metrics
 from kubeflow_tpu_torch.obs.trace import TRACER
-from kubeflow_tpu_torch.serving.scheduler import QueueFull
+from kubeflow_tpu_torch.serving.scheduler import QueueFull, TenantShed
 
 
 @dataclasses.dataclass
@@ -118,11 +124,8 @@ class EngineSupervisor:
                  max_restarts: int = 8,
                  stability_s: float = 10.0,
                  warm: bool = False):
-        if shed_policy is not None:
-            raise NotImplementedError(
-                "degraded-mode shedding needs tenant priorities, which come "
-                "with the C++ scheduler binding (ROADMAP.md queue A1.f)")
         self._factory = engine_factory
+        self.shed_policy = shed_policy
         self.injector = None
         if injector is not None:
             self.arm_faults(injector)
@@ -152,6 +155,7 @@ class EngineSupervisor:
         self._no_progress_steps = 0
         self._last_crash = 0.0
         self._chunk: int | None = None
+        self._tenant_limits = (0, 0)
         # accounting tallies (survive release())
         self.outages: list[dict[str, Any]] = []
         self._counts = {"accepted": 0, "completed": 0, "cancelled": 0,
@@ -162,10 +166,13 @@ class EngineSupervisor:
     # -- faults ---------------------------------------------------------------
 
     def arm_faults(self, injector) -> "EngineSupervisor":
-        """Attach a fault injector: any object with `start()`,
-        `due_one_shots(kind)`, `active(kind)` and `clear(event)`, such as
-        kubeflow_tpu.chaos's `FaultInjector` over a `FaultScript`. Its
-        clock arms on the first step() after this call."""
+        """Attach a `chaos.FaultScript` (armed through a new
+        `chaos.FaultInjector`) or a fault injector: any object with
+        `start()`, `due_one_shots(kind)`, `active(kind)` and
+        `clear(event)`. Its clock arms on the first step() after this
+        call."""
+        if isinstance(injector, FaultScript):
+            injector = FaultInjector(injector)
         missing = [m for m in ("start", "due_one_shots", "active", "clear")
                    if not callable(getattr(injector, m, None))]
         if missing:
@@ -176,15 +183,26 @@ class EngineSupervisor:
     # -- submit-side API ------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int = 32,
-               temperature: float = 0.0, tenant: str | None = None,
-               seed: int | None = None, **kw) -> int:
+               temperature: float = 0.0, adapter: str | None = None,
+               tenant: str | None = None, seed: int | None = None,
+               **kw) -> int:
         with self._lock:
             if self.failed:
                 raise QueueFull("backend permanently failed "
                                 f"(restart budget {self.max_restarts} "
                                 "exhausted)")
-            submit_kw = dict(kw, temperature=temperature, tenant=tenant,
-                             seed=seed)
+            if self.degraded and self.shed_policy is not None \
+                    and self.shed_policy.sheds(tenant):
+                self._counts["shed"] += 1
+                obs_metrics.SCHED_SHED.inc(engine="supervisor")
+                obs_metrics.REQUESTS.inc(component="supervisor",
+                                         event="shed")
+                raise TenantShed(
+                    f"degraded mode: tenant {tenant!r} priority "
+                    f"{self.shed_policy.priority_of(tenant)} is below the "
+                    f"shed threshold {self.shed_policy.shed_below}")
+            submit_kw = dict(kw, temperature=temperature, adapter=adapter,
+                             tenant=tenant, seed=seed)
             entry = _Journaled(
                 rid=self._next_rid, prompt=list(prompt),
                 max_new=max_new_tokens, kw=submit_kw, tenant=tenant,
@@ -310,6 +328,8 @@ class EngineSupervisor:
         engine = self._factory()
         if self._warm:
             engine.warmup()
+        if self._tenant_limits != (0, 0):
+            engine.set_tenant_limits(*self._tenant_limits)
         if self._chunk is not None:
             engine.set_decode_chunk(self._chunk)
         with self._lock:
@@ -647,9 +667,11 @@ class EngineSupervisor:
 
     def set_tenant_limits(self, max_active_per_tenant: int = 0,
                           max_queued_per_tenant: int = 0) -> None:
-        raise NotImplementedError(
-            "per-tenant fairness and admission caps come with the C++ "
-            "scheduler binding (ROADMAP.md queue A1.f)")
+        """The engine's tenant limits, kept here and applied again to
+        every restarted engine."""
+        self._tenant_limits = (max_active_per_tenant, max_queued_per_tenant)
+        if self.engine is not None:
+            self.engine.set_tenant_limits(*self._tenant_limits)
 
     def metrics(self) -> dict[str, Any]:
         out = dict(self.engine.metrics()) if self.engine is not None else {}

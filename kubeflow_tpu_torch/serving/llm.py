@@ -92,7 +92,12 @@ refreshes (`_obs_publish`). `request_timing` reports the same instants
 and the phase split, and `close()` frees the KV cache, the graphs and
 their pool.
 
-Not in this engine yet: adapters and tenant fairness.
+Tenants: a request's `tenant` name maps to a stable integer id
+(`_tenant_id`, at most MAX_TENANTS names) that the scheduler's per-tenant
+queues, max-min fair pop and admission caps (`set_tenant_limits`) see;
+the scheduler is the C++ core (`NativeScheduler`), which raises when its
+library cannot be built. Not in this engine yet: adapters (ROADMAP.md
+queue A3).
 """
 
 from __future__ import annotations
@@ -114,8 +119,9 @@ from kubeflow_tpu_torch.obs import metrics as obs_metrics
 from kubeflow_tpu_torch.obs.trace import TRACER, StepAggregator
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.serving.scheduler import (DecodeAction,
+                                                  NativeScheduler,
                                                   PrefillAction,
-                                                  PromptTooLong, PyScheduler)
+                                                  PromptTooLong)
 
 _M32 = 0xFFFFFFFF
 
@@ -309,7 +315,7 @@ class LLMEngine:
         self.decode_chunk = max(1, decode_chunk)
         # set_decode_chunk's ceiling once warmup() has captured the menu
         self._decode_chunk_warm = self.decode_chunk
-        self.scheduler = PyScheduler(n_slots, self.buckets)
+        self.scheduler = NativeScheduler(n_slots, self.buckets)
         # -- speculative decoding (module docstring): the draft length
         # k_max, the n-gram size, the delivered tokens and verify rounds,
         # the adaptive draft length (off, or k_max 1: static k) and the
@@ -388,6 +394,8 @@ class LLMEngine:
         self._prompts: dict[int, list[int]] = {}
         self._req_samp: dict[int, tuple] = {}
         self._req_stop: dict[int, list[list[int]]] = {}
+        # tenant name -> the scheduler's integer id (_tenant_id)
+        self._tenant_idx: dict[str, int] = {}
         self._req_tenant: dict[int, str] = {}
         self._max_new: dict[int, int] = {}
         self._results: dict[int, list[int]] = {}
@@ -704,30 +712,52 @@ class LLMEngine:
                frequency_penalty: float = 0.0, seed: int | None = None,
                stop: Sequence[Sequence[int]] | None = None,
                deadline_s: float | None = None,
-               tenant: str | None = None, trace: str | None = None) -> int:
+               tenant: str | None = None, trace: str | None = None,
+               adapter: str | None = None) -> int:
         """Queue one request. A prompt longer than the largest bucket is
         chunked; PromptTooLong when it is empty or its chain cannot fit
-        max_len, QueueFull when the queue is full, ValueError for bad
-        arguments. Penalties (OpenAI [-2, 2]) edit the logits of the
-        request's generated tokens, greedy rows included; `seed` makes its
+        max_len, QueueFull when the queue is full (TenantOverQuota when
+        the tenant's queue is at its cap), ValueError for bad arguments.
+        Penalties (OpenAI [-2, 2]) edit the logits of the request's
+        generated tokens, greedy rows included; `seed` makes its
         draws depend on (seed, position) alone; `stop`: token sequences
         that end the request (finish reason "stop") and are removed from
         the result; `deadline_s`: past it the request is cancelled at the
-        next step; `tenant`: the name the prefix cache's per-tenant rows
-        count the request under; `trace`: its trace id (obs/trace.py),
-        under which its spans are recorded at finish when sampled."""
-        (temperature, top_k, top_p, presence_penalty, frequency_penalty,
-         seed, stop_seqs) = self._validate_submit(
-            prompt, temperature, top_k, top_p, presence_penalty,
-            frequency_penalty, seed, stop, deadline_s, max_new_tokens)
+        next step; `tenant`: the name whose scheduler queue, fair share
+        and admission caps the request rides (None: the anonymous tenant
+        0), and under which the prefix cache's per-tenant rows count it;
+        `trace`: its trace id (obs/trace.py), under which its spans are
+        recorded at finish when sampled; `adapter` must be None."""
+        if adapter is not None:
+            raise ValueError("adapters are not ported yet (ROADMAP.md "
+                             "queue A3, LoRA)")
         if tenant is not None and (not isinstance(tenant, str)
                                    or not 1 <= len(tenant) <= 256):
             raise ValueError("tenant must be a string of 1..256 chars")
+        try:
+            (temperature, top_k, top_p, presence_penalty, frequency_penalty,
+             seed, stop_seqs) = self._validate_submit(
+                prompt, temperature, top_k, top_p, presence_penalty,
+                frequency_penalty, seed, stop, deadline_s, max_new_tokens)
+        except PromptTooLong:
+            if len(prompt) > self.buckets[-1]:
+                # the scheduler's rejected counter (the operator metric)
+                # counts it too; the chunk plan's message is the one raised
+                with self._submit_lock:
+                    try:
+                        self.scheduler.submit(len(prompt), max_new_tokens,
+                                              time.monotonic(),
+                                              tenant=self._tenant_id(tenant))
+                    except PromptTooLong:
+                        pass
+            raise
         # the scheduler sees the largest bucket for a chunked prompt: it
         # only picks the bucket; the engine keeps the true length
         sched_len = min(len(prompt), self.buckets[-1])
         with self._submit_lock:
-            rid = self.scheduler.submit(sched_len, max_new_tokens)
+            rid = self.scheduler.submit(sched_len, max_new_tokens,
+                                        time.monotonic(),
+                                        tenant=self._tenant_id(tenant))
             self._prompts[rid] = [int(t) for t in prompt]
             self._req_samp[rid] = self._samp_row(
                 temperature, top_k, top_p, presence_penalty,
@@ -749,6 +779,27 @@ class LLMEngine:
                 self._req_trace[rid] = trace
         obs_metrics.REQUESTS.inc(component=self.role, event="submitted")
         return rid
+
+    #: bound on the distinct tenant names one engine tracks: the OpenAI
+    #: `user` field is the client's to choose, so past the cap new names
+    #: share the anonymous tenant-0 queue instead of growing the map
+    MAX_TENANTS = 65536
+
+    def _tenant_id(self, tenant: str | None) -> int:
+        """Tenant name -> stable scheduler id. Called under _submit_lock:
+        the id is the map's length, so minting it must be atomic with the
+        insert, or two first requests of distinct tenants could share an
+        id and so a queue and its caps."""
+        if tenant is None:
+            return 0
+        tid = self._tenant_idx.get(tenant)
+        if tid is not None:
+            return tid
+        if len(self._tenant_idx) >= self.MAX_TENANTS:
+            return 0
+        tid = len(self._tenant_idx) + 1
+        self._tenant_idx[tenant] = tid
+        return tid
 
     def cancel(self, req_id: int) -> bool:
         """Ask the engine to drop a request; it takes effect at the top
@@ -982,9 +1033,12 @@ class LLMEngine:
 
     def set_tenant_limits(self, max_active_per_tenant: int = 0,
                           max_queued_per_tenant: int = 0) -> None:
-        raise NotImplementedError(
-            "per-tenant fairness and admission caps come with the C++ "
-            "scheduler binding (ROADMAP.md queue A1.f)")
+        """Per-tenant knobs, forwarded to the scheduler: a soft,
+        work-conserving share cap on decode slots and a hard admission
+        cap on queued requests (past it submit raises TenantOverQuota).
+        0 turns either off."""
+        self.scheduler.set_fairness(max_active_per_tenant,
+                                    max_queued_per_tenant)
 
     @property
     def decode_chunk_max(self) -> int:
@@ -1094,15 +1148,22 @@ class LLMEngine:
                            fin, **attrs)
 
     def metrics(self) -> dict[str, Any]:
-        """The prefill, prefix-cache and speculation counters under the
-        JAX engine's keys: prefill_tokens_computed always; with the cache,
+        """The scheduler, prefill, prefix-cache and speculation counters
+        under the JAX engine's keys: the scheduler's queued, active,
+        completed and rejected requests and prefill_tokens_computed
+        always, tenants_seen once a tenant has submitted; with the cache,
         the hit and miss counts, the stored blocks and `prefix_cache` (the
         radix stats with the per-request rates and the tokens saved); with
         speculation, the verify rounds, the delivered tokens and their
         ratio, k_max, the tokens-per-round estimate and, when adaptive,
         the last draft length and the mean acceptance EMA."""
+        s = self.scheduler.stats()
         out: dict[str, Any] = {
+            "queued": s.queued, "active": s.active,
+            "completed": s.completed, "rejected": s.rejected,
             "prefill_tokens_computed": self._prefill_computed_tokens}
+        if self._tenant_idx:
+            out["tenants_seen"] = len(self._tenant_idx)
         if self.kvcache is not None:
             st = self.kvcache.stats()
             looked = self._prefix_hits + self._prefix_misses

@@ -77,7 +77,7 @@ UNPORTED_KEYS = {
     "mesh": "queue A6, parallelism",
     "lora": "queue A3, LoRA",
     "adapters": "queue A3, LoRA",
-    "grpc": "the gRPC dataplane, after queue A",
+    "grpc": "queue A1.h, the gRPC dataplane",
 }
 
 

@@ -37,11 +37,15 @@ the next write (`_client_gone`) and its request cancelled.
 
 The server holds one model (a replica of one InferenceService). Two
 deliberate differences from the JAX server: "model" may be left out,
-and `stop` may also give token-id lists. The server speaks to engines only through the model: it names no
-engine class, and `from_config` builds an `LLMModel`, whose supervisor
-factory is where an engine is made. The V2 tensor `infer` route, gRPC,
-dynamic batching and the payload logger are not ported (ROADMAP.md
-queue A1.f).
+and `stop` may also give token-id lists. The server speaks to engines
+only through the model: it names no engine class, and `from_config`
+builds an `LLMModel`, whose supervisor factory is where an engine is
+made. The OpenAI `user` field is the request's tenant: its scheduler
+queue, fair share and admission caps, and its degraded-mode priority. A
+refusal by the scheduler or the supervisor (QueueFull, and its subtypes
+TenantOverQuota and TenantShed) answers 503, as the JAX server does. The
+V2 tensor `infer` route, gRPC, dynamic batching and the payload logger
+are not ported (ROADMAP.md queue A1.h).
 """
 
 from __future__ import annotations

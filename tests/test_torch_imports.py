@@ -45,3 +45,16 @@ def test_the_dataplane_modules_are_scanned():
                 "serving/llm_runtime.py", "serving/server.py",
                 "serving/tokenizer.py"):
         assert port / rel in FILES, rel
+
+
+def test_the_scheduler_loadgen_and_chaos_modules_are_scanned():
+    """The port's own copies of the native scheduler binding, the loadgen
+    scenario suite and the chaos harness are among the scanned files."""
+    port = ROOT / "kubeflow_tpu_torch"
+    for rel in ("native/__init__.py", "serving/scheduler.py",
+                "loadgen/__init__.py", "loadgen/trace.py", "loadgen/slo.py",
+                "loadgen/scenarios.py", "loadgen/control.py",
+                "loadgen/runner.py", "loadgen/http_client.py",
+                "chaos/__init__.py", "chaos/script.py", "chaos/injector.py"):
+        assert port / rel in FILES, rel
+    assert (port / "native" / "cb_scheduler.cpp").exists()

@@ -186,7 +186,8 @@ def test_sizing_arguments_and_lookup_clamp_as_jax(tiny):
                     == want.kvcache.capacity_blocks)
     eng = LLMEngine(tparams, tcfg, device="cpu", **ENGINE)
     assert eng.kvcache is None and not eng.prefix_cache_enabled
-    assert eng.metrics() == {"prefill_tokens_computed": 0}
+    assert eng.metrics() == {"queued": 0, "active": 0, "completed": 0,
+                             "rejected": 0, "prefill_tokens_computed": 0}
     with pytest.raises(ValueError, match="tenant"):
         eng.submit([1, 2, 3], 2, tenant="x" * 257)
     # a prompt shorter than one block plus a token is neither a hit nor a

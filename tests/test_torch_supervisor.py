@@ -38,6 +38,7 @@ from kubeflow_tpu_torch.serving.agent import EngineSupervisor
 from kubeflow_tpu_torch.serving.llm import LLMEngine
 from kubeflow_tpu_torch.serving.llm_runtime import LLMModel
 from kubeflow_tpu_torch.serving.paged import PagedLLMEngine
+from kubeflow_tpu_torch.serving.scheduler import ShedPolicy, TenantOverQuota
 from kubeflow_tpu_torch.serving.server import CompletionServer
 
 torch.set_num_threads(2)
@@ -244,13 +245,20 @@ def test_port_only_surfaces_raise(tiny):
 
     with pytest.raises(TypeError, match="due_one_shots"):
         EngineSupervisor(factory).arm_faults(NotAnInjector())
-    with pytest.raises(NotImplementedError, match="A1.f"):
-        EngineSupervisor(factory, shed_policy=object())
-    sup = EngineSupervisor(factory)
-    with pytest.raises(NotImplementedError, match="A1.f"):
-        sup.set_tenant_limits(1, 1)
-    with pytest.raises(NotImplementedError, match="A1.f"):
-        sup.engine.set_tenant_limits(1, 1)
+    # adapters are the one submit surface still unported (queue A3);
+    # tenant caps and shedding are ported: past its queue cap a tenant's
+    # submit is refused, through the supervisor and on the engine
+    sup = EngineSupervisor(factory, shed_policy=ShedPolicy())
+    with pytest.raises(ValueError, match="A3"):
+        sup.submit(PROMPTS[0], NEW, adapter="a0")
+    sup.set_tenant_limits(1, 1)
+    sup.submit(PROMPTS[0], NEW, tenant="a")
+    with pytest.raises(TenantOverQuota):
+        sup.submit(PROMPTS[1], NEW, tenant="a")
+    with pytest.raises(TenantOverQuota):
+        sup.engine.submit(PROMPTS[1], NEW, tenant="a")
+    sup.run_until_idle()
+    sup.set_tenant_limits(0, 0)
     # the decode chunk clamps to the captured menu once warmed up
     sup.engine.warmup()
     assert sup.set_decode_chunk(16) == 4 == sup.decode_chunk_max
