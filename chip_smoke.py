@@ -227,7 +227,33 @@ Phases, in order; any failure exits non-zero before the result line:
       step's wall time against the card's busy time;
   (j2) trainer profile window: (j)'s trainer again with profile_dir
       (steps 2 and 3 of 6): PROFILE_DONE and one trace file, and each
-      step's time inside and outside the window.
+      step's time inside and outside the window;
+  (j3) training job: examples/llama-longctx-jaxjob.yaml's trainer config
+      (J3_JOB: a Llama of head dim 128 with a bf16 first moment, B=1 x
+      S=8192) cut to 4 of its 8 layers (2 when the temp directory cannot
+      hold three checkpoints; printed) and 6 steps logged each step, over
+      a token_file corpus of 2^24 uint32 tokens from --seed (write_corpus;
+      batches/s of the native loader and the Python twin),
+      checkpoint_every 2, keep_checkpoints 2, through training/job.py
+      train_target as the control plane calls it: a run cancelled at step
+      5 exits 143 and leaves steps 2 and 4 (orbax's rule: the initial
+      save at step 1, then every 2, the newest 2); the same env again
+      prints "resumed from checkpoint at step 4" and saves step 6; B1-B3
+      launched in the two runs. In-process: step 4 restored (verified,
+      then read into tensors from abstract_state), steps 5-6 on batches
+      0-1 give the resumed job's logged losses bit for bit and every leaf
+      of step 6's restore bit for bit; an LLMModel over the checkpoint
+      (int8 weights and KV) and one over the in-process params give the
+      same greedy tokens for 8 prompts, K1-K3 launched by each; one more
+      step saved under a scripted ckpt_io_fail
+      (FaultInjector.as_io_fault_hook) is quarantined and
+      latest_intact_step falls back to 6. Prints each save's host copy,
+      write, hashing and manifest seconds and GB/s, the restores' verify
+      and read seconds, the step after a save against one without (the
+      stall), and peak memory; the directory is removed after. The model
+      is not (j)'s because a run of this script keeps what it writes to
+      disk, deleted files included, under J3_DISK_BUDGET_GB: (e6) writes
+      16.06 GB, and five saves of (j)'s state would write 115 GB.
 Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the paged engine's run for
@@ -1522,6 +1548,348 @@ def trainer_profile_phase(seed: int, base_step_s: float) -> None:
               f"(j)'s median {base_step_s:.4f} s", flush=True)
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
+
+
+# -- (j3) the training job: corpus, checkpoints, kill and resume, serve -------
+
+
+#: examples/llama-longctx-jaxjob.yaml's KTPU_TRAINER_CONFIG as written
+#: (tests/test_torch_job.py holds them equal): a Llama job over a
+#: token_file corpus at head dim 128 with a bf16 first moment. (j3) runs
+#: it cut to J3_STEPS steps logged each step and J3_LAYERS layers, so
+#: that its five saves and (e6)'s 16.06 GB stay under J3_DISK_BUDGET_GB
+#: of disk writes in one run (deleted files count: the disk under a
+#: machine's temp directory may be an image that never shrinks); the
+#: Llama-3-8B-width state of (j) is 23.1 GB a save at 4 layers
+J3_JOB = {"model": "llama", "batch_size": 1, "num_steps": 30,
+          "log_every": 5,
+          "model_overrides": {"vocab_size": 32000, "d_model": 2048,
+                              "n_layers": 8, "n_heads": 16,
+                              "n_kv_heads": 8, "d_ff": 7168,
+                              "max_seq_len": 8192,
+                              "attention_impl": "flash",
+                              "remat": True, "remat_policy": "minimal",
+                              "scan_layers": False},
+          "dataset": {"type": "token_file", "path": "/tmp/corpus.bin",
+                      "seq_len": 8192},
+          "mesh": {"data": -1},
+          "optimizer": {"learning_rate": 0.0003, "warmup_steps": 10,
+                        "mu_dtype": "bfloat16"}}
+J3_LAYERS = 4
+J3_DISK_BUDGET_GB = 45 * 2 ** 30 / 1e9
+J3_OTHER_WRITES_GB = 17.0   # (e6)'s 16.06 GB, the builds, traces, corpus
+J3_CORPUS_TOKENS = 1 << 24       # uint32 tokens, 64 MiB, from --seed
+J3_STEPS = 6
+J3_CANCEL_AT = 5                 # the first run is cancelled at this step
+J3_EVERY, J3_KEEP = 2, 2         # checkpoint_every, keep_checkpoints
+J3_PROMPTS = 8
+J3_NEW = 16
+
+
+def j3_checkpoint_gb(overrides: dict, mu_dtype: str | None) -> float:
+    """One checkpoint's tensor bytes: f32 params and nu, mu in mu_dtype."""
+    n = sum(t.numel() for t in train.leaves(llama.abstract_params(
+        llama.LlamaConfig(**overrides))))
+    mu = getattr(torch, mu_dtype).itemsize if mu_dtype else 4
+    return n * (8 + mu) / 1e9
+
+
+class J3Cancel(threading.Event):
+    """A cancel event that reads as set from its n-th check on: the job
+    checks it once a logged step, so n=J3_CANCEL_AT cancels at that step
+    (before its save), as a pod deletion would."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.n, self.checks = n, 0
+
+    def is_set(self) -> bool:
+        self.checks += 1
+        return self.checks >= self.n or super().is_set()
+
+
+class Tee:
+    """stdout that is also kept, to read what the job printed."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def j3_run(env: dict, cancel) -> tuple[int, str]:
+    """train_target as the control plane calls it: (exit code, stdout)."""
+    import contextlib
+
+    from kubeflow_tpu_torch.training import job
+
+    tee = Tee(sys.stdout)
+    code = 0
+    with contextlib.redirect_stdout(tee):
+        try:
+            job.train_target(env, cancel)
+        except SystemExit as e:
+            code = e.code
+    gc.collect()   # the run's state, held by the exception's frames
+    torch.cuda.empty_cache()
+    return code, tee.text()
+
+
+def j3_saves(text: str) -> list[dict]:
+    """The trainer's "[checkpoint N] {...}" lines."""
+    return [json.loads(m.group(1)) for m in
+            re.finditer(r"^\[checkpoint \d+\] (\{.*\})$", text, re.M)]
+
+
+def j3_steps(ckpt: str) -> list[int]:
+    return sorted(int(n) for n in os.listdir(ckpt) if n.isdigit())
+
+
+def j3_same(a, b, path="") -> None:
+    """Every leaf of two state trees bit for bit."""
+    if isinstance(a, dict):
+        check(sorted(a) == sorted(b), f"j3: keys differ at {path}")
+        for k in a:
+            j3_same(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"j3: lengths differ at {path}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            j3_same(x, y, f"{path}/{i}")
+    elif isinstance(a, torch.Tensor):
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(a.detach(), b.detach()),
+              f"j3: leaf {path} differs from the restored step")
+    else:
+        check(a == b, f"j3: {path} is {a}, restored {b}")
+
+
+def j3_serve(ckpt, overrides, params, mcfg, seed) -> list:
+    """The checkpoint served by LLMModel against the in-process params:
+    each model's greedy tokens for J3_PROMPTS prompts."""
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.randint(30, 1000, (J3_PROMPTS,), generator=gen).tolist()
+    prompts = [torch.randint(0, mcfg.vocab_size, (n,),
+                             generator=gen).tolist() for n in lens]
+    body = [{"prompt_tokens": p, "max_new_tokens": J3_NEW} for p in prompts]
+    serving = dict(n_slots=J3_PROMPTS, max_len=2048,
+                   buckets=(128, 512, 1024), quantize="int8",
+                   kv_quantize="int8", supervised=False, device=DEV)
+    outs = []
+    for label, kw in (("checkpoint", dict(checkpoint=ckpt,
+                                          model=overrides)),
+                      ("params", dict(params=params, llama_config=mcfg))):
+        _build.reset_launches()
+        t = time.monotonic()
+        model = LLMModel(f"j3-{label}", **serving, **kw)
+        model.load()
+        load_s = time.monotonic() - t
+        try:
+            rows = model.predict(body)
+        finally:
+            model.unload()
+        launched = {k: _build.LAUNCHES[k] for k in SERVING_KERNELS}
+        check(all(launched.values()),
+              f"j3: serving the {label} launched {launched}")
+        toks = [r["output_tokens"] for r in rows]
+        check(all(len(t) == J3_NEW for t in toks),
+              f"j3: {label} gave {[len(t) for t in toks]} tokens")
+        print(f"j3 serve ({label}): load + warmup {load_s:.2f} s, "
+              f"launches {json.dumps(launched)}", flush=True)
+        outs.append(toks)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs
+
+
+def training_job_phase(seed: int) -> dict:
+    """(j3): the port's trainer as a job, through training/job.py
+    train_target, over a token corpus and integrity-checked checkpoints;
+    the checkpoint served by LLMModel. See the module doc."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.chaos import (FaultScriptConfig, FaultSpec,
+                                          generate_fault_script,
+                                          set_io_fault_hook)
+    from kubeflow_tpu_torch.training import checkpoint as ckpt_lib
+    from kubeflow_tpu_torch.training import loader
+    from kubeflow_tpu_torch.training.metrics_writer import read_metrics
+
+    root = tempfile.mkdtemp(prefix="kft_j3_")
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        mu_dtype = J3_JOB["optimizer"].get("mu_dtype")
+        n_layers = J3_LAYERS
+        overrides = dict(J3_JOB["model_overrides"], n_layers=n_layers)
+        ckpt_gb = j3_checkpoint_gb(overrides, mu_dtype)
+        # three checkpoints exist while a save lands; five are written
+        if (free_gb < 3 * ckpt_gb + 1 or 5 * ckpt_gb + J3_OTHER_WRITES_GB
+                > J3_DISK_BUDGET_GB):
+            n_layers = max(1, J3_LAYERS // 2)
+            overrides["n_layers"] = n_layers
+            ckpt_gb = j3_checkpoint_gb(overrides, mu_dtype)
+        print(f"j3: {free_gb:.1f} GB free under {root}; {n_layers} layers "
+              f"(the example's {J3_JOB['model_overrides']['n_layers']}"
+              + (f", cut to {n_layers} for the disk"
+                 if n_layers != J3_LAYERS else "")
+              + f"), a checkpoint {ckpt_gb:.3f} GB, five saves "
+              f"{5 * ckpt_gb:.2f} GB of a {J3_DISK_BUDGET_GB:.2f} GB "
+              "budget", flush=True)
+        batch, seq = J3_JOB["batch_size"], J3_JOB["dataset"]["seq_len"]
+        corpus = os.path.join(root, "corpus.bin")
+        rng = np.random.default_rng(seed)
+        loader.write_corpus(corpus, rng.integers(
+            0, overrides["vocab_size"], J3_CORPUS_TOKENS, dtype=np.uint32))
+        rates = {}
+        for name, cls in (("native", loader.NativeTokenLoader),
+                          ("python", loader.PyTokenLoader)):
+            it = cls(corpus, batch, seq, seed)
+            next(it)
+            t = time.perf_counter()
+            for _ in range(200):
+                next(it)
+            rates[name] = 200 / (time.perf_counter() - t)
+            it.close()
+        print(f"j3 loader: batches/s (B={batch} x {seq}) "
+              f"{json.dumps(rates)}", flush=True)
+        ckpt = os.path.join(root, "ckpt")
+        raw = dict(J3_JOB, model_overrides=overrides, num_steps=J3_STEPS,
+                   log_every=1, seed=seed,
+                   dataset=dict(J3_JOB["dataset"], path=corpus),
+                   checkpoint_dir=ckpt, checkpoint_every=J3_EVERY,
+                   keep_checkpoints=J3_KEEP)
+        metrics = os.path.join(root, "metrics.jsonl")
+        env = {"KTPU_TRAINER_CONFIG": json.dumps(raw),
+               "KTPU_METRICS_FILE": metrics, "KTPU_TORCH_DEVICE": DEV}
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        code, out1 = j3_run(env, J3Cancel(J3_CANCEL_AT))
+        check(code == 143, f"j3: the cancelled run exited {code}")
+        steps1 = j3_steps(ckpt)
+        print(f"j3 run 1: cancelled at step {J3_CANCEL_AT}, exit {code}, "
+              f"steps kept {steps1} (orbax's rule: the initial save, "
+              f"every {J3_EVERY}, the newest {J3_KEEP})", flush=True)
+        check(steps1 == [2, 4], f"j3: run 1 left steps {steps1}")
+        code, out2 = j3_run(env, threading.Event())
+        check(code == 0, f"j3: the resumed run exited {code}")
+        check("resumed from checkpoint at step 4" in out2,
+              "j3: run 2 did not resume from step 4")
+        steps2 = j3_steps(ckpt)
+        check(steps2 == [4, 6], f"j3: run 2 left steps {steps2}")
+        launched = {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
+        check(all(n >= n_layers * (J3_CANCEL_AT + 2)
+                  for n in launched.values()),
+              f"j3: the two runs launched {launched}")
+        job_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = [(r["step"], r["metrics"]) for r in read_metrics(metrics)]
+        check([s for s, _ in rows] == [1, 2, 3, 4, 5, 5, 6],
+              f"j3: logged steps {[s for s, _ in rows]}")
+        check(all(math.isfinite(m["loss"]) for _, m in rows),
+              "j3: a loss is not finite")
+        saves = j3_saves(out1) + j3_saves(out2)
+        check([s["step"] for s in saves] == [1, 2, 4, 6],
+              f"j3: saves at {[s['step'] for s in saves]}")
+        for s in saves:
+            check("manifest_failed" not in s, f"j3: save {s} unmanifested")
+        # run 1: step k's time holds the save of step k - 1 (if any)
+        times = {s: m["step_time_s"] for s, m in rows[:5]}
+        with_save = [times[s] for s in (2, 3, 5)]
+        without = [times[4]]
+        print(f"j3 runs: losses {[round(m['loss'], 6) for _, m in rows]}; "
+              f"B1-B3 launches {json.dumps(launched)}; peak "
+              f"{job_peak_gb:.2f} GB", flush=True)
+
+        # in-process: step 4 restored, steps 5-6 again on batches 0-1
+        cfg = train.TrainerConfig.from_dict(
+            {k: v for k, v in raw.items() if k != "checkpoint_dir"})
+        trainer = train.Trainer(cfg, device=DEV,
+                                metrics=MetricsWriter(echo=False))
+        mngr = ckpt_lib.CheckpointManager(ckpt, max_to_keep=J3_KEEP)
+        t = time.perf_counter()
+        check(ckpt_lib.verify_step(ckpt, 4) == "intact",
+              "j3: step 4 is not intact")
+        verify_s = time.perf_counter() - t
+        state = mngr.restore(trainer.abstract_state(), step=4, device=DEV)
+        restore4 = dict(mngr.last_restore, verify_s=verify_s)
+        data = train_data.make_dataset(cfg.dataset, cfg.model,
+                                       trainer.model_cfg, cfg.batch_size,
+                                       fallback_seed=cfg.seed)
+        log = []
+        trainer.train(data, 2, state,
+                      step_callback=lambda s, m: log.append(m))
+        want = [m["loss"] for s, m in rows[5:]]
+        got = [m["loss"] for m in log]
+        check(got == want, f"j3: steps 5-6 in-process losses {got}, the "
+                           f"resumed job's {want}")
+        state6 = mngr.restore(trainer.abstract_state(), step=6, device=DEV)
+        j3_same(state, state6)
+        del state6
+        torch.cuda.empty_cache()
+        print(f"j3 in-process: step 4 restored ({json.dumps(restore4)}), "
+              f"steps 5-6 losses {got} equal to the resumed job's bit for "
+              "bit, every leaf equal to step 6's restored leaf", flush=True)
+
+        params = {k: ({kk: vv.detach() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.detach())
+                  for k, v in state["params"].items()}
+        served = j3_serve(ckpt, overrides, params, trainer.model_cfg, seed)
+        check(served[0] == served[1],
+              "j3: the served checkpoint's tokens differ from the "
+              "in-process params'")
+        del params
+
+        # one more step and its save under a scripted ckpt_io_fail
+        trainer.train(data, 1, state)
+        data.close()
+        inj = FaultInjector(generate_fault_script(FaultScriptConfig(
+            seed=seed, duration_s=1.0,
+            faults=(FaultSpec("ckpt_io_fail", 1, (0.0, 0.0)),)),
+            name="j3"))
+        inj.start()
+        prev = set_io_fault_hook(inj.as_io_fault_hook())
+        try:
+            check(mngr.save(7, state), "j3: step 7 was not saved")
+        finally:
+            set_io_fault_hook(prev)
+        save7 = mngr.last_save
+        check([f["kind"] for f in inj.log()] == ["ckpt_io_fail"],
+              f"j3: the injector fired {inj.log()}")
+        t = time.perf_counter()
+        fallback = mngr.latest_intact_step()
+        fallback_s = time.perf_counter() - t
+        check(fallback == 6, f"j3: latest_intact_step gave {fallback}")
+        check(os.path.isdir(os.path.join(ckpt, ckpt_lib.QUARANTINE_DIR,
+                                         "7")),
+              "j3: step 7 was not quarantined")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats = {
+            "layers": n_layers, "free_gb": free_gb,
+            "checkpoint_gb": saves[-1]["bytes"] / 1e9,
+            "written_gb": sum(x["bytes"] for x in saves + [save7]) / 1e9,
+            "saves": saves + [save7],
+            "restore_step4": restore4,
+            "fallback_verify_s": fallback_s,
+            "loader_batches_per_s": rates,
+            "step_s_after_a_save": with_save,
+            "step_s_without": without,
+            "stall_s": sum(with_save) / len(with_save) - without[0],
+            "run2_step6_s": rows[-1][1]["step_time_s"],
+            "job_peak_gb": job_peak_gb, "peak_gb": peak_gb}
+        print(f"j3 training job: {json.dumps(stats)}", flush=True)
+        return stats
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # -- (e) engine at full 8B width, (f) engine shapes, (g) server --------------
@@ -4173,6 +4541,7 @@ def main(argv=None) -> int:
     launches.update(train_launches)
     phase("j2 trainer profile window", trainer_profile_phase, args.seed,
           train_stats["step_time_s_median"])
+    phase("j3 training job", training_job_phase, args.seed)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     kernels = []
     for name in _build.KERNELS:

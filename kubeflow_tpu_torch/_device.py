@@ -18,3 +18,19 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use cuda or cpu")
     return dev
+
+
+#: the JAX package's mesh axes (parallel/mesh.py MeshConfig)
+MESH_AXES = ("data", "fsdp", "stage", "expert", "sequence", "tensor")
+
+
+def check_one_card_mesh(mesh: dict) -> None:
+    """A mesh spec that the port runs: known axes, each 1 or -1 (all the
+    devices, which is one card here). Raises ValueError otherwise."""
+    for axis, n in mesh.items():
+        if axis not in MESH_AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}")
+        if n not in (1, -1):
+            raise ValueError(
+                f"mesh axis {axis}={n}: the port runs on one card "
+                "(multi-card meshes are ROADMAP.md queue A6, parallelism)")

@@ -12,15 +12,18 @@ Everything fired is logged with its fire instant: a chaos record keeps
 the fired-event log next to the script sha, so the record shows not
 just what was SCHEDULED but what actually LANDED.
 
-The JAX module's I/O fault hook (`set_io_fault_hook` / `io_fault`) comes
-with the checkpoint commit path that calls it (ROADMAP.md A2.d).
+The module also owns the process-global I/O fault hook
+(`set_io_fault_hook` / `io_fault`) that `training/checkpoint.py` calls
+at its commit points: a seam rather than a monkeypatch, so a test can
+truncate a file "mid-write" through a supported interface.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
-from typing import Any
+from typing import Any, Callable
 
 from kubeflow_tpu_torch.chaos.script import FaultEvent, FaultScript
 
@@ -117,3 +120,59 @@ class FaultInjector:
     def log(self) -> list[dict[str, Any]]:
         with self._lock:
             return [dict(f) for f in self.fired]
+
+    def as_io_fault_hook(self) -> Callable[[str, str], None]:
+        """Bridge a scripted `ckpt_io_fail` one-shot onto the checkpoint
+        commit seam: install the returned hook with `set_io_fault_hook`,
+        and the next `checkpoint_commit` after a due event truncates one
+        file of the committing step to half its size (a torn write the
+        manifest must catch at restore). The event is consumed and
+        logged like any other fault."""
+
+        def hook(op: str, path: str) -> None:
+            if op != "checkpoint_commit":
+                return
+            if not self.due_one_shots("ckpt_io_fail"):
+                return
+            victim = None
+            for root, _dirs, files in os.walk(path):
+                for fn in sorted(files):
+                    p = os.path.join(root, fn)
+                    if os.path.getsize(p) > 8:
+                        victim = p
+                        break
+                if victim:
+                    break
+            if victim is not None:
+                with open(victim, "r+b") as f:
+                    f.truncate(os.path.getsize(victim) // 2)
+        return hook
+
+
+# -- process-global I/O fault hook (checkpoint commit seam) -------------------
+
+_io_hook: Callable[[str, str], None] | None = None
+_io_hook_lock = threading.Lock()
+
+
+def set_io_fault_hook(fn: Callable[[str, str], None] | None
+                      ) -> Callable[[str, str], None] | None:
+    """Install (or clear, with None) the process-global I/O fault hook.
+    The hook receives (op, path) at instrumented commit points:
+    "checkpoint_commit" (after the step's files are hashed, before the
+    manifest is written: corrupting here models a torn write the checksum
+    must catch) and "manifest_write" (before the manifest lands: raising
+    here models a crash mid-commit, leaving a partial step). Returns the
+    previous hook so tests can restore it."""
+    global _io_hook
+    with _io_hook_lock:
+        prev, _io_hook = _io_hook, fn
+        return prev
+
+
+def io_fault(op: str, path: str) -> None:
+    """Called by instrumented I/O commit points; a no-op unless a hook is
+    armed. The hook may change files under `path` and/or raise OSError."""
+    hook = _io_hook
+    if hook is not None:
+        hook(op, path)

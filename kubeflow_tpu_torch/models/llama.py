@@ -183,6 +183,24 @@ def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
             "lm_head": leaf((d, cfg.vocab_size), d)}
 
 
+def abstract_params(cfg: LlamaConfig) -> Params:
+    """init's tree (without quantize) as meta tensors: every leaf's shape
+    and dtype, no memory and no random numbers. A checkpoint restores
+    into tensors allocated from it."""
+    meta, pd = torch.device("meta"), cfg.param_dtype
+    d, L = cfg.d_model, cfg.n_layers
+
+    def t(*shape):
+        return torch.empty(shape, dtype=pd, device=meta)
+
+    layers: Params = {name: t(L, *shape)
+                      for name, shape in matmul_shapes(cfg).items()}
+    layers["attn_norm"] = t(L, d)
+    layers["mlp_norm"] = t(L, d)
+    return {"embed": t(cfg.vocab_size, d), "layers": layers,
+            "final_norm": t(d), "lm_head": t(d, cfg.vocab_size)}
+
+
 def quantize_params(params: Params) -> Params:
     """Weight-only int8 for serving: every matmul weight becomes
     {"q", "s"}; embed and the norms stay as they are."""

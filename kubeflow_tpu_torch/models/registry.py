@@ -1,4 +1,4 @@
-"""Model registry: name -> (config class, init, apply, loss_fn)
+"""Model registry: name -> (config class, init, apply, loss_fn, abstract)
 (counterpart of kubeflow_tpu/models/registry.py). A training job names a
 registered model and config overrides. Only the Llama family is ported;
 the other families of the JAX registry are queued in ROADMAP.md."""
@@ -15,11 +15,12 @@ class ModelDef(NamedTuple):
     init: Callable
     apply: Callable
     loss_fn: Callable
+    abstract: Callable   # cfg -> init's tree as meta tensors
 
 
 _REGISTRY: dict[str, ModelDef] = {
     "llama": ModelDef(llama.LlamaConfig, llama.init, llama.apply,
-                      llama.loss_fn),
+                      llama.loss_fn, llama.abstract_params),
 }
 
 

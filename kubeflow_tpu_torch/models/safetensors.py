@@ -1,6 +1,7 @@
-"""A reader for the safetensors format, the port's own: the card's
-machine has no `safetensors` package, and an HF checkpoint directory
-(`models/llama.py` `load_hf`) stores its weights this way.
+"""A reader and a writer for the safetensors format, the port's own: the
+card's machine has no `safetensors` package. An HF checkpoint directory
+(`models/llama.py` `load_hf`) stores its weights this way, and the
+port's trainer checkpoints (`training/checkpoint.py`) are written so.
 
 A file is an 8-byte little-endian header length N, then N bytes of JSON
 header, then the raw tensor bytes. The header maps each tensor name to
@@ -11,7 +12,12 @@ The byte section is memory-mapped copy-on-write, and `get_tensor`
 returns a CPU tensor over the mapped pages (`torch.frombuffer`): nothing
 is read until the caller touches it, and a caller that moves it to the
 card reads each byte once, with no f32 (or any) copy of the model on the
-host. There is no writer: the JAX package has none either.
+host.
+
+`save_file` writes a dict of tensors as one file: the header padded with
+spaces to a multiple of 8 bytes, then each tensor's bytes, the widest
+item sizes first so that every tensor starts aligned to its item size
+(the reader then maps each one without a copy).
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ import torch
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
           "F32": torch.float32, "I8": torch.int8, "I32": torch.int32,
           "I64": torch.int64}
+
+#: torch dtypes -> the header's names (the writer's side of DTYPES)
+DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
 
 #: a header larger than this is not a safetensors header (the format's
 #: own reader refuses past 100 MB)
@@ -126,3 +135,37 @@ class SafeFile:
 
     def __exit__(self, *exc: Any) -> None:
         self.close()
+
+
+def save_file(tensors: dict[str, torch.Tensor], path: str) -> int:
+    """Write `tensors` to `path` as one safetensors file, fsynced, and
+    return its size in bytes. Tensors not on the CPU are copied there
+    first."""
+    order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header: dict[str, Any] = {}
+    offset = 0
+    for name in order:
+        t = tensors[name]
+        if t.dtype not in DTYPE_NAMES:
+            raise SafetensorsError(
+                f"tensor {name!r} has dtype {t.dtype}; this writer takes "
+                f"{sorted(str(d) for d in DTYPE_NAMES)}")
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": DTYPE_NAMES[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(head)))
+        fh.write(head)
+        for name in order:
+            t = tensors[name].detach()
+            if t.numel() == 0:
+                continue
+            raw = t.cpu().contiguous().reshape(-1).view(torch.uint8)
+            fh.write(memoryview(raw.numpy()))
+        fh.flush()
+        os.fsync(fh.fileno())
+    return 8 + len(head) + offset

@@ -11,7 +11,10 @@ build raises `NativeUnavailable`. Nothing is built when the module is
 imported.
 
 These are host libraries, not kernels: the continuous-batching scheduler
-(`cb_scheduler.cpp`) holds queues and slots and does no tensor work.
+(`cb_scheduler.cpp`) holds queues and slots and does no tensor work; the
+token loader (`data_loader.cpp`, bound by `training/loader.py`
+`NativeTokenLoader`) fills a ring of batches from a memory-mapped corpus
+on a worker thread.
 """
 
 from __future__ import annotations

@@ -707,13 +707,13 @@ class LLMEngine:
                 frequency_penalty, seed, stop_seqs)
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
-               temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 1.0, presence_penalty: float = 0.0,
+               temperature: float = 0.0, adapter: str | None = None,
+               top_k: int = 0, top_p: float = 1.0,
+               presence_penalty: float = 0.0,
                frequency_penalty: float = 0.0, seed: int | None = None,
                stop: Sequence[Sequence[int]] | None = None,
                deadline_s: float | None = None,
-               tenant: str | None = None, trace: str | None = None,
-               adapter: str | None = None) -> int:
+               tenant: str | None = None, trace: str | None = None) -> int:
         """Queue one request. A prompt longer than the largest bucket is
         chunked; PromptTooLong when it is empty or its chain cannot fit
         max_len, QueueFull when the queue is full (TenantOverQuota when
@@ -935,8 +935,10 @@ class LLMEngine:
             pass
 
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 32,
+                 temperature: float = 0.0, adapter: str | None = None,
                  **kw) -> list[int]:
-        rid = self.submit(prompt, max_new_tokens, **kw)
+        rid = self.submit(prompt, max_new_tokens, temperature,
+                          adapter=adapter, **kw)
         while not self.is_done(rid):
             if not self.step():
                 raise RuntimeError("engine idle with request outstanding")

@@ -21,7 +21,11 @@ calls it.
 
 `load()` reads an HF directory (`uri` or `checkpoint`) through
 `models/llama.py` `load_hf`, weights straight to the card and quantized
-there as they arrive, or makes random weights from `seed` without one.
+there as they arrive; or the params of the port's own trainer checkpoint
+(a `checkpoint_dir` of `training/checkpoint.py`, its newest step), with
+the architecture from `model` as the JAX runtime takes it and the
+config's `quantize` applied as they load; or makes random weights from
+`seed` without either. An empty checkpoint directory raises ModelError.
 The engine sits behind a `serving/agent.py` `EngineSupervisor` (unless
 `supervised: false`): every request is journaled, and a crash or stall
 mid-stream restarts the engine through `engine_factory`, the one place
@@ -39,8 +43,11 @@ under the same source-hash keys, so a restarted predictor skips nvcc; the
 decode graphs are still captured by `warmup()` at every load (a CUDA
 graph cannot be kept across processes). Keys of paths the port has not
 ported raise a ValueError that names the ROADMAP.md queue item:
-`disaggregated`/`disagg` (A5), `parallel`/`mesh` (A6), `lora`/`adapters`
-(A3), `grpc` (the gRPC dataplane), and an orbax `checkpoint` (A2.d).
+`disaggregated`/`disagg` (A5), `lora`/`adapters` (A3), `grpc` (the gRPC
+dataplane). `mesh` and `parallel` are taken when every axis is 1 (one
+card, as `mesh: {tensor: 1}` in examples/hf-llama-inference-service.yaml);
+an axis above 1 raises naming A6, and the JAX runtime's "pass parallel OR
+mesh, not both" holds.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ import threading
 import time
 from typing import Any
 
-from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch._device import check_one_card_mesh, resolve_device
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.obs.metrics import add_scrape_hook
 from kubeflow_tpu_torch.obs.slo import SloBurnTracker
@@ -73,8 +80,6 @@ class ProtocolError(ValueError):
 UNPORTED_KEYS = {
     "disaggregated": "queue A5, disaggregated serving",
     "disagg": "queue A5, disaggregated serving",
-    "parallel": "queue A6, parallelism",
-    "mesh": "queue A6, parallelism",
     "lora": "queue A3, LoRA",
     "adapters": "queue A3, LoRA",
     "grpc": "queue A1.h, the gRPC dataplane",
@@ -110,6 +115,8 @@ class LLMModel:
                  pool_blocks: int | None = None,
                  trace_sample_rate: float | None = None,
                  slo: dict[str, Any] | None = None,
+                 mesh: dict[str, Any] | None = None,
+                 parallel: dict[str, Any] | None = None,
                  device: str = "cuda",
                  params: Any = None,
                  llama_config: llama.LlamaConfig | None = None,
@@ -120,6 +127,19 @@ class LLMModel:
                                  f"(ROADMAP.md {item})")
         if rest:
             raise ValueError(f"unsupported config keys {sorted(rest)}")
+        # config.parallel {tensor, stage} and config.mesh: one card only
+        par = dict(parallel or {})
+        pp = 1 if par.get("stage") is None else int(par["stage"])
+        tp = 1 if par.get("tensor") is None else int(par["tensor"])
+        if pp < 1 or tp < 1:
+            raise ValueError("parallel.stage/parallel.tensor must be >= 1")
+        if (pp > 1 or tp > 1) and mesh:
+            raise ValueError("pass parallel OR mesh, not both")
+        if pp > 1 or tp > 1:
+            raise ValueError(
+                f"parallel stage={pp} tensor={tp}: the port runs on one card "
+                "(ROADMAP.md queue A6, parallelism)")
+        check_one_card_mesh(dict(mesh or {}))
         if sample_k_max != 64:
             raise ValueError("sample_k_max: the port's sampler has a fixed "
                              "64-candidate window (LLMEngine.SAMPLE_K_MAX)")
@@ -263,12 +283,21 @@ class LLMModel:
             if self._eos_id is None:
                 self._eos_id = getattr(self.tokenizer, "eos_id", None)
             return params, cfg
-        if ckpt:
-            raise ValueError(
-                f"{ckpt!r} is not an HF safetensors directory; orbax "
-                "trainer checkpoints are not readable by the port yet "
-                "(ROADMAP.md queue A2.d)")
         cfg = llama.LlamaConfig(**self._cfg_overrides)
+        if ckpt:
+            # the port's trainer checkpoint: its params subtree against
+            # the model's shapes (no optimizer state), never random
+            # weights in place of a configured but empty directory
+            from kubeflow_tpu_torch.training.checkpoint import restore_params
+
+            try:
+                params = restore_params(ckpt, llama.abstract_params(cfg),
+                                        device=self.device)
+            except FileNotFoundError as e:
+                raise ModelError(str(e)) from e
+            if self._quantize == "int8":
+                params = llama.quantize_params(params)
+            return params, cfg
         return llama.init(cfg, seed=self._seed, device=self.device,
                           quantize=self._quantize), cfg
 

@@ -1,8 +1,14 @@
 """Training data (counterpart of kubeflow_tpu/training/data.py): the
-dataset spec and the synthetic token stream of the Llama family. The
-generator makes the same numpy `default_rng` calls as the JAX package, so
-the two yield byte-equal batches from one seed. The token_file and
-array_file loaders are queued in ROADMAP.md."""
+dataset spec and its three sources,
+
+  synthetic   the Llama family's token stream (the default);
+  token_file  a flat uint32 token corpus through the C++ prefetching
+              loader (`training/loader.py`);
+  array_file  an .npz of named arrays, epoch-cycled minibatches.
+
+Each makes the same numpy calls as the JAX package, so the two yield
+byte-equal batches from one seed. The port runs one process, so a
+process's share is the whole batch (process count 1, index 0)."""
 
 from __future__ import annotations
 
@@ -42,18 +48,49 @@ def synthetic_tokens(batch_size: int, seq_len: int, vocab_size: int,
         yield {"tokens": tokens.astype(np.int32)}
 
 
+def array_dataset(arrays: dict[str, np.ndarray], batch_size: int,
+                  shuffle: bool = True, seed: int = 0,
+                  drop_remainder: bool = True) -> Iterator[dict[str, Any]]:
+    """Epoch-cycling minibatches over in-memory arrays."""
+    n = len(next(iter(arrays.values())))
+    rng = np.random.default_rng(seed)
+    while True:
+        idx = rng.permutation(n) if shuffle else np.arange(n)
+        stop = n - batch_size + 1 if drop_remainder else n
+        for i in range(0, stop, batch_size):
+            sel = idx[i:i + batch_size]
+            yield {k: v[sel] for k, v in arrays.items()}
+
+
 def make_dataset(ds: DatasetConfig, model: str, model_cfg, batch_size: int,
                  fallback_seed: int = 0) -> Iterator[dict[str, Any]]:
-    """A DatasetConfig as a batch iterator, for one process."""
+    """A DatasetConfig as this process's batch iterator. batch_size is the
+    global batch, as in the JAX package; with one process (count 1, index
+    0) its share is all of it. A token_file loader holds a file and a
+    thread: close it when done."""
+    pc, pi = 1, 0
+    if batch_size % pc:
+        raise ValueError(
+            f"batch_size {batch_size} not divisible by {pc} processes")
+    local = batch_size // pc
     seed = ds.seed if ds.seed is not None else fallback_seed
     if ds.type == "synthetic":
         if model not in LLAMA_FAMILY:
             raise KeyError(f"no synthetic data recipe for model {model!r}")
-        return synthetic_tokens(batch_size, ds.seq_len, model_cfg.vocab_size,
-                                seed)
-    if ds.type in ("token_file", "array_file"):
-        raise NotImplementedError(
-            f"dataset.type={ds.type} is not ported yet (ROADMAP.md, queue "
-            "A: the token_file/array_file loaders)")
+        return synthetic_tokens(local, ds.seq_len, model_cfg.vocab_size,
+                                seed + pi)
+    if ds.type == "token_file":
+        if not ds.path:
+            raise ValueError("dataset.type=token_file requires dataset.path")
+        from kubeflow_tpu_torch.training.loader import token_file_dataset
+
+        return token_file_dataset(ds.path, local, ds.seq_len, seed=seed + pi,
+                                  prefer_native=ds.prefer_native)
+    if ds.type == "array_file":
+        if not ds.path:
+            raise ValueError("dataset.type=array_file requires dataset.path")
+        with np.load(ds.path) as z:
+            arrays = {k: z[k][pi::pc] for k in z.files}
+        return array_dataset(arrays, local, shuffle=ds.shuffle, seed=seed)
     raise ValueError(f"unknown dataset type {ds.type!r} "
                      "(expected synthetic | token_file | array_file)")

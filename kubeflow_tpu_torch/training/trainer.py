@@ -14,13 +14,22 @@ b1 included, as JAX's weak-typed scalar is. Params are updated in place.
 
 Params stay in cfg.param_dtype (f32); the model casts to cfg.dtype at each
 matmul. `profile_dir` captures a window of steps with torch.profiler
-(training/profiling.py `StepProfiler`). Checkpointing, LoRA
-(trainable_prefix) and meshes are not ported yet (ROADMAP.md).
+(training/profiling.py `StepProfiler`). `checkpoint_dir` saves the state
+through `training/checkpoint.py` exactly where the JAX trainer does:
+after each step's log and step callback (so a cancel raised in the
+callback loses that step's save), on the manager's interval
+(`checkpoint_every`, keeping `keep_checkpoints`), and once more, forced,
+after the last step unless the interval saved it. Saves are synchronous
+(a host copy before the next in-place update); each one's seconds are
+echoed with the metrics. LoRA
+(trainable_prefix) and meshes past one card are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import time
 from typing import Any, Callable, Iterator
@@ -28,13 +37,10 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch._device import check_one_card_mesh, resolve_device
 from kubeflow_tpu_torch.models import registry
 from kubeflow_tpu_torch.training.data import DatasetConfig
 from kubeflow_tpu_torch.training.metrics_writer import MetricsWriter
-
-MESH_AXES = ("data", "fsdp", "stage", "expert", "sequence", "tensor")
-
 
 @dataclasses.dataclass
 class OptimizerConfig:
@@ -177,6 +183,9 @@ class TrainerConfig:
     dataset: DatasetConfig = dataclasses.field(default_factory=DatasetConfig)
     seed: int = 0
     log_every: int = 10
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3
     # step-windowed torch.profiler capture; None disables
     profile_dir: str | None = None
     profile_start_step: int = 2
@@ -192,13 +201,7 @@ class TrainerConfig:
         num_steps = raw.pop("num_steps", None)
         opt = dict(raw.pop("optimizer", {}))
         dataset = raw.pop("dataset", {})
-        for axis, n in raw.pop("mesh", {}).items():
-            if axis not in MESH_AXES:
-                raise ValueError(f"unknown mesh axis {axis!r}")
-            if n not in (1, -1):
-                raise ValueError(
-                    f"mesh axis {axis}={n}: the trainer runs on one card "
-                    "(multi-card meshes are queued in ROADMAP.md)")
+        check_one_card_mesh(raw.pop("mesh", {}))
         known = {f.name for f in dataclasses.fields(TrainerConfig)}
         unknown = set(raw) - known
         if unknown:
@@ -223,6 +226,17 @@ class Trainer:
         self.model_cfg = self.model.config_cls(**config.model_overrides)
         self.optimizer = make_optimizer(config.optimizer)
         self.metrics = metrics or MetricsWriter()
+
+    def abstract_state(self) -> dict[str, Any]:
+        """The train state's shapes and dtypes as meta tensors, params
+        requiring grad as init_state's do (the checkpoint restore's
+        target; no memory is touched)."""
+        params = self.model.abstract(self.model_cfg)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        return {"params": params,
+                "opt_state": self.optimizer.init(leaves(params)),
+                "step": 0}
 
     def init_state(self, params=None) -> dict[str, Any]:
         """{"params", "opt_state", "step"}: params from the model's init at
@@ -262,8 +276,18 @@ class Trainer:
         includes_compile (the kernels build on first use). With
         profile_dir, steps [profile_start_step, + profile_num_steps) of
         this run (counted from its first step, as in the JAX trainer) are
-        captured there."""
+        captured there. With checkpoint_dir, saves as the module doc
+        says."""
         state = state if state is not None else self.init_state()
+        ckpt = None
+        if self.config.checkpoint_dir:
+            from kubeflow_tpu_torch.training.checkpoint import (
+                CheckpointManager)
+
+            ckpt = CheckpointManager(
+                self.config.checkpoint_dir,
+                max_to_keep=self.config.keep_checkpoints,
+                save_interval_steps=self.config.checkpoint_every)
         start = state["step"]
         t_last = time.perf_counter()
         since = 0
@@ -297,9 +321,25 @@ class Trainer:
                 self.metrics.write(step, scalars)
                 if step_callback:
                     step_callback(step, scalars)
+            if ckpt is not None:
+                # the manager applies the interval; the last step is
+                # forced below
+                self._save(ckpt, step, state)
         if prof is not None:
             prof.close()
+        if ckpt is not None:
+            final = start + num_steps
+            # the interval may have saved it already
+            if ckpt.latest_step() != final:
+                self._save(ckpt, final, state, force=True)
+            ckpt.close()
         return state
+
+    def _save(self, ckpt, step: int, state: dict[str, Any],
+              force: bool = False) -> None:
+        if ckpt.save(step, state, force=force) and self.metrics.echo:
+            print(f"[checkpoint {step}] {json.dumps(ckpt.last_save)}",
+                  flush=True)
 
     def _sync(self) -> None:
         """Wait for the card's queued work (nothing to wait for on the

@@ -7,7 +7,8 @@ and speculation on. Greedy SSE completions, chat and buffered calls give
 the same token ids, text, finish_reason and usage (cached_tokens
 included) from both runtimes, with stop strings and logprobs; seeded rows
 repeat within the port; the keys of unported paths raise, each naming its
-ROADMAP.md item."""
+ROADMAP.md item, and a path that is neither an HF directory nor a trainer
+checkpoint raises ModelError."""
 
 import json
 import urllib.request
@@ -20,7 +21,7 @@ import torch
 from kubeflow_tpu.loadgen.http_client import stream_completion
 from kubeflow_tpu.serving.model import ModelRepository, load_model
 from kubeflow_tpu.serving.server import ModelServer
-from kubeflow_tpu_torch.serving.llm_runtime import LLMModel
+from kubeflow_tpu_torch.serving.llm_runtime import LLMModel, ModelError
 
 transformers = pytest.importorskip("transformers")
 
@@ -209,8 +210,10 @@ def test_unported_keys_raise_naming_their_item(served):
             LLMModel("m", path, device="cpu", **{key: value})
     with pytest.raises(ValueError, match="unsupported config keys"):
         LLMModel("m", path, device="cpu", beam_width=4)
+    # not an HF directory: read as a trainer checkpoint, and one that
+    # holds no step is refused, never served with random weights
     m = LLMModel("m", str(served[2]) + "-missing", device="cpu")
-    with pytest.raises(ValueError, match="A2.d"):
+    with pytest.raises(ModelError, match="no checkpoint"):
         m.load()
     with pytest.raises(ValueError, match="kv_layout"):
         LLMModel("m", path, device="cpu", kv_layout="ring")

@@ -22,6 +22,7 @@ from kubeflow_tpu.training import trainer as jtrainer
 from kubeflow_tpu_torch.models import interop
 from kubeflow_tpu_torch.models import llama as tllama
 from kubeflow_tpu_torch.training import data as tdata
+from kubeflow_tpu_torch.training import loader as tloader
 from kubeflow_tpu_torch.training import mfu as tmfu
 from kubeflow_tpu_torch.training import trainer as ttrainer
 from kubeflow_tpu_torch.training.metrics_writer import (MetricsWriter,
@@ -39,17 +40,36 @@ def test_synthetic_tokens_match_jax_bytes():
         assert a.tobytes() == b.tobytes()
 
 
-def test_make_dataset():
+def test_make_dataset(tmp_path):
+    """Each dataset type gives the JAX make_dataset's batches: synthetic,
+    token_file (the native loader and the Python twin) and array_file."""
     cfg = tllama.LlamaConfig.tiny()
     ds = tdata.DatasetConfig(seq_len=32, seed=None)
     batch = next(tdata.make_dataset(ds, "llama", cfg, 2, fallback_seed=3))
     ref = next(jdata.make_dataset(jdata.DatasetConfig(seq_len=32), "llama",
                                   cfg, 2, fallback_seed=3))
     assert batch["tokens"].tobytes() == ref["tokens"].tobytes()
-    for kind in ("token_file", "array_file"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdata.make_dataset(tdata.DatasetConfig(type=kind, path="x"),
-                               "llama", cfg, 2)
+    corpus = str(tmp_path / "c.bin")
+    tloader.write_corpus(corpus, np.arange(3000, dtype=np.uint32) % 509)
+    npz = str(tmp_path / "a.npz")
+    np.savez(npz, tokens=np.arange(40, dtype=np.int32).reshape(10, 4),
+             label=np.arange(10, dtype=np.int32))
+    for kw in (dict(type="token_file", path=corpus, prefer_native=False),
+               dict(type="token_file", path=corpus, prefer_native=True),
+               dict(type="array_file", path=npz)):
+        t_it = tdata.make_dataset(tdata.DatasetConfig(seq_len=16, **kw),
+                                  "llama", cfg, 4, fallback_seed=5)
+        j_it = jdata.make_dataset(jdata.DatasetConfig(seq_len=16, **kw),
+                                  "llama", cfg, 4, fallback_seed=5)
+        for _ in range(3):
+            a, b = next(t_it), next(j_it)
+            assert sorted(a) == sorted(b)
+            for k in a:
+                assert a[k].dtype == b[k].dtype
+                assert a[k].tobytes() == b[k].tobytes()
+        for it in (t_it, j_it):
+            if hasattr(it, "close"):
+                it.close()
     with pytest.raises(ValueError, match="unknown dataset type"):
         tdata.make_dataset(tdata.DatasetConfig(type="nope"), "llama", cfg, 2)
 
@@ -130,17 +150,32 @@ def test_from_dict_accepts_the_example_job_config():
 @pytest.mark.parametrize("raw,match", [
     ({"mesh": {"fsdp": 4}}, "one card"),
     ({"mesh": {"pipe": 1}}, "unknown mesh axis"),
-    ({"checkpoint_dir": "/x"}, "not yet ported"),
+    ({"trainable_prefix": "lora"}, "not yet ported"),
 ])
 def test_from_dict_rejects(raw, match):
     with pytest.raises(ValueError, match=match):
         ttrainer.TrainerConfig.from_dict(raw)
 
 
-def test_longctx_job_model_overrides_build_a_trainer():
-    """The model_overrides of examples/llama-longctx-jaxjob.yaml (the JAX
-    config's attention_impl and scan_layers keys included), shrunk for
-    the CPU, build the port's Trainer and one training step runs."""
+def test_from_dict_takes_the_checkpoint_keys():
+    """checkpoint_dir, checkpoint_every and keep_checkpoints, with the
+    JAX TrainerConfig's defaults."""
+    cfg = ttrainer.TrainerConfig.from_dict(
+        {"checkpoint_dir": "/x", "checkpoint_every": 7,
+         "keep_checkpoints": 2})
+    assert (cfg.checkpoint_dir, cfg.checkpoint_every,
+            cfg.keep_checkpoints) == ("/x", 7, 2)
+    want = jtrainer.TrainerConfig()
+    got = ttrainer.TrainerConfig()
+    for f in ("checkpoint_dir", "checkpoint_every", "keep_checkpoints"):
+        assert getattr(got, f) == getattr(want, f)
+
+
+def test_longctx_job_model_overrides_build_a_trainer(tmp_path):
+    """The config of examples/llama-longctx-jaxjob.yaml (the JAX config's
+    attention_impl and scan_layers keys included, its token_file dataset
+    over a small corpus), shrunk for the CPU, builds the port's Trainer
+    and one training step runs on the dataset's batch."""
     job = open(os.path.join(os.path.dirname(__file__), "..", "examples",
                             "llama-longctx-jaxjob.yaml")).read()
     raw = json.loads(job.split("KTPU_TRAINER_CONFIG: >", 1)[1]
@@ -150,18 +185,23 @@ def test_longctx_job_model_overrides_build_a_trainer():
     assert overrides["scan_layers"] is False
     overrides.update(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
                      n_kv_heads=2, d_ff=128, max_seq_len=64)
-    raw.pop("dataset")   # token_file loader: ROADMAP A2.c
-    cfg = ttrainer.TrainerConfig.from_dict(
-        dict(raw, dataset={"seq_len": 64}))
+    assert raw["dataset"]["type"] == "token_file"
+    corpus = str(tmp_path / "corpus.bin")
+    tloader.write_corpus(
+        corpus, np.random.default_rng(0).integers(0, 256, 4096))
+    raw["dataset"].update(path=corpus, seq_len=64)
+    cfg = ttrainer.TrainerConfig.from_dict(raw)
     trainer = ttrainer.Trainer(cfg, device="cpu",
                                metrics=MetricsWriter(echo=False))
     assert trainer.model_cfg.attention_impl == "flash"
     assert trainer.model_cfg.scan_layers is False
     state = trainer.init_state()
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, 256, (1, 64)).astype(np.int32),
-             "segment_ids": np.zeros((1, 64), np.int32),
-             "loss_mask": np.ones((1, 64), np.float32)}
+    data = tdata.make_dataset(cfg.dataset, cfg.model, trainer.model_cfg,
+                              cfg.batch_size, fallback_seed=cfg.seed)
+    batch = dict(next(data), segment_ids=np.zeros((1, 64), np.int32),
+                 loss_mask=np.ones((1, 64), np.float32))
+    data.close()
+    assert batch["tokens"].shape == (1, 64)
     metrics = trainer.train_step(state, trainer.to_device(batch))
     assert np.isfinite(float(metrics["loss"]))
     # the JAX config takes the same keys
