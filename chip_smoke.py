@@ -126,7 +126,8 @@ Phases, in order; any failure exits non-zero before the result line:
       own safetensors writer puts a Llama-3-8B-shaped HF directory of
       random bf16 weights from --seed (the published config.json fields,
       4 shards and the index, no tokenizer; fewer layers only when the
-      temp directory's disk cannot hold 16.06 GB) into a temp directory;
+      temp directory's disk cannot hold 16.06 GB) into a temp directory
+      that is kept until (l) has read it;
       an LLMModel over it with the ISVC's config as written
       (examples/llama-8b-serving-isvc.yaml, plus device, a 1 s SSE
       keepalive and compile_cache in the temp directory) loads it
@@ -152,13 +153,16 @@ Phases, in order; any failure exits non-zero before the result line:
       served; after unload(), memory back to its value before (e6) once
       the cuBLAS workspaces are cleared;
   (e7) scenarios: committed loadgen traffic through the port's runner
-      (kubeflow_tpu_torch/loadgen) into a slab LLMEngine with the
-      flagship settings and the prefix cache over (e)'s weights, behind an
-      EngineSupervisor (degraded-mode ShedPolicy: t0 above the threshold)
-      whose factory builds it, warmed up, its scheduler the C++ core
-      (NativeScheduler): (e7.a) run_scenario of `steady`; (e7.b) of
-      `multi_tenant_lora` without adapters (its caps 2/32, six tenants:
-      the per-tenant table and Jain's index), then a flood of 64 t0 and 8
+      (kubeflow_tpu_torch/loadgen) into slab LLMEngines with the
+      flagship settings and the prefix cache over (e)'s weights, each
+      behind an EngineSupervisor (degraded-mode ShedPolicy: t0 above the
+      threshold) whose factory builds it, warmed up, its scheduler the
+      C++ core (NativeScheduler): on one without adapters (e7.a)
+      run_scenario of `steady` and (e7.c); on one with (e8)'s four
+      adapters a0..a3 loaded (e7.b) run_scenario of `multi_tenant_lora`
+      with its adapters (its caps 2/32, six tenants and four adapters: the
+      per-tenant table, Jain's index and the requests offered and
+      completed per adapter), then a flood of 64 t0 and 8
       t1 requests submitted whole under set_tenant_limits(2, 32): 32 of
       t0's refused with TenantOverQuota and none of t1's, t1's largest
       queue wait under t0's median, every request terminal; (e7.c)
@@ -182,6 +186,37 @@ Phases, in order; any failure exits non-zero before the result line:
       E7_TRACES), TTFT and TPOT p50/p99, attainment, goodput, completed,
       rejected and seconds, and holds K1, K2 and K3 launched and no
       capture after warmup;
+  (e8) multi-adapter serving: four rank-8 adapters a0..a3 on
+      wq/wk/wv/wo from --seed (b random and nonzero: LoRA's own b = 0
+      would pass every check on an engine that ignored them), alpha 16,
+      on flagship engines with the prefix cache over (e)'s weights, each
+      warmed up: a burst of 16 (14 prompts of 30-1500 tokens, the last
+      chunked, and two rows of one 512-token system prompt plus a
+      question under a0 and a2) that mixes base rows and all four
+      adapters (E8_ROUTES), 48 greedy tokens each. It holds: every base
+      row bit for bit the same engine's without adapters; at least two
+      adapters changing their rows; the burst again with half of the
+      adapters' rows moved to the base (twice) giving every row's tokens
+      exactly (its wave has the same (bucket, rows)), and the adapters'
+      rows alone (waves of other shapes) first different only at a top-2
+      gap under E7_OTHER_GAP, and where any differs, run alone again,
+      their own tokens exactly (the witness: the wave shape decides);
+      follow-ups of the system prompt under a0
+      (a hit of 512 tokens: a continuation wave with adapters), a1 and
+      the base (misses: the prefix cache never hits across adapters);
+      one chunk's graph replay bit for bit the eager body with the slots
+      spread over the adapters; a 128-block paged engine's tokens equal
+      to the slab engine's; the speculative engine (speculative 6) equal,
+      or first different at a top-2 gap under E5_GAP (base rows) or
+      E7_OTHER_GAP (adapter rows: a verify round runs the bypass
+      products at S_v rows a slot, whose GEMM bits depend on the rows),
+      and where any row differs, the burst again on it giving its rows
+      exactly;
+      K1, K2, K2-paged and K3 launched; no capture after warmup. Prints
+      TTFT and decode
+      tokens/s against the engine without adapters, and the decode step's
+      graph-replay wall with and without adapters at 8 and 16 slots;
+      then K3 against its plain version at each shape it launched;
   (f) engine shapes: every kernel again against its plain version, at
       each argument shape the wrappers recorded in (e) (prefill waves,
       decode spans, lm_head rows, the paged engine's K2-paged launches),
@@ -254,6 +289,37 @@ Phases, in order; any failure exits non-zero before the result line:
       is not (j)'s because a run of this script keeps what it writes to
       disk, deleted files included, under J3_DISK_BUDGET_GB: (e6) writes
       16.06 GB, and five saves of (j)'s state would write 115 GB.
+  (l) LoRA fine-tune: llama_lora at Llama-3-8B width, all 32 layers,
+      rank 8, alpha 16, wq/wk/wv/wo, trainable_prefix "lora", the base
+      (f32) read from (e6)'s HF directory through base_checkpoint (the
+      directory is kept until here), B=2 x S=4096 as (j) when it fits
+      one card, else B=1 (printed), 6 steps, no checkpoint (the state is
+      32 GB a save), twice: per step loss, grad_norm and time; tokens/s,
+      MFU by the JAX formula (it counts the frozen weights' weight
+      gradients), peak memory and the optimizer state's bytes. It holds:
+      every base leaf's bits unchanged (two 64-bit sums of its bit
+      patterns before and after), every b leaf nonzero after step 2,
+      optimizer state for the adapters alone, finite losses equal bit
+      for bit on the repeat, B1-B3 launched each step on every layer;
+  (l2) LoRA job: examples/llama-lora-jaxjob.yaml's trainer config
+      (L2_JOB, key for key) through training/job.py train_target over a
+      2^20-token corpus from --seed: exit 0, checkpoints at steps 1 and
+      50 (orbax's initial save and the last), the base bit for bit
+      between them, b zero at step 1 (lr 0) and moved by step 50; then
+      the checkpoint served by LLMModel merged (lora: {rank 8, alpha
+      16}) and through `adapters` (the step-50 adapter, and the step-1
+      one from a copy of that step) over the base, bf16 and int8: the
+      adapter route's tokens equal the merged model's or first different
+      at a top-2 gap under L2_GAP, the step-1 adapter's rows equal the
+      base rows exactly, the step-50 adapter's rows not all the base's,
+      the first token's top logprobs of the route against an f32 CPU
+      reference (the merged f32 model) within L2_LP_FACTOR times the
+      engine-merged model's own error and under half the base rows'
+      error, K2 and K3 launched (K1 too with int8); then, the model's
+      head dim being 32 (the kernels ran on zero-padded heads), B1-B3 at
+      the training's shapes, K2 and K3 at the serving's, and K2-paged
+      and K3-paged at one shape each, int8 and bf16, against their plain
+      versions at head dim 32;
 Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the paged engine's run for
@@ -268,7 +334,8 @@ compares this tree with another checkout (an unpacked `git archive` of
 the parent commit, say) on one card in one call: K1's decode step (the
 224 m=8 matmuls and the lm_head of (c)), K2 at B=8 S_v=1 span 1024 int8,
 the 8B engine's decode-step breakdown at span 2048 (twice) and its
-prefill-wave breakdown, B1-B3 at the trainer's shape, K3 at the engine's
+prefill-wave breakdown, (e3)'s flagship burst (TTFT and decode
+tokens/s, slab and paged), B1-B3 at the trainer's shape, K3 at the engine's
 1024-token wave and phase (j), with each tree's own code, in turns
 (other, this, this, other), one process each. It prints no result
 line.
@@ -306,6 +373,7 @@ from kubeflow_tpu_torch.ops import flash_decode as fd
 from kubeflow_tpu_torch.ops import flash_prefill as fp
 from kubeflow_tpu_torch.ops import quant
 from kubeflow_tpu_torch.ops import quant_matmul as qm
+from kubeflow_tpu_torch.ops.attention import KERNEL_MIN_HEAD_DIM
 from kubeflow_tpu_torch.serving.agent import EngineSupervisor
 from kubeflow_tpu_torch.serving.llm import LLMEngine
 from kubeflow_tpu_torch.serving.llm_runtime import LLMModel
@@ -598,11 +666,12 @@ def attn_err(got, ref, name, row_tol, grad=False):
 
 
 def k2_case(gen, s_v, span, int8, b=8, nh=32, nkv=8, hd=128,
-            slot_stride=None, lengths="ragged"):
+            slot_stride=None, lengths="ragged", times=True):
     """K2 against its plain version, a repeat launch bit for bit, and its
-    times. lengths: "ragged" (random, the first slot reaching the end of
-    the span), "zero" (every slot at position 0) or "one_long" (the first
-    slot at the end, the others in its first 100 positions)."""
+    times (with times). lengths: "ragged" (random, the first slot
+    reaching the end of the span), "zero" (every slot at position 0) or
+    "one_long" (the first slot at the end, the others in its first 100
+    positions)."""
     q = torch.randn(b, s_v, nh, hd, device=DEV, generator=gen).to(
         torch.bfloat16)
     k, v, ks, vs = kv_inputs(gen, b, span, nkv, hd, int8, slot_stride)
@@ -616,10 +685,13 @@ def k2_case(gen, s_v, span, int8, b=8, nh=32, nkv=8, hd=128,
     got = fd.flash_decode_attention(q, k, v, lengths, **kw)
     again = fd.flash_decode_attention(q, k, v, lengths, **kw)
     ref = fd.flash_decode_plain(q, k, v, lengths, **kw)
-    name = f"K2 B={b} S_v={s_v} span={span} int8={int8} lengths={mode}"
+    name = (f"K2 B={b} S_v={s_v} span={span} hd={hd} int8={int8} "
+            f"lengths={mode}")
     err, worst = attn_err(got, ref, name, ATTN_ROW_TOL)
     check(torch.equal(got, again), f"{name}: a second launch gave other "
                                    "bits")
+    if not times:
+        return dict(err=err, worst_row=worst, row_tol=ATTN_ROW_TOL)
     elem = 1 if int8 else 2
     kv_bytes = k.numel() * elem * 2 + (ks.numel() * 8 if int8 else 0)
     copies = [tuple(slab_copy(x) for x in (k, v, ks, vs))
@@ -684,7 +756,7 @@ def paged_inputs(gen, b, span, bt, nkv, hd, int8, n_pool=None,
 
 
 def k2_paged_case(gen, s_v, span, bt, int8, b=8, nh=32, nkv=8, hd=128,
-                  n_pool=None):
+                  n_pool=None, times=True):
     """K2-paged against its plain version, a repeat launch bit for bit,
     the slab kernel on the same keys gathered into a slab bit for bit, and
     its times beside K2-slab's on that slab. The library yardstick is
@@ -701,13 +773,15 @@ def k2_paged_case(gen, s_v, span, bt, int8, b=8, nh=32, nkv=8, hd=128,
     sk, sv, sks, svs = fd.gather_pages(tables, k, v, ks, vs)
     slab = fd.flash_decode_attention(q, sk, sv, lengths, k_scale=sks,
                                      v_scale=svs)
-    name = (f"K2-paged B={b} S_v={s_v} span={span} bt={bt} int8={int8} "
-            f"pool={k.shape[0]}")
+    name = (f"K2-paged B={b} S_v={s_v} span={span} bt={bt} hd={hd} "
+            f"int8={int8} pool={k.shape[0]}")
     err, worst = attn_err(got, ref, name, ATTN_ROW_TOL)
     check(torch.equal(got, again), f"{name}: a second launch gave other "
                                    "bits")
     check(torch.equal(got, slab), f"{name}: other bits than the slab "
                                   "kernel on the same keys")
+    if not times:
+        return dict(err=err, worst_row=worst, row_tol=ATTN_ROW_TOL)
     elem = 1 if int8 else 2
     pool_bytes = k.numel() * elem * 2 + (ks.numel() * 8 if int8 else 0)
     copies = [tuple(None if x is None else x.clone() for x in (k, v, ks, vs))
@@ -747,7 +821,7 @@ def k2_paged_case(gen, s_v, span, bt, int8, b=8, nh=32, nkv=8, hd=128,
 
 
 def k3_case(gen, s, q_offset, int8, b=2, nh=32, nkv=8, hd=128, t=None,
-            slot_stride=None):
+            slot_stride=None, times=True):
     t = q_offset + s if t is None else t
     q = torch.randn(b, s, nh, hd, device=DEV, generator=gen).to(
         torch.bfloat16)
@@ -762,6 +836,8 @@ def k3_case(gen, s, q_offset, int8, b=2, nh=32, nkv=8, hd=128, t=None,
     err, worst = attn_err(got, ref, name, row_tol)
     check(torch.equal(got, again), f"{name}: a second launch gave other "
                                    "bits")
+    if not times:
+        return dict(err=err, worst_row=worst, row_tol=row_tol)
     ms = time_ms([lambda: fp.flash_prefill_attention(q, k, v, **kw)], 20)
     plain = time_ms([lambda: fp.flash_prefill_plain(q, k, v, **kw)], 5)
     mask = (torch.arange(t, device=DEV)[None, :]
@@ -782,7 +858,7 @@ def k3_case(gen, s, q_offset, int8, b=2, nh=32, nkv=8, hd=128, t=None,
 
 
 def k3_paged_case(gen, b, s, q_offset, bt, int8, nb, nh=32, nkv=8, hd=128,
-                  n_pool=None):
+                  n_pool=None, times=True):
     """K3-paged against its plain version, a repeat launch bit for bit, the
     slab kernel on the same keys gathered into a slab bit for bit, and its
     times beside K3-slab's on that slab. The pool holds n_pool blocks (by
@@ -827,6 +903,8 @@ def k3_paged_case(gen, b, s, q_offset, bt, int8, nb, nh=32, nkv=8, hd=128,
                                    "bits")
     check(torch.equal(got, slab), f"{name}: other bits than the slab "
                                   "kernel on the same keys")
+    if not times:
+        return dict(err=err, worst_row=worst, row_tol=row_tol)
     elem = 1 if int8 else 2
     pool_bytes = k.numel() * elem * 2 + (ks.numel() * 8 if int8 else 0)
     copies = [tuple(None if x is None else x.clone() for x in (k, v, ks, vs))
@@ -1892,6 +1970,461 @@ def training_job_phase(seed: int) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- (l) LoRA fine-tune at 8B width, (l2) the LoRA job ------------------------
+
+L_RANK, L_ALPHA = 8, 16.0
+L_SEQ = 4096
+#: B=2 x S=4096 as (j) when it fits one card, else B=1 (printed)
+L_BATCHES = (2, 1)
+L_STEPS = 6
+#: examples/llama-lora-jaxjob.yaml's trainer config, key for key (a test
+#: holds it equal); (l2) only points dataset.path and checkpoint_dir at
+#: its temp directory
+L2_JOB = {"model": "llama_lora", "batch_size": 8, "num_steps": 50,
+          "log_every": 10,
+          "model_overrides": {"rank": 8, "alpha": 16.0,
+                              "llama": {"vocab_size": 2048, "d_model": 256,
+                                        "n_layers": 4, "n_heads": 8,
+                                        "n_kv_heads": 4, "d_ff": 1024,
+                                        "max_seq_len": 512}},
+          "dataset": {"type": "token_file", "path": "/tmp/corpus.bin",
+                      "seq_len": 256},
+          "mesh": {"data": -1},
+          "checkpoint_dir": "/tmp/ckpt/llama-lora",
+          "optimizer": {"learning_rate": 0.001, "warmup_steps": 5,
+                        "trainable_prefix": "lora"}}
+L2_CORPUS_TOKENS = 1 << 20
+L2_PROMPTS = 8
+L2_NEW = 16
+#: the bound on the top-2 gap where the adapter route first differs from
+#: the merged model (E7_OTHER_GAP's): the card's kernels run bf16, and
+#: bf16 (or int8) of a merged weight is not bf16 (int8) of the base plus
+#: an f32 bypass, so the two part by up to a rounding step a weight; a
+#: model trained 50 steps on random tokens has many near-ties
+L2_GAP = 0.2
+L2_MAX_LEN = 512
+L2_TOPK = 4
+#: the route's first-token logprob error against the f32 merged model may
+#: be this many times the engine-merged model's largest: each serves the
+#: f32 function through one rounding of its weights to the served dtype
+L2_LP_FACTOR = 2.0
+
+
+def lora_config(seed: int, base_ckpt: str, batch: int) -> train.TrainerConfig:
+    """(l)'s job: llama_lora at Llama-3-8B width, all 32 layers, rank 8,
+    alpha 16, the default targets (wq, wk, wv, wo), the base from the HF
+    directory (e6) wrote, trainable_prefix "lora", (j)'s optimizer and
+    data otherwise."""
+    base = llama.LlamaConfig.llama3_8b()
+    fields = {f: getattr(base, f) for f in (
+        "vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads",
+        "d_ff", "rope_theta")}
+    fields["max_seq_len"] = L_SEQ
+    return train.TrainerConfig(
+        model="llama_lora",
+        model_overrides={"rank": L_RANK, "alpha": L_ALPHA, "llama": fields,
+                         "base_checkpoint": base_ckpt},
+        batch_size=batch,
+        optimizer=train.OptimizerConfig(warmup_steps=2, total_steps=100,
+                                        trainable_prefix="lora"),
+        dataset=train_data.DatasetConfig(seq_len=L_SEQ), seed=seed,
+        log_every=1)
+
+
+def bits_fingerprint(t: torch.Tensor) -> tuple[int, int]:
+    """Two 64-bit sums over a tensor's bit patterns (plain and weighted by
+    a position hash), taken on the card a slice at a time: equal before
+    and after means the bits are unchanged (a copy of the 32 GB base for
+    an exact compare does not fit beside the training state)."""
+    flat = t.detach().reshape(-1)
+    flat = flat.view(torch.int32 if flat.element_size() == 4
+                     else torch.int16)
+    s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+    step = 1 << 24
+    for i in range(0, flat.numel(), step):
+        x = flat[i:i + step].to(torch.int64)
+        w = (torch.arange(i, i + x.numel(), device=t.device,
+                          dtype=torch.int64) * 2654435761) % (1 << 31) + 1
+        s1 += x.sum()
+        s2 += (x * w).sum()
+    return int(s1), int(s2)
+
+
+def lora_run(cfg: train.TrainerConfig) -> tuple[list, dict]:
+    """One (l) run of L_STEPS: returns its per-step metrics and stats and
+    holds the base bit for bit, the b leaves moving by step 2, optimizer
+    state for the adapters alone and B1-B3 launched each step."""
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train.Trainer(cfg, device=DEV,
+                            metrics=MetricsWriter(echo=False))
+    t = time.monotonic()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t
+    named = train.named_leaves(state["params"])
+    base = [(p, x) for p, x in named if p.startswith("base/")]
+    lora_leaves = [x for p, x in named if p.startswith("lora/")]
+    opt = state["opt_state"]
+    check([m.shape for m in opt["mu"]] == [x.shape for x in lora_leaves]
+          and [n.shape for n in opt["nu"]] == [x.shape
+                                               for x in lora_leaves],
+          "l: optimizer state is not the adapters' alone")
+    check(not any(x.requires_grad for _, x in base),
+          "l: a base leaf requires grad")
+    opt_bytes = sum(x.nbytes for x in opt["mu"] + opt["nu"])
+    before = [bits_fingerprint(x) for _, x in base]
+    data = train_data.make_dataset(cfg.dataset, cfg.model,
+                                   trainer.model_cfg, cfg.batch_size,
+                                   fallback_seed=cfg.seed)
+    log, counts = [], []
+    moved = {}
+
+    def on_step(step, scalars):
+        log.append(scalars)
+        counts.append({k: _build.LAUNCHES[k] for k in TRAINING_KERNELS})
+        if step == 2:
+            moved.update({t: bool(ab["b"].abs().max() > 0) for t, ab in
+                          state["params"]["lora"].items()})
+
+    _build.reset_launches()
+    trainer.train(data, L_STEPS, state, step_callback=on_step)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = [bits_fingerprint(x) for _, x in base]
+    changed = [p for (p, _), a, b in zip(base, before, after) if a != b]
+    check(not changed, f"l: base leaves changed: {changed[:4]}")
+    check(moved and all(moved.values()),
+          f"l: b leaves still zero after step 2: {moved}")
+    mcfg = trainer.model_cfg
+    per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
+                for i, c in enumerate(counts)]
+    for name in TRAINING_KERNELS:
+        check(all(p[name] >= mcfg.n_layers for p in per_step),
+              f"l: {name} launched fewer than once per layer in a step: "
+              f"{[p[name] for p in per_step]}")
+    for i, m in enumerate(log):
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"l: step {i + 1} loss/grad_norm not finite")
+    tokens = cfg.batch_size * cfg.dataset.seq_len
+    steady = sorted(m["step_time_s"] for m in log[1:])
+    step_s = steady[len(steady) // 2]
+    flops = llama.flops_per_token(mcfg, cfg.dataset.seq_len) * tokens
+    stats = {"batch": cfg.batch_size, "seq_len": cfg.dataset.seq_len,
+             "init_s": init_s, "step_time_s_median": step_s,
+             "tokens_per_s": tokens / step_s,
+             "mfu_jax_formula": mfu.mfu(flops, step_s, 1),
+             "peak_memory_gb": peak_gb,
+             "optimizer_state_bytes": opt_bytes,
+             "adapter_params": sum(x.numel() for x in lora_leaves),
+             "base_params": sum(x.numel() for _, x in base),
+             "launches_per_step": per_step[-1]}
+    del trainer, state, base, lora_leaves, opt, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return log, stats
+
+
+def lora_train_phase(seed: int, base_ckpt: str) -> dict:
+    """(l): see the module docstring."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    for batch in L_BATCHES:
+        cfg = lora_config(seed, base_ckpt, batch)
+        try:
+            log, stats = lora_run(cfg)
+            break
+        except torch.OutOfMemoryError as e:
+            print(f"l: B={batch} x S={L_SEQ} does not fit one card "
+                  f"({str(e).splitlines()[0][:160]})", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise SmokeFailure("l: no batch fits one card")
+    for i, m in enumerate(log):
+        print(f"l step {i + 1}: loss={m['loss']:.6f} "
+              f"grad_norm={m['grad_norm']:.6f} "
+              f"step_time_s={m['step_time_s']:.4f}"
+              + (" (includes the first launches)" if i == 0 else ""),
+              flush=True)
+    log2, _ = lora_run(cfg)
+    same = [a["loss"] == b["loss"] for a, b in zip(log, log2)]
+    check(all(same), f"l: the repeat run's losses differ: "
+                     f"{[m['loss'] for m in log2]}")
+    print(f"l LoRA fine-tune: Llama-3-8B width, 32 layers, rank {L_RANK} "
+          f"alpha {L_ALPHA} on wq/wk/wv/wo, base from (e6)'s HF directory "
+          f"(f32, frozen): {json.dumps(stats)}; MFU by the JAX formula "
+          "(6 x every matmul param, so it counts the frozen weights' "
+          "weight gradients, which are never computed); the repeat run's "
+          "losses equal bit for bit", flush=True)
+    return stats
+
+
+def padded_train_case(gen, b, s, h, hd, causal=True, segments=False):
+    """B1, B2 and B3 through flash_attention's route for a head dim under
+    the kernels' smallest (zero-padded heads): o, dq, dk and dv at head
+    dim hd against the plain versions at hd, each kernel launched once."""
+    q, k, v, do = (torch.randn(b, s, h, hd, device=DEV, generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+    seg = two_documents(b, s) if segments else None
+    kw = dict(causal=causal, segment_ids=seg)
+    before = {n: _build.LAUNCHES[n] for n in TRAINING_KERNELS}
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = fa.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(o, leaves, do)
+    ran = {n: _build.LAUNCHES[n] - before[n] for n in TRAINING_KERNELS}
+    ro, lse = fa.plain_fwd(q, k, v, **kw)
+    delta = fa.row_delta(ro, do)
+    ref = (fa.plain_bwd_dq(q, k, v, do, lse, delta, **kw),
+           *fa.plain_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    name = (f"B1-B3 on padded heads B={b} S={s} H={h} hd={hd} "
+            f"causal={causal} segments={segments}")
+    check(all(n == 1 for n in ran.values()), f"{name}: launches {ran}")
+    worst = {"o": attn_err(o.detach(), ro, f"{name} o", ATTN_ROW_TOL)[1]}
+    for n, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        worst[n] = attn_err(g, r, f"{name} {n}", ATTN_ROW_TOL, grad=True)[1]
+    return name, worst
+
+
+def padded_head_phase(gen, train_shapes, serve_shapes, hd, max_len) -> None:
+    """(l2)'s kernels at the shapes its training and serving launched
+    them at, with the model's head dim hd (under 64: the wrappers ran
+    them on zero-padded heads, and recorded the padded shapes), each
+    against its plain version at hd: B1-B3 through flash_attention, K2
+    and K3 on slab views of the engine's layout (max_len positions a
+    slot), and K2-paged and K3-paged (no (l2) engine is paged) on pools
+    of 128-key blocks, int8 and bf16."""
+    check(hd < KERNEL_MIN_HEAD_DIM, f"l2: head dim {hd} is not padded")
+    lines = []
+    for key in sorted(train_shapes, key=str):
+        a = dict(key)
+        check(a["d"] == KERNEL_MIN_HEAD_DIM and a["q_offset"] == 0,
+              f"l2: training launched B1 at {key}")
+        name, worst = padded_train_case(gen, a["b"], a["sq"], a["h"], hd,
+                                        a["causal"], a["segmented"])
+        lines.append(f"{name}: worst row {json.dumps(worst)}")
+    for kernel, by_shape in sorted(serve_shapes.items()):
+        for key in sorted(by_shape, key=str):
+            a = dict(key)
+            check(a["hd"] == KERNEL_MIN_HEAD_DIM,
+                  f"l2: {kernel} launched at {key}")
+            stride = max_len * a["nkv"] * hd
+            if kernel == "flash_decode":
+                c = k2_case(gen, a["s_v"], a["t"], a["int8"], b=a["b"],
+                            nh=a["nh"], nkv=a["nkv"], hd=hd,
+                            slot_stride=stride, times=False)
+            else:
+                c = k3_case(gen, a["s"], a["q_offset"], a["int8"], b=a["b"],
+                            nh=a["nh"], nkv=a["nkv"], hd=hd, t=a["t"],
+                            slot_stride=stride, times=False)
+            desc = " ".join(f"{k}={v}" for k, v in key
+                            if k not in ("hd", "slot_stride"))
+            lines.append(f"{kernel} {desc} hd={hd} slot_stride={stride}: "
+                         f"worst row "
+                         f"{c['worst_row']:.3g} (tol {c['row_tol']:.3g})")
+    nh, nkv = (dict(next(iter(serve_shapes["flash_decode"])))[k]
+               for k in ("nh", "nkv"))
+    for int8 in (True, False):
+        c = k2_paged_case(gen, 1, max_len, 128, int8, b=16, nh=nh, nkv=nkv,
+                          hd=hd, times=False)
+        lines.append(f"flash_decode_paged b=16 span={max_len} bt=128 "
+                     f"int8={int8} hd={hd}: worst row {c['worst_row']:.3g}")
+        c = k3_paged_case(gen, 2, 128, 256, 128, int8, max_len // 128,
+                          nh=nh, nkv=nkv, hd=hd, times=False)
+        lines.append(f"flash_prefill_paged b=2 s=128 q_offset=256 bt=128 "
+                     f"int8={int8} hd={hd}: worst row {c['worst_row']:.3g}")
+    print(f"l2 padded heads: {len(lines)} cases against the plain "
+          f"versions at hd={hd}: " + "; ".join(lines), flush=True)
+
+
+def l2_first_lp(rows) -> list[dict]:
+    """Each row's first generated position: {token: logprob} of its top
+    tokens."""
+    return [{int(t): float(lp) for t, lp in r["top"][0].items()}
+            for r in rows]
+
+
+def l2_lp_err(got: list[dict], ref: list[torch.Tensor]) -> list[float]:
+    """Per row, the largest |logprob - reference| over the row's top
+    tokens (ref: the full f32 log-softmax)."""
+    return [max(abs(lp - r[t].item()) for t, lp in g.items())
+            for g, r in zip(got, ref)]
+
+
+def l2_rows(model, body) -> list:
+    """An LLMModel's rows for a burst submitted whole: token ids and top
+    logprobs."""
+    return [{"tokens": r["token_ids"], "top": r.get("top_logprobs")}
+            for r in model._submit_wait_all(body)]
+
+
+def lora_job_phase(seed: int) -> dict:
+    """(l2): see the module docstring."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import lora as lora_lib
+    from kubeflow_tpu_torch.training import job
+    from kubeflow_tpu_torch.training.checkpoint import restore_params
+    from kubeflow_tpu_torch.training.loader import write_corpus
+    from kubeflow_tpu_torch.training.metrics_writer import read_metrics
+
+    root = tempfile.mkdtemp(prefix="kft_l2_")
+    try:
+        raw = json.loads(json.dumps(L2_JOB))
+        corpus = os.path.join(root, "corpus.bin")
+        ckpt = os.path.join(root, "ckpt")
+        metrics = os.path.join(root, "metrics.jsonl")
+        vocab = raw["model_overrides"]["llama"]["vocab_size"]
+        write_corpus(corpus, np.random.default_rng(seed).integers(
+            0, vocab, L2_CORPUS_TOKENS, dtype=np.uint32))
+        raw["dataset"]["path"] = corpus
+        raw["checkpoint_dir"] = ckpt
+        env = {"KTPU_TRAINER_CONFIG": json.dumps(raw),
+               "KTPU_METRICS_FILE": metrics, job.DEVICE_ENV: DEV}
+        _build.reset_launches()
+        t = time.monotonic()
+        code, _ = j3_run(env, threading.Event())
+        train_s = time.monotonic() - t
+        check(code == 0, f"l2: the job exited {code}")
+        trained = {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
+        check(all(trained.values()), f"l2: training launched {trained}")
+        train_shapes = dict(_build.SHAPES["flash_attn_fwd"])
+        steps = j3_steps(ckpt)
+        check(steps == [1, raw["num_steps"]],
+              f"l2: checkpoints at {steps}")
+        losses = [(r["step"], r["metrics"]["loss"])
+                  for r in read_metrics(metrics)]
+        check(losses and all(math.isfinite(v) for _, v in losses),
+              f"l2: losses {losses}")
+        cfg, _ = job.config_from_env(env)
+        lcfg = lora_lib.LoraLlamaConfig(**cfg.model_overrides)
+        bcfg = lcfg.base_cfg
+        bases = [restore_params(ckpt, llama.abstract_params(bcfg), step=s,
+                                device=DEV, subtree="params/base")
+                 for s in steps]
+        check(all(torch.equal(a, b) for a, b in zip(
+            train.leaves(bases[0]), train.leaves(bases[1]))),
+            "l2: the base moved between the job's first and last step")
+        lora_abs = lora_lib.abstract_params(lcfg)["lora"]
+        ab = {s: restore_params(ckpt, lora_abs, step=s, device=DEV,
+                                subtree="params/lora") for s in steps}
+        check(all(not x["b"].any() for x in ab[1].values())
+              and all(x["b"].any() for x in ab[steps[-1]].values()),
+              "l2: b is not zero at step 1 (lr 0) and moved by the end")
+        # the earlier step as an adapter checkpoint of its own
+        early = os.path.join(root, "early")
+        os.makedirs(early)
+        shutil.copytree(os.path.join(ckpt, "1"), os.path.join(early, "1"))
+        gen = torch.Generator().manual_seed(seed + 12)
+        lens = torch.randint(20, 200, (L2_PROMPTS,), generator=gen).tolist()
+        prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+                   for n in lens]
+        spec = {"rank": lcfg.rank, "alpha": lcfg.alpha}
+        serving = dict(n_slots=2 * L2_PROMPTS, max_len=L2_MAX_LEN,
+                       buckets=(128, 256), logprobs_topk=L2_TOPK,
+                       supervised=False, device=DEV)
+        # the reference: each prompt's first-token log-softmax in f32 on
+        # the CPU, of the f32 merged model and of the base alone
+        f32 = dataclasses.replace(bcfg, dtype=torch.float32)
+        cpu_base = _to(bases[-1], "cpu")
+        cpu_merged = lora_lib.merge(
+            {"base": cpu_base, "lora": _to(ab[steps[-1]], "cpu")}, lcfg)
+        ref = {name: [torch.log_softmax(llama.apply(
+            p, torch.tensor([pr]), f32)[0, -1], -1) for pr in prompts]
+            for name, p in (("merged", cpu_merged), ("base", cpu_base))}
+        del cpu_base, cpu_merged
+        serve_shapes = {"flash_decode": {}, "flash_prefill": {}}
+        out = {"train_s": round(train_s, 2), "losses": losses}
+        for quant in (None, "int8"):
+            kw = dict(serving, quantize=quant, kv_quantize=quant)
+            _build.reset_launches()
+            merged = LLMModel("l2-merged", checkpoint=ckpt,
+                              model=raw["model_overrides"]["llama"],
+                              lora=spec, **kw)
+            merged.load()
+            try:
+                want = l2_rows(merged, [{"prompt_tokens": p,
+                                         "max_new_tokens": L2_NEW}
+                                        for p in prompts])
+            finally:
+                merged.unload()
+            routed = LLMModel("l2-adapters", params=bases[-1],
+                              llama_config=bcfg, adapters={
+                                  "ft": dict(spec, checkpoint=ckpt),
+                                  "early": dict(spec, checkpoint=early)},
+                              **kw)
+            routed.load()
+            try:
+                got = l2_rows(routed, [{"prompt_tokens": p,
+                                        "max_new_tokens": L2_NEW,
+                                        "adapter": "ft"} for p in prompts])
+                mix = l2_rows(routed, [
+                    dict({"prompt_tokens": p, "max_new_tokens": L2_NEW},
+                         **({"adapter": "early"} if j else {}))
+                    for p in prompts for j in (0, 1)])
+            finally:
+                routed.unload()
+            # K1 is the int8 weights' matmul: bf16 weights take cuBLAS
+            launched = {k: _build.LAUNCHES[k] for k in SERVING_KERNELS
+                        if quant or k != "quant_matmul"}
+            check(all(launched.values()),
+                  f"l2 ({quant}): serving launched {launched}")
+            for k, by_shape in serve_shapes.items():
+                by_shape.update(_build.SHAPES[k])
+            diffs = [e7_diff(g["tokens"], w["tokens"], g["top"])
+                     for g, w in zip(got, want)]
+            check(all(len(g["tokens"]) == L2_NEW for g in got),
+                  f"l2 ({quant}): token counts")
+            check(all(d is None or d["gap"] < L2_GAP for d in diffs),
+                  f"l2 ({quant}): the adapter route first differs from the "
+                  f"merged model at a top-2 gap over {L2_GAP}: {diffs}")
+            # b = 0 at step 1: its bypass adds exact zeros
+            base_rows = mix[0::2]
+            check(all(b["tokens"] == e["tokens"]
+                      for b, e in zip(base_rows, mix[1::2])),
+                  f"l2 ({quant}): the step-1 adapter's rows are not the "
+                  "base rows")
+            check(any(g["tokens"] != b["tokens"]
+                      for g, b in zip(got, base_rows)),
+                  f"l2 ({quant}): the 'ft' adapter's rows are the base's")
+            # first-token logprobs against the f32 reference: the route
+            # and the merged model each serve the f32 function through
+            # one rounding of its weights to the served dtype, so the
+            # route's error may be at most L2_LP_FACTOR times the merged
+            # model's, and under half the error of the base rows (a route
+            # that dropped the adapter would err by the adapter's effect)
+            err = {name: l2_lp_err(l2_first_lp(rows), ref["merged"])
+                   for name, rows in (("merged", want), ("route", got),
+                                      ("base", base_rows))}
+            bound = L2_LP_FACTOR * max(err["merged"])
+            check(max(err["route"]) <= bound,
+                  f"l2 ({quant}): the route's first-token logprobs err by "
+                  f"{max(err['route']):.4g} against f32, over "
+                  f"{L2_LP_FACTOR} x the merged model's "
+                  f"{max(err['merged']):.4g}")
+            check(sum(err["route"]) < 0.5 * sum(err["base"]),
+                  f"l2 ({quant}): the route's first-token logprobs are not "
+                  f"nearer the merged f32 model than the base's: "
+                  f"{sum(err['route']):.4g} against {sum(err['base']):.4g}")
+            out[str(quant)] = {
+                "rows_equal_merged": sum(d is None for d in diffs),
+                "first_diffs": [d for d in diffs if d], "launches": launched,
+                "first_lp_err_vs_f32": {k: [round(x, 5) for x in v]
+                                        for k, v in err.items()}}
+            del merged, routed
+            gc.collect()
+            torch.cuda.empty_cache()
+        padded_head_phase(torch.Generator(device=DEV).manual_seed(seed + 13),
+                          train_shapes, serve_shapes, bcfg.head_dim,
+                          L2_MAX_LEN)
+        print(f"l2 LoRA job ({raw['num_steps']} steps of the example's "
+              f"config, checkpoints at {steps}): {json.dumps(out)}",
+              flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # -- (e) engine at full 8B width, (f) engine shapes, (g) server --------------
 
 
@@ -2693,17 +3226,23 @@ def e5_prompts(cfg, seed: int) -> tuple[list, list]:
     return e3, copy
 
 
-def e5_run(engine, prompts, kws, label):
-    """One cold run of the two bursts ((e3)'s with its cancel row, then
-    the copy rows), then every cached block evicted; returns the rows of
-    both, each burst's stats and the metrics.
-    A speculative engine starts from a new engine's acceptance estimates:
+def fresh_estimates(engine) -> None:
+    """A speculative engine back to a new engine's acceptance estimates:
     the tokens-per-round EMA sizes the chunks, and so decides which
     queued requests share a prefill wave, whose batched GEMMs round each
-    row differently; a repeat then takes the first run's schedule."""
+    row differently, and the draft lengths decide the verify rounds'
+    shapes; a repeat then takes the first run's schedule."""
     if engine.spec:
         engine._spec_round_ema = None
         engine._spec_adapt.ema[:] = engine.spec
+
+
+def e5_run(engine, prompts, kws, label):
+    """One cold run of the two bursts ((e3)'s with its cancel row, then
+    the copy rows), then every cached block evicted; returns the rows of
+    both, each burst's stats and the metrics. A speculative engine starts
+    from a new engine's acceptance estimates (fresh_estimates)."""
+    fresh_estimates(engine)
     captures = engine.graph_stats()["captures"]
     e3, copy = prompts
     rows, stats = run_batch(engine, e3, E3_NEW, kws, cancel_row=E3_CANCEL)
@@ -3174,13 +3713,17 @@ def ttft_count(url) -> int:
     return int(m.group(1)) if m else 0
 
 
-def dataplane_phase(seed: int, n_layers: int | None = None):
+def dataplane_phase(seed: int, n_layers: int | None = None,
+                    root: str | None = None) -> str:
     """(e6): see the module docstring. `n_layers` cuts the depth (the
-    temp directory's free disk decides it when None)."""
+    temp directory's free disk decides it when None). Returns the HF
+    directory it wrote; with `root` (the caller's temp directory, which
+    the caller removes) it is kept there for (l), else removed."""
     clear_cublas_workspaces()
     mem0 = torch.cuda.memory_allocated()
     hf_config = dict(E6_HF_CONFIG)
-    root = tempfile.mkdtemp(prefix="chip-smoke-e6-")
+    keep_dir = root is not None
+    root = root or tempfile.mkdtemp(prefix="chip-smoke-e6-")
     try:
         free = shutil.disk_usage(root).free
         full = llama.LlamaConfig.llama3_8b()
@@ -3209,8 +3752,10 @@ def dataplane_phase(seed: int, n_layers: int | None = None):
         print(f"e6: wrote {written['bytes'] / 1e9:.3f} GB in {E6_SHARDS} "
               f"shards + index in {write_s:.2f} s", flush=True)
         dataplane_serve(ckpt, cfg, written, seed, root, mem0)
+        return ckpt
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep_dir:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 class CrashOnce:
@@ -3482,9 +4027,9 @@ E7_TRACES = {
     "steady_two_tenants": ("steady", {"n_tenants": 2},
                            "8ca0673d417454beea39a3c36d152b3f"
                            "a3a5b481382652f6a35940146d518310"),
-    "multi_tenant_lora": ("multi_tenant_lora", {"adapters": []},
-                          "5d99a79ed46a0c5016c76ce4cc335323"
-                          "8ae7c1af7ccb58982bbac9e15a911b88"),
+    "multi_tenant_lora": ("multi_tenant_lora", {},
+                          "4d61174032a28b3cbc00ca5cf49c9347"
+                          "01da41e608d89723d8aa9cb92ca351cf"),
 }
 #: (e7.b)'s flood: t0's and t1's requests, submitted whole before a step,
 #: under the multi_tenant_lora caps
@@ -3893,21 +4438,15 @@ def e7_http(engine, seed: int) -> dict:
     return line
 
 
-def scenario_phase(engine, seed: int) -> dict:
-    """(e7): a slab LLMEngine with the flagship settings and the prefix
-    cache over (e)'s weights, behind an EngineSupervisor (with E7_SHED)
-    whose factory builds it, warmed up: (e7.a) steady through the runner;
-    (e7.b) multi_tenant_lora without adapters (its caps 2/32) and the
-    flood; (e7.c) steady with a second tenant and crash_midstream; (e7.d)
-    steady through the port's server and SSE client."""
-    seconds = {}
-    t = time.monotonic()
-    built = []
-    waves: dict[tuple, list] = {}
+def e7_supervisor(engine, waves, built, adapters=None):
+    """An EngineSupervisor (with E7_SHED) whose factory builds a slab
+    LLMEngine with the flagship settings and the prefix cache over (e)'s
+    weights (and `adapters`), each engine appended to `built` and its
+    prefill waves recorded in `waves` by prompt; warmed up."""
 
     def factory():
         eng = LLMEngine(engine.params, engine.cfg, device=DEV,
-                        prefix_cache=True, **FLAGSHIP)
+                        prefix_cache=True, adapters=adapters, **FLAGSHIP)
         dispatch = eng._dispatch_prefill_wave
 
         def dispatch_seen(bucket, wave):
@@ -3920,16 +4459,32 @@ def scenario_phase(engine, seed: int) -> dict:
         built.append(eng)
         return eng
 
+    t = time.monotonic()
     sup = EngineSupervisor(factory, warm=True, shed_policy=E7_SHED)
     g = sup.engine.graph_stats()
     check(type(sup.engine.scheduler) is NativeScheduler,
           f"e7: the engine's scheduler is {type(sup.engine.scheduler)}")
     check(g["captures"] == len(g["keys"]) > 0, "e7: warmup captured no graph")
-    seconds["warmup"] = round(time.monotonic() - t, 2)
-    print(f"e7: supervised slab engine (flagship + prefix cache), "
-          f"scheduler {type(sup.engine.scheduler).__name__}, built and "
-          f"warmed in {seconds['warmup']} s, {g['captures']} graphs",
-          flush=True)
+    sec = round(time.monotonic() - t, 2)
+    print(f"e7: supervised slab engine (flagship + prefix cache"
+          + (f" + adapters {sorted(adapters)}" if adapters else "")
+          + f"), scheduler {type(sup.engine.scheduler).__name__}, built and "
+          f"warmed in {sec} s, {g['captures']} graphs", flush=True)
+    return sup, sec
+
+
+def scenario_phase(engine, seed: int) -> dict:
+    """(e7): EngineSupervisors (with E7_SHED) whose factories build slab
+    LLMEngines with the flagship settings and the prefix cache over (e)'s
+    weights, warmed up. On one without adapters: (e7.a) steady through
+    the runner; (e7.c) steady with a second tenant and crash_midstream.
+    On one with (e8)'s four adapters a0..a3: (e7.b) multi_tenant_lora
+    with its adapters (its caps 2/32) and the flood. Then (e7.d) steady
+    through the port's server (no adapters) and SSE client."""
+    seconds = {}
+    built: list = []
+    waves: dict[tuple, list] = {}
+    sup, seconds["warmup"] = e7_supervisor(engine, waves, built)
     tap = E7Tap(sup)
     tap.waves = waves
     t = time.monotonic()
@@ -3938,21 +4493,6 @@ def scenario_phase(engine, seed: int) -> dict:
     check(len(uncrashed[0]) == len(steady.requests),
           "e7.a: a request was not released")
     seconds["a"] = round(time.monotonic() - t, 2)
-    t = time.monotonic()
-    out, _, _ = e7_replay(tap, "multi_tenant_lora", "e7.b")
-    agg = out["aggregate"]
-    print("e7.b per tenant: " + json.dumps(
-        {k: {f: v[f] for f in ("offered", "completed", "rejected",
-                               "slo_attainment", "ttft_p50_ms",
-                               "service_ratio")}
-         for k, v in out["per_tenant"].items()})
-        + f"; Jain's index {agg['fairness_jain']}, min/max "
-        f"{agg['fairness_min_over_max']}", flush=True)
-    check(len(out["per_tenant"]) == 6 and agg["completed"]
-          + agg["rejected"] == agg["n_requests"],
-          f"e7.b: {json.dumps(agg)}")
-    e7_flood(sup, seed)
-    seconds["b"] = round(time.monotonic() - t, 2)
     t = time.monotonic()
     before = sup.accounting()
     tap.rows.clear()
@@ -3977,11 +4517,276 @@ def scenario_phase(engine, seed: int) -> dict:
     sup.close()
     del built[:], tap, sup
     gc.collect()
+    torch.cuda.empty_cache()
+    sup, seconds["warmup_adapters"] = e7_supervisor(
+        engine, waves, built, e8_adapters(engine.cfg, seed))
+    tap = E7Tap(sup)
+    t = time.monotonic()
+    out, records, _ = e7_replay(tap, "multi_tenant_lora", "e7.b")
+    agg = out["aggregate"]
+    by_adapter: dict[str, dict] = {}
+    for r in records:
+        c = by_adapter.setdefault(str(r.adapter), {"offered": 0,
+                                                   "completed": 0})
+        c["offered"] += 1
+        c["completed"] += int(r.completed)
+    check(set(by_adapter) == {"None", *E8_ADAPTERS},
+          f"e7.b: the trace routed to {sorted(by_adapter)}")
+    print(f"e7.b per adapter: {json.dumps(by_adapter)}", flush=True)
+    print("e7.b per tenant: " + json.dumps(
+        {k: {f: v[f] for f in ("offered", "completed", "rejected",
+                               "slo_attainment", "ttft_p50_ms",
+                               "service_ratio")}
+         for k, v in out["per_tenant"].items()})
+        + f"; Jain's index {agg['fairness_jain']}, min/max "
+        f"{agg['fairness_min_over_max']}", flush=True)
+    check(len(out["per_tenant"]) == 6 and agg["completed"]
+          + agg["rejected"] == agg["n_requests"],
+          f"e7.b: {json.dumps(agg)}")
+    e7_flood(sup, seed)
+    seconds["b"] = round(time.monotonic() - t, 2)
+    sup.close()
+    del built[:], tap, sup
+    gc.collect()
+    torch.cuda.empty_cache()
     t = time.monotonic()
     e7_http(engine, seed)
     seconds["d"] = round(time.monotonic() - t, 2)
     print(f"e7 seconds: {json.dumps(seconds)}", flush=True)
     return seconds
+
+
+# -- (e8) multi-adapter serving at full 8B width -----------------------------
+
+E8_ADAPTERS = ("a0", "a1", "a2", "a3")
+E8_TARGETS = ("wq", "wk", "wv", "wo")
+E8_RANK, E8_ALPHA = 8, 16.0
+#: b is random and nonzero: LoRA's own init (b = 0) would pass every check
+#: below on an engine that ignored the adapters
+E8_B_STD = 0.05
+#: 14 rows of these lengths (the last one chunked) and two rows of a
+#: 512-token system prompt plus a question, under two adapters
+E8_PLENS = (30, 60, 90, 130, 200, 260, 330, 400, 480, 560, 640, 720, 850,
+            1500)
+E8_ROUTES = tuple([None, "a0", "a1", "a2", "a3"][i % 5]
+                  for i in range(len(E8_PLENS))) + ("a0", "a2")
+E8_SYSTEM = 512
+E8_QUESTION = 40
+E8_NEW = 48
+#: the follow-ups after the burst: the system prompt under a0 (a hit),
+#: under a1 (another namespace: a miss) and under the base (a miss)
+E8_FOLLOW = ("a0", "a1", None)
+E8_STEP_ITERS = 20
+
+
+def e8_adapters(cfg, seed: int) -> dict:
+    """Four rank-8 adapters on wq/wk/wv/wo from --seed: a ~ N(0, 1/d_in),
+    b ~ N(0, E8_B_STD^2), alpha 16, on the card."""
+    gen = torch.Generator(device=DEV).manual_seed(seed + 8)
+    shapes = llama.matmul_shapes(cfg)
+    L, out = cfg.n_layers, {}
+    for name in E8_ADAPTERS:
+        tree = {}
+        for t in E8_TARGETS:
+            d_in, d_out = shapes[t]
+            tree[t] = {
+                "a": torch.randn((L, d_in, E8_RANK), generator=gen,
+                                 device=DEV) / d_in ** 0.5,
+                "b": torch.randn((L, E8_RANK, d_out), generator=gen,
+                                 device=DEV) * E8_B_STD}
+        out[name] = {"lora": tree, "alpha": E8_ALPHA}
+    return out
+
+
+def e8_prompts(cfg, seed: int) -> tuple[list, list]:
+    gen = torch.Generator().manual_seed(seed + 80)
+
+    def rand(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    system = rand(E8_SYSTEM)
+    burst = [rand(n) for n in E8_PLENS] + [system + rand(E8_QUESTION)
+                                           for _ in range(2)]
+    follow = [system + rand(E8_QUESTION) for _ in E8_FOLLOW]
+    return burst, follow
+
+
+def e8_kws(routes) -> list[dict]:
+    return [{"adapter": a} if a else {} for a in routes]
+
+
+def e8_step_ms(params, cfg, n_slots: int, adapters) -> float:
+    """The graph replay's wall per decode step of an 8-step greedy chunk
+    (every slot at position 1000, span 2048) on a fresh engine of
+    `n_slots` slots (the flagship's other settings), its slots spread over
+    the base and every adapter; the median of E8_STEP_ITERS replays."""
+    eng = LLMEngine(params, cfg, device=DEV, adapters=adapters,
+                    **dict(FLAGSHIP, n_slots=n_slots))
+    active = torch.ones(n_slots, dtype=torch.bool, device=DEV)
+    if adapters:
+        eng.cache["aids"].copy_(torch.arange(n_slots, device=DEV)
+                                % (len(adapters) + 1))
+    walls = []
+    for i in range(E8_STEP_ITERS + 1):
+        eng.lengths.fill_(1000)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng._decode_chunk(8, 2048, active, sample=False)
+        torch.cuda.synchronize()
+        if i:   # the first call captures the graph
+            walls.append(time.perf_counter() - t)
+    eng.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sorted(walls)[len(walls) // 2] / 8 * 1e3
+
+
+def multi_adapter_phase(engine, seed: int):
+    """(e8): see the module docstring. Returns the K3 shapes of the
+    adapter slab engine's runs."""
+    cfg = engine.cfg
+    adapters = e8_adapters(cfg, seed)
+    prompts, follow = e8_prompts(cfg, seed)
+    kws = e8_kws(E8_ROUTES)
+    settings = dict(FLAGSHIP, prefix_cache=True)
+    plain = LLMEngine(engine.params, cfg, device=DEV, **settings)
+    warm(plain, "e8 plain")
+    base_rows, base_stats = run_batch(plain, prompts, E8_NEW)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    slab = LLMEngine(engine.params, cfg, device=DEV, adapters=adapters,
+                     **settings)
+    warmup_s = warm(slab, "e8 slab")
+    captures = slab.graph_stats()["captures"]
+    check(slab.metrics()["adapters_loaded"] == list(E8_ADAPTERS),
+          f"e8: adapters loaded {slab.metrics()}")
+    _build.reset_launches()
+    rows, stats = run_batch(slab, prompts, E8_NEW, kws)
+    launches = {k: _build.LAUNCHES[k] for k in SERVING_KERNELS}
+    k3_shapes = dict(_build.SHAPES["flash_prefill"])
+    for i, a in enumerate(E8_ROUTES):
+        check(len(rows[i]["tokens"]) == E8_NEW,
+              f"e8: row {i} has {len(rows[i]['tokens'])} tokens")
+        if a is None:
+            check(rows[i]["tokens"] == base_rows[i]["tokens"],
+                  f"e8: base row {i} differs from the engine without "
+                  "adapters")
+    differ = sorted({a for i, a in enumerate(E8_ROUTES)
+                     if a and rows[i]["tokens"] != base_rows[i]["tokens"]})
+    check(len(differ) >= 2, f"e8: only adapters {differ} change the output")
+    # the hits: the system prompt is banked under a0 and a2 only
+    hits0 = slab.metrics()["prefix_hits"]
+    fol, _ = run_batch(slab, follow, E8_NEW, e8_kws(E8_FOLLOW))
+    cached = [r["cached"] for r in fol]
+    check(cached == [E8_SYSTEM, 0, 0]
+          and slab.metrics()["prefix_hits"] - hits0 == 1,
+          f"e8: follow-up cached tokens {cached} (want a hit under a0 "
+          "only)")
+    # a row's tokens do not depend on its batchmates' adapters: the burst
+    # again with half of the adapters' rows moved to the base
+    same_shape = {}
+    for keep in (("a0", "a2"), ("a1", "a3")):
+        slab.kvcache.evict(10 ** 9)
+        again, _ = run_batch(slab, prompts, E8_NEW, e8_kws(
+            [a if a in keep else None for a in E8_ROUTES]))
+        for i, a in enumerate(E8_ROUTES):
+            want = rows[i] if a in keep else base_rows[i]
+            check(again[i]["tokens"] == want["tokens"],
+                  f"e8: row {i} ({a}) differs with other batchmates' "
+                  "adapters in a wave of its shape")
+        same_shape[",".join(keep)] = "equal"
+    # the adapters' rows alone: waves of other shapes
+    slab.kvcache.evict(10 ** 9)
+    idx = [i for i, a in enumerate(E8_ROUTES) if a]
+    alone, _ = run_batch(slab, [prompts[i] for i in idx], E8_NEW,
+                         [kws[i] for i in idx])
+    other = {i: e7_diff(alone[j]["tokens"], rows[i]["tokens"],
+                        alone[j]["top"]) for j, i in enumerate(idx)}
+    check(all(d is None or d["gap"] < E7_OTHER_GAP for d in other.values()),
+          f"e8: adapter rows alone differ past E7_OTHER_GAP: {other}")
+    if any(other.values()):
+        # the witness (e7_witness's): the wave shape decides the tokens.
+        # The batchmates' reruns gave every adapter row its burst tokens
+        # in the burst's waves; the rows alone again give theirs
+        slab.kvcache.evict(10 ** 9)
+        again, _ = run_batch(slab, [prompts[i] for i in idx], E8_NEW,
+                             [kws[i] for i in idx])
+        check(tokens_of(again) == tokens_of(alone),
+              "e8: the adapter rows alone, run again, differ")
+    check(slab.graph_stats()["captures"] == captures,
+          "e8: a decode graph was captured after warmup")
+    slab.cache["aids"].copy_(torch.arange(slab.n_slots, device=DEV) % 5)
+    graph_equals_eager(slab, seed, label="e8")
+    slab.cache["aids"].zero_()
+    del slab
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged = PagedLLMEngine(engine.params, cfg, device=DEV,
+                           pool_blocks=E3_POOL_BLOCKS, adapters=adapters,
+                           **settings)
+    warm(paged, "e8 paged")
+    _build.reset_launches()
+    prows, pstats = run_batch(paged, prompts, E8_NEW, kws)
+    p_launches = {k: _build.LAUNCHES[k] for k in PAGED_KERNELS}
+    check(tokens_of(prows) == tokens_of(rows),
+          "e8: the paged engine's rows differ from the slab engine's")
+    check(all(p_launches.values()), f"e8 paged: launches {p_launches}")
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = LLMEngine(engine.params, cfg, device=DEV, adapters=adapters,
+                     speculative=6, spec_ngram=3, **settings)
+    spec_warmup_s = warm(spec, "e8 speculative")
+    _build.reset_launches()
+    fresh_estimates(spec)
+    srows, sstats = run_batch(spec, prompts, E8_NEW, kws)
+    s_launches = {k: _build.LAUNCHES[k] for k in SERVING_KERNELS}
+    # a verify round runs each adapter's bypass products at S_v rows a
+    # slot, a decode step at one; the batched GEMM's bits depend on the
+    # rows, so adapter rows may part from the plain engine's at near-ties
+    # wider than E5_GAP (K2's own summation order): E7_OTHER_GAP bounds
+    # them, E5_GAP the base rows
+    spec_diffs = {i: d for i in range(len(prompts))
+                  if (d := e7_diff(srows[i]["tokens"], rows[i]["tokens"],
+                                   rows[i]["top"])) is not None}
+    check(all(d["gap"] < (E7_OTHER_GAP if E8_ROUTES[i] else E5_GAP)
+              for i, d in spec_diffs.items()),
+          f"e8 speculative: rows first differ at gaps {spec_diffs}")
+    if spec_diffs:
+        # the witness: the burst again on the speculative engine gives
+        # its rows exactly (and the batchmates' reruns gave the plain
+        # engine's its own), so the programs, not a race, part them
+        spec.kvcache.evict(10 ** 9)
+        fresh_estimates(spec)
+        again, _ = run_batch(spec, prompts, E8_NEW, kws)
+        check(tokens_of(again) == tokens_of(srows),
+              "e8 speculative: the burst run again gives other tokens")
+    check(spec.metrics()["spec_verify_rounds"] > 0 and all(
+        s_launches.values()), f"e8 speculative: launches {s_launches}")
+    del spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0, f"e8: {name} never launched")
+    step_ms = {f"{n}_slots_{label}": e8_step_ms(engine.params, cfg, n, ad)
+               for n in (8, 16)
+               for label, ad in (("base", None), ("adapters", adapters))}
+    print(f"e8 multi-adapter burst (16 rows, routes {list(E8_ROUTES)}): "
+          f"slab {json.dumps(stats)}; without adapters "
+          f"{json.dumps(base_stats)}; paged {json.dumps(pstats)}; "
+          f"speculative {json.dumps(sstats)}, {len(spec_diffs)} rows first "
+          f"different at gaps {json.dumps(spec_diffs)}", flush=True)
+    print(f"e8: warmups {warmup_s:.2f} / {spec_warmup_s:.2f} s; adapters "
+          f"changing their rows {differ}; follow-up cached {cached}; "
+          f"batchmates {json.dumps(same_shape)}; rows alone (other wave "
+          f"shapes) first diffs {json.dumps(other)}; launches "
+          f"{json.dumps(launches)}, paged {json.dumps(p_launches)}, "
+          f"speculative {json.dumps(s_launches)}", flush=True)
+    print(f"e8 decode step, graph replay wall per step (8-step greedy "
+          f"chunk, span 2048, position 1000): {json.dumps(step_ms)}",
+          flush=True)
+    return k3_shapes
 
 
 def fill_tables(engine, seed: int = 5) -> None:
@@ -4416,6 +5221,9 @@ engine = cs.LLMEngine(cs.llama.init(cfg, seed=seed, device=cs.DEV,
 for i in range(2):
     cs.step_breakdown(engine)
 cs.prefill_breakdown(engine, seed)
+# (e3): the flagship burst's TTFT and decode tok/s on both engines
+print(f"[{label}] e3 flagship burst", flush=True)
+cs.flagship_phase(engine, seed)
 del engine
 gc.collect()
 torch.cuda.empty_cache()
@@ -4463,8 +5271,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", metavar="OTHER_TREE",
                     help="compare K1's decode step, K2, the decode step, "
-                         "the prefill wave, the training kernels, K3 and "
-                         "the trainer with another checkout instead")
+                         "the prefill wave, (e3)'s flagship burst, the "
+                         "training kernels, K3 and the trainer with "
+                         "another checkout instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4512,36 +5321,50 @@ def main(argv=None) -> int:
     e5_shapes = phase("e5 speculation", spec_phase, engine, args.seed)
     verify_cases = phase("e5 verify shapes", verify_shape_phase, gen,
                          e5_shapes)
-    phase("e6 dataplane", dataplane_phase, args.seed)
-    phase("e7 scenarios", scenario_phase, engine, args.seed)
-    cases = {"quant_matmul": k1_step,
-             **phase("f engine shapes", engine_shape_phase, gen, shapes)}
-    phase("f step breakdown", step_breakdown, engine)
-    phase("f paged step breakdown", step_breakdown, paged)
-    phase("f prefill breakdown", prefill_breakdown, engine, args.seed)
-    bd_launches, bd_shapes = phase("f2 serving breakdown",
-                                   serving_breakdown_phase, engine, paged,
-                                   prompts, tokens)
-    del paged
-    launches["flash_prefill_paged"] = bd_launches["flash_prefill_paged"]
-    cases["flash_prefill_paged"] = phase(
-        "f2 breakdown shapes", paged_prefill_shape_phase, gen, bd_shapes)
-    phase("g server", server_phase, engine)
-    del engine   # the engine holds reference cycles: collect it now, so
-    gc.collect()   # the trainer's peak memory is the trainer's own
-    torch.cuda.empty_cache()
-    print(f"after serving: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
-          "still allocated", flush=True)
-    train_cases = phase("h training kernels", train_attn_phase, gen)
-    cases.update(train_cases)
-    phase("i train reference", train_reference_phase, args.seed)
-    train_launches, train_stats = phase(
-        "j trainer", trainer_phase, args.seed,
-        {name: train_cases[name]["shape_key"] for name in TRAINING_KERNELS})
-    launches.update(train_launches)
-    phase("j2 trainer profile window", trainer_profile_phase, args.seed,
-          train_stats["step_time_s_median"])
-    phase("j3 training job", training_job_phase, args.seed)
+    # (e6)'s HF directory stays until (l) has fine-tuned on it
+    e6_root = tempfile.mkdtemp(prefix="chip-smoke-e6-")
+    try:
+        hf_dir = phase("e6 dataplane", dataplane_phase, args.seed, None,
+                       e6_root)
+        phase("e7 scenarios", scenario_phase, engine, args.seed)
+        e8_k3_shapes = phase("e8 multi-adapter serving",
+                             multi_adapter_phase, engine, args.seed)
+        phase("e8 K3 shapes", continuation_shape_phase, gen, e8_k3_shapes,
+              "e8")
+        cases = {"quant_matmul": k1_step,
+                 **phase("f engine shapes", engine_shape_phase, gen,
+                         shapes)}
+        phase("f step breakdown", step_breakdown, engine)
+        phase("f paged step breakdown", step_breakdown, paged)
+        phase("f prefill breakdown", prefill_breakdown, engine, args.seed)
+        bd_launches, bd_shapes = phase("f2 serving breakdown",
+                                       serving_breakdown_phase, engine,
+                                       paged, prompts, tokens)
+        del paged
+        launches["flash_prefill_paged"] = bd_launches["flash_prefill_paged"]
+        cases["flash_prefill_paged"] = phase(
+            "f2 breakdown shapes", paged_prefill_shape_phase, gen, bd_shapes)
+        phase("g server", server_phase, engine)
+        del engine   # the engine holds reference cycles: collect it now,
+        gc.collect()   # so the trainer's peak memory is the trainer's own
+        torch.cuda.empty_cache()
+        print(f"after serving: {torch.cuda.memory_allocated() / 1e9:.3f} "
+              "GB still allocated", flush=True)
+        train_cases = phase("h training kernels", train_attn_phase, gen)
+        cases.update(train_cases)
+        phase("i train reference", train_reference_phase, args.seed)
+        train_launches, train_stats = phase(
+            "j trainer", trainer_phase, args.seed,
+            {name: train_cases[name]["shape_key"]
+             for name in TRAINING_KERNELS})
+        launches.update(train_launches)
+        phase("j2 trainer profile window", trainer_profile_phase, args.seed,
+              train_stats["step_time_s_median"])
+        phase("j3 training job", training_job_phase, args.seed)
+        phase("l LoRA fine-tune", lora_train_phase, args.seed, hf_dir)
+    finally:
+        shutil.rmtree(e6_root, ignore_errors=True)
+    phase("l2 LoRA job", lora_job_phase, args.seed)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     kernels = []
     for name in _build.KERNELS:

@@ -26,9 +26,8 @@ sharing:
     not inside match(): the engine may match a prefix and then find no
     legal continuation for it, which is a miss.
 
-One root per namespace (the JAX engine's adapter id; always 0 in the
-port's engines): a prefix computed through one adapter is wrong KV for
-another. Capacity and eviction are shared across namespaces. The
+One root per namespace (the engines' adapter index, 0 for the base
+model): a prefix computed through one adapter is wrong KV for another. Capacity and eviction are shared across namespaces. The
 module touches no device and is testable with plain Python payloads;
 each hit, miss, insert and eviction also counts in the process's
 `kvcache_prefix_events_total` (obs/metrics.py).

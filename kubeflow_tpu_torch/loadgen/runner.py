@@ -3,10 +3,10 @@ replay a trace against a REAL engine or its supervisor.
 
 Open-loop replay through the ordinary `LLMEngine.submit` path — the same
 code live HTTP traffic takes — honoring scheduled arrival instants,
-tenant routing, and client cancellations. A trace that routes to
-adapters fails before replay (the port serves none yet). The runner is
-the only loadgen piece that touches wall clocks; everything it produces
-reduces through `loadgen.slo` (pure math) into the summary.
+tenant routing, adapter routing and client cancellations. A trace that
+routes to an adapter the engine has not loaded fails before replay. The
+runner is the only loadgen piece that touches wall clocks; everything it
+produces reduces through `loadgen.slo` (pure math) into the summary.
 
 Conventions: arrivals coming due while a blocking engine.step() runs
 are submitted late but keep their SCHEDULED arrival as the TTFT epoch —

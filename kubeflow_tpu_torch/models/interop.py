@@ -5,7 +5,8 @@
 `jax.tree.map(numpy.asarray, params)` — and returns the port's tree on
 `device`. The two packages share the layout (stacked [L, ...] layers,
 [in, out] weights, {"q", "s"} quantized leaves), so this is a leaf-by-leaf
-copy; this module never imports JAX.
+copy; this module never imports JAX. `from_jax_lora_params` does the
+same for a `kubeflow_tpu.models.lora.init` tree ({"base", "lora"}).
 """
 
 from __future__ import annotations
@@ -53,3 +54,17 @@ def from_jax_params(tree: dict[str, Any], cfg: LlamaConfig,
                                                    cfg.d_model):
         raise ValueError("param tree does not match the config")
     return out
+
+
+def from_jax_lora_params(tree: dict[str, Any], cfg, device="cuda"
+                         ) -> dict[str, Any]:
+    """JAX llama_lora param tree ({"base", "lora"}, numpy leaves) -> the
+    port's; cfg is the port's LoraLlamaConfig."""
+    dev = resolve_device(device)
+    lora = {t: {k: _tensor(v, dev) for k, v in ab.items()}
+            for t, ab in tree["lora"].items()}
+    if set(lora) != set(cfg.targets):
+        raise ValueError(f"lora targets {sorted(lora)} != "
+                         f"{sorted(cfg.targets)}")
+    return {"base": from_jax_params(tree["base"], cfg.base_cfg, device=dev),
+            "lora": lora}

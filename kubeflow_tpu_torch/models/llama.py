@@ -16,6 +16,13 @@ tensors and run their plain versions for CPU tensors.
 The KV cache is updated IN PLACE by verify_step/decode_step (the JAX
 functions return a new cache): at 8B width the cache is about a gigabyte,
 and rewriting it per step would double the step's memory traffic.
+
+Multi-adapter serving: every serving function takes the JAX `lora`/`ids`
+pair. lora = {target: {"a": [L, A, d_in, r], "b": [L, A, r, d_out]}}
+(f32, adapter 0 all zeros, b pre-scaled by alpha / rank) and ids [B] the
+adapter of each row; each target's matmul then adds the row's low-rank
+bypass (`_adapted`): two batched f32 products beside the kernel's x @ W.
+Without `lora` the functions run exactly the base path.
 """
 
 from __future__ import annotations
@@ -415,22 +422,58 @@ def _rope(cfg: LlamaConfig, positions: torch.Tensor):
     return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _project_qkv(cfg: LlamaConfig, layer: Params, x: torch.Tensor, rope):
+def _adapted(h: torch.Tensor, layer: Params, t: str, lora_layer, ids,
+             dtype: torch.dtype) -> torch.Tensor:
+    """One weight matmul with the optional per-row LoRA bypass (the JAX
+    `_adapted`): h [B, S, d_in] @ W, plus, when `lora_layer` (this layer's
+    {target: {"a": [A, d_in, r], "b": [A, r, d_out]}}) holds the target,
+    (h @ a[ids]) @ b[ids] in f32, added in the output dtype."""
+    y = quant.matmul(h, layer[t], dtype)
+    if lora_layer is None or t not in lora_layer:
+        return y
+    a = lora_layer[t]["a"][ids]                       # [B, d_in, r]
+    b = lora_layer[t]["b"][ids]                       # [B, r, d_out]
+    z = torch.bmm(h.float(), a)
+    return y + torch.bmm(z, b).to(y.dtype)
+
+
+def _lora_layers(lora: Params | None, n_layers: int) -> list:
+    """The adapter stack as one {target: {"a", "b"}} of views per layer
+    (None each without adapters)."""
+    if lora is None:
+        return [None] * n_layers
+    parts = {t: (ab["a"].unbind(0), ab["b"].unbind(0))
+             for t, ab in lora.items()}
+    return [{t: {"a": a[i], "b": b[i]} for t, (a, b) in parts.items()}
+            for i in range(n_layers)]
+
+
+def _project_qkv(cfg: LlamaConfig, layer: Params, x: torch.Tensor, rope,
+                 lora_layer=None, ids=None):
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = quant.matmul(h, layer["wq"], cfg.dtype).reshape(b, s, nh, hd)
-    k = quant.matmul(h, layer["wk"], cfg.dtype).reshape(b, s, nkv, hd)
-    v = quant.matmul(h, layer["wv"], cfg.dtype).reshape(b, s, nkv, hd)
+    q = _adapted(h, layer, "wq", lora_layer, ids, cfg.dtype).reshape(
+        b, s, nh, hd)
+    k = _adapted(h, layer, "wk", lora_layer, ids, cfg.dtype).reshape(
+        b, s, nkv, hd)
+    v = _adapted(h, layer, "wv", lora_layer, ids, cfg.dtype).reshape(
+        b, s, nkv, hd)
     return apply_rope_tables(q, *rope), apply_rope_tables(k, *rope), v
 
 
-def _mlp(cfg: LlamaConfig, x: torch.Tensor,
-                 layer: Params) -> torch.Tensor:
+def _mlp(cfg: LlamaConfig, x: torch.Tensor, layer: Params,
+         lora_layer=None, ids=None) -> torch.Tensor:
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    gate = quant.matmul(h, layer["w_gate"], cfg.dtype)
-    up = quant.matmul(h, layer["w_up"], cfg.dtype)
-    return x + quant.matmul(F.silu(gate) * up, layer["w_down"], cfg.dtype)
+    gate = _adapted(h, layer, "w_gate", lora_layer, ids, cfg.dtype)
+    up = _adapted(h, layer, "w_up", lora_layer, ids, cfg.dtype)
+    return x + _adapted(F.silu(gate) * up, layer, "w_down", lora_layer, ids,
+                        cfg.dtype)
+
+
+def _wo(cfg: LlamaConfig, out: torch.Tensor, layer: Params,
+        lora_layer=None, ids=None) -> torch.Tensor:
+    return _adapted(out, layer, "wo", lora_layer, ids, cfg.dtype)
 
 
 def _embed(params: Params, tokens: torch.Tensor,
@@ -470,17 +513,19 @@ def decode_attention(cfg: LlamaConfig, q, ck, cv, cks, cvs,
 
 
 def prefill_inner(layers: Params, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: LlamaConfig):
+                  cfg: LlamaConfig, lora: Params | None = None,
+                  ids: torch.Tensor | None = None):
     """[B, S, D] activations through the layer stack -> (x, k, v
-    [L, B, S, kv, hd])."""
+    [L, B, S, kv, hd]); with `lora`, row b through adapter ids[b]."""
     b, s = x.shape[:2]
     rope = _rope(cfg, positions)
     ks, vs = [], []
-    for layer in unstack_layers(layers):
-        q, k, v = _project_qkv(cfg, layer, x, rope)
+    per_layer = unstack_layers(layers)
+    for layer, ll in zip(per_layer, _lora_layers(lora, len(per_layer))):
+        q, k, v = _project_qkv(cfg, layer, x, rope, ll, ids)
         out = prefill_attention(cfg, q, k, v, q_offset=0)
-        x = x + quant.matmul(out.reshape(b, s, -1), layer["wo"], cfg.dtype)
-        x = _mlp(cfg, x, layer)
+        x = x + _wo(cfg, out.reshape(b, s, -1), layer, ll, ids)
+        x = _mlp(cfg, x, layer, ll, ids)
         ks.append(k)
         vs.append(v)
     return x, (torch.stack(ks), torch.stack(vs))
@@ -493,54 +538,73 @@ def lm_head(params: Params, x: torch.Tensor,
     return quant.matmul_f32_out(x, params["lm_head"], cfg.dtype)
 
 
-def prefill_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
+def prefill_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                   lora: Params | None = None,
+                   ids: torch.Tensor | None = None):
     """prefill without the lm_head: (x [B, S, D] before the final norm,
     k, v [L, B, S, kv, hd]). The engine projects only each prompt's last
     row, which is what it samples from."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     return prefill_inner(params["layers"], _embed(params, tokens, cfg),
-                         positions, cfg)
+                         positions, cfg, lora, ids)
 
 
-def prefill(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
+def prefill(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            lora: Params | None = None, ids: torch.Tensor | None = None):
     """Right-padded prompts [B, S] -> (logits [B, S, vocab] f32, k, v
-    [L, B, S, kv, hd]). Pad positions produce KV the caller masks out."""
-    x, (ks, vs) = prefill_hidden(params, tokens, cfg)
+    [L, B, S, kv, hd]). Pad positions produce KV the caller masks out.
+    `lora`/`ids`: the multi-adapter batch (module docstring)."""
+    x, (ks, vs) = prefill_hidden(params, tokens, cfg, lora, ids)
     return lm_head(params, x, cfg), ks, vs
 
 
 def prefill_continue(params: Params, tail_tokens: torch.Tensor,
                      k_prefix: torch.Tensor, v_prefix: torch.Tensor,
-                     cfg: LlamaConfig):
+                     cfg: LlamaConfig, lora: Params | None = None,
+                     ids: torch.Tensor | None = None):
     """Forward only the tail [B, T] of prompts whose prefix KV
     [L, B, P, kv, hd] is known: the tail attends causally over
     prefix + tail (q_offset = P). Returns (logits [B, T, vocab] f32,
     k_tail, v_tail [L, B, T, kv, hd])."""
     x, ks, vs = prefill_continue_hidden(params, tail_tokens, k_prefix,
-                                        v_prefix, cfg)
+                                        v_prefix, cfg, lora, ids)
     return lm_head(params, x, cfg), ks, vs
 
 
 def prefill_continue_hidden(params: Params, tail_tokens: torch.Tensor,
                             k_prefix: torch.Tensor, v_prefix: torch.Tensor,
-                            cfg: LlamaConfig):
+                            cfg: LlamaConfig, lora: Params | None = None,
+                            ids: torch.Tensor | None = None):
     """prefill_continue without the lm_head: (x [B, T, D] before the
     final norm, k_tail, v_tail). The engine's chunked prefill projects
     only the last prompt row."""
-    b, t = tail_tokens.shape
-    p = k_prefix.shape[2]
-    positions = p + torch.arange(t, device=tail_tokens.device)
     x = _embed(params, tail_tokens, cfg)
-    layers = params["layers"]
+    positions = k_prefix.shape[2] + torch.arange(
+        tail_tokens.shape[1], device=tail_tokens.device)
+    return prefill_continue_inner(params["layers"], x, k_prefix, v_prefix,
+                                  positions, cfg, lora, ids)
+
+
+def prefill_continue_inner(layers: Params, x: torch.Tensor,
+                           k_prefix: torch.Tensor, v_prefix: torch.Tensor,
+                           positions: torch.Tensor, cfg: LlamaConfig,
+                           lora: Params | None = None,
+                           ids: torch.Tensor | None = None):
+    """[B, T, D] tail activations through the layer stack against the
+    prefix KV -> (x, k_tail, v_tail [L, B, T, kv, hd])."""
+    b, t = x.shape[:2]
+    p = k_prefix.shape[2]
     rope = _rope(cfg, positions)
     ks, vs = [], []
-    for i, layer in enumerate(unstack_layers(layers)):
-        q, k_new, v_new = _project_qkv(cfg, layer, x, rope)
+    per_layer = unstack_layers(layers)
+    for i, (layer, ll) in enumerate(zip(per_layer, _lora_layers(
+            lora, len(per_layer)))):
+        q, k_new, v_new = _project_qkv(cfg, layer, x, rope, ll, ids)
         k_full = torch.cat([k_prefix[i].to(cfg.dtype), k_new], dim=1)
         v_full = torch.cat([v_prefix[i].to(cfg.dtype), v_new], dim=1)
         out = prefill_attention(cfg, q, k_full, v_full, q_offset=p)
-        x = x + quant.matmul(out.reshape(b, t, -1), layer["wo"], cfg.dtype)
-        x = _mlp(cfg, x, layer)
+        x = x + _wo(cfg, out.reshape(b, t, -1), layer, ll, ids)
+        x = _mlp(cfg, x, layer, ll, ids)
         ks.append(k_new)
         vs.append(v_new)
     return x, torch.stack(ks), torch.stack(vs)
@@ -548,24 +612,27 @@ def prefill_continue_hidden(params: Params, tail_tokens: torch.Tensor,
 
 def decode_step(params: Params, last_tokens: torch.Tensor, cache: Params,
                 lengths: torch.Tensor, cfg: LlamaConfig,
-                span: int | None = None) -> torch.Tensor:
+                span: int | None = None, lora: Params | None = None,
+                ids: torch.Tensor | None = None) -> torch.Tensor:
     """One decode step over every cache slot: last_tokens [B], lengths
     [B] int32 (where this step's KV is written). Returns logits [B, vocab]
     f32 and updates `cache` in place. `span` bounds attention to the
     cache's first `span` rows (caller guarantees lengths < span)."""
     return verify_step(params, last_tokens[:, None], cache, lengths, cfg,
-                       span=span)[:, 0]
+                       span=span, lora=lora, ids=ids)[:, 0]
 
 
 def verify_step(params: Params, tokens: torch.Tensor, cache: Params,
                 lengths: torch.Tensor, cfg: LlamaConfig,
-                span: int | None = None) -> torch.Tensor:
+                span: int | None = None, lora: Params | None = None,
+                ids: torch.Tensor | None = None) -> torch.Tensor:
     """Forward S_v tokens per slot in one pass: tokens [B, S_v] occupy
     positions lengths[b] .. lengths[b] + S_v - 1. Returns logits
     [B, S_v, vocab] f32; KV rows of all S_v positions are written into
     `cache` in place (rows at or past max_len are dropped)."""
     x = _embed(params, tokens, cfg)
-    x = verify_inner(params["layers"], x, cache, lengths, cfg, span=span)
+    x = verify_inner(params["layers"], x, cache, lengths, cfg, span=span,
+                     lora=lora, ids=ids)
     return lm_head(params, x, cfg)
 
 
@@ -610,7 +677,8 @@ def _paged_write_coords(tbl: torch.Tensor, lengths: torch.Tensor, s_v: int,
 
 def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
                  lengths: torch.Tensor, cfg: LlamaConfig,
-                 span: int | None = None) -> torch.Tensor:
+                 span: int | None = None, lora: Params | None = None,
+                 ids: torch.Tensor | None = None) -> torch.Tensor:
     """x [B, S_v, D] through the layer stack against the cache (updated in
     place) -> x. The cache is a slab with one row per slot (B must equal
     its slot count), or, with "tbl" [B, max_len // bt] in it, the paged
@@ -642,8 +710,10 @@ def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
         positions, rows, wpos, valid = _write_coords(lengths, s_v, max_len)
     rope = _rope(cfg, positions)
     lengths = lengths.to(torch.int32)
-    for i, layer in enumerate(unstack_layers(layers)):
-        q, k_new, v_new = _project_qkv(cfg, layer, x, rope)
+    per_layer = unstack_layers(layers)
+    for i, (layer, ll) in enumerate(zip(per_layer, _lora_layers(
+            lora, len(per_layer)))):
+        q, k_new, v_new = _project_qkv(cfg, layer, x, rope, ll, ids)
         if quantized:
             kq, ksc = quantize_kv(k_new)
             vq, vsc = quantize_kv(v_new)
@@ -659,8 +729,8 @@ def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
         kv = [cache[n][i][:, span_rows] if n in cache else None
               for n in ("k", "v", "k_s", "v_s")]
         out = decode_attention(cfg, q, *kv, lengths, tables)
-        x = x + quant.matmul(out, layer["wo"], cfg.dtype)
-        x = _mlp(cfg, x, layer)
+        x = x + _wo(cfg, out, layer, ll, ids)
+        x = _mlp(cfg, x, layer, ll, ids)
     return x
 
 

@@ -1,13 +1,14 @@
 """Model registry: name -> (config class, init, apply, loss_fn, abstract)
 (counterpart of kubeflow_tpu/models/registry.py). A training job names a
-registered model and config overrides. Only the Llama family is ported;
-the other families of the JAX registry are queued in ROADMAP.md."""
+registered model and config overrides. The Llama family is ported
+(`llama` and its LoRA fine-tune `llama_lora`); the other families of the
+JAX registry are queued in ROADMAP.md."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.models import llama, lora
 
 
 class ModelDef(NamedTuple):
@@ -21,6 +22,8 @@ class ModelDef(NamedTuple):
 _REGISTRY: dict[str, ModelDef] = {
     "llama": ModelDef(llama.LlamaConfig, llama.init, llama.apply,
                       llama.loss_fn, llama.abstract_params),
+    "llama_lora": ModelDef(lora.LoraLlamaConfig, lora.init, lora.apply,
+                           lora.loss_fn, lora.abstract_params),
 }
 
 

@@ -5,8 +5,25 @@ attention kernels are held against this."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 F32_MIN = torch.finfo(torch.float32).min
+#: the kernels' smallest head dim: their tiles are 64-column regions
+KERNEL_MIN_HEAD_DIM = 64
+
+
+def on_padded_heads(fn, q, k, v, scale, **kw):
+    """fn(q, k, v, scale=..., **kw) on q, k and v zero-padded to
+    KERNEL_MIN_HEAD_DIM columns, its output cut back to q's head dim D.
+    The kernel wrappers run a head dim under the kernels' smallest this
+    way: the zero columns add nothing to q.k and give the output zero
+    columns, and the scale stays D's. Padding copies k and v whole (a
+    decode or prefill call's whole slab span or block pool, each layer
+    of each step)."""
+    d = q.shape[-1]
+    scale = 1.0 / (d ** 0.5) if scale is None else scale
+    q, k, v = (F.pad(x, (0, KERNEL_MIN_HEAD_DIM - d)) for x in (q, k, v))
+    return fn(q, k, v, scale=scale, **kw)[..., :d]
 
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:

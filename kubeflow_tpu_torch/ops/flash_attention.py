@@ -24,7 +24,8 @@ import ctypes
 import torch
 
 from kubeflow_tpu_torch.ops import _build
-from kubeflow_tpu_torch.ops.attention import repeat_kv
+from kubeflow_tpu_torch.ops.attention import (KERNEL_MIN_HEAD_DIM,
+                                              on_padded_heads, repeat_kv)
 
 NEG_INF = -1e30
 
@@ -316,11 +317,17 @@ def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
     D] -> [B, Sq, H, D]. KV heads are expanded with repeat_kv before the
     kernels (their gradients reduce through autograd), as the JAX
     `flash_attention` does. Differentiable at q_offset 0; with a q_offset
-    (continuation prefill) the call is forward-only."""
+    (continuation prefill) the call is forward-only. On the card a head
+    dim under 64 runs the kernels on zero-padded heads
+    (`on_padded_heads`), the padding differentiable."""
     h, hkv = q.shape[2], k.shape[2]
     if hkv != h:
         k = repeat_kv(k, h // hkv)
         v = repeat_kv(v, h // hkv)
+    if q.is_cuda and q.shape[-1] < KERNEL_MIN_HEAD_DIM:
+        return on_padded_heads(flash_attention, q, k, v, scale,
+                               causal=causal, q_offset=q_offset,
+                               segment_ids=segment_ids)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     scale = 1.0 / (q.shape[-1] ** 0.5) if scale is None else scale
     if int(q_offset) == 0:

@@ -12,7 +12,8 @@ Paged mode (`tables` [B, nb] int32): k/v are one layer of the block pool,
 [N, bt, kv, hd] (scales [N, bt, kv]), and slot b's T = nb * bt keys are
 the blocks of its table row concatenated. The mask is the same.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+On a CUDA tensor the wrapper launches the kernel or raises (a head dim
+under 64 on zero-padded heads, `attention.on_padded_heads`); on a CPU
 tensor it runs `flash_decode_plain`.
 """
 
@@ -24,7 +25,8 @@ import functools
 import torch
 
 from kubeflow_tpu_torch.ops import _build
-from kubeflow_tpu_torch.ops.attention import F32_MIN
+from kubeflow_tpu_torch.ops.attention import (F32_MIN, KERNEL_MIN_HEAD_DIM,
+                                              on_padded_heads)
 
 
 def gather_pages(tables, *pool):
@@ -159,6 +161,10 @@ def flash_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
                                   tables=tables)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
+    if q.shape[-1] < KERNEL_MIN_HEAD_DIM:
+        return on_padded_heads(flash_decode_attention, q, k, v, scale,
+                               lengths=lengths, k_scale=k_scale,
+                               v_scale=v_scale, tables=tables)
     if tables is not None:
         return _flash_decode_paged(q, k, v, lengths, tables, k_scale,
                                    v_scale, scale)

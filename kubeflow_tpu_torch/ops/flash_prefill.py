@@ -13,7 +13,8 @@ Paged mode (`tables` [B, nb] int32): k/v are one layer of the block pool,
 the blocks of its table row concatenated. The mask is the same, with no
 lengths (every one of the T keys exists), as in the TPU kernel.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+On a CUDA tensor the wrapper launches the kernel or raises (a head dim
+under 64 on zero-padded heads, `attention.on_padded_heads`); on a CPU
 tensor it runs `flash_prefill_plain`.
 """
 
@@ -25,7 +26,8 @@ import functools
 import torch
 
 from kubeflow_tpu_torch.ops import _build
-from kubeflow_tpu_torch.ops.attention import mha
+from kubeflow_tpu_torch.ops.attention import (KERNEL_MIN_HEAD_DIM, mha,
+                                              on_padded_heads)
 from kubeflow_tpu_torch.ops.flash_decode import (check_paged, check_slab,
                                                  gather_pages)
 
@@ -101,6 +103,10 @@ def flash_prefill_attention(q, k, v, *, q_offset=0, k_scale=None,
                                    scale=scale, tables=tables)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
+    if q.shape[-1] < KERNEL_MIN_HEAD_DIM:
+        return on_padded_heads(flash_prefill_attention, q, k, v, scale,
+                               q_offset=q_offset, k_scale=k_scale,
+                               v_scale=v_scale, tables=tables)
     if tables is not None:
         return _flash_prefill_paged(q, k, v, tables, q_offset, k_scale,
                                     v_scale, scale)

@@ -635,6 +635,12 @@ class EngineSupervisor:
     # -- engine passthroughs --------------------------------------------------
 
     @property
+    def _adapter_idx(self) -> dict[str, int]:
+        """The engine's loaded adapters (name -> index); the loadgen
+        runner checks a trace's adapters against it before replay."""
+        return self.engine._adapter_idx if self.engine is not None else {}
+
+    @property
     def decode_chunk(self) -> int:
         if self.engine is not None:
             return self.engine.decode_chunk

@@ -96,8 +96,22 @@ Tenants: a request's `tenant` name maps to a stable integer id
 (`_tenant_id`, at most MAX_TENANTS names) that the scheduler's per-tenant
 queues, max-min fair pop and admission caps (`set_tenant_limits`) see;
 the scheduler is the C++ core (`NativeScheduler`), which raises when its
-library cannot be built. Not in this engine yet: adapters (ROADMAP.md
-queue A3).
+library cannot be built.
+
+Multi-adapter LoRA serving (`adapters=`, the JAX engine's S-LoRA-style
+batch): many fine-tunes of one base share the continuous batch. adapters
+= {name: {"lora": {target: {"a": [L, d_in, r], "b": [L, r, d_out]}},
+"alpha": float}} is stacked once on the device as [L, A + 1, ...] f32
+(`_stack_adapters`): index 0 the all-zero adapter of base-only rows, b
+pre-scaled by alpha / rank, names sorted from index 1 (`_adapter_idx`).
+`submit(adapter=)` maps a request to its index; every prefill (the wave,
+the continuation wave, each chunked link) runs its rows through their
+adapters and writes each slot's index into `cache["aids"]`, which every
+decode and verify program reads by address, so a captured graph serves
+any mix. The radix prefix cache keys each request's prefixes by its
+adapter index (a prefix computed through one adapter is wrong KV for
+another). An engine without adapters runs exactly the programs it ran
+before: no zero bypass, no extra launch.
 """
 
 from __future__ import annotations
@@ -269,9 +283,6 @@ class LLMEngine:
     #: continuation waves write the prefix rows into the slot (slab); the
     #: paged engine splices the cached blocks into the table instead
     _cont_writes_prefix = True
-    #: the radix namespace of every request (the JAX engine's adapter
-    #: id; the port has no adapters)
-    _prefix_ns = 0
     #: the obs component label and the name of the engine's spans
     role = "engine"
 
@@ -284,7 +295,9 @@ class LLMEngine:
                  max_prefixes: int = 4,
                  prefix_cache_blocks: int | None = None,
                  speculative: int | None = None, spec_ngram: int = 3,
-                 spec_adaptive: bool = True, device="cuda"):
+                 spec_adaptive: bool = True,
+                 adapters: dict[str, dict[str, Any]] | None = None,
+                 device="cuda"):
         if max(buckets) >= max_len:
             raise ValueError("largest bucket must leave room to decode")
         if quantize not in (None, "int8"):
@@ -353,6 +366,14 @@ class LLMEngine:
         self._prefill_computed_tokens = 0
         self._prefill_reused_tokens = 0
         dev = self.device
+        # -- multi-adapter serving (module docstring): the device stack,
+        # name -> index, and each request's index while it runs
+        self.adapters = (self._stack_adapters(adapters) if adapters
+                         else None)
+        self._adapter_idx: dict[str, int] = (
+            {n: i + 1 for i, n in enumerate(sorted(adapters))}
+            if adapters else {})
+        self._req_aids: dict[int, int] = {}
         # -- slot state on the device: allocated once, updated in place
         self.cache = self._alloc_cache()
         self.lengths = torch.zeros(n_slots, dtype=torch.int32, device=dev)
@@ -421,6 +442,69 @@ class LLMEngine:
         self._decode_agg = StepAggregator()
         self._decode_mark: dict[int, tuple[int, int]] = {}
         obs_metrics.add_scrape_hook(self, LLMEngine._obs_publish)
+
+    def _stack_adapters(self, adapters: dict[str, dict]) -> dict:
+        """{name: {"lora": {t: {"a", "b"}}, "alpha": f}} -> the device
+        stack {t: {"a": [L, A + 1, d_in, r], "b": [L, A + 1, r, d_out]}}
+        in f32, index 0 all zeros, b times alpha / rank. Every adapter
+        has the same rank and targets (one gather shape for all)."""
+        names = sorted(adapters)
+        first = adapters[names[0]]["lora"]
+        targets = sorted(first)
+        bad = set(targets) - set(llama.QUANT_LEAVES)
+        if bad:
+            raise ValueError(f"unknown adapter targets {sorted(bad)}; "
+                             f"known: {sorted(llama.QUANT_LEAVES)}")
+        rank = first[targets[0]]["a"].shape[-1]
+
+        def f32(x) -> torch.Tensor:
+            if isinstance(x, torch.Tensor):
+                return x.detach().to(self.device, torch.float32)
+            return torch.from_numpy(np.asarray(x, np.float32)).to(
+                self.device)
+
+        stack = {}
+        for t in targets:
+            a_rows, b_rows = [], []
+            for n in names:
+                tree = adapters[n]["lora"]
+                if sorted(tree) != targets:
+                    raise ValueError(
+                        f"adapter {n!r} targets {sorted(tree)} != {targets}")
+                a, b = tree[t]["a"], tree[t]["b"]
+                if a.shape[-1] != rank:
+                    raise ValueError(
+                        f"adapter {n!r} rank {a.shape[-1]} != {rank}; "
+                        "all adapters in one engine share a rank")
+                scale = float(adapters[n].get("alpha", rank)) / rank
+                a_rows.append(f32(a))
+                b_rows.append(f32(b) * scale)
+            stack[t] = {
+                "a": torch.stack([torch.zeros_like(a_rows[0])] + a_rows,
+                                 dim=1),
+                "b": torch.stack([torch.zeros_like(b_rows[0])] + b_rows,
+                                 dim=1)}
+        return stack
+
+    def _lora_kw(self, ids: torch.Tensor | None) -> dict[str, Any]:
+        """The model functions' adapter arguments: none without adapters
+        (the base programs), else the stack and each row's index."""
+        if self.adapters is None:
+            return {}
+        return {"lora": self.adapters, "ids": ids}
+
+    def _wave_ids(self, wave) -> torch.Tensor | None:
+        """The adapter index of each request of a prefill wave, on the
+        device (None without adapters)."""
+        if self.adapters is None:
+            return None
+        return torch.tensor([self._req_aids.get(a.req_id, 0) for a in wave],
+                            dtype=torch.long, device=self.device)
+
+    def _ns(self, req_id: int) -> int:
+        """The radix namespace of a request: its adapter index (0 for the
+        base)."""
+        return self._req_aids.get(req_id, 0)
 
     def _samp_reset(self) -> np.ndarray:
         """Idle per-slot sampling state: all zero (greedy, filters and
@@ -659,12 +743,12 @@ class LLMEngine:
                 f32(self._pack_milli(frequency)) / f32(1000.0),
                 f32(-1 if seed is None else seed))
 
-    def _validate_submit(self, prompt, temperature, top_k, top_p,
+    def _validate_submit(self, prompt, temperature, adapter, top_k, top_p,
                          presence_penalty, frequency_penalty, seed, stop,
                          deadline_s, max_new_tokens):
         """Every submit()-time check, with the JAX engine's messages.
         Returns the normalized (temperature, top_k, top_p, presence,
-        frequency, folded seed, stop sequences)."""
+        frequency, folded seed, stop sequences, adapter index)."""
         if not (math.isfinite(temperature) and 0 <= temperature <= 100):
             raise ValueError("temperature must be finite and in [0, 100]")
         top_k = int(top_k)
@@ -696,6 +780,13 @@ class LLMEngine:
             raise ValueError("at most 8 stop sequences per request")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError("deadline_s must be positive")
+        aid = 0
+        if adapter is not None:
+            if adapter not in self._adapter_idx:
+                raise ValueError(
+                    f"unknown adapter {adapter!r}; "
+                    f"loaded: {sorted(self._adapter_idx)}")
+            aid = self._adapter_idx[adapter]
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if any(not 0 <= int(t) < self.cfg.vocab_size for t in prompt):
@@ -704,7 +795,7 @@ class LLMEngine:
             # chunked prefill: the chain is checked now, not mid-serve
             self._chunk_plan(len(prompt))
         return (temperature, top_k, top_p, presence_penalty,
-                frequency_penalty, seed, stop_seqs)
+                frequency_penalty, seed, stop_seqs, aid)
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                temperature: float = 0.0, adapter: str | None = None,
@@ -727,17 +818,15 @@ class LLMEngine:
         and admission caps the request rides (None: the anonymous tenant
         0), and under which the prefix cache's per-tenant rows count it;
         `trace`: its trace id (obs/trace.py), under which its spans are
-        recorded at finish when sampled; `adapter` must be None."""
-        if adapter is not None:
-            raise ValueError("adapters are not ported yet (ROADMAP.md "
-                             "queue A3, LoRA)")
+        recorded at finish when sampled; `adapter`: the name of a loaded
+        adapter the request runs through (None: the base)."""
         if tenant is not None and (not isinstance(tenant, str)
                                    or not 1 <= len(tenant) <= 256):
             raise ValueError("tenant must be a string of 1..256 chars")
         try:
             (temperature, top_k, top_p, presence_penalty, frequency_penalty,
-             seed, stop_seqs) = self._validate_submit(
-                prompt, temperature, top_k, top_p, presence_penalty,
+             seed, stop_seqs, aid) = self._validate_submit(
+                prompt, temperature, adapter, top_k, top_p, presence_penalty,
                 frequency_penalty, seed, stop, deadline_s, max_new_tokens)
         except PromptTooLong:
             if len(prompt) > self.buckets[-1]:
@@ -768,6 +857,8 @@ class LLMEngine:
                 self._deadlines[rid] = time.monotonic() + deadline_s
             if tenant is not None:
                 self._req_tenant[rid] = tenant
+            if aid:
+                self._req_aids[rid] = aid
             self._max_new[rid] = max_new_tokens
             self._results[rid] = []
             self._logprobs[rid] = []
@@ -1166,6 +1257,8 @@ class LLMEngine:
             "prefill_tokens_computed": self._prefill_computed_tokens}
         if self._tenant_idx:
             out["tenants_seen"] = len(self._tenant_idx)
+        if self.adapters is not None:
+            out["adapters_loaded"] = sorted(self._adapter_idx)
         if self.kvcache is not None:
             st = self.kvcache.stats()
             looked = self._prefix_hits + self._prefix_misses
@@ -1211,7 +1304,9 @@ class LLMEngine:
         plens = [len(self._prompts[a.req_id]) for a in wave]
         self._prefill_computed_tokens += sum(plens)
         tokens = tokens.to(dev)
-        x, (ks, vs) = llama.prefill_hidden(self.params, tokens, self.cfg)
+        x, (ks, vs) = llama.prefill_hidden(
+            self.params, tokens, self.cfg,
+            **self._lora_kw(self._wave_ids(wave)))
         for i, a in enumerate(wave):
             self._cache_write(a.slot, 0, bucket, ks[:, i], vs[:, i])
             self._hist_write(a.slot, 0, tokens[i])
@@ -1241,7 +1336,8 @@ class LLMEngine:
             [self._materialize_prefix(payloads) for _, payloads in pairs])
         tokens = tokens.to(dev)
         x, ks, vs = llama.prefill_continue_hidden(
-            self.params, tokens, k_prefix, v_prefix, self.cfg)
+            self.params, tokens, k_prefix, v_prefix, self.cfg,
+            **self._lora_kw(self._wave_ids(wave)))
         for i, a in enumerate(wave):
             if self._cont_writes_prefix:
                 self._cache_write(a.slot, 0, p, k_prefix[:, i],
@@ -1270,11 +1366,12 @@ class LLMEngine:
         prompt = self._prompts[action.req_id]
         n, slot, big = len(prompt), action.slot, self.buckets[-1]
         bt = self.prefix_block_tokens
+        lora_kw = self._lora_kw(self._wave_ids([action]))
         done, pending = 0, None
         if self.prefix_cache_enabled and n - 1 >= bt:
             tenant = self._req_tenant.get(action.req_id)
             m = self.kvcache.match(prompt, max_tokens=n - 1,
-                                   namespace=self._prefix_ns)
+                                   namespace=self._ns(action.req_id))
             done = m.tokens
             while done > 0 and self._chunk_plan_from(n, done) is None:
                 done -= bt
@@ -1291,7 +1388,8 @@ class LLMEngine:
         self._prefill_computed_tokens += n - done
         if done == 0:
             head = torch.tensor([prompt[:big]], device=dev)
-            x, (ks, vs) = llama.prefill_hidden(self.params, head, self.cfg)
+            x, (ks, vs) = llama.prefill_hidden(self.params, head, self.cfg,
+                                               **lora_kw)
             self._cache_write(slot, 0, big, ks[:, 0], vs[:, 0])
             self._hist_write(slot, 0, head[0])
             done = big
@@ -1310,7 +1408,7 @@ class LLMEngine:
             tail[0, :chunk_len] = torch.tensor(prompt[done:done + chunk_len])
             tail = tail.to(dev)
             x, ks, vs = llama.prefill_continue_hidden(
-                self.params, tail, k_prefix, v_prefix, self.cfg)
+                self.params, tail, k_prefix, v_prefix, self.cfg, **lora_kw)
             self._cache_write(slot, done, t, ks[:, 0], vs[:, 0])
             self._hist_write(slot, done, tail[0])
             last = x[:, chunk_len - 1]
@@ -1320,9 +1418,10 @@ class LLMEngine:
     def _prefill_finish(self, last: torch.Tensor, wave: list[PrefillAction],
                         plens: list[int]) -> torch.Tensor:
         """The end of every prefill: the last prompt rows' logits, each
-        slot's length, sampling row, first token and penalty counts (reset
-        to that token's one-hot: penalties count generated tokens, and the
-        first one is generated here). Returns the packed rows."""
+        slot's length, sampling row, adapter index, first token and
+        penalty counts (reset to that token's one-hot: penalties count
+        generated tokens, and the first one is generated here). Returns
+        the packed rows."""
         dev = self.device
         logits = llama.lm_head(self.params, last[:, None], self.cfg)[:, 0]
         slot_list = [a.slot for a in wave]
@@ -1332,6 +1431,8 @@ class LLMEngine:
         slots = torch.tensor(slot_list, device=dev)
         plens_dev = torch.tensor(plens, dtype=torch.int32, device=dev)
         self.lengths[slots] = plens_dev
+        if self.adapters is not None:
+            self.cache["aids"][slots] = self._wave_ids(wave)
         toks = self._choose(logits, self.samp[slots], slots, None, plens_dev,
                             bool((self._samp_host[slot_list, 0] > 0).any()))
         self.last_tokens[slots] = toks
@@ -1340,12 +1441,22 @@ class LLMEngine:
         return self._pack_out(toks, logits)
 
     def _alloc_cache(self) -> dict:
-        """The KV cache: a slab [L, n_slots, max_len, kv, hd], and with
-        speculation the token history (`_alloc_hist`)."""
-        cache = llama.init_cache(self.cfg, self.n_slots, self.max_len,
-                                 self.kv_quantize, device=self.device)
+        """The KV cache: a slab [L, n_slots, max_len, kv, hd] and the
+        per-slot buffers (`_slot_buffers`)."""
+        return self._slot_buffers(llama.init_cache(
+            self.cfg, self.n_slots, self.max_len, self.kv_quantize,
+            device=self.device))
+
+    def _slot_buffers(self, cache: dict) -> dict:
+        """Adds to `cache` the per-slot state the programs read beside the
+        KV: with speculation the token history (`_alloc_hist`), with
+        adapters each slot's adapter index "aids" [n_slots] (the JAX
+        cache's), 0 (the base) until a prefill writes it."""
         if self.spec:
             cache["hist"] = self._alloc_hist()
+        if self.adapters is not None:
+            cache["aids"] = torch.zeros(self.n_slots, dtype=torch.long,
+                                        device=self.device)
         return cache
 
     def _alloc_hist(self) -> torch.Tensor:
@@ -1414,7 +1525,7 @@ class LLMEngine:
             return None
         tenant = self._req_tenant.get(action.req_id)
         m = self.kvcache.match(prompt, max_tokens=len(prompt) - 1,
-                               namespace=self._prefix_ns)
+                               namespace=self._ns(action.req_id))
         p, t = m.tokens, None
         while p > 0:
             t = self._tail_bucket(len(prompt) - p)
@@ -1478,15 +1589,15 @@ class LLMEngine:
             return
         bt = self.prefix_block_tokens
         aligned = (len(prompt) // bt) * bt
+        ns = self._ns(action.req_id)
         if aligned <= 0 or self.kvcache.cached_prefix_len(
-                prompt, max_tokens=aligned,
-                namespace=self._prefix_ns) >= aligned:
+                prompt, max_tokens=aligned, namespace=ns) >= aligned:
             return
         parts = self._extract_prefix_raw(action.slot, aligned)
         self.kvcache.insert(
             prompt, lambda _i, s, e: self._payload_slice(parts, s, e),
             max_tokens=aligned, tenant=self._req_tenant.get(action.req_id),
-            namespace=self._prefix_ns)
+            namespace=ns)
 
     # -- the decode program menu ---------------------------------------------
 
@@ -1506,9 +1617,9 @@ class LLMEngine:
         step = active.to(torch.int32)
         outs = []
         for _ in range(steps):
-            logits = llama.decode_step(self.params, self.last_tokens,
-                                       self.cache, self.lengths, self.cfg,
-                                       span=span)
+            logits = llama.decode_step(
+                self.params, self.last_tokens, self.cache, self.lengths,
+                self.cfg, span=span, **self._lora_kw(self.cache.get("aids")))
             if sample:
                 toks = self._choose(logits, self.samp, self._slot_ids,
                                     self._cnt, self.lengths + 1, True)
@@ -1563,7 +1674,8 @@ class LLMEngine:
             count = torch.where(drafting, count, 0)
             logits = llama.verify_step(
                 self.params, torch.cat([last[:, None], drafts], dim=1),
-                self.cache, self.lengths, self.cfg, span=span)
+                self.cache, self.lengths, self.cfg, span=span,
+                **self._lora_kw(self.cache.get("aids")))
             preds = torch.argmax(logits, dim=-1)            # [B, kd + 1]
             match = (preds[:, :kd] == drafts) & (jk < count[:, None])
             n_acc = torch.cumprod(match.long(), dim=1).sum(dim=1)
@@ -1696,7 +1808,9 @@ class LLMEngine:
         for bucket in self.buckets:
             x, (ks, vs) = llama.prefill_hidden(
                 self.params, torch.ones((1, bucket), dtype=torch.long,
-                                        device=dev), self.cfg)
+                                        device=dev), self.cfg,
+                **self._lora_kw(torch.zeros(1, dtype=torch.long,
+                                            device=dev)))
             self._cache_write(0, 0, bucket, ks[:, 0], vs[:, 0])
             logits = llama.lm_head(self.params, x[:, -1:], self.cfg)[:, 0]
             toks = self._choose(logits, self.samp[:1], slot0, None,
@@ -1985,6 +2099,6 @@ class LLMEngine:
         self._finish_t[req_id] = time.monotonic()
         self._done.add(req_id)
         for d in (self._prompts, self._max_new, self._req_samp,
-                  self._req_stop, self._deadlines):
+                  self._req_stop, self._deadlines, self._req_aids):
             d.pop(req_id, None)
         self._obs_finish(req_id)

@@ -26,6 +26,12 @@ there as they arrive; or the params of the port's own trainer checkpoint
 the architecture from `model` as the JAX runtime takes it and the
 config's `quantize` applied as they load; or makes random weights from
 `seed` without either. An empty checkpoint directory raises ModelError.
+LoRA, as the JAX runtime serves it: `lora: {rank, alpha, targets?}`
+reads a `llama_lora` trainer checkpoint's {base, lora} and serves
+`models/lora.py` `merge(...)` (quantized after the merge); `adapters:
+{name: {checkpoint, rank, alpha, targets?}}` reads only the adapter
+shards of each named `llama_lora` checkpoint and serves them beside the
+base on one engine, a request picking one by the payload's "adapter".
 The engine sits behind a `serving/agent.py` `EngineSupervisor` (unless
 `supervised: false`): every request is journaled, and a crash or stall
 mid-stream restarts the engine through `engine_factory`, the one place
@@ -43,8 +49,7 @@ under the same source-hash keys, so a restarted predictor skips nvcc; the
 decode graphs are still captured by `warmup()` at every load (a CUDA
 graph cannot be kept across processes). Keys of paths the port has not
 ported raise a ValueError that names the ROADMAP.md queue item:
-`disaggregated`/`disagg` (A5), `lora`/`adapters` (A3), `grpc` (the gRPC
-dataplane). `mesh` and `parallel` are taken when every axis is 1 (one
+`disaggregated`/`disagg` (A5), `grpc` (the gRPC dataplane). `mesh` and `parallel` are taken when every axis is 1 (one
 card, as `mesh: {tensor: 1}` in examples/hf-llama-inference-service.yaml);
 an axis above 1 raises naming A6, and the JAX runtime's "pass parallel OR
 mesh, not both" holds.
@@ -52,13 +57,14 @@ mesh, not both" holds.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
 from typing import Any
 
 from kubeflow_tpu_torch._device import check_one_card_mesh, resolve_device
-from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.models import llama, lora as lora_lib
 from kubeflow_tpu_torch.obs.metrics import add_scrape_hook
 from kubeflow_tpu_torch.obs.slo import SloBurnTracker
 from kubeflow_tpu_torch.obs.trace import TRACER, new_trace_id
@@ -80,8 +86,6 @@ class ProtocolError(ValueError):
 UNPORTED_KEYS = {
     "disaggregated": "queue A5, disaggregated serving",
     "disagg": "queue A5, disaggregated serving",
-    "lora": "queue A3, LoRA",
-    "adapters": "queue A3, LoRA",
     "grpc": "queue A1.h, the gRPC dataplane",
 }
 
@@ -117,6 +121,8 @@ class LLMModel:
                  slo: dict[str, Any] | None = None,
                  mesh: dict[str, Any] | None = None,
                  parallel: dict[str, Any] | None = None,
+                 lora: dict[str, Any] | None = None,
+                 adapters: dict[str, Any] | None = None,
                  device: str = "cuda",
                  params: Any = None,
                  llama_config: llama.LlamaConfig | None = None,
@@ -165,6 +171,12 @@ class LLMModel:
                           else tokenizer)
         self._params = params
         self._llama_config = llama_config
+        # config.lora {rank, alpha, targets?}: the checkpoint is a
+        # llama_lora fine-tune ({"base", "lora"}), served merged
+        self._lora = dict(lora) if lora else None
+        # config.adapters {name: {checkpoint, rank, alpha, targets?}}:
+        # per-request adapters over the one base
+        self._adapters_cfg = dict(adapters) if adapters else None
         self._n_slots = n_slots
         self._max_len = max_len
         self._buckets = tuple(buckets)
@@ -253,9 +265,61 @@ class LLMModel:
     def output_spec(self) -> list[dict[str, Any]]:
         return []
 
+    def _lora_config(self, spec: dict[str, Any],
+                     cfg: llama.LlamaConfig) -> lora_lib.LoraLlamaConfig:
+        """A LoraLlamaConfig over the served architecture from a config's
+        {rank, alpha, targets?} (the checkpoint holds the base already:
+        base_checkpoint is never read again)."""
+        kw = {"rank": int(spec.get("rank", 8)),
+              "alpha": float(spec.get("alpha", 16.0))}
+        if "targets" in spec:
+            kw["targets"] = tuple(spec["targets"])
+        base = {f.name: getattr(cfg, f.name)
+                for f in dataclasses.fields(cfg)}
+        return lora_lib.LoraLlamaConfig(llama=base, **kw)
+
+    def _load_adapters(self, cfg: llama.LlamaConfig):
+        """config.adapters -> the engine's `adapters=`: each named
+        llama_lora checkpoint's adapter shards alone (params/lora); the
+        base stays the engine's own params."""
+        if not self._adapters_cfg:
+            return None
+        from kubeflow_tpu_torch.training.checkpoint import restore_params
+
+        out = {}
+        for name, spec in self._adapters_cfg.items():
+            lcfg = self._lora_config(spec, cfg)
+            try:
+                restored = restore_params(
+                    spec["checkpoint"],
+                    lora_lib.abstract_params(lcfg)["lora"],
+                    device=self.device, subtree="params/lora")
+            except FileNotFoundError as e:
+                raise ModelError(f"adapter {name!r}: {e}") from e
+            out[name] = {"lora": restored, "alpha": lcfg.alpha}
+        return out
+
     def _load_params(self):
-        """(params, cfg): given in-process, from an HF directory, or
-        random from `seed`."""
+        """(params, cfg): given in-process, a llama_lora checkpoint merged
+        (config.lora), from an HF directory, or random from `seed`."""
+        if self._lora is not None:
+            if not self._checkpoint:
+                raise ModelError("config.lora requires a checkpoint")
+            from kubeflow_tpu_torch.training.checkpoint import restore_params
+
+            cfg = llama.LlamaConfig(**self._cfg_overrides)
+            lcfg = self._lora_config(self._lora, cfg)
+            try:
+                restored = restore_params(self._checkpoint,
+                                          lora_lib.abstract_params(lcfg),
+                                          device=self.device)
+            except FileNotFoundError as e:
+                raise ModelError(str(e)) from e
+            params = lora_lib.merge(restored, lcfg, stop_base_gradient=False)
+            del restored
+            if self._quantize == "int8":
+                params = llama.quantize_params(params)
+            return params, cfg
         if self._params is not None:
             if self._cfg_overrides:
                 raise ValueError("model overrides need no in-process "
@@ -321,6 +385,7 @@ class LLMModel:
                          spec_adaptive=self._spec_adaptive,
                          logprobs_topk=self._logprobs_topk,
                          pipeline_decode=self._pipeline_decode,
+                         adapters=self._load_adapters(cfg),
                          device=self.device)
         # read, never pop: unload and load again must see the same config
         rewarm = bool(self._sup_cfg.get("rewarm", True))
@@ -470,9 +535,11 @@ class LLMModel:
             raise ValueError(
                 "llama runtime expects {'prompt_tokens': [...], "
                 "'max_new_tokens': N}")
-        if payload.get("adapter") is not None:
-            raise ProtocolError("adapters are not ported yet (ROADMAP.md "
-                                "queue A3, LoRA)")
+        adapter = payload.get("adapter")
+        if adapter is not None and adapter not in self._engine._adapter_idx:
+            raise ProtocolError(
+                f"unknown adapter {adapter!r}; loaded: "
+                f"{sorted(self._engine._adapter_idx)}")
         prompt = [int(t) for t in payload["prompt_tokens"]]
         max_new = int(payload.get("max_new_tokens", 32))
         temperature = float(payload.get("temperature", 0.0))
@@ -486,7 +553,7 @@ class LLMModel:
         # there) or minted here, the edge for direct callers
         trace = str(payload.get("trace") or new_trace_id())
         rid = self._engine.submit(
-            prompt, max_new, temperature,
+            prompt, max_new, temperature, adapter=adapter,
             top_k=int(payload.get("top_k", 0)),
             top_p=float(payload.get("top_p", 1.0)),
             presence_penalty=float(payload.get("presence_penalty", 0.0)),

@@ -46,6 +46,11 @@ pool only when no chunk is in flight (`_flush_derefs`): a dispatched,
 unfetched chunk still writes through the old table into them. The table
 itself is copied into the same device tensor the decode graphs read,
 after every splice as after every reservation.
+
+Adapters (`adapters=`, the slab engine's multi-adapter serving) ride the
+same way: each slot's adapter index is `cache["aids"]` beside the table,
+and a request's cached blocks are matched and banked in its adapter's
+radix namespace.
 """
 
 from __future__ import annotations
@@ -118,13 +123,11 @@ class PagedLLMEngine(LLMEngine):
     # -- cache layout --------------------------------------------------------
 
     def _alloc_cache(self) -> dict:
-        """The pool's buffers, the device table and, with speculation, the
-        slab engine's token history (a slot's tokens are not paged)."""
+        """The pool's buffers, the device table and the slab engine's
+        per-slot buffers (the token history, the adapter indices)."""
         cache = self._pool.device_buffers(self.device)
         cache["tbl"] = torch.tensor(self._tbl_host, device=self.device)
-        if self.spec:
-            cache["hist"] = self._alloc_hist()
-        return cache
+        return self._slot_buffers(cache)
 
     def _tbl_sync(self) -> None:
         """Copy the host table mirror into the device table after a batch
@@ -210,9 +213,9 @@ class PagedLLMEngine(LLMEngine):
             return
         bt = self._bt
         aligned = (len(prompt) // bt) * bt
+        ns = self._ns(action.req_id)
         if aligned <= 0 or self.kvcache.cached_prefix_len(
-                prompt, max_tokens=aligned,
-                namespace=self._prefix_ns) >= aligned:
+                prompt, max_tokens=aligned, namespace=ns) >= aligned:
             return
         row = self._tbl_host[action.slot]
 
@@ -223,7 +226,7 @@ class PagedLLMEngine(LLMEngine):
 
         self.kvcache.insert(prompt, payload, max_tokens=aligned,
                             tenant=self._req_tenant.get(action.req_id),
-                            namespace=self._prefix_ns)
+                            namespace=ns)
 
     def _on_radix_evict(self, payload) -> None:
         """A trie eviction drops the trie's reference, through the
@@ -265,7 +268,7 @@ class PagedLLMEngine(LLMEngine):
         n, bt = len(prompt), self._bt
         if self.kvcache is not None and n - 1 >= bt:
             m = self.kvcache.match(prompt, max_tokens=n - 1,
-                                   namespace=self._prefix_ns)
+                                   namespace=self._ns(action.req_id))
             done = m.tokens
             while done > 0 and self._chunk_plan_from(n, done) is None:
                 done -= bt
@@ -301,7 +304,7 @@ class PagedLLMEngine(LLMEngine):
             return None, []
         n = len(prompt)
         m = self.kvcache.match(prompt, max_tokens=n - 1,
-                               namespace=self._prefix_ns)
+                               namespace=self._ns(action.req_id))
         p = m.tokens
         if n > action.bucket_len:
             while p > 0 and self._chunk_plan_from(n, p) is None:

@@ -335,12 +335,14 @@ class _Reader:
 
 def _read_step(step_dir: str, like: Any, device, subtree: str | None = None
                ) -> tuple[Any, int]:
-    """(state, bytes read) of one step directory, or of its `subtree`."""
+    """(state, bytes read) of one step directory, or of its `subtree`, a
+    "/"-joined key path ("params", "params/lora"); only that subtree's
+    files are read."""
     with open(os.path.join(step_dir, TREE_NAME)) as f:
         meta = json.load(f)
     stored = meta["tree"]
-    if subtree is not None:
-        stored = stored.get("dict", {}).get(subtree)
+    for key in (subtree.split("/") if subtree is not None else ()):
+        stored = stored.get("dict", {}).get(key)
         if stored is None:
             raise ValueError(f"{step_dir} holds no {subtree!r}")
     reader = _Reader(step_dir, meta["files"], device)
@@ -524,13 +526,16 @@ def restore_or_init(trainer, directory: str | None):
 
 
 def restore_params(directory: str, abstract_params, *,
-                   step: int | None = None, device="cpu"):
+                   step: int | None = None, device="cpu",
+                   subtree: str = "params"):
     """Only the `params` subtree of a trainer checkpoint (the serving
     side's restore: no optimizer state), read into tensors of
-    `abstract_params`' shapes and dtypes on `device`. With no step, the
-    newest one (`latest_step`, as the JAX function takes it). Raises
-    FileNotFoundError when the directory holds no checkpoint: a
-    configured but empty checkpoint must never serve random weights."""
+    `abstract_params`' shapes and dtypes on `device`; `subtree`
+    "params/lora" reads a llama_lora checkpoint's adapters alone. With
+    no step, the newest one (`latest_step`, as the JAX function takes
+    it). Raises FileNotFoundError when the directory holds no
+    checkpoint: a configured but empty checkpoint must never serve
+    random weights."""
     directory = os.path.abspath(directory)
     if step is None:
         steps = _all_steps(directory)
@@ -538,5 +543,5 @@ def restore_params(directory: str, abstract_params, *,
     step_dir = _step_dir(directory, step) if step is not None else None
     if step_dir is None:
         raise FileNotFoundError(f"no checkpoint under {directory!r}")
-    out, _ = _read_step(step_dir, abstract_params, device, subtree="params")
+    out, _ = _read_step(step_dir, abstract_params, device, subtree=subtree)
     return out

@@ -17,7 +17,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
-LLAMA_FAMILY = ("llama",)
+LLAMA_FAMILY = ("llama", "llama_lora")
 
 
 @dataclasses.dataclass

@@ -21,9 +21,12 @@ callback loses that step's save), on the manager's interval
 (`checkpoint_every`, keeping `keep_checkpoints`), and once more, forced,
 after the last step unless the interval saved it. Saves are synchronous
 (a host copy before the next in-place update); each one's seconds are
-echoed with the metrics. LoRA
-(trainable_prefix) and meshes past one card are not ported yet
-(ROADMAP.md).
+echoed with the metrics. `trainable_prefix` (LoRA: "lora") freezes every
+leaf whose "/"-joined path does not start with it, as the JAX trainer's
+optax.multi_transform with set_to_zero does: a frozen leaf has no
+optimizer state, is never updated or decayed, and needs no gradient;
+clipping still takes the global norm of every gradient it is given.
+Meshes past one card are not ported yet (ROADMAP.md queue A6).
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ class OptimizerConfig:
     b2: float = 0.95
     schedule: str = "cosine"   # cosine | linear | constant
     mu_dtype: str | None = None   # e.g. "bfloat16": first moment storage
+    # only leaves whose "/"-joined path starts with this train (e.g.
+    # "lora" for llama_lora); the others are frozen, with no state
+    trainable_prefix: str | None = None
 
 
 def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
@@ -82,11 +88,19 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     raise ValueError(f"unknown schedule {cfg.schedule!r}")
 
 
+def named_leaves(tree, path: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(the "/"-joined key path, tensor) of a nested dict's leaves, in
+    sorted key order (jax's)."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in named_leaves(tree[k], f"{path}/{k}" if path
+                                         else k)]
+    return [(path, tree)]
+
+
 def leaves(tree) -> list[torch.Tensor]:
     """The tensors of a nested dict, in sorted key order (jax's)."""
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in leaves(tree[k])]
-    return [tree]
+    return [t for _, t in named_leaves(tree)]
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -112,7 +126,9 @@ def _f32(x: float) -> float:
 class Optimizer:
     """The optax chain of make_optimizer over a list of param tensors.
     State is {"count": int, "mu": [...], "nu": [...]} for adam/adamw and
-    {"count": int, "trace": [...]} for sgd."""
+    {"count": int, "trace": [...]} for sgd, one entry per trainable
+    param: with `trainable_prefix` set and the params' paths given
+    (`named_leaves`), the frozen ones have none."""
 
     def __init__(self, cfg: OptimizerConfig):
         if cfg.name not in ("adamw", "adam", "sgd"):
@@ -121,7 +137,27 @@ class Optimizer:
         self.schedule = make_schedule(cfg)
         self.mu_dtype = getattr(torch, cfg.mu_dtype) if cfg.mu_dtype else None
 
-    def init(self, params: list[torch.Tensor]) -> dict[str, Any]:
+    def trainable(self, path: str) -> bool:
+        """True when the leaf at "/"-joined `path` trains: its keys start
+        with the prefix's (every leaf without a prefix)."""
+        if not self.cfg.trainable_prefix:
+            return True
+        want = self.cfg.trainable_prefix.split("/")
+        return path.split("/")[:len(want)] == want
+
+    def trainable_indices(self, n: int,
+                          paths: list[str] | None) -> list[int]:
+        """The positions of the trainable params among n (all of them
+        without paths)."""
+        if paths is None:
+            return list(range(n))
+        return [i for i, p in enumerate(paths) if self.trainable(p)]
+
+    def init(self, params: list[torch.Tensor],
+             paths: list[str] | None = None) -> dict[str, Any]:
+        params = [params[i] for i in self.trainable_indices(len(params),
+                                                            paths)]
+
         def zeros(p, dtype=None):
             return torch.zeros_like(p, dtype=dtype or p.dtype,
                                     requires_grad=False)
@@ -132,26 +168,32 @@ class Optimizer:
                 "nu": [zeros(p) for p in params]}
 
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor], state: dict[str, Any],
-               params: list[torch.Tensor]) -> None:
-        """One update of `params` in place; `state` and `grads` (which
-        the caller hands over) are updated in place too, to keep the
-        passes over the f32 state few."""
+    def update(self, grads: list[torch.Tensor | None], state: dict[str, Any],
+               params: list[torch.Tensor],
+               paths: list[str] | None = None) -> None:
+        """One update of the trainable `params` in place; `state` and
+        `grads` (which the caller hands over) are updated in place too, to
+        keep the passes over the f32 state few. A frozen param's grad may
+        be None (counted as zeros by the clip); a given one still counts
+        in the global norm, as optax clips before multi_transform."""
         cfg = self.cfg
-        grads = [g.float() for g in grads]
+        grads = [None if g is None else g.float() for g in grads]
         if cfg.grad_clip:
             # optax: keep when norm < max_norm, else scale by max_norm /
             # norm (1 where kept, so no host sync is needed)
-            norm = global_norm(grads)
+            present = [g for g in grads if g is not None]
+            norm = global_norm(present)
             factor = torch.where(norm < cfg.grad_clip, torch.ones_like(norm),
                                  cfg.grad_clip / norm)
-            torch._foreach_mul_(grads, factor)
+            torch._foreach_mul_(present, factor)
         count = state["count"]
         lr = self.schedule(count)
         if cfg.name != "sgd":
             bc1 = 1 - cfg.b1 ** float(count + 1)
             bc2 = 1 - cfg.b2 ** float(count + 1)
-        for i, (g, p) in enumerate(zip(grads, params)):
+        idx = self.trainable_indices(len(params), paths)
+        for i, (g, p) in enumerate(zip([grads[j] for j in idx],
+                                       [params[j] for j in idx])):
             if cfg.name == "sgd":
                 u = _times(0.9, state["trace"][i]).float().add_(g)
                 state["trace"][i].copy_(u)
@@ -231,23 +273,26 @@ class Trainer:
         """The train state's shapes and dtypes as meta tensors, params
         requiring grad as init_state's do (the checkpoint restore's
         target; no memory is touched)."""
-        params = self.model.abstract(self.model_cfg)
-        for p in leaves(params):
-            p.requires_grad_(True)
-        return {"params": params,
-                "opt_state": self.optimizer.init(leaves(params)),
-                "step": 0}
+        return self._state(self.model.abstract(self.model_cfg))
 
     def init_state(self, params=None) -> dict[str, Any]:
         """{"params", "opt_state", "step"}: params from the model's init at
-        config.seed unless given (e.g. converted from the JAX package)."""
+        config.seed unless given (e.g. converted from the JAX package).
+        Only trainable params require grad; the frozen ones get no
+        optimizer state."""
         if params is None:
             params = self.model.init(self.model_cfg, seed=self.config.seed,
                                      device=self.device)
-        for p in leaves(params):
-            p.requires_grad_(True)
+        return self._state(params)
+
+    def _state(self, params) -> dict[str, Any]:
+        named = named_leaves(params)
+        paths = [path for path, _ in named]
+        for path, p in named:
+            p.requires_grad_(self.optimizer.trainable(path))
         return {"params": params,
-                "opt_state": self.optimizer.init(leaves(params)),
+                "opt_state": self.optimizer.init([p for _, p in named],
+                                                 paths),
                 "step": 0}
 
     def to_device(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
@@ -258,13 +303,20 @@ class Trainer:
                    batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """One step in place on `state`; returns the step's metrics as
         0-d tensors (loss, tokens, grad_norm before clipping)."""
-        params = leaves(state["params"])
+        named = named_leaves(state["params"])
+        paths = [path for path, _ in named]
+        params = [p for _, p in named]
+        idx = self.optimizer.trainable_indices(len(params), paths)
         loss, metrics = self.model.loss_fn(state["params"], batch,
                                            self.model_cfg)
-        grads = torch.autograd.grad(loss, params)
+        # frozen params take no gradient: None stands for their zeros
+        grads: list[torch.Tensor | None] = [None] * len(params)
+        for i, g in zip(idx, torch.autograd.grad(
+                loss, [params[i] for i in idx])):
+            grads[i] = g
         out = {k: v.detach() for k, v in metrics.items()}
-        out["grad_norm"] = global_norm(list(grads))
-        self.optimizer.update(list(grads), state["opt_state"], params)
+        out["grad_norm"] = global_norm([g for g in grads if g is not None])
+        self.optimizer.update(grads, state["opt_state"], params, paths)
         state["step"] += 1
         return out
 

@@ -105,9 +105,25 @@ def test_c4_positional_temperature_samples_and_repeats(tiny):
 
 
 def test_c4_an_adapter_still_raises_naming_a3(tiny):
-    _, tcfg, _, tparams = tiny
+    """Adapters are ported (queue A3 closed): an unknown one raises the
+    JAX engine's "unknown adapter", and a loaded one is taken fourth, in
+    the JAX engine's positional order, with that engine's tokens."""
+    jcfg, tcfg, jparams, tparams = tiny
     eng = LLMEngine(tparams, tcfg, device="cpu", **ENGINE)
-    with pytest.raises(ValueError, match="A3"):
+    with pytest.raises(ValueError, match="unknown adapter"):
         eng.submit(PROMPTS[0], 4, 0.0, "my-adapter")
-    with pytest.raises(ValueError, match="A3"):
+    with pytest.raises(ValueError, match="unknown adapter"):
         eng.generate(PROMPTS[0], 4, 0.0, "my-adapter")
+    rng = np.random.default_rng(0)
+    shapes = tllama.matmul_shapes(tcfg)
+    lora = {t: {"a": rng.normal(size=(tcfg.n_layers, shapes[t][0], 2)
+                                ).astype(np.float32) * 0.1,
+                "b": rng.normal(size=(tcfg.n_layers, 2, shapes[t][1])
+                                ).astype(np.float32) * 0.1}
+            for t in ("wq", "wv")}
+    adapters = {"my-adapter": {"lora": lora, "alpha": 4.0}}
+    got = LLMEngine(tparams, tcfg, device="cpu", adapters=adapters,
+                    **ENGINE).generate(PROMPTS[0], 6, 0.0, "my-adapter")
+    want = JaxEngine(jparams, jcfg, prefer_native=False, adapters=adapters,
+                     **ENGINE).generate(PROMPTS[0], 6, 0.0, "my-adapter")
+    assert got == want and len(got) == 6

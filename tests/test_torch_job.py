@@ -55,8 +55,7 @@ def test_config_from_env_matches_the_jax_job():
     for f in dataclasses.fields(tcfg):
         got, want = getattr(tcfg, f.name), getattr(jcfg, f.name)
         if dataclasses.is_dataclass(got):
-            # the JAX optimizer's one more key, trainable_prefix (LoRA,
-            # queue A3), is unset in the example
+            # a JAX key the port lacks would have to be unset here
             got, want = dataclasses.asdict(got), dataclasses.asdict(want)
             assert all(want[k] is None for k in set(want) - set(got))
             want = {k: want[k] for k in got}

@@ -203,11 +203,20 @@ def test_unported_keys_raise_naming_their_item(served):
                              ("disagg", {"handoff": "serialized"}, "A5"),
                              ("parallel", {"tensor": 2}, "A6"),
                              ("mesh", {"tensor": 2}, "A6"),
-                             ("lora", {"rank": 8}, "A3"),
-                             ("adapters", {"a": {}}, "A3"),
                              ("grpc", True, "gRPC")):
         with pytest.raises(ValueError, match=item):
             LLMModel("m", path, device="cpu", **{key: value})
+    # lora and adapters are ported (queue A3): config.lora needs a
+    # llama_lora trainer checkpoint, as the JAX runtime's does, and an
+    # adapter whose checkpoint holds no step is refused at load
+    with pytest.raises(ModelError, match="requires a checkpoint"):
+        LLMModel("m", device="cpu", lora={"rank": 8}).load()
+    with pytest.raises(ModelError, match="adapter 'a'"):
+        LLMModel("m", device="cpu", model={"n_layers": 1, "d_model": 64,
+                                           "n_heads": 4, "n_kv_heads": 2,
+                                           "d_ff": 128, "vocab_size": 256},
+                 adapters={"a": {"checkpoint": str(path) + "-missing"}}
+                 ).load()
     with pytest.raises(ValueError, match="unsupported config keys"):
         LLMModel("m", path, device="cpu", beam_width=4)
     # not an HF directory: read as a trainer checkpoint, and one that

@@ -6,9 +6,9 @@ controller compute the same numbers; `run_scenario` of a miniature
 `steady` and of `multi_tenant_lora` (adapters=[], its caps on) over the
 port's tiny engine gives the JAX runner's per-request tokens and
 per-tenant completed, rejected and cancelled counts over the JAX engine;
-a trace that routes to adapters fails before replay; and the port's SSE
-client replays a trace through the port's server, one [DONE] a stream,
-with a tenant refusal answered 503."""
+a trace that routes to adapters the engine lacks fails before replay; and
+the port's SSE client replays a trace through the port's server, one
+[DONE] a stream, with a tenant refusal answered 503."""
 
 import dataclasses
 import random
@@ -45,9 +45,9 @@ E7_TRACES = {
     "steady_two_tenants": ("steady", {"n_tenants": 2},
                            "8ca0673d417454beea39a3c36d152b3f"
                            "a3a5b481382652f6a35940146d518310"),
-    "multi_tenant_lora": ("multi_tenant_lora", {"adapters": []},
-                          "5d99a79ed46a0c5016c76ce4cc335323"
-                          "8ae7c1af7ccb58982bbac9e15a911b88"),
+    "multi_tenant_lora": ("multi_tenant_lora", {},
+                          "4d61174032a28b3cbc00ca5cf49c9347"
+                          "01da41e608d89723d8aa9cb92ca351cf"),
 }
 
 

@@ -245,11 +245,14 @@ def test_port_only_surfaces_raise(tiny):
 
     with pytest.raises(TypeError, match="due_one_shots"):
         EngineSupervisor(factory).arm_faults(NotAnInjector())
-    # adapters are the one submit surface still unported (queue A3);
-    # tenant caps and shedding are ported: past its queue cap a tenant's
-    # submit is refused, through the supervisor and on the engine
+    # adapters are ported (queue A3): one the engine has not loaded is
+    # refused through the supervisor, with the JAX engine's message, and
+    # nothing is journaled; tenant caps and shedding are ported: past its
+    # queue cap a tenant's submit is refused, through the supervisor and
+    # on the engine
     sup = EngineSupervisor(factory, shed_policy=ShedPolicy())
-    with pytest.raises(ValueError, match="A3"):
+    assert sup._adapter_idx == {}
+    with pytest.raises(ValueError, match="unknown adapter 'a0'"):
         sup.submit(PROMPTS[0], NEW, adapter="a0")
     sup.set_tenant_limits(1, 1)
     sup.submit(PROMPTS[0], NEW, tenant="a")

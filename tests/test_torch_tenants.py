@@ -256,7 +256,8 @@ def test_tenant_ids_unique_and_bounded(tiny):
 def test_adapters_and_bad_tenants_refused(tiny):
     _, tcfg, _, tparams = tiny
     eng = LLMEngine(tparams, tcfg, device="cpu", **ENGINE)
-    with pytest.raises(ValueError, match="queue A3"):
+    # adapters are ported (queue A3); this engine loads none
+    with pytest.raises(ValueError, match="unknown adapter 'a0'"):
         eng.submit(PROMPTS[0], 2, adapter="a0")
     with pytest.raises(ValueError, match="tenant"):
         eng.submit(PROMPTS[0], 2, tenant="")

@@ -150,7 +150,8 @@ def test_from_dict_accepts_the_example_job_config():
 @pytest.mark.parametrize("raw,match", [
     ({"mesh": {"fsdp": 4}}, "one card"),
     ({"mesh": {"pipe": 1}}, "unknown mesh axis"),
-    ({"trainable_prefix": "lora"}, "not yet ported"),
+    # an optimizer key (below), as in the JAX job: not a trainer key
+    ({"trainable_prefix": "lora"}, "unknown or not yet ported"),
 ])
 def test_from_dict_rejects(raw, match):
     with pytest.raises(ValueError, match=match):
@@ -248,7 +249,7 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
 
 def test_registry_and_unknown_model():
     from kubeflow_tpu_torch.models import registry
-    assert registry.names() == ["llama"]
+    assert registry.names() == ["llama", "llama_lora"]
     assert registry.make_config("llama", TINY).d_model == 64
     with pytest.raises(KeyError, match="unknown model"):
         ttrainer.Trainer(ttrainer.TrainerConfig(model="bert"), device="cpu")
