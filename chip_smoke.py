@@ -217,6 +217,31 @@ Phases, in order; any failure exits non-zero before the result line:
       tokens/s against the engine without adapters, and the decode step's
       graph-replay wall with and without adapters at 8 and 16 slots;
       then K3 against its plain version at each shape it launched;
+  (e9) disaggregated serving: LLMModel(disaggregated=True) at the
+      flagship ISVC's config without speculation (16 slab slots x 2048,
+      int8, the prefix cache with 96-block stores) over (e)'s weights,
+      with the zero-copy handoff and then the serialized one, beside the
+      supervised colocated LLMModel: ten prompts of 136-255 tokens (one
+      block and a tail) and two under a block (bypass), 256 greedy tokens
+      each, submitted whole behind a gate, then four of 1,536 tokens
+      (64 tokens) once all twelve have their first token. It holds:
+      serialized tokens and the sha256 of every handed-off block equal
+      to zero-copy's, bytes_sent the blocks' bytes; the disaggregated
+      rows equal to the colocated ones or first different at a top-2
+      gap under E7_OTHER_GAP, and where any differs the colocated burst
+      again giving its tokens exactly; no full prefill on the decode
+      role, two bypasses, nothing lost; one weight copy (a leaf's
+      data_ptr in both roles); K1 and K3 launched by the prefill role
+      (no K2) and K1, K2, K3 by the decode role (counted by thread,
+      printed per role); no capture after warmup; the kv_handoff bucket
+      of serving_decode_breakdown on the decode role's engine; a
+      backend_crash on the prefill supervisor as the long prompts reach
+      it: one prefill restart, every stream complete, the tokens of the
+      run without it, nothing lost. Prints the short streams' per-token
+      delivery gaps while the long prompts prefill (p50/p99, colocated
+      against disaggregated), the long prompts' TTFT, handoff_ms, the
+      blocks and bytes handed off and the memory with both roles warm;
+      then K3 against its plain version at each shape it launched;
   (f) engine shapes: every kernel again against its plain version, at
       each argument shape the wrappers recorded in (e) (prefill waves,
       decode spans, lm_head rows, the paged engine's K2-paged launches),
@@ -347,6 +372,7 @@ import argparse
 import dataclasses
 import functools
 import gc
+import hashlib
 import http.client
 import json
 import math
@@ -4789,6 +4815,350 @@ def multi_adapter_phase(engine, seed: int):
     return k3_shapes
 
 
+# (e9): disaggregated prefill/decode at the flagship ISVC's config
+# (E6_ISVC without speculation: the prefix cache, 16 slab slots x 2048,
+# int8 weights and KV, logprobs_topk 5) over (e)'s weights, through
+# LLMModel(disaggregated=True), a burst per handoff transport, beside the
+# supervised colocated LLMModel. Ten prompts of 136..255 tokens (one 128-token block
+# and a tail, a hit on the decode role; a prompt of exactly 128 tokens
+# would leave no tail token for a hit) and two of 60 and 100 tokens
+# (shorter than a block: bypass) take 256 greedy tokens each; once all
+# twelve have their first token, four prompts of 1,536 tokens (the
+# chunked chain 1024 + 512 on the prefill role; a hit of 1,408 tokens and
+# a 128-token tail on the decode role) take 64. The prefix stores hold 96
+# blocks so the burst's 60 blocks never evict.
+E9_ISVC = {k: v for k, v in E6_ISVC.items()
+           if k not in ("speculative", "compile_cache")}
+E9_STORE_BLOCKS = 96
+E9_SHORT = (136, 150, 164, 178, 192, 206, 220, 234, 248, 255, 60, 100)
+E9_SHORT_NEW = 256
+E9_LONG = (1536,) * 4
+E9_LONG_NEW = 64
+
+
+class E9Gate(EngineGate):
+    """EngineGate over the supervisor the model loop steps (the decode
+    role's, or the colocated one), also recording after each step the
+    token count of each tracked request as (time, count) when it moved."""
+
+    def __init__(self, sup, engine):
+        super().__init__(sup)
+        self.engine = engine
+        self.track: list[int] = []
+        self.seen: dict[int, list[tuple[float, int]]] = {}
+
+    def _gated(self):
+        out = super()._gated()
+        now = time.monotonic()
+        for rid in self.track:
+            n = len(self.engine.partial_result(rid))
+            s = self.seen.setdefault(rid, [])
+            if not s or s[-1][1] < n:   # (a released request reads 0)
+                s.append((now, n))
+        return out
+
+
+def e9_model(engine, handoff):
+    """An LLMModel over (e)'s weights with the (e9) config, disaggregated
+    with `handoff` (None: colocated), loaded (each engine warmed), its
+    loop held at an E9Gate."""
+    cfg = dict(E9_ISVC, prefix_cache_blocks=E9_STORE_BLOCKS,
+               usage_timing=True)
+    if handoff is not None:
+        cfg.update(disaggregated=True, disagg={"handoff": handoff})
+    model = LLMModel("llama3-8b", params=engine.params,
+                     llama_config=engine.cfg, device=DEV, **cfg)
+    t = time.monotonic()
+    model.load()
+    sec = time.monotonic() - t
+    gate = E9Gate(model.supervisor, model._engine)
+    gate.close()
+    return model, gate, sec
+
+
+def e9_hash(payload) -> str:
+    h = hashlib.sha256()
+    for t in payload:
+        h.update(t.detach().cpu().contiguous().flatten().view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def e9_burst(model, gate, prompts, crash=None) -> dict:
+    """The (e9) burst through `model`: the twelve short prompts submitted
+    whole behind the gate (on a disaggregated model with the prefill
+    dispatch held too, and the gate opened once all ten handed-off ones
+    reached the decode role, so each role takes them in one wave), the
+    four long ones once all twelve have their first token (with `crash`,
+    the prefill supervisor armed with it as they go to the prefill role).
+    Returns each row's result, TTFT and deliveries, the gap window and the
+    payloads handed off."""
+    co = model._engine
+    disagg = model.prefill_supervisor is not None
+    short, long = prompts
+    sent = []
+    if disagg:
+        transfer = co.handoff.transfer
+
+        def kept(payload):
+            out = transfer(payload)
+            sent.append(out)
+            return out
+
+        co.handoff.transfer = kept
+        cap = co._max_inflight
+        co._max_inflight = 0
+    gate.seen = {}
+    _build.reset_launches()
+    sub_t = {}
+
+    def submit(p, n):
+        rid = model._submit({"prompt_tokens": p, "max_new_tokens": n})
+        sub_t[rid] = time.monotonic()
+        return rid
+
+    rids = [submit(p, E9_SHORT_NEW) for p in short]
+    gate.track = list(rids)
+    if disagg:
+        co._max_inflight = cap
+        t = time.monotonic()
+        while any(co._reqs[r].stage != "decode" for r in rids):
+            check(time.monotonic() - t < 120, "e9: the handed-off prompts "
+                  "never reached the decode role")
+            time.sleep(0.001)
+    gate.is_open.set()
+    t = time.monotonic()
+    while any(not gate.seen.get(r) or gate.seen[r][-1][1] < 1
+              for r in rids):
+        check(time.monotonic() - t < 120, "e9: no first tokens")
+        time.sleep(0.001)
+    if disagg:
+        co._max_inflight = 0
+    t_long = time.monotonic()
+    long_rids = [submit(p, E9_LONG_NEW) for p in long]
+    gate.track = rids + long_rids
+    if crash is not None:
+        model.prefill_supervisor.arm_faults(crash)
+    if disagg:
+        co._max_inflight = cap
+    results = [model._wait(r, full=True) for r in rids + long_rids]
+    if disagg:
+        del co.handoff.transfer
+    gate.close()
+    first = {r: next(t for t, n in gate.seen[r] if n >= 1)
+             for r in rids + long_rids}
+    t_end = max(first[r] for r in long_rids)
+    gaps = []
+    for r in rids:
+        pts = gate.seen[r]
+        for (t0, n0), (t1, n1) in zip(pts, pts[1:]):
+            if t_long <= t1 <= t_end and n1 > n0:
+                gaps.append((t1 - t0) / (n1 - n0) * 1e3)
+    return {"rows": results,
+            "ttft_ms": [round((first[r] - sub_t[r]) * 1e3, 3)
+                        for r in rids + long_rids],
+            "gaps_ms": gaps, "sent": sent,
+            "tagged": {k: dict(v) for k, v in _build.TAGGED.items()},
+            "k3_shapes": dict(_build.SHAPES["flash_prefill"])}
+
+
+def e9_summary(run, label) -> dict:
+    rows = run["rows"]
+    long_ttft = run["ttft_ms"][len(E9_SHORT):]
+    handoff = [r["timing"]["handoff_ms"] for r in rows
+               if r["timing"].get("handoff_ms") is not None]
+    out = {"gap_p50_ms": pct(run["gaps_ms"], 50),
+           "gap_p99_ms": pct(run["gaps_ms"], 99),
+           "gaps": len(run["gaps_ms"]),
+           "long_ttft_ms": long_ttft,
+           "long_ttft_mean_ms": round(sum(long_ttft) / len(long_ttft), 3)}
+    if handoff:
+        out["handoff_ms_mean"] = round(sum(handoff) / len(handoff), 3)
+    print(f"e9 {label}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def e9_tokens(run) -> list:
+    return [r["token_ids"] for r in run["rows"]]
+
+
+def e9_check_rows(run, label) -> None:
+    for i, r in enumerate(run["rows"]):
+        n = E9_SHORT_NEW if i < len(E9_SHORT) else E9_LONG_NEW
+        check(r["finish_reason"] == "length" and len(r["token_ids"]) == n,
+              f"e9 {label}: row {i} {r['finish_reason']} with "
+              f"{len(r['token_ids'])} tokens")
+
+
+def disagg_phase(engine, seed: int) -> dict:
+    """(e9) (the constants above): on one disaggregated model with the
+    zero-copy handoff, then the serialized one (its transport swapped and
+    both stores emptied between), and on the colocated model. Holds: serialized tokens and handed-off payload bytes (a
+    sha256 of every block) equal to zero-copy's; the disaggregated tokens
+    equal to the colocated ones or first different at a top-2 gap under
+    E7_OTHER_GAP, and where any differs the colocated burst again giving
+    its own tokens exactly (the serialized run is the disaggregated
+    repeat); no full prefill on the decode role, two bypasses, nothing
+    lost; one weight copy in both roles; K1 and K3 launched on the
+    prefill role and K1, K2 and K3 on the decode role, no K2 on the
+    prefill role; no decode capture after warmup; the kv_handoff bucket
+    on the decode role's engine a number. Then a backend_crash on the
+    prefill supervisor as the long prompts reach it (a chaos script): one
+    prefill restart, every stream complete, the zero-copy tokens, nothing
+    lost. Prints the short streams' per-token delivery gaps while the long
+    prompts prefill (colocated against disaggregated), the long prompts'
+    TTFT, handoff_ms, blocks and bytes handed off, the bucket and the
+    memory with both roles warm. Returns K3's shapes."""
+    from kubeflow_tpu_torch.chaos import (FaultScriptConfig, FaultSpec,
+                                          generate_fault_script)
+    from kubeflow_tpu_torch.serving.disagg import HANDOFFS
+    from kubeflow_tpu_torch.training import profiling
+
+    gen = torch.Generator().manual_seed(seed + 9)
+    vocab = engine.cfg.vocab_size
+    prompts = tuple([torch.randint(0, vocab, (n,), generator=gen).tolist()
+                     for n in lens] for lens in (E9_SHORT, E9_LONG))
+    runs, summary = {}, {}
+    model, gate, load_s = e9_model(engine, "zero_copy")
+    try:
+        co = model._engine
+        peng = model.prefill_supervisor.engine
+        deng = model.supervisor.engine
+        mem = torch.cuda.memory_allocated() / 1e9
+        keys = deng.graph_stats()["keys"]
+        wq = [e.params["layers"]["wq"]["q"].data_ptr()
+              for e in (engine, peng, deng)]
+        check(wq[0] == wq[1] == wq[2],
+              f"e9: the roles hold more than one weight copy {wq}")
+        print(f"e9: model loaded (both roles warmed) in {load_s:.2f} s, "
+              f"decode role {len(keys)} graphs, memory allocated "
+              f"{mem:.3f} GB with both roles warm", flush=True)
+        summary["memory_gb"] = round(mem, 3)
+        n_req = len(E9_SHORT) + len(E9_LONG)
+        for i, handoff in enumerate(("zero_copy", "serialized")):
+            # each transport from stores as empty as the first run's
+            co.handoff = HANDOFFS[handoff](lambda: co.decode.kvcache)
+            for eng in (peng, deng):
+                eng.kvcache.evict(10**9)
+            run = runs[handoff] = e9_burst(model, gate, prompts)
+            e9_check_rows(run, handoff)
+            m = model.metrics()
+            dg = m["disagg"]
+            acc = m["supervisor"]
+            check(m["disagg_full_prefills"] == 0
+                  and dg["bypass"] == 2 * (i + 1),
+                  f"e9 {handoff}: full prefills {m['disagg_full_prefills']}"
+                  f", bypass {dg['bypass']}")
+            check(acc["lost"] == 0 and acc["in_flight"] == 0
+                  and acc["completed"] == n_req * (i + 1),
+                  f"e9 {handoff}: accounting {acc}")
+            check(dg["pump_errors"] == 0, f"e9: {dg['last_pump_error']}")
+            check(deng.graph_stats()["keys"] == keys
+                  and deng.graph_stats()["captures"] == len(keys),
+                  f"e9 {handoff}: a decode graph was captured after warmup")
+            tagged = run["tagged"]
+            for role, names in (("prefill", ("quant_matmul",
+                                             "flash_prefill")),
+                                ("decode", SERVING_KERNELS)):
+                for n in names:
+                    check(tagged.get(role, {}).get(n, 0) > 0,
+                          f"e9 {handoff}: {role} role never launched {n}")
+            check(tagged.get("prefill", {}).get("flash_decode", 0) == 0,
+                  "e9: the prefill role launched K2")
+            s = summary[handoff] = e9_summary(run, handoff)
+            s.update(handoff=dg["handoff"],
+                     launches={role: {n: tagged.get(role, {}).get(n, 0)
+                                      for n in SERVING_KERNELS}
+                               for role in ("prefill", "decode")})
+            print(f"e9 {handoff}: handoff {json.dumps(dg['handoff'])}; "
+                  f"queue wait mean {dg['queue_wait_ms_mean']} ms; "
+                  f"launches by role {json.dumps(s['launches'])}",
+                  flush=True)
+        bd = profiling.serving_decode_breakdown(deng)
+        kvh = bd["buckets_ms"]["kv_handoff"]
+        check(isinstance(kvh, float),
+              f"e9: kv_handoff bucket {kvh!r} on the slab engine")
+        summary["kv_handoff_ms"] = kvh
+        print(f"e9 serving breakdown of the decode role: kv_handoff {kvh} "
+              f"ms (one 128-token block extracted, sliced and handed off); "
+              f"device_step_ms {bd['device_step_ms']}", flush=True)
+        # the crash run: zero-copy again, from empty stores
+        co.handoff = HANDOFFS["zero_copy"](lambda: co.decode.kvcache)
+        for eng in (peng, deng):
+            eng.kvcache.evict(10**9)
+        script = generate_fault_script(FaultScriptConfig(
+            seed=seed, duration_s=1.0,
+            faults=(FaultSpec("backend_crash", 1, (0.0, 0.0)),)),
+            name="e9")
+        crash = e9_burst(model, gate, prompts, crash=script)
+        e9_check_rows(crash, "crash")
+        pacc = model.prefill_supervisor.accounting()
+        acc = model.metrics()["supervisor"]
+        check(pacc["restarts"] == 1 and acc["decode"]["restarts"] == 0,
+              f"e9 crash: prefill restarts {pacc['restarts']}, decode "
+              f"{acc['decode']}")
+        check(acc["lost"] == 0 and acc["in_flight"] == 0,
+              f"e9 crash: accounting {acc}")
+        check(e9_tokens(crash) == e9_tokens(runs["zero_copy"]),
+              "e9 crash: tokens differ from the run without it")
+        summary["crash"] = {
+            "prefill_restarts": pacc["restarts"],
+            "prefill_mttr_s": pacc["mttr_s"],
+            "replayed": pacc["replayed"], "lost": acc["lost"]}
+        print(f"e9 prefill-role crash: {json.dumps(summary['crash'])}; "
+              "every stream complete, tokens equal to the run without the "
+              "crash", flush=True)
+    finally:
+        gate.remove()
+        model.unload()
+    zc, ser = runs["zero_copy"], runs["serialized"]
+    check(e9_tokens(ser) == e9_tokens(zc),
+          "e9: serialized tokens differ from zero-copy's")
+    hashes = {k: sorted(e9_hash(p) for p in runs[k]["sent"]) for k in runs}
+    check(hashes["serialized"] == hashes["zero_copy"]
+          and len(hashes["zero_copy"]) == summary["zero_copy"]["handoff"][
+              "blocks_sent"] > 0,
+          f"e9: handed-off payloads differ ({len(hashes['zero_copy'])} / "
+          f"{len(hashes['serialized'])} blocks)")
+    ser_bytes = summary["serialized"]["handoff"]["bytes_sent"]
+    check(ser_bytes == sum(t.nbytes for p in ser["sent"] for t in p) > 0,
+          f"e9: serialized bytes_sent {ser_bytes}")
+    model, gate, load_s = e9_model(engine, None)
+    try:
+        print(f"e9 colocated: model loaded in {load_s:.2f} s", flush=True)
+        colo = e9_burst(model, gate, prompts)
+        e9_check_rows(colo, "colocated")
+        summary["colocated"] = e9_summary(colo, "colocated")
+        diffs = []
+        for i, (d, c) in enumerate(zip(zc["rows"], colo["rows"])):
+            j = first_diff(d["token_ids"], c["token_ids"])
+            if j is not None:
+                lp = sorted(d["top_logprobs"][j].values(), reverse=True)
+                diffs.append({"row": i, "at": j,
+                              "gap": round(lp[0] - lp[1], 5)})
+        check(all(d["gap"] < E7_OTHER_GAP for d in diffs),
+              f"e9: disaggregated rows past E7_OTHER_GAP: {diffs}")
+        if diffs:
+            model.engine.kvcache.evict(10**9)
+            again = e9_burst(model, gate, prompts)
+            check(e9_tokens(again) == e9_tokens(colo),
+                  "e9 witness: the colocated burst again gave other tokens")
+        summary["differing_rows"] = diffs
+        print(f"e9: disaggregated against colocated, rows first "
+              f"different: {json.dumps(diffs)}"
+              + (" (witness: the colocated burst again gave its tokens "
+                 "exactly; serialized gave zero-copy's)" if diffs else ""),
+              flush=True)
+    finally:
+        gate.remove()
+        model.unload()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"e9 summary: {json.dumps(summary)}", flush=True)
+    shapes = dict(zc["k3_shapes"])
+    return shapes
+
+
 def fill_tables(engine, seed: int = 5) -> None:
     """A paged engine's slot tables filled with a shuffled permutation of
     its pool blocks (an idle engine leaves every row at block 0), in place:
@@ -5331,6 +5701,10 @@ def main(argv=None) -> int:
                              multi_adapter_phase, engine, args.seed)
         phase("e8 K3 shapes", continuation_shape_phase, gen, e8_k3_shapes,
               "e8")
+        e9_k3_shapes = phase("e9 disaggregated serving", disagg_phase,
+                             engine, args.seed)
+        phase("e9 K3 shapes", continuation_shape_phase, gen, e9_k3_shapes,
+              "e9")
         cases = {"quant_matmul": k1_step,
                  **phase("f engine shapes", engine_shape_phase, gen,
                          shapes)}

@@ -14,6 +14,7 @@ module of the port on a machine without `nvcc`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -44,56 +45,81 @@ LAUNCHES = {name: 0 for name in KERNELS}
 #: the same launches by argument shape, {kernel: {((arg, value), ...): n}},
 #: so a run's kernels can be checked again at exactly the shapes it used
 SHAPES: dict[str, dict[tuple, int]] = {name: {} for name in KERNELS}
+#: the same launches by the tag of the thread that made them
+#: (`set_thread_tag`), {tag: {kernel: n}}: the roles of a disaggregated
+#: engine run on two threads and are counted apart
+TAGGED: dict[str, dict[str, int]] = {}
+
+# The counters are shared by every thread; what a thread is doing is its
+# own: its tag, and whether its launches are being recorded for a CUDA
+# graph (`recording`).
+_count_lock = threading.Lock()
+_tls = threading.local()
+
+
+def set_thread_tag(tag: str | None) -> None:
+    """Count this thread's launches under `tag` in TAGGED as well."""
+    _tls.tag = tag
+
+
+def _merge(into: tuple[dict, dict], launches: dict[str, int],
+           shapes: dict[str, dict[tuple, int]]) -> None:
+    total, by_shape = into
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    for name, counts in shapes.items():
+        dst = by_shape.setdefault(name, {})
+        for key, n in counts.items():
+            dst[key] = dst.get(key, 0) + n
+
+
+def _add(launches: dict[str, int], shapes: dict[str, dict[tuple, int]]
+         ) -> None:
+    tag = getattr(_tls, "tag", None)
+    with _count_lock:
+        _merge((LAUNCHES, SHAPES), launches, shapes)
+        if tag is not None:
+            _merge((TAGGED.setdefault(tag, {}), {}), launches, {})
 
 
 def count_launch(name: str, **shape) -> None:
-    LAUNCHES[name] += 1
-    key = tuple(shape.items())
-    SHAPES[name][key] = SHAPES[name].get(key, 0) + 1
+    delta = ({name: 1}, {name: {tuple(shape.items()): 1}})
+    rec = getattr(_tls, "rec", None)
+    if rec is None:
+        _add(*delta)
+    else:
+        _merge(rec, *delta)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-        SHAPES[name].clear()
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+            SHAPES[name].clear()
+        TAGGED.clear()
 
 
 # A CUDA graph runs its kernels at every replay, but the wrappers count
-# only while it is captured: the engine takes the counts a capture added
-# (counts_since), puts the counters back (restore_counts) and adds the
-# capture's counts once per replay (add_counts).
+# only while it is captured: the engine runs the capture inside
+# `recording()`, which keeps this thread's launches out of the counters,
+# and adds what it recorded once per replay (`add_counts`). Other threads
+# count on undisturbed meanwhile.
 
 
-def snapshot_counts() -> tuple[dict, dict]:
-    return dict(LAUNCHES), {k: dict(v) for k, v in SHAPES.items()}
-
-
-def restore_counts(snap: tuple[dict, dict]) -> None:
-    launches, shapes = snap
-    LAUNCHES.update(launches)
-    for name, by_shape in SHAPES.items():
-        by_shape.clear()
-        by_shape.update(shapes[name])
-
-
-def counts_since(snap: tuple[dict, dict]) -> tuple[dict, dict]:
-    launches, shapes = snap
-    d_launches = {k: n - launches[k] for k, n in LAUNCHES.items()
-                  if n != launches[k]}
-    d_shapes = {name: {key: n - shapes[name].get(key, 0)
-                       for key, n in by_shape.items()
-                       if n != shapes[name].get(key, 0)}
-                for name, by_shape in SHAPES.items()}
-    return d_launches, d_shapes
+@contextlib.contextmanager
+def recording():
+    """Yields (launches, shapes), which collect this thread's launches
+    inside the block instead of the counters."""
+    prev = getattr(_tls, "rec", None)
+    _tls.rec = ({}, {})
+    try:
+        yield _tls.rec
+    finally:
+        _tls.rec = prev
 
 
 def add_counts(delta: tuple[dict, dict]) -> None:
-    d_launches, d_shapes = delta
-    for name, n in d_launches.items():
-        LAUNCHES[name] += n
-    for name, by_shape in d_shapes.items():
-        for key, n in by_shape.items():
-            SHAPES[name][key] = SHAPES[name].get(key, 0) + n
+    _add(*delta)
 
 
 def _nvcc() -> str:

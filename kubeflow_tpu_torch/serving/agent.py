@@ -26,21 +26,116 @@ are kept and applied again to every restarted engine.
 
 The fault injector is duck-typed (`start`, `due_one_shots`, `active`,
 `clear`), so the port's `chaos.FaultInjector` (and the JAX package's)
-drives this supervisor. The payload logger and the multi-model agent are
-not ported (ROADMAP.md queue A1.h).
+drives this supervisor.
+
+`PayloadLogger` (the JAX package's, the kserve logger sidecar's job):
+per-request JSON-lines records of what the server received and answered,
+configured per InferenceService by `spec.predictor.logger` ({mode: all |
+request | response, path: a file | url: a collector}). The file sink
+appends under a lock; the url sink posts from a thread of its own off a
+bounded queue (a full queue drops the record); a sink's error is
+swallowed, so logging never fails or slows a request. The multi-model
+agent (`MultiModelAgent`) is not ported: it serves TrainedModels of the
+model families of ROADMAP.md queue A7.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import queue
 import threading
 import time
+import urllib.request
 from typing import Any, Callable
 
 from kubeflow_tpu_torch.chaos import FaultInjector, FaultScript
 from kubeflow_tpu_torch.obs import metrics as obs_metrics
 from kubeflow_tpu_torch.obs.trace import TRACER
 from kubeflow_tpu_torch.serving.scheduler import QueueFull, TenantShed
+
+
+class PayloadLogger:
+    """Thread-safe JSON-lines payload log; `mode` picks which halves of
+    each exchange are recorded."""
+
+    def __init__(self, path: str | None = None, url: str | None = None,
+                 mode: str = "all"):
+        if mode not in ("all", "request", "response"):
+            raise ValueError(f"logger mode {mode!r} invalid")
+        if not path and not url:
+            raise ValueError("logger needs path or url")
+        self.path = path
+        self.url = url
+        self.mode = mode
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._queue: queue.Queue | None = None
+        if url:
+            # the url sink stays off the request path: a worker thread
+            # drains a bounded queue
+            self._queue = queue.Queue(maxsize=1024)
+            threading.Thread(target=self._url_worker, daemon=True,
+                             name="payload-logger").start()
+
+    def _emit(self, record: dict[str, Any]) -> None:
+        try:
+            line = json.dumps(record, default=str)
+        except Exception:
+            return
+        if self.path:
+            try:
+                with self._lock:
+                    with open(self.path, "a") as f:
+                        f.write(line + "\n")
+            except Exception:
+                pass
+        if self._queue is not None:
+            try:
+                self._queue.put_nowait(line)
+            except queue.Full:
+                pass   # log records are shed before requests are
+
+    def _url_worker(self) -> None:
+        while True:
+            line = self._queue.get()
+            try:
+                req = urllib.request.Request(
+                    self.url, data=line.encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=2.0):
+                    pass
+            except Exception:
+                pass
+            finally:
+                self._queue.task_done()
+
+    def flush(self, timeout: float = 5.0) -> None:
+        """Wait up to `timeout` for the url sink's queued records."""
+        if self._queue is None:
+            return
+        deadline = time.monotonic() + timeout
+        while not self._queue.empty() and time.monotonic() < deadline:
+            time.sleep(0.01)
+
+    def next_id(self) -> str:
+        with self._lock:
+            self._seq += 1
+            return f"req-{self._seq}"
+
+    def log_request(self, model: str, request_id: str,
+                    payload: Any) -> None:
+        if self.mode in ("all", "request"):
+            self._emit({"ts": time.time(), "id": request_id, "model": model,
+                        "type": "request", "payload": payload})
+
+    def log_response(self, model: str, request_id: str, payload: Any,
+                     latency_ms: float, status: int = 200) -> None:
+        if self.mode in ("all", "response"):
+            self._emit({"ts": time.time(), "id": request_id, "model": model,
+                        "type": "response", "status": status,
+                        "latency_ms": round(latency_ms, 3),
+                        "payload": payload})
 
 
 @dataclasses.dataclass

@@ -285,6 +285,11 @@ class LLMEngine:
     _cont_writes_prefix = True
     #: the obs component label and the name of the engine's spans
     role = "engine"
+    #: the KV residency: slab rows per slot ("paged": a block pool)
+    kv_layout = "slab"
+    #: whether the engine decodes: warmup() captures the decode menu only
+    #: then (a prefill role's requests end at their first token)
+    _decodes = True
 
     def __init__(self, params, cfg: llama.LlamaConfig, *, n_slots: int = 4,
                  max_len: int = 512, buckets: Sequence[int] = (64, 128, 256),
@@ -745,10 +750,13 @@ class LLMEngine:
 
     def _validate_submit(self, prompt, temperature, adapter, top_k, top_p,
                          presence_penalty, frequency_penalty, seed, stop,
-                         deadline_s, max_new_tokens):
+                         deadline_s, max_new_tokens, tenant=None):
         """Every submit()-time check, with the JAX engine's messages.
         Returns the normalized (temperature, top_k, top_p, presence,
         frequency, folded seed, stop sequences, adapter index)."""
+        if tenant is not None and (not isinstance(tenant, str)
+                                   or not 1 <= len(tenant) <= 256):
+            raise ValueError("tenant must be a string of 1..256 chars")
         if not (math.isfinite(temperature) and 0 <= temperature <= 100):
             raise ValueError("temperature must be finite and in [0, 100]")
         top_k = int(top_k)
@@ -820,14 +828,12 @@ class LLMEngine:
         `trace`: its trace id (obs/trace.py), under which its spans are
         recorded at finish when sampled; `adapter`: the name of a loaded
         adapter the request runs through (None: the base)."""
-        if tenant is not None and (not isinstance(tenant, str)
-                                   or not 1 <= len(tenant) <= 256):
-            raise ValueError("tenant must be a string of 1..256 chars")
         try:
             (temperature, top_k, top_p, presence_penalty, frequency_penalty,
              seed, stop_seqs, aid) = self._validate_submit(
                 prompt, temperature, adapter, top_k, top_p, presence_penalty,
-                frequency_penalty, seed, stop, deadline_s, max_new_tokens)
+                frequency_penalty, seed, stop, deadline_s, max_new_tokens,
+                tenant)
         except PromptTooLong:
             if len(prompt) > self.buckets[-1]:
                 # the scheduler's rejected counter (the operator metric)
@@ -1727,22 +1733,22 @@ class LLMEngine:
         the replay that follows. A capture that fails raises."""
         dev = self.device
         body = self._body(key)
-        counts = _build.snapshot_counts()
         saved = [t.clone() for t in self._chunk_state()]
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
-            body()
+        with torch.cuda.stream(side), _build.recording():
+            body()   # uncounted: the replays count
         current.wait_stream(side)
         for t, s in zip(self._chunk_state(), saved):
             t.copy_(s)
-        _build.restore_counts(counts)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool):
+        # thread_local: another engine's thread (a disaggregated engine's
+        # other role) may allocate and synchronize while this one captures
+        with _build.recording() as launches, torch.cuda.graph(
+                graph, pool=self._graph_pool,
+                capture_error_mode="thread_local"):
             out = body()
-        launches = _build.counts_since(counts)
-        _build.restore_counts(counts)
         self._graph_captures += 1
         return _GraphProgram(self, graph, out, launches)
 
@@ -1832,13 +1838,11 @@ class LLMEngine:
                 menu += [(c, self.max_len, kd)
                          for kd in self._spec_adapt.menu[:-1]
                          for c in sorted({chunks[-1], 1})]
-            for c, span, kd in menu:
-                for sample in (True, False):
-                    self._spec_chunk(c, span, kd, self._active_dev, sample)
         else:
-            for c, span in combos:
-                for sample in (True, False):
-                    self._decode_chunk(c, span, self._active_dev, sample)
+            menu = combos
+        for key in (menu if self._decodes else ()):
+            for sample in (True, False):
+                self._program(key + (sample,))()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.lengths.zero_()
@@ -2102,3 +2106,69 @@ class LLMEngine:
                   self._req_stop, self._deadlines, self._req_aids):
             d.pop(req_id, None)
         self._obs_finish(req_id)
+
+
+# -- disaggregated serving roles ----------------------------------------------
+#
+# Prefill and decode want opposite schedules from one engine: a chunked
+# prefill chain holds the step loop for a whole chunk plan, while decode
+# wants short uniform steps. serving/disagg.py splits the two onto
+# dedicated engine roles and moves the finished KV between them as radix
+# prefix-cache block payloads. Both roles are ordinary engines (one
+# program menu, one scheduler, one parity story); the classes below pin
+# what each side of the split relies on. As with LLMEngine, only a
+# supervisor's engine factory builds them on the serving path.
+
+
+class PrefillEngine(LLMEngine):
+    """The dedicated prefill worker (the JAX `PrefillEngine`): runs
+    (chunked) prefill, starting from the longest chain its own prefix
+    cache holds, and stops at the KV. Every submission is clamped to one
+    greedy token, which finishes the request at its prefill, so the
+    engine never decodes (`warmup()` captures no decode graph). The token
+    is discarded; the product is the block-aligned prefix KV banked in
+    `self.kvcache`, which the coordinator hands to the decode worker."""
+
+    role = "prefill"
+    _decodes = False
+
+    def __init__(self, params, cfg, **kw):
+        # the radix cache is the handoff's staging area
+        kw["prefix_cache"] = True
+        super().__init__(params, cfg, **kw)
+
+    def submit(self, prompt, max_new_tokens: int = 1,
+               temperature: float = 0.0, **kw) -> int:
+        # clamped, not honoured: the KV is the whole job, and greedy keeps
+        # the supervisor's journal replay exact
+        return super().submit(prompt, 1, 0.0, **kw)
+
+
+class DecodeEngine(LLMEngine):
+    """The dedicated decode worker (the JAX `DecodeEngine`): admissions
+    find their block-aligned prompt prefix in the prefix cache (a handoff
+    put it there), so a request's prefill is one tail continuation. An
+    admission of at least one block that finds no cached prefix pays a
+    full prefill (the handoff was missed: an eviction raced it, or a
+    replay landed on a fresh cache after a crash): counted in
+    `full_prefills`, never fatal."""
+
+    role = "decode"
+
+    def __init__(self, params, cfg, **kw):
+        kw["prefix_cache"] = True
+        super().__init__(params, cfg, **kw)
+        self.full_prefills = 0
+
+    def _prefix_lookup(self, action: PrefillAction):
+        hit = super()._prefix_lookup(action)
+        if hit is None and self.prefix_block_tokens \
+                and len(self._prompts.get(action.req_id, ())) - 1 \
+                >= self.prefix_block_tokens:
+            self.full_prefills += 1
+        return hit
+
+    def metrics(self) -> dict[str, Any]:
+        out = super().metrics()
+        out["disagg_full_prefills"] = self.full_prefills
+        return out

@@ -47,12 +47,24 @@ without a GPU that raises unless "cpu" is given). `compile_cache` names a
 directory where `ops/_build` keeps the nvcc-built kernel libraries,
 under the same source-hash keys, so a restarted predictor skips nvcc; the
 decode graphs are still captured by `warmup()` at every load (a CUDA
-graph cannot be kept across processes). Keys of paths the port has not
-ported raise a ValueError that names the ROADMAP.md queue item:
-`disaggregated`/`disagg` (A5), `grpc` (the gRPC dataplane). `mesh` and `parallel` are taken when every axis is 1 (one
-card, as `mesh: {tensor: 1}` in examples/hf-llama-inference-service.yaml);
-an axis above 1 raises naming A6, and the JAX runtime's "pass parallel OR
-mesh, not both" holds.
+graph cannot be kept across processes). `mesh` and `parallel` are taken
+when every axis is 1 (one card, as `mesh: {tensor: 1}` in
+examples/hf-llama-inference-service.yaml); an axis above 1 raises naming
+ROADMAP.md queue A6, and the JAX runtime's "pass parallel OR mesh, not
+both" holds.
+
+`disaggregated: true` serves through `serving/disagg.py`
+`DisaggregatedEngine`: a prefill role (`PrefillEngine`) and a decode role
+(`DecodeEngine`), each behind its own `EngineSupervisor` with its own
+engine factory, over the one set of weights (quantized once, here, never
+per role). `disagg: {handoff: zero_copy | serialized, prefill_slots,
+max_inflight_prefills}` tunes it. It requires `supervised`, and raises
+with `kv_layout: paged` or `parallel.stage > 1`, as in the JAX runtime.
+`supervisor` is then the decode role's supervisor and
+`prefill_supervisor` the prefill role's; `usage_timing` adds the
+pipeline's `handoff_ms` to the phase split. The predictor-level `grpc`,
+`logger` and `batching` keys are the server's (`serving/server.py`
+`CompletionServer.from_config`), not this class's.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from kubeflow_tpu_torch.obs.slo import SloBurnTracker
 from kubeflow_tpu_torch.obs.trace import TRACER, new_trace_id
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.serving.agent import EngineSupervisor
+from kubeflow_tpu_torch.serving.disagg import DisaggregatedEngine
 from kubeflow_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 
 
@@ -79,15 +92,6 @@ class ModelError(Exception):
 
 class ProtocolError(ValueError):
     """A malformed request (HTTP 400)."""
-
-
-#: config keys of paths not ported yet -> the ROADMAP.md item that ports
-#: them
-UNPORTED_KEYS = {
-    "disaggregated": "queue A5, disaggregated serving",
-    "disagg": "queue A5, disaggregated serving",
-    "grpc": "queue A1.h, the gRPC dataplane",
-}
 
 
 class LLMModel:
@@ -123,22 +127,32 @@ class LLMModel:
                  parallel: dict[str, Any] | None = None,
                  lora: dict[str, Any] | None = None,
                  adapters: dict[str, Any] | None = None,
+                 disaggregated: bool = False,
+                 disagg: dict[str, Any] | None = None,
                  device: str = "cuda",
                  params: Any = None,
                  llama_config: llama.LlamaConfig | None = None,
                  **rest: Any):
-        for key, item in UNPORTED_KEYS.items():
-            if rest.pop(key, None):
-                raise ValueError(f"config key {key!r} is not ported yet "
-                                 f"(ROADMAP.md {item})")
         if rest:
             raise ValueError(f"unsupported config keys {sorted(rest)}")
+        # config.disaggregated / config.disagg (module docstring)
+        self._disaggregated = bool(disaggregated)
+        self._disagg_cfg = dict(disagg or {})
+        if self._disaggregated and not supervised:
+            raise ValueError(
+                "disaggregated serving requires supervised: true (each "
+                "role's crash story is its supervisor)")
         # config.parallel {tensor, stage} and config.mesh: one card only
         par = dict(parallel or {})
         pp = 1 if par.get("stage") is None else int(par["stage"])
         tp = 1 if par.get("tensor") is None else int(par["tensor"])
         if pp < 1 or tp < 1:
             raise ValueError("parallel.stage/parallel.tensor must be >= 1")
+        if pp > 1 and self._disaggregated:
+            raise ValueError(
+                "parallel.stage > 1 does not compose with disaggregated "
+                "serving yet (the stage pipeline is the prefill/decode "
+                "overlap mechanism)")
         if (pp > 1 or tp > 1) and mesh:
             raise ValueError("pass parallel OR mesh, not both")
         if pp > 1 or tp > 1:
@@ -206,6 +220,11 @@ class LLMModel:
         if resolved not in ("slab", "paged"):
             raise ValueError(
                 f"kv_layout must be 'slab' or 'paged', got {resolved!r}")
+        if resolved == "paged" and self._disaggregated:
+            raise ValueError(
+                "kv_layout=paged does not compose with disaggregated "
+                "serving yet: the prefill->decode handoff moves slab "
+                "rows (serving/disagg.py)")
         self._kv_layout = resolved
         self._pool_blocks = pool_blocks
         # config.usage_timing: the request_timing() phase split in the
@@ -372,6 +391,10 @@ class LLMModel:
         if self._compile_cache:
             _build.set_build_root(self._compile_cache)
         params, cfg = self._load_params()
+        if self._quantize == "int8":
+            # once, here: every engine the factories build (both roles,
+            # every restart) shares these weights
+            params = llama.quantize_params(params)
         engine_kw = dict(n_slots=self._n_slots, max_len=self._max_len,
                          buckets=self._buckets, eos_id=self._eos_id,
                          decode_chunk=self._decode_chunk,
@@ -407,12 +430,40 @@ class LLMModel:
                 warmed.append(True)
             return eng
 
-        if self._supervised:
-            # the HTTP path's stall watchdog: conservative next to the
-            # supervisor's own 2 s default
-            sup_kw = {k: v for k, v in self._sup_cfg.items()
-                      if k != "rewarm"}
-            sup_kw.setdefault("stall_timeout_s", 10.0)
+        # the HTTP path's stall watchdog: conservative next to the
+        # supervisor's own 2 s default
+        sup_kw = {k: v for k, v in self._sup_cfg.items() if k != "rewarm"}
+        sup_kw.setdefault("stall_timeout_s", 10.0)
+        if self._disaggregated:
+            from kubeflow_tpu_torch.serving.llm import (DecodeEngine,
+                                                        PrefillEngine)
+
+            dg = self._disagg_cfg
+            pre_kw = dict(engine_kw)
+            if dg.get("prefill_slots"):
+                pre_kw["n_slots"] = int(dg["prefill_slots"])
+            warmed_roles: set[str] = set()
+
+            def warm(eng):
+                if rewarm or eng.role not in warmed_roles:
+                    eng.warmup()
+                    warmed_roles.add(eng.role)
+                return eng
+
+            # the roles' engines, like the colocated one, are built only
+            # in a supervisor's factory
+            def prefill_engine_factory():
+                return warm(PrefillEngine(params, cfg, **pre_kw))
+
+            def decode_engine_factory():
+                return warm(DecodeEngine(params, cfg, **engine_kw))
+
+            self._engine = DisaggregatedEngine(
+                EngineSupervisor(prefill_engine_factory, **sup_kw),
+                EngineSupervisor(decode_engine_factory, **sup_kw),
+                handoff=dg.get("handoff", "zero_copy"),
+                max_inflight_prefills=dg.get("max_inflight_prefills"))
+        elif self._supervised:
             self._engine = EngineSupervisor(engine_factory, **sup_kw)
         else:
             # the bare engine, for benches that measure it
@@ -465,14 +516,25 @@ class LLMModel:
     def supervisor(self) -> EngineSupervisor | None:
         """The EngineSupervisor under this model (None with supervised:
         false): chaos drills arm faults here, and /healthz reads its
-        accounting."""
-        return (self._engine if isinstance(self._engine, EngineSupervisor)
-                else None)
+        accounting. Disaggregated, the decode role's (the replica's
+        identity); the prefill role's is `prefill_supervisor`."""
+        eng = self._engine
+        if isinstance(eng, DisaggregatedEngine):
+            return eng.decode
+        return eng if isinstance(eng, EngineSupervisor) else None
+
+    @property
+    def prefill_supervisor(self) -> EngineSupervisor | None:
+        """The prefill role's EngineSupervisor (disaggregated serving
+        only, else None): the prefill-crash drill arms faults here."""
+        eng = self._engine
+        return eng.prefill if isinstance(eng, DisaggregatedEngine) else None
 
     @property
     def engine(self):
-        """The live engine (inside the supervisor, if any); None while a
-        supervised engine restarts or after unload()."""
+        """The live engine (inside the supervisor, if any; disaggregated,
+        the decode role's); None while a supervised engine restarts or
+        after unload()."""
         sup = self.supervisor
         return sup.engine if sup is not None else self._engine
 
@@ -607,7 +669,8 @@ class LLMModel:
         except Exception:
             return {}
         return {k: tm.get(k) for k in
-                ("queue_wait_ms", "prefill_ms", "decode_ms")}
+                ("queue_wait_ms", "prefill_ms", "handoff_ms", "decode_ms")
+                if k != "handoff_ms" or "handoff_ms" in tm}
 
     def _slo_record(self, rid: int, reason: str) -> None:
         """One finished request into the burn tracker (read before

@@ -70,6 +70,7 @@ class PagedLLMEngine(LLMEngine):
     """LLMEngine over block-granular paged KV (see the module
     docstring)."""
 
+    kv_layout = "paged"
     _cont_writes_prefix = False   # the spliced blocks hold the prefix
 
     def __init__(self, params, cfg: llama.LlamaConfig, *,

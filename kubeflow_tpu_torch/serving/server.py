@@ -12,13 +12,18 @@ server.py's `ModelServer`, over `serving/llm_runtime.py` `LLMModel`s.
                                         "prompt" (no echo)
     POST /v1/models/<m>:predict        {"instances": [{"prompt_tokens",
                                         "max_new_tokens", ...}, ...]}
+    POST /v2/models/<m>/infer          {"id"?, "inputs": [{"name":
+                                        "prompt_tokens", "shape",
+                                        "datatype", "data"}, ...]} ->
+                                        {"model_name", "id", "outputs":
+                                        [{"name": "output_tokens", ...}]}
     GET  /v1/models | /v2/models       the model's name
     GET  /v2/models/<m> | /v2/models/<m>/ready
     GET  /v2/health/live | /v2/health/ready
     GET  /healthz                      liveness, uptime, build stamp, and
                                         the model's prefix cache,
-                                        supervisor, device layout and SLO
-                                        window
+                                        supervisor, disaggregation,
+                                        device layout and SLO window
     GET  /metrics                      Prometheus text (obs/metrics.py)
 
 The wire format is the JAX server's. A non-streaming answer is one JSON
@@ -43,9 +48,18 @@ builds an `LLMModel`, whose supervisor factory is where an engine is
 made. The OpenAI `user` field is the request's tenant: its scheduler
 queue, fair share and admission caps, and its degraded-mode priority. A
 refusal by the scheduler or the supervisor (QueueFull, and its subtypes
-TenantOverQuota and TenantShed) answers 503, as the JAX server does. The
-V2 tensor `infer` route, gRPC, dynamic batching and the payload logger
-are not ported (ROADMAP.md queue A1.h).
+TenantOverQuota and TenantShed) answers 503, as the JAX server does.
+
+The V1 `predict` and V2 `infer` routes are the JAX server's: with a
+`payload_logger` (`serving/agent.py` `PayloadLogger`) each request is
+recorded before it runs and its answer, an error included, after, under
+one id; with `batching` ({model name: {maxBatchSize, maxLatencyMs}})
+the model's predict is wrapped in a `DynamicBatcher`. With `grpc=True` a
+`GrpcInferenceServer` (`serving/grpc_server.py`) serves the same model
+over the Open Inference Protocol beside the HTTP server, with the same
+batching config, started and stopped with it. `from_config` takes the
+predictor-level keys the JAX controller reads: `grpc`, `logger` ({mode,
+path | url}) and `batching`.
 """
 
 from __future__ import annotations
@@ -63,8 +77,11 @@ from kubeflow_tpu_torch.obs import metrics as obs_metrics
 from kubeflow_tpu_torch.obs.build import build_stamp
 from kubeflow_tpu_torch.obs.metrics import render_metrics
 from kubeflow_tpu_torch.obs.trace import TRACE_HEADER, TRACER, new_trace_id
+from kubeflow_tpu_torch.serving.agent import PayloadLogger
+from kubeflow_tpu_torch.serving.batching import DynamicBatcher
 from kubeflow_tpu_torch.serving.llm_runtime import (LLMModel, ModelError,
                                                     ProtocolError)
+from kubeflow_tpu_torch.serving.protocol import InferRequest, InferResponse
 from kubeflow_tpu_torch.serving.scheduler import PromptTooLong, QueueFull
 from kubeflow_tpu_torch.serving.tokenizer import (StreamDecoder,
                                                   chat_prompt_ids)
@@ -100,15 +117,32 @@ def _client_gone(sock) -> bool:
     return True
 
 
+def permanently_failed(model) -> bool:
+    """True when the model's supervisor has used up its restarts: the
+    replica can never serve again (/v2/health/ready, gRPC ServerReady)."""
+    try:
+        sup = (model.metrics() or {}).get("supervisor")
+    except Exception:
+        return False   # a model without metrics is not a verdict
+    return bool(sup and sup.get("permanent_failed"))
+
+
 class CompletionServer:
     """A threaded HTTP server over one LLMModel (each request on its own
     thread; the model steps its engine on its own). A model not loaded
     yet is loaded here, and unloaded by stop()."""
 
     def __init__(self, model, *, name: str = "kubeflow-tpu-torch-server",
-                 host: str = "127.0.0.1", port: int = 0):
+                 host: str = "127.0.0.1", port: int = 0,
+                 batching: dict[str, Any] | None = None,
+                 payload_logger: PayloadLogger | None = None,
+                 grpc: bool = False):
         self.model = model
         self.name = name
+        self.payload_logger = payload_logger
+        cfg = (batching or {}).get(model.name)
+        self._batcher = (DynamicBatcher.from_config(model.predict, cfg)
+                         if cfg else None)
         self._owns_model = not model.ready
         if self._owns_model:
             t0 = time.monotonic()
@@ -179,16 +213,40 @@ class CompletionServer:
         self._thread: threading.Thread | None = None
         self._t_start = time.monotonic()
         self._stopped = False
+        #: the OIP gRPC server beside this one (grpc=True), else None
+        self.grpc_server = None
+        if grpc:
+            from kubeflow_tpu_torch.serving.grpc_server import \
+                GrpcInferenceServer
+
+            try:
+                self.grpc_server = GrpcInferenceServer(
+                    model, host=host, batching=batching)
+            except BaseException:
+                self._close()
+                raise
 
     @classmethod
     def from_config(cls, params, cfg, config: dict[str, Any], *,
                     device="cuda", model: str = "llama",
-                    tokenizer: Any = None, **kw) -> "CompletionServer":
+                    tokenizer: Any = None, grpc: bool = False,
+                    logger: dict[str, Any] | None = None,
+                    batching: dict[str, Any] | None = None,
+                    **kw) -> "CompletionServer":
         """A server over a new LLMModel of `params`/`cfg` built from a
-        serving config dict (the LLMModel keys), loaded now."""
+        serving config dict (the LLMModel keys), loaded now; `grpc`,
+        `logger` ({mode, path | url}) and `batching` ({maxBatchSize,
+        maxLatencyMs}) are the InferenceService predictor's keys of those
+        names."""
         m = LLMModel(model, params=params, llama_config=cfg, device=device,
                      tokenizer=tokenizer, **config)
-        return cls(m, **kw)
+        if logger:
+            kw["payload_logger"] = PayloadLogger(
+                path=logger.get("path"), url=logger.get("url"),
+                mode=logger.get("mode", "all"))
+        if batching:
+            kw["batching"] = {m.name: batching}
+        return cls(m, grpc=grpc, **kw)
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -198,13 +256,24 @@ class CompletionServer:
                                         daemon=True,
                                         name=f"model-server-{self.port}")
         self._thread.start()
+        if self.grpc_server is not None:
+            self.grpc_server.start()
         return self
+
+    def _close(self) -> None:
+        """Close the sockets, the gRPC server and the batcher."""
+        self._stopped = True
+        if self._thread is not None:
+            self._httpd.shutdown()
+        self._httpd.server_close()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
+        if self._batcher is not None:
+            self._batcher.stop()
 
     def stop(self) -> None:
         """Stop serving, and unload the model if this server loaded it."""
-        self._stopped = True
-        self._httpd.shutdown()
-        self._httpd.server_close()
+        self._close()
         if self._owns_model:
             self._owns_model = False
             self.model.unload()
@@ -225,18 +294,15 @@ class CompletionServer:
         """The model's live engine (see LLMModel.engine)."""
         return self.model.engine
 
-    def permanently_failed(self) -> bool:
-        """True when the model's supervisor has used up its restarts: the
-        replica can never serve again (/v2/health/ready)."""
-        try:
-            sup = (self.model.metrics() or {}).get("supervisor")
-        except Exception:
-            return False   # a model without metrics is not a verdict
-        return bool(sup and sup.get("permanent_failed"))
-
     @property
     def ready(self) -> bool:
-        return self.model.ready and not self.permanently_failed()
+        return self.model.ready and not permanently_failed(self.model)
+
+    @property
+    def grpc_address(self) -> str | None:
+        """host:port of the gRPC server beside this one, if any."""
+        return (self.grpc_server.address if self.grpc_server is not None
+                else None)
 
     def _model(self, name: str | None):
         if name is not None and name != self.model.name:
@@ -279,6 +345,20 @@ class CompletionServer:
                 "journal_depth": sup.get("journal_depth", 0),
                 "in_flight": sup.get("in_flight", 0),
                 "degraded_rejections": sup.get("shed", 0)}}
+        dg = mm.get("disagg")
+        if dg:
+            # backpressure as an operator sees it: the prefill queue, the
+            # blocks in flight, the handoff's transport and counts
+            body["disagg"] = {mname: {
+                "queue_depth": dg.get("queue_depth", 0),
+                "inflight_prefills": dg.get("inflight_prefills", 0),
+                "blocks_in_flight": dg.get("blocks_in_flight", 0),
+                "queue_wait_ms_mean": dg.get("queue_wait_ms_mean"),
+                "bypass": dg.get("bypass", 0),
+                "handoff": dg.get("handoff"),
+                "prefill_restarts": dg.get("prefill_restarts", 0),
+                "prefill_permanent_failed": bool(
+                    dg.get("prefill_permanent_failed", False))}}
         return body
 
     def _handle_get(self, path: str) -> tuple[int, dict[str, Any]]:
@@ -319,6 +399,9 @@ class CompletionServer:
             if len(parts) == 3 and parts[:2] == ["v1", "models"]:
                 name, _, verb = parts[2].partition(":")
                 return self._v1(name, verb or "predict", body)
+            if (len(parts) == 4 and parts[:2] == ["v2", "models"]
+                    and parts[3] == "infer"):
+                return self._v2_infer(parts[2], body)
         except ProtocolError as e:
             return 400, {"error": str(e)}
         except ModelError as e:
@@ -673,26 +756,86 @@ class CompletionServer:
                            verb="completions", streamed=True,
                            tokens_sent=n_sent)
 
-    # -- V1 predict ------------------------------------------------------------
+    # -- V1 predict and V2 infer ----------------------------------------------
 
-    def _v1(self, name: str, verb: str, body: dict[str, Any]
+    def _predictor(self):
+        """The model's predict, through the batcher when there is one."""
+        return self._batcher or self.model.predict
+
+    def _logged(self, name: str, t0: float, code: int,
+                resp: dict[str, Any], rid: str | None
+                ) -> tuple[int, dict[str, Any]]:
+        if self.payload_logger is not None and rid is not None:
+            self.payload_logger.log_response(
+                name, rid, resp, (time.perf_counter() - t0) * 1e3, code)
+        return code, resp
+
+    def _log_request(self, name: str, body: Any) -> str | None:
+        if self.payload_logger is None:
+            return None
+        rid = self.payload_logger.next_id()
+        self.payload_logger.log_request(name, rid, body)
+        return rid
+
+    def _log_error(self, name: str, t0: float, rid: str | None,
+                   exc: Exception) -> None:
+        """Pair an error with its request record, under the status
+        _handle_post answers it with."""
+        if self.payload_logger is None or rid is None:
+            return
+        code = (400 if isinstance(exc, ProtocolError)
+                else 404 if isinstance(exc, ModelError) else 500)
+        self._logged(name, t0, code, {"error": str(exc)}, rid)
+
+    def _v1(self, name: str, verb: str, body: Any
             ) -> tuple[int, dict[str, Any]]:
-        model = self._model(name)
-        if not model.ready:
-            return 503, {"error": f"model {name!r} not ready"}
-        if not isinstance(body, dict) or "instances" not in body:
-            raise ProtocolError('V1 request must carry "instances"')
+        rid = self._log_request(name, body)
         t0 = time.perf_counter()
-        payload = model.preprocess(body["instances"])
-        if verb == "predict":
-            result = model.predict(payload)
-        elif verb == "explain":
-            result = model.explain(payload)
-        else:
-            return 400, {"error": f"unknown verb {verb!r}"}
-        result = model.postprocess(result)
-        self._observe(name, verb, time.perf_counter() - t0)
-        return 200, {"predictions": result}
+        try:
+            model = self._model(name)
+            if not model.ready:
+                return self._logged(name, t0, 503,
+                                    {"error": f"model {name!r} not ready"},
+                                    rid)
+            if not isinstance(body, dict) or "instances" not in body:
+                raise ProtocolError('V1 request must carry "instances"')
+            t_infer = time.perf_counter()
+            payload = model.preprocess(body["instances"])
+            if verb == "predict":
+                result = self._predictor()(payload)
+            elif verb == "explain":
+                result = model.explain(payload)
+            else:
+                return self._logged(name, t0, 400,
+                                    {"error": f"unknown verb {verb!r}"}, rid)
+            result = model.postprocess(result)
+            self._observe(name, verb, time.perf_counter() - t_infer)
+            return self._logged(name, t0, 200, {"predictions": result}, rid)
+        except Exception as e:
+            self._log_error(name, t0, rid, e)
+            raise
+
+    def _v2_infer(self, name: str, body: Any) -> tuple[int, dict[str, Any]]:
+        rid = self._log_request(name, body)
+        t0 = time.perf_counter()
+        try:
+            model = self._model(name)
+            if not model.ready:
+                return self._logged(name, t0, 503,
+                                    {"error": f"model {name!r} not ready"},
+                                    rid)
+            req = InferRequest.from_json(name, body)
+            t_infer = time.perf_counter()
+            payload = model.preprocess(req.as_dict())
+            result = model.postprocess(self._predictor()(payload))
+            self._observe(name, "infer", time.perf_counter() - t_infer)
+            return self._logged(
+                name, t0, 200,
+                InferResponse.from_result(name, result, id=req.id).to_json(),
+                rid)
+        except Exception as e:
+            self._log_error(name, t0, rid, e)
+            raise
 
     def _observe(self, model: str, verb: str, dt: float) -> None:
         obs_metrics.HTTP_REQUESTS.inc(model=model, verb=verb)

@@ -174,12 +174,16 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
       kv_gather            — paged engines: the span read through the
                              tables less a contiguous read of the same
                              volume (None on the slab engine);
-      kv_handoff           — None: the JAX breakdown prices moving one
-                             prefix-cache block between engines through
-                             serving/disagg.py's KVHandoff, which the
-                             port does not have yet; on a paged engine
-                             it is None by design (banking is refcounts
-                             on pool blocks, nothing moves);
+      kv_handoff           — on a slab engine with the prefix cache:
+                             moving one prefix-cache block between
+                             engines, a slot's block extracted and
+                             sliced into a payload of its own
+                             (`_payload_slice`, the banker's copy) and
+                             inserted through serving/disagg.py's
+                             zero-copy KVHandoff into a scratch
+                             RadixKVCache; None without the cache, and
+                             on a paged engine by design (banking is
+                             refcounts on pool blocks, nothing moves);
       pipeline_bubble      — None: the port has no stage-sharded engine.
 
     weight_read + attention_kv_update + sampling_penalties is the
@@ -386,6 +390,27 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
         t_gather, t_contig = _median_times([run_gather, run_contig], iters)
         kv_gather_ms = round(max(t_gather - t_contig, 0.0) * 1e3, 4)
 
+    kv_handoff_ms = None
+    if engine.kvcache is not None and not paged:
+        from kubeflow_tpu_torch.kvcache import RadixKVCache
+        from kubeflow_tpu_torch.serving.disagg import KVHandoff
+
+        bt = engine.prefix_block_tokens
+        scratch = RadixKVCache(bt, 4)
+        handoff = KVHandoff(lambda: scratch)
+        probe_tokens = list(range(1, bt + 1))
+
+        def run_handoff():
+            parts = engine._extract_prefix_raw(0, bt)
+            payload = engine._payload_slice(parts, 0, bt)
+            scratch.clear()   # nothing pins the scratch between runs
+            handoff.send(probe_tokens, [payload])
+            payload[0].flatten()[0].item()   # value fetch: waits
+
+        run_handoff()   # untimed first call
+        kv_handoff_ms = round(
+            max(_median_time(run_handoff, iters) - t_rtt, 0.0) * 1e3, 4)
+
     per_step = 1e3 / steps
     dev_full_ms = max(t_full - t_rtt, 0.0) * per_step
     # the stripped chunk does less than the full one: a median above the
@@ -428,7 +453,7 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
             "sampling_penalties": round(sampling_ms, 4),
             "dispatch_rtt_per_step": round(t_rtt * per_step, 4),
             "host_fetch_replay_per_step": host_ms,
-            "kv_handoff": None,
+            "kv_handoff": kv_handoff_ms,
             "kv_gather": kv_gather_ms,
             "pipeline_bubble": None,
         },

@@ -38,12 +38,15 @@ def test_no_jax_or_reference_imports(path):
 def test_the_dataplane_modules_are_scanned():
     """The serving dataplane's modules are among the scanned files: the
     port's own copies of the obs layer, its safetensors reader, the
-    supervisor and the predictor."""
+    supervisor and the predictor, the OIP codec, protos and gRPC server,
+    the batcher and the disaggregated coordinator."""
     port = ROOT / "kubeflow_tpu_torch"
     for rel in ("obs/metrics.py", "obs/trace.py", "obs/slo.py",
                 "models/safetensors.py", "serving/agent.py",
                 "serving/llm_runtime.py", "serving/server.py",
-                "serving/tokenizer.py"):
+                "serving/tokenizer.py", "serving/protocol.py",
+                "serving/protos/inference_pb2.py", "serving/grpc_server.py",
+                "serving/batching.py", "serving/disagg.py"):
         assert port / rel in FILES, rel
 
 

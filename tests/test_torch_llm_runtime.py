@@ -7,7 +7,8 @@ and speculation on. Greedy SSE completions, chat and buffered calls give
 the same token ids, text, finish_reason and usage (cached_tokens
 included) from both runtimes, with stop strings and logprobs; seeded rows
 repeat within the port; the keys of unported paths raise, each naming its
-ROADMAP.md item, and a path that is neither an HF directory nor a trainer
+ROADMAP.md item (and the disaggregated keys JAX refuses raise as there),
+and a path that is neither an HF directory nor a trainer
 checkpoint raises ModelError."""
 
 import json
@@ -199,13 +200,20 @@ def test_v1_predict_matches_jax(served):
 
 def test_unported_keys_raise_naming_their_item(served):
     path = served[2]
-    for key, value, item in (("disaggregated", True, "A5"),
-                             ("disagg", {"handoff": "serialized"}, "A5"),
-                             ("parallel", {"tensor": 2}, "A6"),
-                             ("mesh", {"tensor": 2}, "A6"),
-                             ("grpc", True, "gRPC")):
+    for key, value, item in (("parallel", {"tensor": 2}, "A6"),
+                             ("mesh", {"tensor": 2}, "A6")):
         with pytest.raises(ValueError, match=item):
             LLMModel("m", path, device="cpu", **{key: value})
+    # disaggregated serving is ported (queue A5) with the JAX runtime's
+    # refusals; grpc is the predictor's key, read by the server
+    # (CompletionServer.from_config), not this class's
+    for cfg, msg in (({"disaggregated": True, "supervised": False},
+                      "requires supervised"),
+                     ({"disaggregated": True, "kv_layout": "paged"},
+                      "kv_layout=paged"),
+                     ({"grpc": True}, "unsupported config keys")):
+        with pytest.raises(ValueError, match=msg):
+            LLMModel("m", path, device="cpu", **cfg)
     # lora and adapters are ported (queue A3): config.lora needs a
     # llama_lora trainer checkpoint, as the JAX runtime's does, and an
     # adapter whose checkpoint holds no step is refused at load

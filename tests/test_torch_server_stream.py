@@ -338,7 +338,8 @@ def test_the_port_keeps_the_dataplane_invariant():
     """Rule 1: inside the port's serving package an engine is built only
     in a function whose name says `factory` (the closure a supervisor
     restarts through); rule 2: the server names no engine class."""
-    engines = ("LLMEngine", "PagedLLMEngine")
+    engines = ("LLMEngine", "PagedLLMEngine", "PrefillEngine",
+               "DecodeEngine")
     serving = ROOT / "kubeflow_tpu_torch" / "serving"
     server = (serving / "server.py").read_text()
     assert not [n for n in engines if n in server]
@@ -350,6 +351,7 @@ def test_the_port_keeps_the_dataplane_invariant():
             built.append((path.name, name))
             assert any("factory" in fn for fn in stack), (path, line, name)
     assert ("llm_runtime.py", "LLMEngine") in built
+    assert ("llm_runtime.py", "PrefillEngine") in built
 
 
 def test_echo_and_best_of(port):
