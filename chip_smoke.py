@@ -345,13 +345,39 @@ Phases, in order; any failure exits non-zero before the result line:
       the training's shapes, K2 and K3 at the serving's, and K2-paged
       and K3-paged at one shape each, int8 and bf16, against their plain
       versions at head dim 32;
+  (m) the other model families: B1-B3 against their plain versions at
+      ViT-B/16's attention (B=64, S=197 of 196 patches and [CLS], H=12,
+      D=64, non-causal: ragged last tiles), with SDPA's times; ViT (its
+      default config) and Mixtral (tiny, head dim 8 on padded heads) in
+      bf16 through the kernels against the same params in f32 on the CPU
+      (the loss within LOSS_RTOL, each grad leaf within GRAD_LEAF_TOL or
+      M_REF_FACTOR times the plain bf16 CPU run's error); then a port
+      Trainer over each family's trainer config (m_jobs), 6 steps twice
+      from --seed on for_model's synthetic data: (m1) examples/
+      mnist-jaxjob.yaml's config (M1_JOB, less its checkpoint_dir), (m2)
+      BERT-base at 32 x 128 tokens, (m3) ResNet-50 at 224, B=64, (m4)
+      ViT-B/16, B=64, (m5) examples/nas-experiment.yaml's trial config
+      (M5_TRIAL with M5_OPS) and the DARTS supernet on its skeleton, then
+      derive, (m6) Mixtral at 8x7B widths cut to 2 of 32 layers, B=1 x
+      4096, with cuDNN's deterministic algorithms (restored after). It
+      holds finite losses, the repeat's losses bit for bit,
+      accuracy logged by the classifiers, B1-B3 launched in (m4) and (m6)
+      and in no other family; prints each family's median step (steps
+      2-6), samples/s (tokens/s for (m2), (m6)), the synthetic batch's
+      host seconds, peak memory, (m6)'s MFU over active experts, one
+      profiled step of (m3), (m4) and (m6); (m7) saves (m3)'s and (m4)'s
+      states with CheckpointManager and serves each with
+      TrainerCheckpointModel on the card: V1 and V2 logits for 8 images
+      bit for bit apply's on the in-process params, argmax theirs; the
+      checkpoints are removed after;
 Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the paged engine's run for
 K2-paged, the paged serving breakdown for K3-paged, the trainer for
 B1-B3), then K1, K2 and K2-paged again at (e5)'s verify shapes (K1's
 verify round at the row count (e5) launched most, with its launches
-there); the last line is {"ok": true, "device": {...}}.
+there), and B1-B3 at (m4)'s shape with (m4)'s launches; the last line is
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab OTHER_TREE
 
@@ -386,12 +412,14 @@ import threading
 import time
 import urllib.request
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch import loadgen
 from kubeflow_tpu_torch.chaos import FaultInjector
-from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.models import llama, moe_llama, nas_cnn, registry
+from kubeflow_tpu_torch.models import vit as vit_lib
 from kubeflow_tpu_torch.obs.build import build_stamp
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import flash_attention as fa
@@ -1533,7 +1561,7 @@ def step_profile(trainer, state, batch) -> dict:
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
     busy = {"flash_attn_fwd": 0.0, "flash_attn_dq": 0.0,
-            "flash_attn_dkv": 0.0, "gemm": 0.0, "other": 0.0}
+            "flash_attn_dkv": 0.0, "conv": 0.0, "gemm": 0.0, "other": 0.0}
     by_name: dict[str, float] = {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -1547,6 +1575,9 @@ def step_profile(trainer, state, batch) -> dict:
             busy["flash_attn_dq"] += ms
         elif "dkv_kernel" in key:
             busy["flash_attn_dkv"] += ms
+        elif any(w in key for w in ("conv", "cudnn", "dgrad", "wgrad",
+                                    "fprop")):
+            busy["conv"] += ms
         elif any(w in key for w in ("gemm", "nvjet", "xmma", "cutlass")):
             busy["gemm"] += ms
         else:
@@ -2449,6 +2480,338 @@ def lora_job_phase(seed: int) -> dict:
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# -- (m) the other model families on the card --------------------------------
+
+
+#: examples/mnist-jaxjob.yaml's KTPU_TRAINER_CONFIG as written
+#: (tests/test_torch_vision_models.py holds them equal); (m) leaves out
+#: its checkpoint_dir, a path outside the run's temporary directory
+M1_JOB = {"model": "mnist_cnn", "batch_size": 32, "num_steps": 60,
+          "log_every": 10,
+          "optimizer": {"name": "adamw", "learning_rate": 0.003},
+          "checkpoint_dir": "/tmp/kubeflow-tpu-examples/mnist-ckpt"}
+#: examples/nas-experiment.yaml's trial config as written; (m5) fills in
+#: the trial's two ops with M5_OPS
+M5_TRIAL = {"model": "nas_cnn",
+            "model_overrides": {"ops": ["${trialParameters.op_0}",
+                                        "${trialParameters.op_1}"],
+                                "channels": 8, "image_size": 8,
+                                "n_classes": 4},
+            "batch_size": 8, "num_steps": 20, "log_every": 5,
+            "optimizer": {"learning_rate": 0.003}}
+M5_OPS = ("sep3", "conv3")
+M_STEPS = 6
+# the width configs' schedule (as (j)): lr reaches its peak in 2 steps
+M_OPT = {"warmup_steps": 2, "total_steps": 100}
+#: the families whose steps must launch B1-B3 (the others none)
+M_FLASH = ("m4 vit", "m6 mixtral")
+M_SERVED = ("m3 resnet", "m4 vit")
+M7_IMAGES = 8
+#: ViT-B/16's attention in (m4): B, S (196 patches and [CLS]), H, D
+M4_ATTN = (64, 197, 12, 64)
+
+
+def m_jobs() -> dict[str, dict]:
+    """(m)'s trainer configs, as a job's KTPU_TRAINER_CONFIG holds them."""
+    nas = json.loads(json.dumps(M5_TRIAL).replace(
+        "${trialParameters.op_0}", M5_OPS[0]).replace(
+        "${trialParameters.op_1}", M5_OPS[1]))
+    vit = {f: getattr(vit_lib.ViTConfig.vit_b16(), f) for f in (
+        "image_size", "patch_size", "n_classes", "d_model", "n_layers",
+        "n_heads", "d_ff")}
+    mix = moe_llama.MoELlamaConfig.mixtral_8x7b()
+    mixtral = {f: getattr(mix, f) for f in (
+        "vocab_size", "d_model", "n_heads", "n_kv_heads", "d_ff",
+        "rope_theta", "n_experts", "top_k")}
+    mixtral.update(n_layers=2, max_seq_len=4096)
+    return {
+        "m1 mnist_cnn": {k: v for k, v in M1_JOB.items()
+                         if k != "checkpoint_dir"},
+        # BertConfig's defaults are BertConfig.base(); bert-jaxjob.yaml's
+        # optimizer and mesh
+        "m2 bert": {"model": "bert", "batch_size": 32, "mesh": {"data": -1},
+                    "optimizer": {"learning_rate": 0.0001, **M_OPT},
+                    "dataset": {"seq_len": 128}},
+        "m3 resnet": {"model": "resnet", "batch_size": 64,
+                      "model_overrides": {"image_size": 224,
+                                          "n_classes": 1000},
+                      "optimizer": dict(M_OPT)},
+        "m4 vit": {"model": "vit", "batch_size": 64, "model_overrides": vit,
+                   "optimizer": dict(M_OPT)},
+        "m5 nas_cnn": nas,
+        "m5 darts_supernet": dict(nas, model="darts_supernet"),
+        "m6 mixtral": {"model": "mixtral", "batch_size": 1,
+                       "model_overrides": mixtral,
+                       "dataset": {"seq_len": 4096},
+                       "optimizer": dict(M_OPT)}}
+
+
+def m_run(job: dict, seed: int):
+    """One run of M_STEPS steps of a trainer config on the card; returns
+    (trainer, state, per-step metrics, B1-B3 launches, peak GB)."""
+    cfg = train.TrainerConfig.from_dict(dict(job, log_every=1, seed=seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    trainer = train.Trainer(cfg, device=DEV,
+                            metrics=MetricsWriter(echo=False))
+    state = trainer.init_state()
+    data = train_data.make_dataset(cfg.dataset, cfg.model,
+                                   trainer.model_cfg, cfg.batch_size,
+                                   fallback_seed=cfg.seed)
+    log = []
+    trainer.train(data, M_STEPS, state,
+                  step_callback=lambda s, m: log.append(m))
+    launches = {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
+    return (trainer, state, log, launches,
+            torch.cuda.max_memory_allocated() / 1e9, data)
+
+
+#: (m)'s small reference: a card grad leaf may be off the f32 CPU run by
+#: this many times the plain bf16 CPU run's error (or GRAD_LEAF_TOL)
+M_REF_FACTOR = 2.0
+
+
+def m_reference_phase(seed: int) -> None:
+    """(m)'s small reference: ViT (its default config: 32 pixels, patch 4,
+    S = 65, head dim 64) and Mixtral (tiny: head dim 8, the kernels on
+    zero-padded heads) in bf16 through the kernels on the card against
+    the same params in f32 on the CPU: the loss within LOSS_RTOL, and
+    each grad leaf's largest error, relative to the leaf's largest
+    value, within GRAD_LEAF_TOL or M_REF_FACTOR times the error of the
+    same bf16 model on the CPU (the plain versions): bf16 alone moves
+    some leaves (ViT's wk) past GRAD_LEAF_TOL from f32. The ViT head is
+    made nonzero (its init is zero, which stops every other grad);
+    Mixtral's router is zero, so every token routes to experts 0 and 1
+    in every run (ties take the first index): a near tie could otherwise
+    go another way in bf16 than in f32 and move a whole token's
+    gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    cases = (
+        ("vit", vit_lib.ViTConfig(), {"image": torch.randn(
+            4, 32, 32, 3, generator=gen), "label": torch.randint(
+            0, 10, (4,), generator=gen)}),
+        ("mixtral", moe_llama.MoELlamaConfig.tiny(), {
+            "tokens": torch.randint(0, 512, (2, 128), generator=gen)}))
+    for name, cfg, batch in cases:
+        mdef = registry.get(name)
+        params = mdef.init(dataclasses.replace(cfg, dtype=torch.float32),
+                           seed=seed, device="cpu")
+        if name == "vit":
+            params["head"]["w"] = 0.1 * torch.randn(
+                params["head"]["w"].shape, generator=gen)
+        else:
+            params["layers"]["router"].zero_()
+        _build.reset_launches()
+        out = {}
+        for side, dev, dtype in (("card", DEV, torch.bfloat16),
+                                 ("cpu_bf16", "cpu", torch.bfloat16),
+                                 ("cpu_f32", "cpu", torch.float32)):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            p = tree_to(params, dev)
+            loss, _ = mdef.loss_fn(p, {k: v.to(dev) for k, v in
+                                       batch.items()}, c)
+            named = train.named_leaves(p)
+            grads = torch.autograd.grad(loss, [t for _, t in named])
+            out[side] = (loss.item(), [(n, g.float().cpu()) for (n, _), g
+                                       in zip(named, grads)])
+        for kern in TRAINING_KERNELS:
+            check(_build.LAUNCHES[kern] > 0,
+                  f"m reference {name}: {kern} was not launched")
+        (cl, cg), (_, bg), (rl, rg) = (out["card"], out["cpu_bf16"],
+                                       out["cpu_f32"])
+        check(math.isfinite(cl) and abs(cl - rl) <= LOSS_RTOL * abs(rl),
+              f"m reference {name}: loss {cl} vs CPU f32 {rl}")
+        worst = (0.0, "", 0.0)
+        for (n, g), (_, b), (_, r) in zip(cg, bg, rg):
+            check(bool(torch.isfinite(g).all()),
+                  f"m reference {name}: {n} grad not finite")
+            top = r.abs().max().clamp_min(1e-30)
+            rel = ((g - r).abs().max() / top).item()
+            plain = ((b - r).abs().max() / top).item()
+            check(rel <= max(GRAD_LEAF_TOL, M_REF_FACTOR * plain),
+                  f"m reference {name}: grad {n} off f32 by {rel:.4g} of "
+                  f"its max, the plain bf16 run by {plain:.4g}")
+            if rel > worst[0]:
+                worst = (rel, n, plain)
+        print(f"m reference {name}: loss card bf16 {cl:.6f} cpu f32 "
+              f"{rl:.6f} (tol {LOSS_RTOL:.0%}); worst grad leaf "
+              f"{worst[1]} {worst[0]:.4g} of its max against f32 (the "
+              f"plain bf16 run {worst[2]:.4g}; tol {GRAD_LEAF_TOL:.4g} or "
+              f"{M_REF_FACTOR:g}x the plain run's); launches "
+              f"{json.dumps({k: _build.LAUNCHES[k] for k in TRAINING_KERNELS})}",
+              flush=True)
+
+
+def m7_serve(label: str, job: dict, trainer, state, seed: int,
+             root: str) -> dict:
+    """(m7): the trained state saved by the port's CheckpointManager and
+    served by TrainerCheckpointModel(checkpoint=...) on the card: logits
+    for M7_IMAGES images bit for bit the family's apply on the in-process
+    params, argmax theirs, a V2 single-tensor payload the same. The
+    checkpoint is removed after."""
+    from kubeflow_tpu_torch.serving.trainer_runtime import (
+        TrainerCheckpointModel)
+    from kubeflow_tpu_torch.training.checkpoint import CheckpointManager
+
+    ckpt = os.path.join(root, label.split()[0])
+    try:
+        t0 = time.monotonic()
+        mngr = CheckpointManager(ckpt)
+        mngr.save(state["step"], state, force=True)
+        mngr.close()
+        save_s = time.monotonic() - t0
+        images = next(train_data.for_model(
+            job["model"], trainer.model_cfg, M7_IMAGES, seed=seed + 7))[
+            "image"]
+        with torch.no_grad():
+            want = trainer.model.apply(
+                state["params"], torch.from_numpy(images).to(DEV),
+                trainer.model_cfg).float().cpu().numpy()
+        got = {}
+        for output in ("logits", "argmax"):
+            model = TrainerCheckpointModel(
+                label, model=job["model"],
+                model_overrides=job.get("model_overrides"),
+                checkpoint=ckpt, output=output, device=DEV)
+            t0 = time.monotonic()
+            model.load()
+            load_s = time.monotonic() - t0
+            got[output] = (model.predict(images.tolist()),
+                           model.predict({"image": images}))
+            model.unload()
+        for i, logits in enumerate(got["logits"]):
+            check(logits.dtype == np.float32 and logits.shape == want.shape
+                  and np.array_equal(logits, want),
+                  f"m7 {label}: served logits ({('V1', 'V2')[i]}) differ "
+                  f"from apply's by {np.abs(logits - want).max()}")
+        for top in got["argmax"]:
+            check(np.array_equal(top, want.argmax(axis=-1)),
+                  f"m7 {label}: served argmax differs")
+        return {"save_s": round(save_s, 3), "load_s": round(load_s, 3),
+                "logits_shape": list(want.shape),
+                "checkpoint_gb": round(sum(
+                    os.path.getsize(os.path.join(d, f))
+                    for d, _, fs in os.walk(ckpt) for f in fs) / 1e9, 3)}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def families_phase(seed: int, gen) -> dict:
+    """(m): each family's trainer config (m_jobs) on a port Trainer, 6
+    steps twice from --seed on for_model's data, with cuDNN's
+    deterministic algorithms: finite losses, the repeat's losses bit for
+    bit, accuracy logged by the classifiers, B1-B3 launched in (m4) and
+    (m6) and in no other family; the median step over steps 2-6,
+    samples/s (tokens/s for (m2) and (m6)), peak memory, (m6)'s MFU over
+    active experts, one profiled step of (m3), (m4) and (m6), the
+    supernet's derived architecture, and (m7). B1-B3 are first held to
+    their plain versions at (m4)'s shape. Returns B1-B3's kernel-line
+    entries at (m4)'s shape, with (m4)'s launches."""
+    print(f"m families on {card_line()}", flush=True)
+    # deterministic cuDNN algorithms: with the defaults, (m1)'s repeat
+    # differed after step 3 in a full run (not when (m) ran alone); the
+    # setting cost nothing measurable alone (PERF.md)
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _families(seed, gen)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+
+
+def _families(seed: int, gen) -> dict:
+    b, s, h, d = M4_ATTN
+    attn = train_attn_case(gen, b, s, False, False, h=h, d=d)
+    for kern, c in attn.items():
+        errs = " ".join(f"{n} worst row {w:.3g}" for n, (_, w) in
+                        c["errs"].items())
+        print(f"{kern} at ViT-B/16's B={b} S={s} H={h} D={d} non-causal: "
+              f"{errs}; {fmt(c)}", flush=True)
+    torch.cuda.empty_cache()
+    m_reference_phase(seed)
+    root = tempfile.mkdtemp(prefix="chip-smoke-m-")
+    stats: dict[str, dict] = {}
+    try:
+        for label, job in m_jobs().items():
+            runs = []
+            for rep in range(2):
+                trainer, state, log, launches, peak, data = m_run(job, seed)
+                runs.append(log)
+                if rep == 0:
+                    del trainer, state
+                    continue
+                st = m_family_stats(label, job, trainer, state, log,
+                                    launches, peak, data)
+                if label == "m4 vit":
+                    shape_key = attn["flash_attn_fwd"]["shape_key"]
+                    check(shape_key in _build.SHAPES["flash_attn_fwd"],
+                          "m4: B1 never ran at the shape timed before it")
+                    for kern in TRAINING_KERNELS:
+                        attn[kern]["launches"] = launches[kern]
+                if label in M_SERVED:
+                    st["m7"] = m7_serve(label, job, trainer, state, seed,
+                                        root)
+                    print(f"m7 {label}: {json.dumps(st['m7'])}", flush=True)
+                if label == "m5 darts_supernet":
+                    arch = nas_cnn.derive(state["params"]["alpha"].detach())
+                    check(len(arch) == len(M5_OPS) and all(
+                        op in nas_cnn.OP_NAMES for op in arch),
+                        f"m5: derive gave {arch}")
+                    st["derived"] = list(arch)
+                del trainer, state
+            first, second = ([m["loss"] for m in r] for r in runs)
+            check(first == second, f"{label}: run 2's losses {second} "
+                                   f"differ from run 1's {first}")
+            stats[label] = st
+            print(f"{label}: {json.dumps(st)}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return attn
+
+
+def m_family_stats(label, job, trainer, state, log, launches, peak,
+                   data) -> dict:
+    """Checks and numbers of one (m) family's second run."""
+    classifier = job["model"] not in ("mixtral",)
+    for i, m in enumerate(log):
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"{label}: step {i + 1} loss/grad_norm not finite")
+        check(not classifier or "accuracy" in m,
+              f"{label}: step {i + 1} logged no accuracy")
+    flash = label in M_FLASH
+    for kern in TRAINING_KERNELS:
+        check((launches[kern] > 0) == flash,
+              f"{label}: {kern} launched {launches[kern]} times")
+    cfg = trainer.config
+    steady = sorted(m["step_time_s"] for m in log[1:])
+    step_s = steady[len(steady) // 2]
+    t0 = time.perf_counter()
+    batch = next(data)
+    data_s = time.perf_counter() - t0
+    st = {"losses": [round(m["loss"], 6) for m in log],
+          "step_time_s_median": step_s,
+          "samples_per_s": cfg.batch_size / step_s,
+          "data_s_per_batch": data_s, "peak_memory_gb": peak,
+          "b1_b3_launches": launches,
+          "params": sum(p.numel() for p in train.leaves(state["params"]))}
+    if "accuracy" in log[-1]:
+        st["accuracy"] = [m["accuracy"] for m in log]
+    if job["model"] in ("bert", "mixtral"):
+        tokens = cfg.batch_size * cfg.dataset.seq_len
+        st["tokens_per_s"] = tokens / step_s
+    if job["model"] == "mixtral":
+        flops = moe_llama.flops_per_token(
+            trainer.model_cfg, cfg.dataset.seq_len) * tokens
+        st["mfu_active_experts"] = mfu.mfu(flops, step_s, 1)
+        st["aux_loss"] = [round(m["aux_loss"], 6) for m in log]
+    if label in ("m3 resnet", "m4 vit", "m6 mixtral"):
+        st["profile"] = step_profile(trainer, state,
+                                     trainer.to_device(batch))
+    return st
 
 
 # -- (e) engine at full 8B width, (f) engine shapes, (g) server --------------
@@ -5304,6 +5667,9 @@ def prefill_breakdown(engine, seed: int) -> dict:
             busy["flash_prefill"] += ms
         elif "dequant_kernel" in key:
             busy["quant_matmul"] += ms
+        elif any(w in key for w in ("conv", "cudnn", "dgrad", "wgrad",
+                                    "fprop")):
+            busy["conv"] += ms
         elif any(w in key for w in ("gemm", "nvjet", "xmma", "cutlass")):
             busy["gemm"] += ms
         else:
@@ -5739,6 +6105,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(e6_root, ignore_errors=True)
     phase("l2 LoRA job", lora_job_phase, args.seed)
+    m4_attn = phase("m model families", families_phase, args.seed, gen)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     kernels = []
     for name in _build.KERNELS:
@@ -5775,6 +6142,17 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"]})
+    # B1-B3 at ViT-B/16's non-causal shape, launched by (m4)
+    for name in TRAINING_KERNELS:
+        c = m4_attn[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"kubeflow_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": c["launches"],
+            "max_abs_err": c["err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": f"{c['shape']} (m4, ViT-B/16)"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

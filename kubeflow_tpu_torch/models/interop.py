@@ -1,6 +1,10 @@
 """Parameters from the JAX package's trees.
 
-`from_jax_params` takes a `kubeflow_tpu.models.llama.init` (or
+`from_jax_tree` takes any registered family's JAX param tree (numpy
+leaves, as below) and the port registry's `abstract` tree for the same
+config, and copies leaf for leaf after checking the structure, every
+shape and every dtype. `from_jax_params` takes a
+`kubeflow_tpu.models.llama.init` (or
 `quantize_params`) tree whose leaves are numpy arrays — the caller runs
 `jax.tree.map(numpy.asarray, params)` — and returns the port's tree on
 `device`. The two packages share the layout (stacked [L, ...] layers,
@@ -32,6 +36,35 @@ def _leaf(value: Any, device: torch.device):
     if isinstance(value, dict):
         return {k: _tensor(v, device) for k, v in value.items()}
     return _tensor(value, device)
+
+
+def from_jax_tree(tree: Any, abstract: Any, device="cuda") -> Any:
+    """A JAX param tree (dicts and lists of numpy leaves) as the port's
+    tree on `device`, walked against `abstract` (the registry's meta
+    tree for the same config): raises ValueError at the first key set,
+    list length, shape or dtype that differs."""
+    dev = resolve_device(device)
+
+    def walk(node, like, path):
+        where = path or "/"
+        if isinstance(like, dict):
+            if not isinstance(node, dict) or set(node) != set(like):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"{where}: keys {got} != {sorted(like)}")
+            return {k: walk(node[k], v, f"{path}/{k}") for k, v in
+                    like.items()}
+        if isinstance(like, (list, tuple)):
+            if not isinstance(node, (list, tuple)) or len(node) != len(like):
+                raise ValueError(f"{where}: not a list of {len(like)}")
+            return [walk(n, v, f"{path}/{i}") for i, (n, v) in
+                    enumerate(zip(node, like))]
+        t = _tensor(node, dev)
+        if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
+            raise ValueError(f"{where}: {tuple(t.shape)} {t.dtype}, the "
+                             f"port wants {tuple(like.shape)} {like.dtype}")
+        return t
+
+    return walk(tree, abstract, "")
 
 
 def from_jax_params(tree: dict[str, Any], cfg: LlamaConfig,

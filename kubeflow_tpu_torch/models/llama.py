@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models import safetensors
+from kubeflow_tpu_torch.models.common import set_dtypes, unstack_layers
 from kubeflow_tpu_torch.ops import quant
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.flash_decode import flash_decode_attention
@@ -111,10 +112,7 @@ class LlamaConfig:
                 f"pipeline_microbatches={self.pipeline_microbatches}: "
                 "pipeline parallelism is not ported yet (ROADMAP.md queue "
                 "A6, parallelism)")
-        for name in ("dtype", "param_dtype"):   # "bfloat16" from a config
-            value = getattr(self, name)
-            if isinstance(value, str):
-                object.__setattr__(self, name, getattr(torch, value))
+        set_dtypes(self, "dtype", "param_dtype")
 
     @property
     def head_dim(self) -> int:
@@ -218,19 +216,6 @@ def quantize_params(params: Params) -> Params:
     if not quant.is_quantized(params["lm_head"]):
         out["lm_head"] = quant.quantize_int8(params["lm_head"])
     return out
-
-
-def unstack_layers(layers: Params) -> list[Params]:
-    """The stacked [L, ...] tree as L per-layer trees of views, split with
-    one unbind per leaf: in training, autograd then gathers the layers'
-    grads with one stack per leaf, where indexing each layer would scatter
-    its grad into a full-size zero tensor and add them up."""
-    parts = {k: ({"q": v["q"].unbind(0), "s": v["s"].unbind(0)}
-                 if quant.is_quantized(v) else v.unbind(0))
-             for k, v in layers.items()}
-    return [{k: ({"q": p["q"][i], "s": p["s"][i]} if isinstance(p, dict)
-                 else p[i]) for k, p in parts.items()}
-            for i in range(layers["attn_norm"].shape[0])]
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,18 @@
 """Model registry: name -> (config class, init, apply, loss_fn, abstract)
 (counterpart of kubeflow_tpu/models/registry.py). A training job names a
-registered model and config overrides. The Llama family is ported
-(`llama` and its LoRA fine-tune `llama_lora`); the other families of the
-JAX registry are queued in ROADMAP.md."""
+registered model and config overrides. Every family of the JAX registry
+is here: the Llama decoder (`llama`) and its LoRA fine-tune
+(`llama_lora`), the Mixtral-style MoE (`mixtral`), BERT (`bert`), ResNet
+(`resnet`), ViT (`vit`), the MNIST CNN (`mnist_cnn`), and the NAS CNN
+(`nas_cnn`) with its DARTS supernet (`darts_supernet`). `abstract` gives
+init's tree as meta tensors: a checkpoint restores into it."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-from kubeflow_tpu_torch.models import llama, lora
+from kubeflow_tpu_torch.models import (bert, llama, lora, mnist_cnn,
+                                       moe_llama, nas_cnn, resnet, vit)
 
 
 class ModelDef(NamedTuple):
@@ -24,6 +28,23 @@ _REGISTRY: dict[str, ModelDef] = {
                       llama.loss_fn, llama.abstract_params),
     "llama_lora": ModelDef(lora.LoraLlamaConfig, lora.init, lora.apply,
                            lora.loss_fn, lora.abstract_params),
+    "mixtral": ModelDef(moe_llama.MoELlamaConfig, moe_llama.init,
+                        moe_llama.apply, moe_llama.loss_fn,
+                        moe_llama.abstract_params),
+    "mnist_cnn": ModelDef(mnist_cnn.MnistConfig, mnist_cnn.init,
+                          mnist_cnn.apply, mnist_cnn.loss_fn,
+                          mnist_cnn.abstract_params),
+    "bert": ModelDef(bert.BertConfig, bert.init, bert.apply, bert.loss_fn,
+                     bert.abstract_params),
+    "resnet": ModelDef(resnet.ResNetConfig, resnet.init, resnet.apply,
+                       resnet.loss_fn, resnet.abstract_params),
+    "nas_cnn": ModelDef(nas_cnn.NasCnnConfig, nas_cnn.init, nas_cnn.apply,
+                        nas_cnn.loss_fn, nas_cnn.abstract_params),
+    "darts_supernet": ModelDef(nas_cnn.NasCnnConfig, nas_cnn.darts_init,
+                               nas_cnn.darts_apply, nas_cnn.darts_loss_fn,
+                               nas_cnn.darts_abstract_params),
+    "vit": ModelDef(vit.ViTConfig, vit.init, vit.apply, vit.loss_fn,
+                    vit.abstract_params),
 }
 
 

@@ -12,3 +12,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = (xf * xf).mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Mean and population variance in f32, eps inside the rsqrt."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * weight.float() + bias.float()).to(x.dtype)

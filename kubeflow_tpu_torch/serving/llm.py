@@ -116,6 +116,7 @@ before: no zero bypass, no extra launch.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import math
@@ -254,6 +255,31 @@ class AdaptiveDraftLen:
             if k >= want:
                 return k
         return self.k_max
+
+
+_gc_lock = threading.Lock()
+_gc_pause = {"depth": 0, "was_enabled": True}
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic collector off for the block, on every thread, and
+    back to its setting when the last of overlapping blocks ends. A
+    collection inside a graph capture can free a dead engine's CUDA
+    graphs, and destroying a graph while a stream captures invalidates
+    the capture (torch.cuda.graph no longer collects on entry)."""
+    with _gc_lock:
+        if _gc_pause["depth"] == 0:
+            _gc_pause["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_pause["depth"] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_pause["depth"] -= 1
+            if _gc_pause["depth"] == 0 and _gc_pause["was_enabled"]:
+                gc.enable()
 
 
 class _GraphProgram:
@@ -1745,7 +1771,7 @@ class LLMEngine:
         graph = torch.cuda.CUDAGraph()
         # thread_local: another engine's thread (a disaggregated engine's
         # other role) may allocate and synchronize while this one captures
-        with _build.recording() as launches, torch.cuda.graph(
+        with _build.recording() as launches, gc_paused(), torch.cuda.graph(
                 graph, pool=self._graph_pool,
                 capture_error_mode="thread_local"):
             out = body()

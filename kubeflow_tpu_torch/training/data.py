@@ -1,7 +1,9 @@
 """Training data (counterpart of kubeflow_tpu/training/data.py): the
 dataset spec and its three sources,
 
-  synthetic   the Llama family's token stream (the default);
+  synthetic   each registered model's generator (`for_model`, the
+              default): token streams for the decoders, labelled
+              images for the vision families, marked text for BERT;
   token_file  a flat uint32 token corpus through the C++ prefetching
               loader (`training/loader.py`);
   array_file  an .npz of named arrays, epoch-cycled minibatches.
@@ -16,9 +18,6 @@ import dataclasses
 from typing import Any, Iterator
 
 import numpy as np
-
-LLAMA_FAMILY = ("llama", "llama_lora")
-
 
 @dataclasses.dataclass
 class DatasetConfig:
@@ -48,6 +47,36 @@ def synthetic_tokens(batch_size: int, seq_len: int, vocab_size: int,
         yield {"tokens": tokens.astype(np.int32)}
 
 
+def synthetic_images(batch_size: int, image_size: int, channels: int,
+                     n_classes: int, seed: int = 0) -> Iterator[dict[str, Any]]:
+    """Class-conditional gaussian blobs, a learnable classification:
+    {"image": f32 [B, H, W, C], "label": int32 [B]}."""
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(n_classes, image_size, image_size, channels))
+    while True:
+        labels = rng.integers(0, n_classes, size=(batch_size,))
+        images = protos[labels] + 0.5 * rng.normal(
+            size=(batch_size, image_size, image_size, channels))
+        yield {"image": images.astype(np.float32),
+               "label": labels.astype(np.int32)}
+
+
+def synthetic_classification_text(batch_size: int, seq_len: int,
+                                  vocab_size: int, n_classes: int = 2,
+                                  seed: int = 0) -> Iterator[dict[str, Any]]:
+    """BERT-style: token 0 is [CLS] and token 1 marks the label (label +
+    1); the rest are random ids past the markers."""
+    rng = np.random.default_rng(seed)
+    while True:
+        labels = rng.integers(0, n_classes, size=(batch_size,))
+        tokens = rng.integers(n_classes + 1, vocab_size,
+                              size=(batch_size, seq_len))
+        tokens[:, 1] = labels + 1
+        tokens[:, 0] = 0
+        yield {"tokens": tokens.astype(np.int32),
+               "label": labels.astype(np.int32)}
+
+
 def array_dataset(arrays: dict[str, np.ndarray], batch_size: int,
                   shuffle: bool = True, seed: int = 0,
                   drop_remainder: bool = True) -> Iterator[dict[str, Any]]:
@@ -60,6 +89,28 @@ def array_dataset(arrays: dict[str, np.ndarray], batch_size: int,
         for i in range(0, stop, batch_size):
             sel = idx[i:i + batch_size]
             yield {k: v[sel] for k, v in arrays.items()}
+
+
+def for_model(model: str, model_cfg, batch_size: int, seq_len: int = 128,
+              seed: int = 0) -> Iterator[dict[str, Any]]:
+    """The synthetic stream of a registered model."""
+    if model in ("llama", "llama_lora", "mixtral"):
+        return synthetic_tokens(batch_size, seq_len, model_cfg.vocab_size,
+                                seed)
+    if model == "bert":
+        return synthetic_classification_text(
+            batch_size, min(seq_len, model_cfg.max_seq_len),
+            model_cfg.vocab_size, model_cfg.n_classes, seed)
+    if model == "mnist_cnn":
+        return synthetic_images(batch_size, 28, 1, model_cfg.n_classes, seed)
+    if model == "resnet":
+        return synthetic_images(batch_size, model_cfg.image_size, 3,
+                                model_cfg.n_classes, seed)
+    if model in ("nas_cnn", "darts_supernet", "vit"):
+        return synthetic_images(batch_size, model_cfg.image_size,
+                                model_cfg.in_channels, model_cfg.n_classes,
+                                seed)
+    raise KeyError(f"no synthetic data recipe for model {model!r}")
 
 
 def make_dataset(ds: DatasetConfig, model: str, model_cfg, batch_size: int,
@@ -75,10 +126,8 @@ def make_dataset(ds: DatasetConfig, model: str, model_cfg, batch_size: int,
     local = batch_size // pc
     seed = ds.seed if ds.seed is not None else fallback_seed
     if ds.type == "synthetic":
-        if model not in LLAMA_FAMILY:
-            raise KeyError(f"no synthetic data recipe for model {model!r}")
-        return synthetic_tokens(local, ds.seq_len, model_cfg.vocab_size,
-                                seed + pi)
+        return for_model(model, model_cfg, local, seq_len=ds.seq_len,
+                         seed=seed + pi)
     if ds.type == "token_file":
         if not ds.path:
             raise ValueError("dataset.type=token_file requires dataset.path")

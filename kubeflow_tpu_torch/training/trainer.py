@@ -89,17 +89,20 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
 
 
 def named_leaves(tree, path: str = "") -> list[tuple[str, torch.Tensor]]:
-    """(the "/"-joined key path, tensor) of a nested dict's leaves, in
-    sorted key order (jax's)."""
+    """(the "/"-joined key path, tensor) of the leaves of nested dicts
+    and lists, dict keys in sorted order and lists in theirs (jax's)."""
     if isinstance(tree, dict):
-        return [item for k in sorted(tree)
-                for item in named_leaves(tree[k], f"{path}/{k}" if path
-                                         else k)]
-    return [(path, tree)]
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return [(path, tree)]
+    return [item for k, v in items
+            for item in named_leaves(v, f"{path}/{k}" if path else str(k))]
 
 
 def leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a nested dict, in sorted key order (jax's)."""
+    """The tensors of nested dicts and lists, in jax's order."""
     return [t for _, t in named_leaves(tree)]
 
 

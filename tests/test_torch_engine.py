@@ -131,3 +131,38 @@ def test_entry_points_raise_without_cuda(tiny, monkeypatch):
         tllama.init_cache(tcfg, 2, 48)
     with pytest.raises(RuntimeError):
         interop.from_jax_params(jax.tree.map(np.asarray, jparams), tcfg)
+
+
+def test_graph_captures_pause_the_cyclic_gc():
+    """A collection inside a CUDA graph capture can destroy a dead
+    engine's graphs, which invalidates the capture: `_capture` runs under
+    `gc_paused`, which turns the collector off until the last of
+    overlapping blocks (two engines' threads) ends, then restores it."""
+    import gc
+    import threading
+
+    from kubeflow_tpu_torch.serving.llm import gc_paused
+
+    assert gc.isenabled()
+    entered, release = threading.Event(), threading.Event()
+
+    def other():
+        with gc_paused():
+            entered.set()
+            release.wait(10)
+
+    t = threading.Thread(target=other)
+    with gc_paused():
+        t.start()
+        assert entered.wait(10) and not gc.isenabled()
+    assert not gc.isenabled()   # the other block is still open
+    release.set()
+    t.join(10)
+    assert not t.is_alive() and gc.isenabled()
+    gc.disable()
+    try:
+        with gc_paused():
+            pass
+        assert not gc.isenabled()   # a collector that was off stays off
+    finally:
+        gc.enable()

@@ -61,3 +61,15 @@ def test_the_scheduler_loadgen_and_chaos_modules_are_scanned():
                 "chaos/__init__.py", "chaos/script.py", "chaos/injector.py"):
         assert port / rel in FILES, rel
     assert (port / "native" / "cb_scheduler.cpp").exists()
+
+
+def test_the_model_family_modules_are_scanned():
+    """The port's copies of the other model families, their ops, the
+    shared pieces and the trainer-checkpoint runtime are among the
+    scanned files."""
+    port = ROOT / "kubeflow_tpu_torch"
+    for rel in ("ops/moe.py", "ops/norms.py", "models/moe_llama.py",
+                "models/bert.py", "models/mnist_cnn.py", "models/resnet.py",
+                "models/vit.py", "models/nas_cnn.py", "models/common.py",
+                "models/registry.py", "serving/trainer_runtime.py"):
+        assert port / rel in FILES, rel

@@ -248,9 +248,10 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
 
 
 def test_registry_and_unknown_model():
+    from kubeflow_tpu.models import registry as jregistry
     from kubeflow_tpu_torch.models import registry
-    assert registry.names() == ["llama", "llama_lora"]
+    assert registry.names() == jregistry.names()
     assert registry.make_config("llama", TINY).d_model == 64
     with pytest.raises(KeyError, match="unknown model"):
-        ttrainer.Trainer(ttrainer.TrainerConfig(model="bert"), device="cpu")
+        ttrainer.Trainer(ttrainer.TrainerConfig(model="gpt"), device="cpu")
     assert dataclasses.asdict(ttrainer.OptimizerConfig())["b2"] == 0.95
