@@ -369,7 +369,45 @@ Phases, in order; any failure exits non-zero before the result line:
       states with CheckpointManager and serves each with
       TrainerCheckpointModel on the card: V1 and V2 logits for 8 images
       bit for bit apply's on the in-process params, argmax theirs; the
-      checkpoints are removed after;
+      checkpoints are removed after; (m2)'s, (m3)'s and (m4)'s trained
+      params are kept for (mm);
+  (r) RL (inside (e3), beside its warm slab engine, before its graph
+      check): examples/rl-anakin-jaxjob.yaml's learner config as
+      written (R_JOB: CartPole, 2048 envs x 64 steps, hidden (64, 64),
+      PPO 2 epochs, clip 0.2, mesh {"data": -1}) as an AnakinLearner on
+      the card, every update one CUDA graph replay. It holds: 3 replays
+      from one state bit for bit the eager body and a second learner's 3
+      replays from the same seed (state, optimizer state and metrics);
+      a small config (R_SMALL, 2 updates) on the card within R_SMALL_TOL
+      of the same learner on the CPU (the count of differing actions
+      printed); finite losses; bench.py's seeded curve (150 updates, one
+      point every 25) ending at or above R_THRESHOLD mean balanced steps;
+      rl_learner_target called as the control plane calls it (at the
+      small config) writing its metrics at the log cadence, and exiting
+      143 on a cancel; none of
+      the eight kernels launched (the path has no Pallas kernel). Prints
+      env-steps/s and updates/s (measure_steps_per_s), the host's time to
+      enqueue a replay, the card's time per replay, and one update's
+      kernels, card-busy time and idle share, replayed and eager;
+  (r2) packing: measure_interference of (r)'s update (a chunk is one
+      replay, synced, on a CUDA stream of its own) against (e3)'s warm
+      flagship slab engine (a chunk is 16 prompts of 99 tokens x 32
+      greedy tokens, on its thread's default stream), R2_SECONDS
+      windows as bench.py's: prints the record's JSON and each side's
+      stream; holds positive rates and the engine's packed tokens equal
+      to its solo tokens (the retentions are findings);
+  (mm) multi-model serving (after (m)): the port's server whose own
+      model is an LLMModel at the flagship config (random int8 weights
+      from --seed, warmed at load) and a MultiModelAgent(max_loaded=2)
+      over its repository pulling (m)'s ResNet-50, ViT-B/16 and
+      BERT-base params through the `trainer` runtime by file:// URI. It
+      holds: the third pull evicts the least recently used model, and
+      torch.cuda.memory_allocated falls by its parameter bytes less
+      MM_SLACK_BYTES; V1 and V2 answers by name bit for bit each
+      model's direct predict; the host's greedy completion tokens the
+      same before and after the pulls; a pull of the host's name
+      refused; K1-K3 (the host) and B1 (ViT) launched. Prints each
+      pull's seconds, parameter and resident GB;
 Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the paged engine's run for
@@ -2700,7 +2738,7 @@ def m7_serve(label: str, job: dict, trainer, state, seed: int,
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
-def families_phase(seed: int, gen) -> dict:
+def families_phase(seed: int, gen, keep: str | None = None) -> dict:
     """(m): each family's trainer config (m_jobs) on a port Trainer, 6
     steps twice from --seed on for_model's data, with cuDNN's
     deterministic algorithms: finite losses, the repeat's losses bit for
@@ -2709,8 +2747,9 @@ def families_phase(seed: int, gen) -> dict:
     samples/s (tokens/s for (m2) and (m6)), peak memory, (m6)'s MFU over
     active experts, one profiled step of (m3), (m4) and (m6), the
     supernet's derived architecture, and (m7). B1-B3 are first held to
-    their plain versions at (m4)'s shape. Returns B1-B3's kernel-line
-    entries at (m4)'s shape, with (m4)'s launches."""
+    their plain versions at (m4)'s shape. With `keep`, the trained
+    params of MM_FAMILIES are saved there for (mm). Returns B1-B3's
+    kernel-line entries at (m4)'s shape, with (m4)'s launches."""
     print(f"m families on {card_line()}", flush=True)
     # deterministic cuDNN algorithms: with the defaults, (m1)'s repeat
     # differed after step 3 in a full run (not when (m) ran alone); the
@@ -2718,12 +2757,12 @@ def families_phase(seed: int, gen) -> dict:
     cudnn_deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        return _families(seed, gen)
+        return _families(seed, gen, keep)
     finally:
         torch.backends.cudnn.deterministic = cudnn_deterministic
 
 
-def _families(seed: int, gen) -> dict:
+def _families(seed: int, gen, keep: str | None) -> dict:
     b, s, h, d = M4_ATTN
     attn = train_attn_case(gen, b, s, False, False, h=h, d=d)
     for kern, c in attn.items():
@@ -2752,6 +2791,8 @@ def _families(seed: int, gen) -> dict:
                           "m4: B1 never ran at the shape timed before it")
                     for kern in TRAINING_KERNELS:
                         attn[kern]["launches"] = launches[kern]
+                if keep is not None and label in MM_FAMILIES:
+                    mm_keep(label, job, state, keep)
                 if label in M_SERVED:
                     st["m7"] = m7_serve(label, job, trainer, state, seed,
                                         root)
@@ -3098,13 +3139,15 @@ def graph_equals_eager(engine, seed, kd=None, label="e3") -> None:
           flush=True)
 
 
-def flagship_phase(engine, seed: int):
+def flagship_phase(engine, seed: int, during=None):
     """(e3): the flagship engine at full Llama-3-8B width over (e)'s int8
     weights: a slab LLMEngine and a PagedLLMEngine (128 blocks), warmed
     up, serve the E3 burst of greedy, seeded-sampled, penalized, stopped
     and cancelled rows; see the module docstring for what it holds.
-    Returns the K3 shapes of the slab runs (the chunked continuation
-    among them) and each kernel's launches."""
+    `during(slab)`, if given, runs on the warm slab engine between its
+    runs and its graph check ((r) and (r2) in a full run). Returns the K3
+    shapes of the slab runs (the chunked continuation among them) and
+    each kernel's launches."""
     cfg = engine.cfg
     gen = torch.Generator().manual_seed(seed + 3)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
@@ -3130,6 +3173,8 @@ def flagship_phase(engine, seed: int):
     check(slab.graph_stats()["captures"] == captures,
           "e3: a decode graph was captured after warmup")
     slab_replays = slab.graph_stats()["replays"] - replays
+    if during is not None:
+        during(slab)
     graph_equals_eager(slab, seed)
     del slab
     gc.collect()
@@ -5878,6 +5923,429 @@ def paged_prefill_shape_phase(gen, shapes) -> dict:
     return best[1]
 
 
+# -- (r) RL on the card, (r2) packing beside serving, (mm) multi-model ----------
+
+#: examples/rl-anakin-jaxjob.yaml's KTPU_RL_CONFIG as written
+#: (tests/test_torch_rl_job.py holds the two equal)
+R_JOB = {"env": "cartpole", "n_envs": 2048, "rollout_len": 64,
+         "hidden": [64, 64], "learning_rate": 0.003, "gamma": 0.99,
+         "gae_lambda": 0.95, "clip_eps": 0.2, "entropy_coef": 0.01,
+         "value_coef": 0.5, "ppo_epochs": 2, "mesh": {"data": -1},
+         "seed": 0, "num_updates": 500, "log_every": 25}
+#: bench.py's seeded reward curve (updates, log_every) and its threshold
+#: in mean balanced steps (a random policy sits near 20)
+R_CURVE = (150, 25)
+R_THRESHOLD = 100.0
+R_REPLAYS = 3
+#: the card-against-CPU config and its tolerance on every param (f32;
+#: the same draws on both sides, so the trajectories match while no
+#: action flips)
+R_SMALL = {"n_envs": 64, "rollout_len": 16}
+R_SMALL_UPDATES = 2
+R_SMALL_TOL = 1e-4
+R_ITERS = 20
+
+
+class ActionTap:
+    """An env that records every action the learner takes (the learner
+    steps `learner.env`); everything else is the env's."""
+
+    def __init__(self, env):
+        self.env, self.actions = env, []
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def step(self, state, action, u):
+        self.actions.append(action.detach().to("cpu", copy=True))
+        return self.env.step(state, action, u)
+
+
+def rl_bits(learner, state, metrics) -> list[torch.Tensor]:
+    """Every tensor of the learner's state and its metrics, copied."""
+    return ([t.detach().clone() for t in learner._tensors(state)]
+            + [metrics[k].detach().clone() for k in sorted(metrics)])
+
+
+def r_run(env: dict, cancel) -> int:
+    """rl_learner_target as the control plane calls it: its exit code."""
+    from kubeflow_tpu_torch.rl import job as rl_job
+
+    try:
+        rl_job.rl_learner_target(env, cancel)
+    except SystemExit as e:
+        return e.code
+    return 0
+
+
+def rl_update_profile(learner, state) -> dict:
+    """One update, replayed and eager, under torch.profiler: the kernels
+    each ran and their busy time against the wall (synced) time; and the
+    host's time to enqueue a replay, the card's time per replay (CUDA
+    events) and the wall per synced replay over R_ITERS."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        return {"kernels": sum(e.count for e in kern),
+                "busy_ms": round(busy, 4), "wall_ms": round(wall, 4),
+                "idle_share": round(max(0.0, 1 - busy / wall), 4)}
+
+    learner.step(state)
+    out = {"replay": profiled(learner._graph.replay),
+           "eager": profiled(learner._body)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(R_ITERS):
+        learner._graph.replay()
+    out["host_ms_per_replay"] = round(
+        (time.perf_counter() - t) / R_ITERS * 1e3, 4)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(R_ITERS):
+        learner._graph.replay()
+    ev[1].record()
+    torch.cuda.synchronize()
+    out["card_ms_per_replay"] = round(ev[0].elapsed_time(ev[1]) / R_ITERS,
+                                      4)
+    t = time.perf_counter()
+    for _ in range(R_ITERS):
+        learner._graph.replay()
+        torch.cuda.synchronize()
+    out["wall_ms_per_synced_replay"] = round(
+        (time.perf_counter() - t) / R_ITERS * 1e3, 4)
+    return out
+
+
+def rl_phase(seed: int):
+    """(r): the RLJob example's learner on the card (module doc). Returns
+    the learner, its update graph captured."""
+    from kubeflow_tpu_torch.rl.anakin import AnakinLearner, net_leaves
+    from kubeflow_tpu_torch.rl.config import (LEARNER_METRICS,
+                                              REWARD_METRIC, parse_rl_config)
+    from kubeflow_tpu_torch.training.metrics_writer import read_metrics
+
+    print(f"r RL on {card_line()}", flush=True)
+    cfg, _, _ = parse_rl_config(dict(R_JOB, seed=seed))
+    _build.reset_launches()
+    learner = AnakinLearner(cfg, device=DEV)
+    s0 = learner.init(seed)
+    t = time.monotonic()
+    state, m = learner.step(s0)
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t
+    for _ in range(R_REPLAYS - 1):
+        state, m = learner.step(state)
+    graph = rl_bits(learner, state, m)
+    state, m = learner.eager_step(s0)
+    for _ in range(R_REPLAYS - 1):
+        state, m = learner.eager_step(state)
+    eager = rl_bits(learner, state, m)
+    check(all(torch.equal(a, b) for a, b in zip(graph, eager)),
+          f"r: {R_REPLAYS} graph replays differ from the eager body")
+    other = AnakinLearner(cfg, device=DEV)
+    st = other.init(seed)
+    for _ in range(R_REPLAYS):
+        st, om = other.step(st)
+    check(all(torch.equal(a, b) for a, b in
+              zip(graph, rl_bits(other, st, om))),
+          "r: a second learner from the same seed gave other bits")
+    del other, st, om
+    print(f"r: capture + first replay {capture_s:.2f} s; {R_REPLAYS} "
+          "replays bit for bit the eager body and a second learner's "
+          "replays", flush=True)
+    # the card against the CPU at a small config, the same draws
+    small = dataclasses.replace(cfg, **R_SMALL)
+    runs = {}
+    for dev in ("cpu", DEV):
+        lrn = AnakinLearner(small, device=dev)
+        tap = lrn.env = ActionTap(lrn.env)
+        s = lrn.init(seed)
+        for _ in range(R_SMALL_UPDATES):
+            s, sm = lrn.eager_step(s)
+        runs[dev] = (tap.actions, [p.detach().cpu() for p in
+                                   net_leaves(s["params"])],
+                     {k: float(v) for k, v in sm.items()})
+    (ca, cp, cm), (ga, gp, gm) = runs["cpu"], runs[DEV]
+    n_diff = sum(int((a != b).sum()) for a, b in zip(ca, ga))
+    err = max(float((a - b).abs().max()) for a, b in zip(cp, gp))
+    print(f"r small ({R_SMALL}, {R_SMALL_UPDATES} updates) card against "
+          f"CPU: {n_diff} of {sum(a.numel() for a in ca)} actions differ; "
+          f"params max abs err {err:.3g} (tol {R_SMALL_TOL:g}); loss card "
+          f"{gm['loss']:.6f} cpu {cm['loss']:.6f}", flush=True)
+    check(err <= R_SMALL_TOL, f"r: card params off the CPU's by {err}")
+    for k, v in m.items():
+        check(math.isfinite(float(v)), f"r: metric {k} not finite")
+    t = time.monotonic()
+    _, hist = learner.train(learner.init(seed), R_CURVE[0],
+                            log_every=R_CURVE[1])
+    curve_s = time.monotonic() - t
+    curve = [round(h[REWARD_METRIC], 2) for h in hist]
+    print(f"r curve (seed {seed}, {R_CURVE[0]} updates, every "
+          f"{R_CURVE[1]}): {REWARD_METRIC} {curve}; losses "
+          f"{[round(h['loss'], 4) for h in hist]}; {curve_s:.2f} s",
+          flush=True)
+    check(all(math.isfinite(h["loss"]) for h in hist),
+          "r: a curve loss is not finite")
+    check(hist[-1][REWARD_METRIC] >= R_THRESHOLD,
+          f"r: the curve ends at {curve[-1]}, under {R_THRESHOLD}")
+    _, sps = learner.measure_steps_per_s(learner.init(seed), iters=R_ITERS)
+    prof = rl_update_profile(learner, learner.init(seed))
+    print(f"r speed ({cfg.n_envs} envs x {cfg.rollout_len} steps, "
+          f"{learner.env_steps_per_update()} env-steps an update): "
+          f"{sps:.1f} env-steps/s, "
+          f"{sps / learner.env_steps_per_update():.3f} updates/s; "
+          f"{json.dumps(prof)}", flush=True)
+    root = tempfile.mkdtemp(prefix="chip-smoke-r-")
+    try:
+        env = {"KTPU_RL_CONFIG": json.dumps(dict(R_JOB, **R_SMALL,
+                                                 seed=seed, num_updates=4,
+                                                 log_every=2)),
+               "KTPU_METRICS_FILE": os.path.join(root, "run.jsonl")}
+        code = r_run(env, threading.Event())
+        recs = read_metrics(env["KTPU_METRICS_FILE"])
+        check(code == 0 and [r["step"] for r in recs] == [2, 4]
+              and all(set(LEARNER_METRICS) <= set(r["metrics"])
+                      for r in recs),
+              f"r: rl_learner_target exited {code}, wrote {recs}")
+        env["KTPU_METRICS_FILE"] = os.path.join(root, "cancel.jsonl")
+        code = r_run(env, J3Cancel(3))
+        recs = read_metrics(env["KTPU_METRICS_FILE"])
+        check(code == 143 and [r["step"] for r in recs] == [2],
+              f"r: the cancelled target exited {code}, wrote {recs}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("r: rl_learner_target wrote its metrics at updates 2 and 4, and "
+          "a cancel at the third update's check exited 143", flush=True)
+    check(not any(_build.LAUNCHES.values()),
+          f"r: a port kernel was launched: {dict(_build.LAUNCHES)}")
+    print("r: launched none of the eight kernels (the RL path has no "
+          "Pallas kernel)", flush=True)
+    return learner
+
+
+#: (r2): bench.py's packing point against the flagship engine: its
+#: window, and a serving chunk of 16 prompts (bench.py's 99-token prompt)
+#: x 32 greedy tokens
+R2_SECONDS = 4.0
+R2_PROMPTS = 16
+R2_NEW = 32
+R2_PROMPT = list(range(1, 100))
+
+
+def packing_phase(eng, learner, seed: int) -> dict:
+    """(r2): measure_interference of the learner's update (a chunk is one
+    replay, synced, on a stream of its own) against (e3)'s warm flagship
+    slab engine (a chunk is R2_PROMPTS x R2_NEW greedy tokens, on its
+    thread's default stream)."""
+    from kubeflow_tpu_torch.rl.packing import measure_interference
+
+    rl_stream = torch.cuda.Stream()
+    rl_stream.wait_stream(torch.cuda.current_stream())
+    cur = {"state": learner.init(seed)}
+    torch.cuda.synchronize()
+    streams: dict[str, int] = {}
+    tokens: list = []
+
+    def learner_chunk() -> float:
+        with torch.cuda.stream(rl_stream):
+            cur["state"], m = learner.step(cur["state"])
+            float(m["loss"])
+            streams["rl-learner"] = torch.cuda.current_stream().cuda_stream
+        return float(learner.env_steps_per_update())
+
+    def serve_chunk() -> float:
+        rows, _ = run_batch(eng, [R2_PROMPT] * R2_PROMPTS, R2_NEW)
+        tokens.append(tokens_of(rows))
+        streams["llm-serving"] = torch.cuda.current_stream().cuda_stream
+        return float(R2_PROMPTS * R2_NEW)
+
+    rec = measure_interference(
+        "rl-learner", learner_chunk, "llm-serving", serve_chunk,
+        seconds=R2_SECONDS, unit_a="env_steps/s", unit_b="tok/s")
+    out = rec.to_json()
+    print(f"r2 interference record: {json.dumps(out)}", flush=True)
+    print(f"r2 streams (cudaStream_t; 0 is the legacy default stream): "
+          f"{json.dumps(streams)}; {len(tokens)} serving chunks", flush=True)
+    check(min(rec.solo_a, rec.solo_b, rec.packed_a, rec.packed_b) > 0,
+          f"r2: a rate is not positive: {out}")
+    check(len(tokens) >= 2 and all(t == tokens[0] for t in tokens),
+          "r2: the engine's tokens while packed differ from its solo "
+          "tokens")
+    return out
+
+
+#: (mm): the families (m) trained whose states it keeps for (mm), in the
+#: order (mm) pulls them (the third pull evicts)
+MM_FAMILIES = ("m3 resnet", "m4 vit", "m2 bert")
+MM_MAX_LOADED = 2
+MM_INPUTS = 2            # images (or sequences) a request
+MM_PROMPTS = 4
+MM_NEW = 16
+#: what the eviction must give back: the evicted model's parameter bytes
+#: less this (allocator rounding, the request threads' small tensors)
+MM_SLACK_BYTES = 64 << 20
+#: the host model: the flagship engine config on random int8 weights
+MM_HOST = dict(FLAGSHIP, quantize="int8", buckets=list(FLAGSHIP["buckets"]))
+
+
+def mm_keep(label: str, job: dict, state, root: str) -> None:
+    """Save a family's trained params (step and params only) for (mm)."""
+    from kubeflow_tpu_torch.training.checkpoint import CheckpointManager
+
+    mngr = CheckpointManager(os.path.join(root, label.split()[1]))
+    mngr.save(int(state["step"]), {"params": state["params"],
+                                   "step": state["step"]}, force=True)
+    mngr.close()
+    with open(os.path.join(root, label.split()[1] + ".json"), "w") as f:
+        json.dump(job, f)
+
+
+def mm_inputs(job: dict, seed: int) -> np.ndarray:
+    """A request's input for a family: NHWC images or token ids."""
+    cfg = registry.make_config(job["model"], job.get("model_overrides"))
+    rng = np.random.default_rng(seed)
+    if job["model"] == "bert":
+        return rng.integers(0, cfg.vocab_size, (MM_INPUTS, job["dataset"][
+            "seq_len"])).astype(np.int64)
+    size = cfg.image_size
+    return rng.normal(size=(MM_INPUTS, size, size, 3)).astype(np.float32)
+
+
+def mm_served(server, name: str, x: np.ndarray) -> None:
+    """V1 and V2 by name through the server equal the model's direct
+    predict on the same payload bit for bit."""
+    model = server.repository.get(name)
+    dtype = "INT64" if x.dtype == np.int64 else "FP32"
+    want = model.predict(x.tolist())
+    v1 = post_json(f"{server.url}/v1/models/{name}:predict",
+                   {"instances": x.tolist()})
+    got = np.asarray(v1["predictions"], dtype=want.dtype)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"mm {name}: V1 differs from predict by "
+          f"{np.abs(got - want).max() if got.shape == want.shape else '?'}")
+    want2 = model.predict({"input": x})
+    v2 = post_json(f"{server.url}/v2/models/{name}/infer", {
+        "inputs": [{"name": "input", "shape": list(x.shape),
+                    "datatype": dtype, "data": x.ravel().tolist()}]})
+    o = v2["outputs"][0]
+    got2 = np.asarray(o["data"], dtype=want2.dtype).reshape(o["shape"])
+    check(np.array_equal(got2, want2) and np.array_equal(want2, want),
+          f"mm {name}: V2 differs from predict")
+
+
+def mm_host_tokens(server) -> list:
+    """MM_PROMPTS greedy completions of the host model, one at a time."""
+    out = []
+    for i in range(MM_PROMPTS):
+        body = post_json(server.url + "/openai/v1/completions", {
+            "model": "llama3-8b", "prompt": list(range(5 + i, 205 + 50 * i)),
+            "max_tokens": MM_NEW})
+        out.append(body["choices"][0]["token_ids"])
+    return out
+
+
+def multimodel_phase(seed: int, root: str) -> dict:
+    """(mm): the port's server over a repository whose own model is an
+    LLMModel at the flagship config (random int8 weights from --seed,
+    warmed at load) and a MultiModelAgent(max_loaded=2) pulling (m)'s
+    ResNet-50, ViT-B/16 and BERT-base params through the `trainer`
+    runtime by file:// URI (module doc)."""
+    from kubeflow_tpu_torch.serving.agent import MultiModelAgent
+    from kubeflow_tpu_torch.serving.model import ModelError
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              param_dtype=torch.bfloat16)
+    host = LLMModel("llama3-8b", model={f.name: getattr(cfg, f.name) for f
+                                        in dataclasses.fields(cfg)},
+                    seed=seed, device=DEV, tokenizer=IdTokenizer(),
+                    **MM_HOST)
+    t = time.monotonic()
+    server = CompletionServer(host).start()
+    out = {"host_load_s": round(time.monotonic() - t, 2),
+           "host_resident_gb": round(torch.cuda.memory_allocated() / 1e9, 3)}
+    agent = MultiModelAgent(server.repository, max_loaded=MM_MAX_LOADED)
+    names = {label: label.split()[1] for label in MM_FAMILIES}
+    try:
+        _build.reset_launches()
+        before = mm_host_tokens(server)
+        pulls, nbytes, inputs = {}, {}, {}
+
+        def pull(label):
+            name = names[label]
+            with open(os.path.join(root, name + ".json")) as f:
+                job = json.load(f)
+            inputs[name] = mm_inputs(job, seed)
+            t0 = time.monotonic()
+            m = agent.pull(name, "trainer", "file://" + os.path.join(
+                root, name), model=job["model"],
+                model_overrides=job.get("model_overrides"), device=DEV)
+            torch.cuda.synchronize()
+            nbytes[name] = sum(p.numel() * p.element_size()
+                               for p in train.leaves(m.params))
+            pulls[name] = {"seconds": round(time.monotonic() - t0, 3),
+                           "param_gb": round(nbytes[name] / 1e9, 4),
+                           "resident_gb": round(
+                               torch.cuda.memory_allocated() / 1e9, 3)}
+
+        first, second, third = (names[x] for x in MM_FAMILIES)
+        pull(MM_FAMILIES[0])
+        pull(MM_FAMILIES[1])
+        for name in (second, first):   # the second pulled becomes the LRU
+            mm_served(server, name, inputs[name])
+            agent.touch(name)
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        pull(MM_FAMILIES[2])
+        freed = alloc0 + nbytes[third] - torch.cuda.memory_allocated()
+        check(agent.loaded() == sorted([first, third])
+              and agent.evictions == 1,
+              f"mm: loaded {agent.loaded()} after {agent.evictions} "
+              f"evictions; {second} was the least recently used")
+        check(freed >= nbytes[second] - MM_SLACK_BYTES,
+              f"mm: evicting {second} freed {freed} bytes of its "
+              f"{nbytes[second]}")
+        for name in (third, first):
+            mm_served(server, name, inputs[name])
+            agent.touch(name)
+        try:
+            agent.pull("llama3-8b", "trainer", model="resnet")
+            check(False, "mm: pulling the host's own name did not raise")
+        except ModelError as e:
+            refused = str(e)
+        after = mm_host_tokens(server)
+        check(after == before, "mm: the host's greedy tokens changed "
+                               "across the pulls")
+        launches = {k: _build.LAUNCHES[k] for k in (
+            "quant_matmul", "flash_decode", "flash_prefill",
+            "flash_attn_fwd")}
+        check(all(launches.values()),
+              f"mm: a kernel of the path was not launched: {launches}")
+        out.update(pulls=pulls, evicted=second,
+                   evicted_param_gb=round(nbytes[second] / 1e9, 4),
+                   freed_gb=round(freed / 1e9, 4), launches=launches,
+                   refused=refused)
+        print(f"mm multi-model: {json.dumps(out)}", flush=True)
+    finally:
+        for name in agent.loaded():
+            agent.unload(name)
+        server.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def server_phase(engine) -> None:
     """(g): three concurrent completions through the port's server, over
     an LLMModel of (e)'s weights and settings (warmed up at load)."""
@@ -6048,8 +6516,12 @@ def main(argv=None) -> int:
                                         tokens)
     launches["flash_decode_paged"] = p_launches["flash_decode_paged"]
     shapes["flash_decode_paged"] = p_shapes["flash_decode_paged"]
+    def rl_phases(slab):
+        learner = phase("r RL", rl_phase, args.seed)
+        phase("r2 packing", packing_phase, slab, learner, args.seed)
+
     e3_k3_shapes, _ = phase("e3 flagship engine", flagship_phase, engine,
-                            args.seed)
+                            args.seed, rl_phases)
     phase("e3 K3 shapes", continuation_shape_phase, gen, e3_k3_shapes)
     e4_k3_shapes = phase("e4 prefix cache", prefix_cache_phase, engine,
                          args.seed)
@@ -6105,7 +6577,14 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(e6_root, ignore_errors=True)
     phase("l2 LoRA job", lora_job_phase, args.seed)
-    m4_attn = phase("m model families", families_phase, args.seed, gen)
+    mm_root = tempfile.mkdtemp(prefix="chip-smoke-mm-")
+    try:
+        m4_attn = phase("m model families", families_phase, args.seed, gen,
+                        mm_root)
+        phase("mm multi-model serving", multimodel_phase, args.seed,
+              mm_root)
+    finally:
+        shutil.rmtree(mm_root, ignore_errors=True)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     kernels = []
     for name in _build.KERNELS:

@@ -34,9 +34,16 @@ configured per InferenceService by `spec.predictor.logger` ({mode: all |
 request | response, path: a file | url: a collector}). The file sink
 appends under a lock; the url sink posts from a thread of its own off a
 bounded queue (a full queue drops the record); a sink's error is
-swallowed, so logging never fails or slows a request. The multi-model
-agent (`MultiModelAgent`) is not ported: it serves TrainedModels of the
-model families of ROADMAP.md queue A7.
+swallowed, so logging never fails or slows a request.
+
+`MultiModelAgent` (the JAX package's, kserve's puller and ModelMesh
+pattern): pull-on-demand models in a `ModelRepository` with LRU eviction.
+A pull resolves the URI (`storage.download`), builds the model through
+the serving-runtime registry (`model.load_model`) and registers it,
+which loads it; past `max_loaded` pulled models the least recently used
+is unloaded (on the card its weights go back to the allocator). Models
+the agent did not pull (the host service's own) are never evicted, and a
+pull of such a name is refused.
 """
 
 from __future__ import annotations
@@ -52,7 +59,10 @@ from typing import Any, Callable
 from kubeflow_tpu_torch.chaos import FaultInjector, FaultScript
 from kubeflow_tpu_torch.obs import metrics as obs_metrics
 from kubeflow_tpu_torch.obs.trace import TRACER
+from kubeflow_tpu_torch.serving.model import (ModelError, ModelRepository,
+                                              load_model)
 from kubeflow_tpu_torch.serving.scheduler import QueueFull, TenantShed
+from kubeflow_tpu_torch.serving.storage import download
 
 
 class PayloadLogger:
@@ -136,6 +146,109 @@ class PayloadLogger:
                         "type": "response", "status": status,
                         "latency_ms": round(latency_ms, 3),
                         "payload": payload})
+
+
+class MultiModelAgent:
+    """Pull/evict manager over a ModelRepository.
+
+    pull() is idempotent per name; predict-path callers `touch()` names so
+    eviction tracks recency. A model loading is never evicted (the lock
+    covers the bookkeeping, not the load itself, so a slow load does not
+    block serving the others)."""
+
+    def __init__(self, repository: ModelRepository | None = None,
+                 max_loaded: int = 4, storage_root: str | None = None,
+                 namespace: str | None = None):
+        if max_loaded < 1:
+            raise ValueError("max_loaded must be >= 1")
+        self.repository = repository or ModelRepository()
+        self.max_loaded = max_loaded
+        self.storage_root = storage_root
+        self.namespace = namespace
+        self._lock = threading.Lock()
+        self._last_used: dict[str, float] = {}
+        self._loading: set[str] = set()
+        # the models THIS agent pulled: capacity and eviction apply only
+        # to them (a shared repository may hold the host's own model)
+        self._owned: set[str] = set()
+        self.pulls = 0
+        self.evictions = 0
+
+    def pull(self, name: str, model_format: str, uri: str | None = None,
+             **config: Any):
+        """Download, load and register; evicts the LRU past max_loaded."""
+        with self._lock:
+            try:
+                existing = self.repository.get(name)
+            except ModelError:
+                existing = None
+            if existing is not None and name not in self._owned:
+                # a foreign model claims the name: returning it would
+                # report success while serving the wrong model
+                raise ModelError(
+                    f"model name {name!r} is already in use by the host "
+                    f"repository")
+            if existing is not None or name in self._loading:
+                self._last_used[name] = time.monotonic()
+                if existing is not None:
+                    return existing
+                raise ModelError(f"model {name!r} is still loading")
+            self._loading.add(name)
+        try:
+            local = uri
+            if uri and "://" in uri:
+                local = download(uri, artifact_root=self.storage_root,
+                                 namespace=self.namespace)
+            model = load_model(model_format, name, local, **config)
+            self.repository.register(model)  # loads the model
+            with self._lock:
+                self.pulls += 1
+                self._loading.discard(name)
+                self._owned.add(name)
+                self._last_used[name] = time.monotonic()
+            self._evict_over_capacity()
+            return model
+        except BaseException:
+            with self._lock:
+                self._loading.discard(name)
+            raise
+
+    def touch(self, name: str) -> None:
+        with self._lock:
+            if name in self._last_used:
+                self._last_used[name] = time.monotonic()
+
+    def unload(self, name: str) -> None:
+        with self._lock:
+            self._last_used.pop(name, None)
+            self._owned.discard(name)
+        self.repository.unload(name)
+
+    def loaded(self) -> list[str]:
+        """Models this agent pulled (still loaded)."""
+        names = set(self.repository.names())
+        with self._lock:
+            return sorted(self._owned & names)
+
+    def _evict_over_capacity(self) -> None:
+        while True:
+            with self._lock:
+                names = self._owned & set(self.repository.names())
+                if len(names) <= self.max_loaded:
+                    return
+                # oldest by last use; names never touched sort first
+                victim = min(
+                    (n for n in names if n not in self._loading),
+                    key=lambda n: self._last_used.get(n, 0.0),
+                    default=None)
+                if victim is None:
+                    return
+                self._last_used.pop(victim, None)
+                self._owned.discard(victim)
+                self.evictions += 1
+                # unload inside the lock: choosing and removing the victim
+                # is atomic against a pull() returning (and touching) it
+                self.repository.unload(victim)
 
 
 @dataclasses.dataclass

@@ -1,14 +1,15 @@
 """The Open Inference Protocol over gRPC (counterpart of kubeflow_tpu/
-serving/grpc_server.py): `GrpcInferenceServer` serves the port's model
-(an `LLMModel`) beside the HTTP server, `GrpcInferenceClient` calls it.
+serving/grpc_server.py): `GrpcInferenceServer` serves the port's
+`ModelRepository` (or one model, as a repository of one) beside the HTTP
+server, routing by model name; `GrpcInferenceClient` calls it.
 
     inference.GRPCInferenceService/ServerLive | ServerReady | ModelReady
         | ModelMetadata | ModelInfer
 
 ModelInfer decodes typed `InferTensorContents` into the tensor dict the
 V2 REST route makes (`serving/protocol.py`), runs the model's predict
-(through a `DynamicBatcher` when `batching` names the model, the HTTP
-server's config shape) and answers its outputs: an unknown model is
+(through a `DynamicBatcher` of its own when `batching` names the model,
+the HTTP server's config shape) and answers its outputs: an unknown model is
 NOT_FOUND, a malformed tensor or `raw_input_contents` INVALID_ARGUMENT,
 a model not ready UNAVAILABLE. The service is registered by hand with
 `grpc.method_handlers_generic_handler` over the protoc-generated
@@ -22,13 +23,14 @@ the rest of the port does not need them.
 from __future__ import annotations
 
 import importlib
+import threading
 from concurrent import futures
 from typing import Any
 
 import numpy as np
 
 from kubeflow_tpu_torch.serving.batching import DynamicBatcher
-from kubeflow_tpu_torch.serving.llm_runtime import ModelError
+from kubeflow_tpu_torch.serving.model import ModelError, ModelRepository
 from kubeflow_tpu_torch.serving.protocol import (_DTYPES, InferRequest,
                                                  InferResponse, InferTensor,
                                                  ProtocolError)
@@ -105,19 +107,22 @@ def _tensor_to_pb(out, t: InferTensor) -> None:
 
 
 class GrpcInferenceServer:
-    """The OIP gRPC server over one model (the port's server holds one).
-    `batching` is the HTTP server's {model name: {maxBatchSize,
-    maxLatencyMs}}."""
+    """The OIP gRPC server over a ModelRepository (a model alone is served
+    as a repository of one). `batching` is the HTTP server's {model name:
+    {maxBatchSize, maxLatencyMs}}."""
 
-    def __init__(self, model, port: int = 0, host: str = "127.0.0.1",
+    def __init__(self, repository, port: int = 0, host: str = "127.0.0.1",
                  max_workers: int = 8,
                  batching: dict[str, Any] | None = None):
         grpc, pb = _grpc_modules()
         self._grpc, self._pb = grpc, pb
-        self.model = model
-        cfg = (batching or {}).get(model.name)
-        self._batcher = (DynamicBatcher.from_config(model.predict, cfg)
-                         if cfg else None)
+        if not isinstance(repository, ModelRepository):
+            model, repository = repository, ModelRepository()
+            repository.register(model, load=False)
+        self.repository = repository
+        self._batch_cfg = batching or {}
+        self._batchers: dict[str, DynamicBatcher] = {}
+        self._batch_lock = threading.Lock()
         self._server = grpc.server(
             futures.ThreadPoolExecutor(max_workers=max_workers))
         handlers = {
@@ -161,8 +166,10 @@ class GrpcInferenceServer:
         if self._started:
             self._server.stop(grace).wait()
             self._started = False
-        if self._batcher is not None:
-            self._batcher.stop()
+        with self._batch_lock:
+            for b in self._batchers.values():
+                b.stop()
+            self._batchers.clear()
 
     # -- the RPCs --------------------------------------------------------------
 
@@ -172,20 +179,29 @@ class GrpcInferenceServer:
     def _server_ready(self, request, context):
         # the HTTP /v2/health/ready gate: a supervisor out of restarts
         # makes the replica not ready for good
-        from kubeflow_tpu_torch.serving.server import permanently_failed
+        from kubeflow_tpu_torch.serving.server import ready_models
 
         return self._pb.ServerReadyResponse(
-            ready=bool(self.model.ready
-                       and not permanently_failed(self.model)))
+            ready=ready_models(self.repository))
 
     def _model_ready(self, request, context):
         return self._pb.ModelReadyResponse(
-            ready=bool(request.name == self.model.name and self.model.ready))
+            ready=self.repository.ready(request.name))
 
     def _get(self, name: str):
-        if name != self.model.name:
-            raise ModelError(f"model {name!r} not found")
-        return self.model
+        return self.repository.get(name)
+
+    def _predictor(self, model):
+        """The model's predict, through its batcher when `batching` names
+        it (made at the model's first request)."""
+        cfg = self._batch_cfg.get(model.name)
+        if not cfg:
+            return model.predict
+        with self._batch_lock:
+            if model.name not in self._batchers:
+                self._batchers[model.name] = DynamicBatcher.from_config(
+                    model.predict, cfg)
+            return self._batchers[model.name]
 
     def _model_metadata(self, request, context):
         try:
@@ -220,8 +236,7 @@ class GrpcInferenceServer:
                 inputs=[_tensor_from_pb(t) for t in request.inputs],
                 id=request.id)
             payload = model.preprocess(req.as_dict())
-            predict = self._batcher or model.predict
-            result = model.postprocess(predict(payload))
+            result = model.postprocess(self._predictor(model)(payload))
             out = InferResponse.from_result(request.model_name, result,
                                             id=request.id)
             resp = self._pb.ModelInferResponse(model_name=out.model_name,

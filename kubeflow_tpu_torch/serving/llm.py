@@ -433,6 +433,9 @@ class LLMEngine:
                             if dev.type == "cuda" else None)
         self._graph_captures = 0
         self._graph_replays = 0
+        # the program families (kind, kd, sample) whose body has run once
+        # before a capture (_capture)
+        self._first_use_done: set[tuple] = set()
         self._host_out: list[torch.Tensor] = []
         self._host_out_next = 0
         # -- pipelining: one dispatched, unfetched chunk may be in flight;
@@ -1752,22 +1755,29 @@ class LLMEngine:
 
     def _capture(self, key: tuple) -> _GraphProgram:
         """Capture the decode chunk `key` as a CUDA graph in the engine's
-        pool. The body runs once first on a side stream (first-use work
-        must not happen inside a capture), and the slot state it changed
-        is put back, so a capture in live traffic is invisible to it: the
-        KV rows that run wrote are written again, with the same values, by
-        the replay that follows. A capture that fails raises."""
+        pool. The first capture of each program family (decode or verify
+        with its kd, each variant) runs the body once first on a side
+        stream: first-use work (cuBLAS handles, the kernels' first loads)
+        must not happen inside a capture. Keys of one family differ only
+        in steps and span, which launch the same kernels, so later
+        captures skip that run. The slot state the run changed is put
+        back, so a capture in live traffic is invisible to it: the KV rows
+        that run wrote are written again, with the same values, by the
+        replay that follows. A capture that fails raises."""
         dev = self.device
         body = self._body(key)
-        saved = [t.clone() for t in self._chunk_state()]
-        current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(current)
-        with torch.cuda.stream(side), _build.recording():
-            body()   # uncounted: the replays count
-        current.wait_stream(side)
-        for t, s in zip(self._chunk_state(), saved):
-            t.copy_(s)
+        family = (len(key), key[2] if len(key) == 4 else 0, key[-1])
+        if family not in self._first_use_done:
+            saved = [t.clone() for t in self._chunk_state()]
+            current = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(current)
+            with torch.cuda.stream(side), _build.recording():
+                body()   # uncounted: the replays count
+            current.wait_stream(side)
+            for t, s in zip(self._chunk_state(), saved):
+                t.copy_(s)
+            self._first_use_done.add(family)
         graph = torch.cuda.CUDAGraph()
         # thread_local: another engine's thread (a disaggregated engine's
         # other role) may allocate and synchronize while this one captures

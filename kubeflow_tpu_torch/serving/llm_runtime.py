@@ -12,12 +12,14 @@ The JAX package's `ModelServer` builds it through its `python` runtime,
           quantize: int8
           ...                                     # the keys below
 
-and the port's own `serving/server.py` serves it the same way. The class
-is not a subclass of the JAX package's `Model` (the port imports nothing
-of it) but has its methods: `load`, `unload`, `ready`, `load_time`,
-`preprocess`, `predict`, `postprocess`, `explain`, `input_spec`,
-`output_spec`, and `__init__(name, uri=None, **config)` as the runtime
-calls it.
+and the port's own repository through its `llama` runtime
+(`serving/model.py` `load_model("llama", name, uri, **config)`), which
+`serving/server.py` serves the same way. The class is not a subclass of
+the JAX package's `Model` (the port imports nothing of it) but has its
+methods: `load`, `unload`, `ready`, `load_time`, `preprocess`,
+`predict`, `postprocess`, `explain`, `input_spec`, `output_spec`, and
+`__init__(name, uri=None, **config)` as the runtime calls it.
+`ModelError` is `serving/model.py`'s, re-exported here.
 
 `load()` reads an HF directory (`uri` or `checkpoint`) through
 `models/llama.py` `load_hf`, weights straight to the card and quantized
@@ -83,11 +85,8 @@ from kubeflow_tpu_torch.obs.trace import TRACER, new_trace_id
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.serving.agent import EngineSupervisor
 from kubeflow_tpu_torch.serving.disagg import DisaggregatedEngine
+from kubeflow_tpu_torch.serving.model import ModelError, serving_runtime
 from kubeflow_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
-
-
-class ModelError(Exception):
-    """A model the request named cannot serve it (HTTP 404)."""
 
 
 class ProtocolError(ValueError):
@@ -805,3 +804,8 @@ class LLMModel:
         if eng is not None:
             out["mesh"] = eng.mesh_info()
         return out
+
+
+@serving_runtime("llama")
+def _llama_runtime(name: str, uri: str | None = None, **config: Any):
+    return LLMModel(name, uri, **config)

@@ -8,7 +8,8 @@ protocol.py):
         "data"}, ...]}
 
 Tensors are numpy arrays. The same codec feeds the REST route and the
-gRPC server (`serving/grpc_server.py`). A malformed request raises the
+gRPC server (`serving/grpc_server.py`); `v1_encode` makes the V1
+`predict` answer. A malformed request raises the
 `ProtocolError` of `serving/llm_runtime.py`, the one type the server
 answers with a 400.
 """
@@ -130,3 +131,14 @@ class InferResponse:
                 "outputs": [t.to_json() for t in self.outputs],
                 **({"parameters": self.parameters} if self.parameters
                    else {})}
+
+
+def v1_encode(result: Any) -> dict[str, Any]:
+    """A predict() result as a V1 answer: {"predictions": ...}, numpy
+    arrays (alone or as a dict's values) as lists."""
+    if isinstance(result, np.ndarray):
+        result = result.tolist()
+    elif isinstance(result, dict):
+        result = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                  for k, v in result.items()}
+    return {"predictions": result}

@@ -1,5 +1,7 @@
-"""The port's model server: the LLM routes of kubeflow_tpu/serving/
-server.py's `ModelServer`, over `serving/llm_runtime.py` `LLMModel`s.
+"""The port's model server (counterpart of kubeflow_tpu/serving/
+server.py's `ModelServer`): the V1, V2 and OpenAI routes over a
+`serving/model.py` `ModelRepository` of named models, `LLMModel`s and
+tensor models alike.
 
     POST /openai/v1/completions        {"model"?, "prompt": str | [ids],
                                         "max_tokens", "temperature",
@@ -10,18 +12,20 @@ server.py's `ModelServer`, over `serving/llm_runtime.py` `LLMModel`s.
                                         "timeout", "user", "stream"}
     POST /openai/v1/chat/completions   the same with "messages" for
                                         "prompt" (no echo)
-    POST /v1/models/<m>:predict        {"instances": [{"prompt_tokens",
-                                        "max_new_tokens", ...}, ...]}
+    POST /v1/models/<m>:predict        {"instances": [...]} -> {"predictions":
+                                        [...]} (an LLMModel's instances:
+                                        {"prompt_tokens",
+                                        "max_new_tokens", ...})
     POST /v2/models/<m>/infer          {"id"?, "inputs": [{"name":
                                         "prompt_tokens", "shape",
                                         "datatype", "data"}, ...]} ->
                                         {"model_name", "id", "outputs":
-                                        [{"name": "output_tokens", ...}]}
-    GET  /v1/models | /v2/models       the model's name
+                                        [{"name", ...}, ...]}
+    GET  /v1/models | /v2/models       the repository's model names
     GET  /v2/models/<m> | /v2/models/<m>/ready
     GET  /v2/health/live | /v2/health/ready
     GET  /healthz                      liveness, uptime, build stamp, and
-                                        the model's prefix cache,
+                                        each model's prefix cache,
                                         supervisor, disaggregation,
                                         device layout and SLO window
     GET  /metrics                      Prometheus text (obs/metrics.py)
@@ -40,12 +44,19 @@ then one `data: [DONE]`; a failure after the headers is an error event
 before the [DONE]. A client that hangs up mid-stream is noticed before
 the next write (`_client_gone`) and its request cancelled.
 
-The server holds one model (a replica of one InferenceService). Two
-deliberate differences from the JAX server: "model" may be left out,
-and `stop` may also give token-id lists. The server speaks to engines
-only through the model: it names no engine class, and `from_config`
-builds an `LLMModel`, whose supervisor factory is where an engine is
-made. The OpenAI `user` field is the request's tenant: its scheduler
+The server serves a repository (a replica of one InferenceService with
+its TrainedModels, which a `serving/agent.py` `MultiModelAgent` pulls
+into and evicts from the same repository). `CompletionServer(model)` is a
+repository of one: that model is the server's own, loaded here if it is
+not yet and unloaded by stop(); `CompletionServer(repository=...)` serves
+a repository its owner loads and unloads. Requests route by the model's
+name (completions and chat by the body's "model"); a name the repository
+does not hold answers 404. Two deliberate differences from the JAX
+server: "model" may be left out when the server has its own model (or
+the repository holds one), and `stop` may also give token-id lists. The
+server speaks to engines only through the models: it names no engine
+class, and `from_config` builds an `LLMModel`, whose supervisor factory
+is where an engine is made. The OpenAI `user` field is the request's tenant: its scheduler
 queue, fair share and admission caps, and its degraded-mode priority. A
 refusal by the scheduler or the supervisor (QueueFull, and its subtypes
 TenantOverQuota and TenantShed) answers 503, as the JAX server does.
@@ -54,10 +65,13 @@ The V1 `predict` and V2 `infer` routes are the JAX server's: with a
 `payload_logger` (`serving/agent.py` `PayloadLogger`) each request is
 recorded before it runs and its answer, an error included, after, under
 one id; with `batching` ({model name: {maxBatchSize, maxLatencyMs}})
-the model's predict is wrapped in a `DynamicBatcher`. With `grpc=True` a
-`GrpcInferenceServer` (`serving/grpc_server.py`) serves the same model
-over the Open Inference Protocol beside the HTTP server, with the same
-batching config, started and stopped with it. `from_config` takes the
+that model's predict is wrapped in a `DynamicBatcher` of its own, made at
+its first request. /healthz and readiness look at every model, and a
+supervisor out of restarts in any of them makes the replica not ready
+(`ModelRepository.permanently_failed`). With `grpc=True` a
+`GrpcInferenceServer` (`serving/grpc_server.py`) serves the same
+repository over the Open Inference Protocol beside the HTTP server, with
+the same batching config, started and stopped with it. `from_config` takes the
 predictor-level keys the JAX controller reads: `grpc`, `logger` ({mode,
 path | url}) and `batching`.
 """
@@ -79,9 +93,10 @@ from kubeflow_tpu_torch.obs.metrics import render_metrics
 from kubeflow_tpu_torch.obs.trace import TRACE_HEADER, TRACER, new_trace_id
 from kubeflow_tpu_torch.serving.agent import PayloadLogger
 from kubeflow_tpu_torch.serving.batching import DynamicBatcher
-from kubeflow_tpu_torch.serving.llm_runtime import (LLMModel, ModelError,
-                                                    ProtocolError)
-from kubeflow_tpu_torch.serving.protocol import InferRequest, InferResponse
+from kubeflow_tpu_torch.serving.llm_runtime import LLMModel, ProtocolError
+from kubeflow_tpu_torch.serving.model import ModelError, ModelRepository
+from kubeflow_tpu_torch.serving.protocol import (InferRequest, InferResponse,
+                                                 v1_encode)
 from kubeflow_tpu_torch.serving.scheduler import PromptTooLong, QueueFull
 from kubeflow_tpu_torch.serving.tokenizer import (StreamDecoder,
                                                   chat_prompt_ids)
@@ -117,39 +132,38 @@ def _client_gone(sock) -> bool:
     return True
 
 
-def permanently_failed(model) -> bool:
-    """True when the model's supervisor has used up its restarts: the
-    replica can never serve again (/v2/health/ready, gRPC ServerReady)."""
-    try:
-        sup = (model.metrics() or {}).get("supervisor")
-    except Exception:
-        return False   # a model without metrics is not a verdict
-    return bool(sup and sup.get("permanent_failed"))
+def ready_models(repository: ModelRepository) -> bool:
+    """Every model ready and no supervisor out of restarts (the replica's
+    readiness: /v2/health/ready, gRPC ServerReady)."""
+    return (all(repository.ready(n) for n in repository.names())
+            and not repository.permanently_failed())
 
 
 class CompletionServer:
-    """A threaded HTTP server over one LLMModel (each request on its own
-    thread; the model steps its engine on its own). A model not loaded
-    yet is loaded here, and unloaded by stop()."""
+    """A threaded HTTP server over a ModelRepository (each request on its
+    own thread; an LLMModel steps its engine on its own). `model` makes a
+    repository of one whose model is the server's own: loaded here if it
+    is not yet, and unloaded by stop()."""
 
-    def __init__(self, model, *, name: str = "kubeflow-tpu-torch-server",
+    def __init__(self, model=None, *, repository: ModelRepository | None = None,
+                 name: str = "kubeflow-tpu-torch-server",
                  host: str = "127.0.0.1", port: int = 0,
                  batching: dict[str, Any] | None = None,
                  payload_logger: PayloadLogger | None = None,
                  grpc: bool = False):
+        if (model is None) == (repository is None):
+            raise ValueError("give a model or a repository")
+        self.repository = repository or ModelRepository()
+        #: the server's own model (None for a repository server)
         self.model = model
         self.name = name
         self.payload_logger = payload_logger
-        cfg = (batching or {}).get(model.name)
-        self._batcher = (DynamicBatcher.from_config(model.predict, cfg)
-                         if cfg else None)
-        self._owns_model = not model.ready
-        if self._owns_model:
-            t0 = time.monotonic()
-            model.load()
-            obs_metrics.MODEL_LOAD_SECONDS.observe(
-                time.monotonic() - t0, model=model.name)
-        obs_metrics.MODEL_READY.set(int(model.ready), model=model.name)
+        self._batch_cfg = batching or {}
+        self._batchers: dict[str, DynamicBatcher] = {}
+        self._batch_lock = threading.Lock()
+        self._owns_model = model is not None and not model.ready
+        if model is not None:
+            self.repository.register(model)   # loads it if not ready
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -221,7 +235,7 @@ class CompletionServer:
 
             try:
                 self.grpc_server = GrpcInferenceServer(
-                    model, host=host, batching=batching)
+                    self.repository, host=host, batching=batching)
             except BaseException:
                 self._close()
                 raise
@@ -261,23 +275,24 @@ class CompletionServer:
         return self
 
     def _close(self) -> None:
-        """Close the sockets, the gRPC server and the batcher."""
+        """Close the sockets, the gRPC server and the batchers."""
         self._stopped = True
         if self._thread is not None:
             self._httpd.shutdown()
         self._httpd.server_close()
         if self.grpc_server is not None:
             self.grpc_server.stop()
-        if self._batcher is not None:
-            self._batcher.stop()
+        with self._batch_lock:
+            for b in self._batchers.values():
+                b.stop()
+            self._batchers.clear()
 
     def stop(self) -> None:
         """Stop serving, and unload the model if this server loaded it."""
         self._close()
         if self._owns_model:
             self._owns_model = False
-            self.model.unload()
-            obs_metrics.MODEL_READY.set(0, model=self.model.name)
+            self.repository.unload(self.model.name)
 
     @property
     def alive(self) -> bool:
@@ -296,7 +311,7 @@ class CompletionServer:
 
     @property
     def ready(self) -> bool:
-        return self.model.ready and not permanently_failed(self.model)
+        return ready_models(self.repository)
 
     @property
     def grpc_address(self) -> str | None:
@@ -305,51 +320,66 @@ class CompletionServer:
                 else None)
 
     def _model(self, name: str | None):
-        if name is not None and name != self.model.name:
-            raise ModelError(f"model {name!r} not found")
-        return self.model
+        """The model a request names; without a name the server's own
+        model, or the repository's only one."""
+        if name is None:
+            if self.model is not None:
+                return self.model
+            names = self.repository.names()
+            if len(names) != 1:
+                raise ProtocolError('"model" is required')
+            name = names[0]
+        return self.repository.get(name)
 
     # -- routing --------------------------------------------------------------
 
     def health(self) -> dict[str, Any]:
         """The /healthz payload: answering at all means the serving thread
-        is alive; then the model's prefix cache counters, supervisor
-        recovery state, device layout and SLO window."""
+        is alive; then each model's prefix cache counters, supervisor
+        recovery state, disaggregation, device layout and SLO window."""
         body: dict[str, Any] = {
             "alive": self.alive, "name": self.name,
             "uptime_s": round(time.monotonic() - self._t_start, 3),
             "build": build_stamp()}
-        mname, model = self.model.name, self.model
-        try:
-            mm = model.metrics() or {}
-        except Exception:
-            return body   # liveness answers even if the model is broken
+        for mname in self.repository.names():
+            try:
+                model = self.repository.get(mname)
+                mm = model.metrics() or {}
+            except Exception:
+                continue   # liveness answers even if a model is broken
+            self._model_health(body, mname, model, mm)
+        return body
+
+    @staticmethod
+    def _model_health(body: dict[str, Any], mname: str, model,
+                      mm: dict[str, Any]) -> None:
+        """One model's sections of the /healthz payload, keyed by name."""
         try:
             s = model.slo_tracker.summary()
             if s["aggregate"]["n"]:
-                body["slo"] = {mname: s}
+                body.setdefault("slo", {})[mname] = s
         except Exception:
             pass
         if mm.get("prefix_cache"):
-            body["kv_cache"] = {mname: dict(
-                mm["prefix_cache"], kv_layout=mm.get("kv_layout", "slab"))}
+            body.setdefault("kv_cache", {})[mname] = dict(
+                mm["prefix_cache"], kv_layout=mm.get("kv_layout", "slab"))
         if mm.get("mesh"):
-            body["mesh"] = {mname: mm["mesh"]}
+            body.setdefault("mesh", {})[mname] = mm["mesh"]
         sup = mm.get("supervisor")
         if sup:
-            body["supervisor"] = {mname: {
+            body.setdefault("supervisor", {})[mname] = {
                 "restarts": sup.get("restarts", 0),
                 "permanent_failed": bool(sup.get("permanent_failed",
                                                  False)),
                 "last_mttr_s": sup.get("last_mttr_s"),
                 "journal_depth": sup.get("journal_depth", 0),
                 "in_flight": sup.get("in_flight", 0),
-                "degraded_rejections": sup.get("shed", 0)}}
+                "degraded_rejections": sup.get("shed", 0)}
         dg = mm.get("disagg")
         if dg:
             # backpressure as an operator sees it: the prefill queue, the
             # blocks in flight, the handoff's transport and counts
-            body["disagg"] = {mname: {
+            body.setdefault("disagg", {})[mname] = {
                 "queue_depth": dg.get("queue_depth", 0),
                 "inflight_prefills": dg.get("inflight_prefills", 0),
                 "blocks_in_flight": dg.get("blocks_in_flight", 0),
@@ -358,8 +388,7 @@ class CompletionServer:
                 "handoff": dg.get("handoff"),
                 "prefill_restarts": dg.get("prefill_restarts", 0),
                 "prefill_permanent_failed": bool(
-                    dg.get("prefill_permanent_failed", False))}}
-        return body
+                    dg.get("prefill_permanent_failed", False))}
 
     def _handle_get(self, path: str) -> tuple[int, dict[str, Any]]:
         if path == "/healthz":
@@ -373,16 +402,18 @@ class CompletionServer:
             ready = self.ready
             return (200 if ready else 503), {"ready": ready}
         if path in ("/v1/models", "/v2/models"):
-            return 200, {"models": [self.model.name]}
+            return 200, {"models": self.repository.names()}
         parts = path.strip("/").split("/")
         if len(parts) >= 3 and parts[:2] == ["v2", "models"]:
-            name, m = parts[2], self.model
+            name = parts[2]
             if len(parts) == 4 and parts[3] == "ready":
-                ok = name == m.name and m.ready
+                ok = self.repository.ready(name)
                 return (200 if ok else 503), {"name": name, "ready": ok}
             if len(parts) == 3:
-                if name != m.name:
-                    return 404, {"error": f"model {name!r} not found"}
+                try:
+                    m = self.repository.get(name)
+                except ModelError as e:
+                    return 404, {"error": str(e)}
                 return 200, {"name": name, "platform": "pytorch-cuda",
                              "inputs": m.input_spec(),
                              "outputs": m.output_spec()}
@@ -414,6 +445,9 @@ class CompletionServer:
         """The request as (model, payload); raises ProtocolError (400),
         ModelError (404) or NotReadyError (503)."""
         m = self._model(body.get("model"))
+        if not hasattr(m, "stream") or not hasattr(m, "tokenizer"):
+            raise ProtocolError(
+                f"model {m.name!r} does not serve text completions")
         if not m.ready:
             raise NotReadyError(f"model {m.name!r} is not ready")
         if chat:
@@ -758,9 +792,17 @@ class CompletionServer:
 
     # -- V1 predict and V2 infer ----------------------------------------------
 
-    def _predictor(self):
-        """The model's predict, through the batcher when there is one."""
-        return self._batcher or self.model.predict
+    def _predictor(self, model):
+        """The model's predict, through its batcher when `batching` names
+        it (made at the model's first request)."""
+        cfg = self._batch_cfg.get(model.name)
+        if not cfg:
+            return model.predict
+        with self._batch_lock:
+            if model.name not in self._batchers:
+                self._batchers[model.name] = DynamicBatcher.from_config(
+                    model.predict, cfg)
+            return self._batchers[model.name]
 
     def _logged(self, name: str, t0: float, code: int,
                 resp: dict[str, Any], rid: str | None
@@ -792,7 +834,7 @@ class CompletionServer:
         rid = self._log_request(name, body)
         t0 = time.perf_counter()
         try:
-            model = self._model(name)
+            model = self.repository.get(name)
             if not model.ready:
                 return self._logged(name, t0, 503,
                                     {"error": f"model {name!r} not ready"},
@@ -802,7 +844,7 @@ class CompletionServer:
             t_infer = time.perf_counter()
             payload = model.preprocess(body["instances"])
             if verb == "predict":
-                result = self._predictor()(payload)
+                result = self._predictor(model)(payload)
             elif verb == "explain":
                 result = model.explain(payload)
             else:
@@ -810,7 +852,7 @@ class CompletionServer:
                                     {"error": f"unknown verb {verb!r}"}, rid)
             result = model.postprocess(result)
             self._observe(name, verb, time.perf_counter() - t_infer)
-            return self._logged(name, t0, 200, {"predictions": result}, rid)
+            return self._logged(name, t0, 200, v1_encode(result), rid)
         except Exception as e:
             self._log_error(name, t0, rid, e)
             raise
@@ -819,7 +861,7 @@ class CompletionServer:
         rid = self._log_request(name, body)
         t0 = time.perf_counter()
         try:
-            model = self._model(name)
+            model = self.repository.get(name)
             if not model.ready:
                 return self._logged(name, t0, 503,
                                     {"error": f"model {name!r} not ready"},
@@ -827,7 +869,7 @@ class CompletionServer:
             req = InferRequest.from_json(name, body)
             t_infer = time.perf_counter()
             payload = model.preprocess(req.as_dict())
-            result = model.postprocess(self._predictor()(payload))
+            result = model.postprocess(self._predictor(model)(payload))
             self._observe(name, "infer", time.perf_counter() - t_infer)
             return self._logged(
                 name, t0, 200,

@@ -1,8 +1,10 @@
 """Trainer-checkpoint serving (counterpart of
 kubeflow_tpu/serving/trainer_runtime.py `TrainerCheckpointModel`): any
 registered model family served straight from the port trainer's
-`checkpoint_dir`. The JAX package's `ModelServer` builds it through its
-`python` runtime, as it builds `LLMModel`:
+`checkpoint_dir`. The port's repository builds it through the
+`trainer` runtime (`load_model("trainer", name, uri, model=...)`, as a
+`MultiModelAgent` pull does), and the JAX package's `ModelServer` through
+its `python` runtime, as it builds `LLMModel`:
 
     predictor:
       model:
@@ -20,15 +22,14 @@ input (NHWC images for the vision families, token ids for the language
 models); V2: one input tensor. `load()` restores only the `params`
 subtree of the newest checkpoint, into the family's `abstract` tree on
 the device (`training/checkpoint.py` `restore_params`; no optimizer
-state), or makes random params from `seed` without a checkpoint. Like
-`LLMModel` the class is duck-typed to the JAX `Model` (the port imports
-nothing of it): `load`, `unload`, `ready`, `load_time`, `preprocess`,
-`predict`, `postprocess`, `explain`, `input_spec`, `output_spec`.
+state), or makes random params from `seed` without a checkpoint;
+`unload()` drops them, so an evicted model's memory goes back to the
+card's allocator. The class is the port's `serving/model.py` `Model`,
+which has the JAX `Model`'s methods (the port imports nothing of it).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any
 
 import numpy as np
@@ -36,19 +37,18 @@ import torch
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models import registry
-from kubeflow_tpu_torch.serving.llm_runtime import ModelError
+from kubeflow_tpu_torch.serving.model import (Model, ModelError,
+                                              serving_runtime)
 
 
-class TrainerCheckpointModel:
+class TrainerCheckpointModel(Model):
     def __init__(self, name: str, uri: str | None = None, *,
                  model: str, model_overrides: dict[str, Any] | None = None,
                  checkpoint: str | None = None, output: str = "logits",
                  seed: int = 0, device="cuda", **_ignored: Any):
+        super().__init__(name)
         if output not in ("logits", "argmax"):
             raise ModelError(f"output {output!r} invalid (logits|argmax)")
-        self.name = name
-        self.ready = False
-        self.load_time: float | None = None
         self._model_name = model
         self._overrides = dict(model_overrides or {})
         self._checkpoint = checkpoint or uri
@@ -58,10 +58,6 @@ class TrainerCheckpointModel:
         self.params = None
         self.cfg = None
         self._apply = None
-
-    def _mark_ready(self) -> None:
-        self.ready = True
-        self.load_time = time.time()
 
     def load(self) -> None:
         from kubeflow_tpu_torch.training.checkpoint import restore_params
@@ -85,21 +81,6 @@ class TrainerCheckpointModel:
         self.params = None
         self.ready = False
 
-    def preprocess(self, payload: Any) -> Any:
-        return payload
-
-    def postprocess(self, result: Any) -> Any:
-        return result
-
-    def explain(self, payload: Any) -> Any:
-        raise ModelError(f"model {self.name!r} does not support explain")
-
-    def input_spec(self) -> list[dict[str, Any]]:
-        return []
-
-    def output_spec(self) -> list[dict[str, Any]]:
-        return []
-
     def predict(self, payload: Any) -> np.ndarray:
         """The family's apply on the payload's array: f32 logits, or
         their argmax over the last axis."""
@@ -120,3 +101,7 @@ class TrainerCheckpointModel:
             return np.argmax(out, axis=-1)
         return out
 
+
+@serving_runtime("trainer")
+def _trainer_runtime(name: str, uri: str | None = None, **config: Any):
+    return TrainerCheckpointModel(name, uri, **config)

@@ -73,3 +73,14 @@ def test_the_model_family_modules_are_scanned():
                 "models/vit.py", "models/nas_cnn.py", "models/common.py",
                 "models/registry.py", "serving/trainer_runtime.py"):
         assert port / rel in FILES, rel
+
+
+def test_the_rl_and_multi_model_modules_are_scanned():
+    """The port's RL package (envs, learner, config, pod target, packing)
+    and the multi-model serving modules (the model abstraction and
+    runtimes, storage) are among the scanned files."""
+    port = ROOT / "kubeflow_tpu_torch"
+    for rel in ("rl/__init__.py", "rl/config.py", "rl/envs.py",
+                "rl/anakin.py", "rl/packing.py", "rl/job.py",
+                "serving/model.py", "serving/storage.py"):
+        assert port / rel in FILES, rel

@@ -502,7 +502,7 @@ def test_from_config_takes_the_predictor_keys(llm, tmp_path):
         code, out = _post(f"{server.url}/v2/models/isvc/infer",
                           _v2_body(list(PROMPTS[2]), 3))
         assert code == 200 and out["outputs"][0]["data"] == got.tolist()
-        assert server._batcher is not None
+        assert set(server._batchers) == {"isvc"}
     finally:
         client.close()
         server.stop()
