@@ -408,6 +408,21 @@ Phases, in order; any failure exits non-zero before the result line:
       same before and after the pulls; a pull of the host's name
       refused; K1-K3 (the host) and B1 (ViT) launched. Prints each
       pull's seconds, parameter and resident GB;
+  (n) sharded trainer (after (mm)): a one-rank NCCL process group on a
+      file:// store (no port bound; the NCCL version printed), the
+      meshes {"data": -1} and {"fsdp": -1} (every axis 1, on cuda),
+      (j)'s config on the Trainer over {"fsdp": -1} for N_STEPS steps
+      from --seed: every state leaf a DTensor, B1-B3 launched at least
+      once per layer a step, step 1's loss bit for bit (j)'s run 1 and
+      every loss and grad_norm within TRAIN_LOSS_RTOL of it (the
+      bit-equality of each printed); then training/job.py's job from a
+      pod env of KTPU_NUM_PROCESSES=1 and N_JOB (mesh {"fsdp": -1}) on
+      the group, as train_target runs it past one process: four
+      sharded steps logged, steps 2 and 4 saved, B1-B3 launched. Prints
+      the median step beside (j)'s with the card's name and power limit,
+      the state's GB on the rank and the phase's peak memory; the group
+      is destroyed before the phase ends. One card: NCCL across cards,
+      fsdp's memory saving and multi-card speed are not checked here;
 Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the paged engine's run for
@@ -1670,6 +1685,9 @@ def trainer_phase(seed: int, attn_shape: dict) -> tuple[dict, dict]:
     print(f"trainer: Llama-3-8B width, {mcfg.n_layers} layers, B="
           f"{cfg.batch_size} S={cfg.dataset.seq_len}: {json.dumps(stats)}",
           flush=True)
+    # (n) holds the sharded trainer to run 1
+    stats["loss"] = [m["loss"] for m in log]
+    stats["grad_norm"] = [m["grad_norm"] for m in log]
     profile_batch = trainer.to_device(next(data))
     del trainer, state
     torch.cuda.empty_cache()
@@ -6444,6 +6462,153 @@ cs.trainer_phase(seed, {n: case[n]["shape_key"] for n in
 """
 
 
+# -- (n) the sharded trainer on a one-rank process group ----------------------
+
+
+#: (n): steps of (j)'s config on the sharded trainer, held to (j)'s first
+#: steps
+N_STEPS = 3
+#: (n)'s train_target job: a small Llama (head dim 128, so B1-B3 run on
+#: real heads) on {"fsdp": -1}, logged and saved each step
+N_JOB = {"model": "llama", "batch_size": 2, "num_steps": 4, "log_every": 1,
+         "seed": 5, "checkpoint_every": 2, "keep_checkpoints": 2,
+         "mesh": {"fsdp": -1},
+         "model_overrides": {"vocab_size": 4096, "d_model": 512,
+                             "n_layers": 2, "n_heads": 4, "n_kv_heads": 2,
+                             "d_ff": 1024, "max_seq_len": 1024},
+         "optimizer": {"warmup_steps": 2},
+         "dataset": {"seq_len": 1024}}
+
+
+def sharded_trainer_phase(seed: int, ref: dict) -> dict:
+    """(n): a one-rank NCCL process group on a file:// store (no port is
+    bound), the meshes {"data": -1} and {"fsdp": -1}, (j)'s config on the
+    sharded trainer over {"fsdp": -1} for N_STEPS steps from (j)'s seed
+    (module doc), then train_target's job from KTPU_NUM_PROCESSES=1 and
+    N_JOB on the group's mesh; the group is destroyed before the phase ends. `ref` is (j)'s run 1:
+    its per-step losses, grad norms and median step time."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from kubeflow_tpu_torch.parallel import make_mesh, mesh_shape
+    from kubeflow_tpu_torch.training import job as train_job
+    from kubeflow_tpu_torch.training.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.training.metrics_writer import read_metrics
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-n-")
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "pg"), world_size=1, rank=0, device_id=dev)
+    try:
+        print(f"sharded trainer: NCCL {torch.cuda.nccl.version()}, world "
+              f"size {dist.get_world_size()}, backend {dist.get_backend()}",
+              flush=True)
+        meshes = {axis: make_mesh({axis: -1}) for axis in ("data", "fsdp")}
+        for axis, mesh in meshes.items():
+            check(mesh_shape(mesh) == {a: 1 for a in mesh.mesh_dim_names}
+                  and mesh.device_type == "cuda",
+                  f"(n): mesh {{{axis}: -1}} is {mesh_shape(mesh)} on "
+                  f"{mesh.device_type}")
+        cfg = train_config(seed)
+        trainer = train.Trainer(cfg, device=DEV, mesh=meshes["fsdp"],
+                                metrics=MetricsWriter(echo=False))
+        state = trainer.init_state()
+        check(all(isinstance(p, DTensor)
+                  for p in train.leaves(state["params"])
+                  + train.leaves([state["opt_state"]["mu"],
+                                  state["opt_state"]["nu"]])),
+              "(n): a state leaf is not a DTensor")
+        data = train_data.make_dataset(cfg.dataset, cfg.model,
+                                       trainer.model_cfg, cfg.batch_size,
+                                       fallback_seed=cfg.seed)
+        _build.reset_launches()
+        log = []
+        trainer.train(data, N_STEPS, state,
+                      step_callback=lambda s, m: log.append(m))
+        launches = {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
+        for name, n in launches.items():
+            check(n >= N_STEPS * trainer.model_cfg.n_layers,
+                  f"(n): {name} launched {n} times in {N_STEPS} sharded "
+                  "steps")
+        # step 1's loss is the forward's alone: bit for bit; the rest
+        # carry the embedding gradient's scatter-add, whose order moves
+        # between runs, so they are held to (j)'s own run-to-run bound
+        check(log[0]["loss"] == ref["loss"][0],
+              f"(n): step 1 loss {log[0]['loss']!r} vs (j)'s "
+              f"{ref['loss'][0]!r}")
+        diffs = {}
+        for key in ("loss", "grad_norm"):
+            d = [abs(m[key] - r) / abs(r) for m, r in zip(log, ref[key])]
+            check(max(d) <= TRAIN_LOSS_RTOL,
+                  f"(n): {key} {[m[key] for m in log]} vs (j)'s "
+                  f"{ref[key][:N_STEPS]}")
+            diffs[key] = max(d)
+        bits = [m["loss"] == r for m, r in zip(log, ref["loss"])] + [
+            m["grad_norm"] == r for m, r in zip(log, ref["grad_norm"])]
+        steady = sorted(m["step_time_s"] for m in log[1:])
+        step_s = steady[len(steady) // 2]
+        stats = {"losses": [m["loss"] for m in log],
+                 "grad_norms": [m["grad_norm"] for m in log],
+                 "bit_equal_to_j": bits,
+                 "max_rel_diff_vs_j": diffs, "launches": launches,
+                 "step_time_s_median": step_s,
+                 "j_step_time_s_median": ref["step_time_s_median"],
+                 "state_gb_per_rank": sum(
+                     p.to_local().nbytes for p in train.leaves(
+                         [state["params"], state["opt_state"]["mu"],
+                          state["opt_state"]["nu"]])) / 1e9}
+        del trainer, state
+        torch.cuda.empty_cache()
+        # the pod target's job on this group, as train_target runs it
+        # past one process: the trainer on a mesh of the config's mesh
+        sharded_steps = [0]
+        step_fn = train.Trainer._sharded_step
+
+        def counted(self, *a):
+            sharded_steps[0] += 1
+            return step_fn(self, *a)
+
+        job_dir = os.path.join(tmp, "job")
+        env = {"KTPU_TRAINER_CONFIG": json.dumps(dict(
+            N_JOB, checkpoint_dir=os.path.join(job_dir, "ckpt"))),
+            "KTPU_NUM_PROCESSES": "1", "KTPU_PROCESS_ID": "0",
+            "KTPU_METRICS_FILE": os.path.join(job_dir, "metrics.jsonl"),
+            "KTPU_TORCH_DEVICE": DEV}
+        before = dict(_build.LAUNCHES)
+        train.Trainer._sharded_step = counted
+        try:
+            train_job._train(env, threading.Event(), DEV, True,
+                             sharded=True)
+        finally:
+            train.Trainer._sharded_step = step_fn
+        rows = read_metrics(env["KTPU_METRICS_FILE"])
+        steps = CheckpointManager(os.path.join(job_dir, "ckpt")).all_steps()
+        job_launches = {k: _build.LAUNCHES[k] - before.get(k, 0)
+                        for k in TRAINING_KERNELS}
+        check([r["step"] for r in rows] == [1, 2, 3, 4]
+              and all(math.isfinite(r["metrics"]["loss"]) for r in rows),
+              f"(n): train_target logged {rows}")
+        check(steps == [2, 4], f"(n): train_target saved steps {steps}")
+        check(sharded_steps[0] == N_JOB["num_steps"],
+              f"(n): train_target ran {sharded_steps[0]} sharded steps")
+        check(all(n > 0 for n in job_launches.values()),
+              f"(n): train_target launches {job_launches}")
+        stats["job"] = {"losses": [r["metrics"]["loss"] for r in rows],
+                        "saved_steps": steps, "launches": job_launches}
+        stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"sharded trainer: {card_line()}; {json.dumps(stats)}",
+              flush=True)
+        print(f"sharded trainer: median step {step_s:.4f} s on the "
+              f"{{fsdp: 1}} mesh against (j)'s {ref['step_time_s_median']:.4f}"
+              f" s unsharded; peak {stats['peak_memory_gb']:.2f} GB",
+              flush=True)
+        return stats
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6585,6 +6750,7 @@ def main(argv=None) -> int:
               mm_root)
     finally:
         shutil.rmtree(mm_root, ignore_errors=True)
+    phase("n sharded trainer", sharded_trainer_phase, args.seed, train_stats)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     kernels = []
     for name in _build.KERNELS:

@@ -24,13 +24,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 MESH_AXES = ("data", "fsdp", "stage", "expert", "sequence", "tensor")
 
 
-def check_one_card_mesh(mesh: dict) -> None:
-    """A mesh spec that the port runs: known axes, each 1 or -1 (all the
-    devices, which is one card here). Raises ValueError otherwise."""
+def check_one_card_mesh(mesh: dict, item: str = "A6") -> None:
+    """A mesh spec that a one-card path runs: known axes, each 1 or -1
+    (all the devices, which is one card here). Raises ValueError
+    otherwise, naming the ROADMAP.md queue item that takes the path past
+    one card."""
     for axis, n in mesh.items():
         if axis not in MESH_AXES:
             raise ValueError(f"unknown mesh axis {axis!r}")
         if n not in (1, -1):
             raise ValueError(
-                f"mesh axis {axis}={n}: the port runs on one card "
-                "(multi-card meshes are ROADMAP.md queue A6, parallelism)")
+                f"mesh axis {axis}={n}: this path runs on one card "
+                f"(past one card is ROADMAP.md queue {item}, parallelism)")

@@ -5,8 +5,7 @@ over the pooled [CLS] token.
 Attention is ops/attention.py `mha` (non-causal, the attention mask as
 segment ids, so padding attends only to padding), as the JAX model calls
 its XLA `mha`, not a Pallas kernel. GELU is the tanh approximation
-(`jax.nn.gelu`'s default). The JAX module's `logical_axes` has no
-counterpart: the port runs on one card (ROADMAP.md queue A6).
+(`jax.nn.gelu`'s default).
 """
 
 from __future__ import annotations
@@ -85,10 +84,36 @@ def _spec(cfg: BertConfig) -> Params:
     }
 
 
-def init(cfg: BertConfig, *, seed: int = 0, device="cuda") -> Params:
+def init(cfg: BertConfig, *, seed: int = 0, device="cuda",
+         keep=None) -> Params:
     """Random params from `seed` in cfg.param_dtype (`_spec`)."""
-    return init_tree(_spec(cfg), seed=seed, device=device,
+    return init_tree(_spec(cfg), seed=seed, device=device, keep=keep,
                      dtype=cfg.param_dtype)
+
+
+def logical_axes(cfg: BertConfig) -> Params:
+    return {
+        "embed": ("vocab", "embed"),
+        "pos_embed": (None, "embed"),
+        "type_embed": (None, "embed"),
+        "embed_norm": {"w": ("embed_no_fsdp",), "b": ("embed_no_fsdp",)},
+        "layers": {
+            "wqkv": ("layers", "embed", "qkv"),
+            "bqkv": ("layers", "qkv"),
+            "wo": ("layers", "qkv", "embed"),
+            "bo": ("layers", "embed_no_fsdp"),
+            "w1": ("layers", "embed", "mlp"),
+            "b1": ("layers", "mlp"),
+            "w2": ("layers", "mlp", "embed"),
+            "b2": ("layers", "embed_no_fsdp"),
+            "norm1": {"w": ("layers", "embed_no_fsdp"),
+                      "b": ("layers", "embed_no_fsdp")},
+            "norm2": {"w": ("layers", "embed_no_fsdp"),
+                      "b": ("layers", "embed_no_fsdp")},
+        },
+        "pooler": {"w": ("embed", "mlp"), "b": (None,)},
+        "classifier": {"w": ("embed", None), "b": (None,)},
+    }
 
 
 def abstract_params(cfg: BertConfig) -> Params:

@@ -38,19 +38,36 @@ def map_spec(spec: Any, fn) -> Any:
     return fn(*spec)
 
 
-def init_tree(spec: Any, *, seed: int, device, dtype=torch.float32) -> Any:
+def _map_spec_paths(spec: Any, fn, path: str = "") -> Any:
+    """map_spec with fn(path, shape, fill), path the leaf's "/"-joined
+    keys (the trainer's `named_leaves` path)."""
+    def sub(k):
+        return f"{path}/{k}" if path else str(k)
+    if isinstance(spec, dict):
+        return {k: _map_spec_paths(v, fn, sub(k)) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [_map_spec_paths(v, fn, sub(i)) for i, v in enumerate(spec)]
+    return fn(path, *spec)
+
+
+def init_tree(spec: Any, *, seed: int, device, dtype=torch.float32,
+              keep=None) -> Any:
     """Params from a spec on `device` (cuda raises without a GPU), in
     dtype: fill "ones" or "zeros", or a float, the std of a normal draw
-    from `seed`."""
+    from `seed`. `keep(path, leaf)`, when given, takes each leaf as it is
+    made and returns what the tree holds (a sharded trainer's block), so
+    one whole leaf exists at a time."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def make(shape, fill):
+    def make(path, shape, fill):
         if fill in ("ones", "zeros"):
-            return getattr(torch, fill)(shape, dtype=dtype, device=dev)
-        return (torch.randn(shape, generator=gen, device=dev)
-                * fill).to(dtype)
-    return map_spec(spec, make)
+            t = getattr(torch, fill)(shape, dtype=dtype, device=dev)
+        else:
+            t = (torch.randn(shape, generator=gen, device=dev)
+                 * fill).to(dtype)
+        return t if keep is None else keep(path, t)
+    return _map_spec_paths(spec, make)
 
 
 def meta_tree(spec: Any, dtype=torch.float32) -> Any:

@@ -105,13 +105,13 @@ class LlamaConfig:
             if name == "attention_impl" and value in ("ring", "ulysses"):
                 raise ValueError(
                     f"attention_impl={value!r}: sequence-parallel attention "
-                    "is not ported yet (ROADMAP.md queue A6, parallelism)")
+                    "is not ported yet (ROADMAP.md queue A6b, parallelism)")
             raise ValueError(f"unknown {name} {value!r}")
         if self.pipeline_microbatches != 0:
             raise ValueError(
                 f"pipeline_microbatches={self.pipeline_microbatches}: "
                 "pipeline parallelism is not ported yet (ROADMAP.md queue "
-                "A6, parallelism)")
+                "A6c, parallelism)")
         set_dtypes(self, "dtype", "param_dtype")
 
     @property
@@ -142,14 +142,21 @@ def matmul_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
 
 
 def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
-         quantize: str | None = None) -> Params:
+         quantize: str | None = None, keep=None) -> Params:
     """Random params (normal / sqrt(fan_in), unit norms) from `seed`,
     built layer by layer on the device. With quantize="int8" each layer's
     matmul weights are quantized as they are made, so the f32 model never
     exists whole (at 8B it would be 32 GB). Non-quantized leaves are kept
-    in cfg.param_dtype."""
+    in cfg.param_dtype. `keep(path, tensor, layer=None)`, when given,
+    takes each leaf (a stacked leaf one layer at a time) as it is made
+    and returns what the tree holds: a sharded trainer keeps its block."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
+    if keep is not None and quantize:
+        raise ValueError("keep= builds training params: no quantize")
+    if keep is None:
+        def keep(path, t, layer=None):
+            return t
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, L, pd = cfg.d_model, cfg.n_layers, cfg.param_dtype
@@ -164,28 +171,55 @@ def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
     shapes = {name: (shape, shape[0])
               for name, shape in matmul_shapes(cfg).items()}
     layers: Params = {}
-    for name, (shape, _) in shapes.items():
-        if quantize:
+    if quantize:
+        for name, (shape, _) in shapes.items():
             layers[name] = {
                 "q": torch.empty((L, *shape), dtype=torch.int8, device=dev),
                 "s": torch.empty((L, shape[1]), dtype=torch.float32,
                                  device=dev)}
-        else:
-            layers[name] = torch.empty((L, *shape), dtype=pd, device=dev)
     for i in range(L):
         for name, (shape, fan_in) in shapes.items():
             w = leaf(shape, fan_in)
             if quantize:
                 layers[name]["q"][i] = w["q"]
                 layers[name]["s"][i] = w["s"]
-            else:
-                layers[name][i] = w
-    layers["attn_norm"] = torch.ones((L, d), dtype=pd, device=dev)
-    layers["mlp_norm"] = torch.ones((L, d), dtype=pd, device=dev)
-    return {"embed": dense((cfg.vocab_size, d), d).to(pd),
+                continue
+            w = keep(f"layers/{name}", w, i)
+            if name not in layers:   # shaped by the first layer's block
+                layers[name] = torch.empty((L, *w.shape), dtype=pd,
+                                           device=dev)
+            layers[name][i] = w
+    for name in ("attn_norm", "mlp_norm"):
+        layers[name] = keep(f"layers/{name}",
+                            torch.ones((L, d), dtype=pd, device=dev))
+    embed = keep("embed", dense((cfg.vocab_size, d), d).to(pd))
+    return {"embed": embed,
             "layers": layers,
-            "final_norm": torch.ones((d,), dtype=pd, device=dev),
-            "lm_head": leaf((d, cfg.vocab_size), d)}
+            "final_norm": keep("final_norm",
+                               torch.ones((d,), dtype=pd, device=dev)),
+            "lm_head": (leaf((d, cfg.vocab_size), d) if quantize else
+                        keep("lm_head", leaf((d, cfg.vocab_size), d)))}
+
+
+def logical_axes(cfg: LlamaConfig) -> Params:
+    """The logical sharding axes of init's tree, leaf for leaf
+    (parallel/sharding.py)."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "wq": ("layers", "embed", "qkv"),
+            "wk": ("layers", "embed", "qkv"),
+            "wv": ("layers", "embed", "qkv"),
+            "wo": ("layers", "qkv", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+            "attn_norm": ("layers", "embed_no_fsdp"),
+            "mlp_norm": ("layers", "embed_no_fsdp"),
+        },
+        "final_norm": ("embed_no_fsdp",),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def abstract_params(cfg: LlamaConfig) -> Params:
@@ -803,7 +837,7 @@ def load_hf(path: str, cfg: LlamaConfig | None = None, *, device="cuda",
     if mesh is not None:
         raise ValueError(
             "load_hf(mesh=...): sharded parameters are not ported yet "
-            "(ROADMAP.md queue A6, parallelism)")
+            "(ROADMAP.md queue A6c, parallelism)")
     if cfg is None:
         cfg = config_from_hf(path)
     dev = resolve_device(device)

@@ -13,9 +13,9 @@ optimizer state either: AdamW's moments exist only for the adapters.
 
 `merge(params, cfg, stop_base_gradient=False)` is the serving export (a
 plain llama tree for the engines, `quantize_params` after it), and
-`adapter_only` the checkpoint-sized artifact. The JAX module's
-`logical_axes` (the adapters' shardings on a mesh) has no counterpart:
-the port runs on one card (ROADMAP.md queue A6).
+`adapter_only` the checkpoint-sized artifact. `logical_axes` shards an
+adapter like its target's matching dim: a keeps the input axis, b the
+output axis.
 """
 
 from __future__ import annotations
@@ -84,14 +84,27 @@ def _load_base(cfg: LoraLlamaConfig, device) -> Params:
                           device=device)
 
 
-def init(cfg: LoraLlamaConfig, *, seed: int = 0, device="cuda") -> Params:
+def init(cfg: LoraLlamaConfig, *, seed: int = 0, device="cuda",
+         keep=None) -> Params:
     """{"base", "lora"}: the base from `base_checkpoint` or llama.init at
     `seed`; each target's a ~ N(0, 1/d_in) from a generator of its own
-    seed and b = 0, so the merged model equals the base at step 0."""
+    seed and b = 0, so the merged model equals the base at step 0.
+    `keep(path, tensor, layer=None)` as in llama.init (a base read from a
+    checkpoint is read whole, then kept leaf by leaf)."""
     dev = resolve_device(device)
     bcfg = cfg.base_cfg
-    base = (_load_base(cfg, dev) if cfg.base_checkpoint
-            else llama.init(bcfg, seed=seed, device=dev))
+    if keep is None:
+        def keep(path, t, layer=None):
+            return t
+    if cfg.base_checkpoint:
+        base = _load_base(cfg, dev)
+        base = {k: ({n: keep(f"base/layers/{n}", w) for n, w in v.items()}
+                    if k == "layers" else keep(f"base/{k}", v))
+                for k, v in base.items()}
+    else:
+        base = llama.init(bcfg, seed=seed, device=dev,
+                          keep=lambda path, t, layer=None: keep(
+                              f"base/{path}", t, layer))
     shapes = llama.matmul_shapes(bcfg)
     pd, L = bcfg.param_dtype, bcfg.n_layers
     adapters = {}
@@ -100,10 +113,23 @@ def init(cfg: LoraLlamaConfig, *, seed: int = 0, device="cuda") -> Params:
         gen = torch.Generator(device=dev).manual_seed(
             (seed << 16) + 1000 + i)
         a = torch.randn((L, d_in, cfg.rank), generator=gen, device=dev)
-        adapters[t] = {"a": (a / d_in ** 0.5).to(pd),
-                       "b": torch.zeros((L, cfg.rank, d_out), dtype=pd,
-                                        device=dev)}
+        adapters[t] = {"a": keep(f"lora/{t}/a", (a / d_in ** 0.5).to(pd)),
+                       "b": keep(f"lora/{t}/b",
+                                 torch.zeros((L, cfg.rank, d_out), dtype=pd,
+                                             device=dev))}
     return {"base": base, "lora": adapters}
+
+
+def logical_axes(cfg: LoraLlamaConfig) -> Params:
+    """Adapters shard like their target's matching dimension: a keeps the
+    input axis (rank replicated), b keeps the output axis."""
+    base = llama.logical_axes(cfg.base_cfg)
+    lora = {}
+    for t in cfg.targets:
+        _, in_ax, out_ax = base["layers"][t]  # ("layers", in, out)
+        lora[t] = {"a": ("layers", in_ax, None),
+                   "b": ("layers", None, out_ax)}
+    return {"base": base, "lora": lora}
 
 
 def abstract_params(cfg: LoraLlamaConfig) -> Params:

@@ -45,9 +45,19 @@ def _spec(cfg: MnistConfig) -> Params:
             "fc2": layer((cfg.hidden, cfg.n_classes), cfg.hidden)}
 
 
-def init(cfg: MnistConfig, *, seed: int = 0, device="cuda") -> Params:
+def init(cfg: MnistConfig, *, seed: int = 0, device="cuda",
+         keep=None) -> Params:
     """Random f32 params from `seed` (`_spec`)."""
-    return init_tree(_spec(cfg), seed=seed, device=device)
+    return init_tree(_spec(cfg), seed=seed, device=device, keep=keep)
+
+
+def logical_axes(cfg: MnistConfig) -> Params:
+    return {
+        "conv1": {"w": (None, None, "conv_in", "conv_out"), "b": (None,)},
+        "conv2": {"w": (None, None, "conv_in", "conv_out"), "b": (None,)},
+        "fc1": {"w": ("embed", "mlp"), "b": (None,)},
+        "fc2": {"w": ("mlp", None), "b": (None,)},
+    }
 
 
 def abstract_params(cfg: MnistConfig) -> Params:

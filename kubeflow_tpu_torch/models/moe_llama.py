@@ -6,9 +6,9 @@ layers.
 
 The tree is the JAX one: the Llama leaves less the dense MLP, plus
 router [L, D, E] and stacked experts w_gate/w_up [L, E, D, F], w_down
-[L, E, F, D]. The JAX module's `logical_axes` (the expert shardings on
-a mesh) has no counterpart: the port runs on one card (ROADMAP.md queue
-A6).
+[L, E, F, D]. `logical_axes` is the JAX one; the trainer refuses
+Mixtral past one rank until routing runs over the global batch's tokens
+(ROADMAP.md queue A6a-ii).
 """
 
 from __future__ import annotations
@@ -76,10 +76,20 @@ def _spec(cfg: MoELlamaConfig) -> Params:
             "lm_head": ((d, cfg.vocab_size), d ** -0.5)}
 
 
-def init(cfg: MoELlamaConfig, *, seed: int = 0, device="cuda") -> Params:
+def init(cfg: MoELlamaConfig, *, seed: int = 0, device="cuda",
+         keep=None) -> Params:
     """Random params from `seed` in cfg.param_dtype (`_spec`)."""
-    return init_tree(_spec(cfg), seed=seed, device=device,
+    return init_tree(_spec(cfg), seed=seed, device=device, keep=keep,
                      dtype=cfg.param_dtype)
+
+
+def logical_axes(cfg: MoELlamaConfig) -> Params:
+    axes = llama.logical_axes(cfg)
+    axes["layers"]["router"] = ("layers", "embed", None)
+    axes["layers"]["w_gate"] = ("layers", "expert", "embed", "mlp")
+    axes["layers"]["w_up"] = ("layers", "expert", "embed", "mlp")
+    axes["layers"]["w_down"] = ("layers", "expert", "mlp", "embed")
+    return axes
 
 
 def abstract_params(cfg: MoELlamaConfig) -> Params:

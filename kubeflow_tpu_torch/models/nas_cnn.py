@@ -106,8 +106,28 @@ def _trial_spec(cfg: NasCnnConfig) -> Params:
     return _spec(cfg, [_op_spec(op, cfg.channels) for op in cfg.ops])
 
 
-def init(cfg: NasCnnConfig, *, seed: int = 0, device="cuda") -> Params:
-    return init_tree(_trial_spec(cfg), seed=seed, device=device)
+def init(cfg: NasCnnConfig, *, seed: int = 0, device="cuda",
+         keep=None) -> Params:
+    return init_tree(_trial_spec(cfg), seed=seed, device=device, keep=keep)
+
+
+def _op_axes(op: str) -> Params:
+    """Logical sharding axes of one op's params (the trial model's and
+    the supernet's)."""
+    if op in ("conv3", "conv5"):
+        return {"w": (None, None, "conv_in", "conv_out"), "b": (None,)}
+    if op == "sep3":
+        return {"dw": (None, None, None, "conv_out"),
+                "pw": (None, None, "conv_in", "conv_out"), "b": (None,)}
+    return {}
+
+
+def logical_axes(cfg: NasCnnConfig) -> Params:
+    return {
+        "stem": {"w": (None, None, "conv_in", "conv_out"), "b": (None,)},
+        "layers": [_op_axes(op) for op in cfg.ops],
+        "head": {"w": ("embed", None), "b": (None,)},
+    }
 
 
 def abstract_params(cfg: NasCnnConfig) -> Params:
@@ -138,10 +158,17 @@ def _darts_spec(cfg: NasCnnConfig) -> Params:
 
 
 def darts_init(cfg: NasCnnConfig, *, seed: int = 0,
-               device="cuda") -> Params:
+               device="cuda", keep=None) -> Params:
     """Every layer holds every op's params, plus architecture logits
     alpha [n_layers, n_ops] at 0 (a uniform mixture)."""
-    return init_tree(_darts_spec(cfg), seed=seed, device=device)
+    return init_tree(_darts_spec(cfg), seed=seed, device=device, keep=keep)
+
+
+def darts_logical_axes(cfg: NasCnnConfig) -> Params:
+    fixed = logical_axes(cfg)
+    layers = [{op: _op_axes(op) for op in OP_NAMES} for _ in cfg.ops]
+    return {"stem": fixed["stem"], "layers": layers,
+            "alpha": (None, None), "head": fixed["head"]}
 
 
 def darts_abstract_params(cfg: NasCnnConfig) -> Params:

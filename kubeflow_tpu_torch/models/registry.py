@@ -5,7 +5,10 @@ is here: the Llama decoder (`llama`) and its LoRA fine-tune
 (`llama_lora`), the Mixtral-style MoE (`mixtral`), BERT (`bert`), ResNet
 (`resnet`), ViT (`vit`), the MNIST CNN (`mnist_cnn`), and the NAS CNN
 (`nas_cnn`) with its DARTS supernet (`darts_supernet`). `abstract` gives
-init's tree as meta tensors: a checkpoint restores into it."""
+init's tree as meta tensors: a checkpoint restores into it;
+`logical_axes` gives its logical sharding axes, leaf for leaf
+(parallel/sharding.py); `needs_global_batch` marks a family whose step
+the sharded trainer cannot split by rows."""
 
 from __future__ import annotations
 
@@ -21,30 +24,44 @@ class ModelDef(NamedTuple):
     apply: Callable
     loss_fn: Callable
     abstract: Callable   # cfg -> init's tree as meta tensors
+    logical_axes: Callable   # cfg -> init's tree of logical axis tuples
+    # the loss depends on the global batch past a mean over its rows or
+    # tokens (Mixtral's routing: capacity, slot priority and the aux
+    # losses over every token), so a step cannot be split by rows
+    needs_global_batch: bool = False
 
 
 _REGISTRY: dict[str, ModelDef] = {
     "llama": ModelDef(llama.LlamaConfig, llama.init, llama.apply,
-                      llama.loss_fn, llama.abstract_params),
+                      llama.loss_fn, llama.abstract_params,
+                      llama.logical_axes),
     "llama_lora": ModelDef(lora.LoraLlamaConfig, lora.init, lora.apply,
-                           lora.loss_fn, lora.abstract_params),
+                           lora.loss_fn, lora.abstract_params,
+                      lora.logical_axes),
     "mixtral": ModelDef(moe_llama.MoELlamaConfig, moe_llama.init,
                         moe_llama.apply, moe_llama.loss_fn,
-                        moe_llama.abstract_params),
+                        moe_llama.abstract_params,
+                        moe_llama.logical_axes, needs_global_batch=True),
     "mnist_cnn": ModelDef(mnist_cnn.MnistConfig, mnist_cnn.init,
                           mnist_cnn.apply, mnist_cnn.loss_fn,
-                          mnist_cnn.abstract_params),
+                          mnist_cnn.abstract_params,
+                      mnist_cnn.logical_axes),
     "bert": ModelDef(bert.BertConfig, bert.init, bert.apply, bert.loss_fn,
-                     bert.abstract_params),
+                     bert.abstract_params,
+                      bert.logical_axes),
     "resnet": ModelDef(resnet.ResNetConfig, resnet.init, resnet.apply,
-                       resnet.loss_fn, resnet.abstract_params),
+                       resnet.loss_fn, resnet.abstract_params,
+                      resnet.logical_axes),
     "nas_cnn": ModelDef(nas_cnn.NasCnnConfig, nas_cnn.init, nas_cnn.apply,
-                        nas_cnn.loss_fn, nas_cnn.abstract_params),
+                        nas_cnn.loss_fn, nas_cnn.abstract_params,
+                      nas_cnn.logical_axes),
     "darts_supernet": ModelDef(nas_cnn.NasCnnConfig, nas_cnn.darts_init,
                                nas_cnn.darts_apply, nas_cnn.darts_loss_fn,
-                               nas_cnn.darts_abstract_params),
+                               nas_cnn.darts_abstract_params,
+                      nas_cnn.darts_logical_axes),
     "vit": ModelDef(vit.ViTConfig, vit.init, vit.apply, vit.loss_fn,
-                    vit.abstract_params),
+                    vit.abstract_params,
+                      vit.logical_axes),
 }
 
 

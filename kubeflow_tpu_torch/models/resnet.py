@@ -82,10 +82,30 @@ def _spec(cfg: ResNetConfig) -> Params:
     return spec
 
 
-def init(cfg: ResNetConfig, *, seed: int = 0, device="cuda") -> Params:
+def init(cfg: ResNetConfig, *, seed: int = 0, device="cuda",
+         keep=None) -> Params:
     """Random params from `seed` in cfg.param_dtype (`_spec`)."""
-    return init_tree(_spec(cfg), seed=seed, device=device,
+    return init_tree(_spec(cfg), seed=seed, device=device, keep=keep,
                      dtype=cfg.param_dtype)
+
+
+def logical_axes(cfg: ResNetConfig) -> Params:
+    def conv_ax():
+        return {"w": (None, None, "conv_in", "conv_out"),
+                "norm": {"w": (None,), "b": (None,)}}
+
+    axes: Params = {"stem": conv_ax(), "stages": []}
+    for n_blocks in cfg.stage_sizes:
+        stage = []
+        for j in range(n_blocks):
+            block = {"conv1": conv_ax(), "conv2": conv_ax(),
+                     "conv3": conv_ax()}
+            if j == 0:
+                block["proj"] = conv_ax()
+            stage.append(block)
+        axes["stages"].append(stage)
+    axes["fc"] = {"w": ("embed", None), "b": (None,)}
+    return axes
 
 
 def abstract_params(cfg: ResNetConfig) -> Params:

@@ -7,8 +7,7 @@ flash kernel) and a tanh-approximate GELU MLP, the head in f32.
 At ViT-B/16 (`ViTConfig.vit_b16`) a 224-pixel image is 196 patches and
 the [CLS] token, S = 197 at head dim 64: the kernels run a ragged last
 tile with no causal mask. `attention_impl="xla"` raises, as the port's
-LlamaConfig does: a CUDA tensor always takes the kernels. The JAX
-module's `logical_axes` has no counterpart (ROADMAP.md queue A6).
+LlamaConfig does: a CUDA tensor always takes the kernels.
 """
 
 from __future__ import annotations
@@ -93,10 +92,31 @@ def _spec(cfg: ViTConfig) -> Params:
     }
 
 
-def init(cfg: ViTConfig, *, seed: int = 0, device="cuda") -> Params:
+def init(cfg: ViTConfig, *, seed: int = 0, device="cuda",
+         keep=None) -> Params:
     """Random params from `seed` in cfg.param_dtype (`_spec`)."""
-    return init_tree(_spec(cfg), seed=seed, device=device,
+    return init_tree(_spec(cfg), seed=seed, device=device, keep=keep,
                      dtype=cfg.param_dtype)
+
+
+def logical_axes(cfg: ViTConfig) -> Params:
+    return {
+        "patch_embed": {"w": (None, "embed"), "b": ("embed",)},
+        "pos_embed": (None, "embed"),
+        "cls": ("embed",),
+        "layers": {
+            "attn_norm": ("layers", None),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "heads"),
+            "wv": ("layers", "embed", "heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", None),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": (None,),
+        "head": {"w": ("embed", None), "b": (None,)},
+    }
 
 
 def abstract_params(cfg: ViTConfig) -> Params:

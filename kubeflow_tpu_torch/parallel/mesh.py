@@ -1,0 +1,191 @@
+"""The device mesh on a torch.distributed process group (counterpart of
+kubeflow_tpu/parallel/mesh.py).
+
+The axes, outermost first, are the JAX package's: `data` (gradients
+all-reduced), `fsdp` (params and optimizer state sharded, gradients
+reduce-scattered), `stage`, `expert`, `sequence`, `tensor`. A mesh is a
+`torch.distributed.device_mesh.DeviceMesh` with those six named dims.
+
+One process drives one card, so the mesh's devices are the group's ranks:
+a -1 axis resolves against the world size (on one card, -1 is one card,
+as it is for a one-device JAX process), and ranks are laid out row-major
+over AXIS_ORDER, as the JAX mesh lays out its device list
+(`np.asarray(claimed).reshape(shape)`). A mesh smaller than the world
+claims its first ranks. Not ported yet: the multi-slice arrangement
+`_hybrid_device_array`, whose counterpart is a data axis across nodes,
+and `stage_submeshes` (ROADMAP.md A6a-ii and A6c).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+from typing import Iterator
+
+import torch
+
+# Canonical axis order: `data` outermost, `tensor`/`sequence` innermost.
+AXIS_ORDER = ("data", "fsdp", "stage", "expert", "sequence", "tensor")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Declarative mesh shape. -1 on at most one axis = infer from the
+    world size."""
+
+    data: int = 1
+    fsdp: int = 1
+    stage: int = 1
+    expert: int = 1
+    sequence: int = 1
+    tensor: int = 1
+
+    def axis_sizes(self) -> dict[str, int]:
+        return {
+            "data": self.data,
+            "fsdp": self.fsdp,
+            "stage": self.stage,
+            "expert": self.expert,
+            "sequence": self.sequence,
+            "tensor": self.tensor,
+        }
+
+    def resolved(self, n_devices: int) -> "MeshConfig":
+        """Resolve a single -1 axis against the available device count."""
+        sizes = self.axis_sizes()
+        unknown = [k for k, v in sizes.items() if v == -1]
+        if len(unknown) > 1:
+            raise ValueError(f"at most one axis may be -1, got {unknown}")
+        if unknown:
+            known = math.prod(v for v in sizes.values() if v != -1)
+            if n_devices % known:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes product {known}"
+                )
+            sizes[unknown[0]] = n_devices // known
+        total = math.prod(sizes.values())
+        if total > n_devices:
+            raise ValueError(
+                f"mesh {sizes} wants {total} devices but only {n_devices} available"
+            )
+        return dataclasses.replace(self, **sizes)
+
+
+def mesh_config(mesh: "MeshConfig | dict | None") -> MeshConfig:
+    """A MeshConfig from a job's `mesh` dict (unknown axes raise)."""
+    if isinstance(mesh, MeshConfig):
+        return mesh
+    mesh = dict(mesh or {})
+    unknown = set(mesh) - set(AXIS_ORDER)
+    if unknown:
+        raise ValueError(f"unknown mesh axis {sorted(unknown)[0]!r}")
+    return MeshConfig(**{k: int(v) for k, v in mesh.items()})
+
+
+def make_mesh(config: MeshConfig | dict | None = None, *,
+              device_type: str | None = None, **axis_sizes: int):
+    """A DeviceMesh over the process group's ranks from a MeshConfig (or
+    a job's mesh dict, or axis sizes as kwargs). Every rank calls it. The
+    device type is cuda on an NCCL group, cpu on gloo. Raises when no
+    process group is running (runtime.initialize_distributed starts
+    one)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if config is None:
+        config = MeshConfig(**axis_sizes)
+    elif axis_sizes:
+        raise ValueError("pass either a MeshConfig or axis sizes, not both")
+    config = mesh_config(config)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh needs a process group: call "
+            "kubeflow_tpu_torch.runtime.initialize_distributed (or "
+            "torch.distributed.init_process_group) first")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    config = config.resolved(dist.get_world_size())
+    sizes = config.axis_sizes()
+    shape = tuple(sizes[a] for a in AXIS_ORDER)
+    ranks = torch.arange(math.prod(shape)).reshape(shape)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=AXIS_ORDER)
+
+
+def single_device_mesh(device_type: str | None = None):
+    """A mesh with all axes of size 1 on rank 0 of the process group."""
+    return make_mesh(MeshConfig(), device_type=device_type)
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+# Ambient mesh: for code that needs the mesh without having it passed
+# (the JAX package's `active_mesh` / `get_active_mesh`; nothing of the
+# port sets it yet).
+_ACTIVE = threading.local()
+
+
+@contextlib.contextmanager
+def active_mesh(mesh) -> Iterator:
+    stack = getattr(_ACTIVE, "stack", None)
+    if stack is None:
+        stack = _ACTIVE.stack = []
+    stack.append(mesh)
+    try:
+        yield mesh
+    finally:
+        stack.pop()
+
+
+def get_active_mesh():
+    stack = getattr(_ACTIVE, "stack", None)
+    return stack[-1] if stack else None
+
+
+def num_data_shards(mesh) -> int:
+    s = mesh_shape(mesh)
+    return s.get("data", 1) * s.get("fsdp", 1)
+
+
+def data_shard_index(mesh) -> int:
+    """This rank's block of a batch sharded over ("data", "fsdp"): the
+    row-major index of its (data, fsdp) coordinate, as JAX's
+    PartitionSpec(("data", "fsdp")) numbers the blocks."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return coord["data"] * mesh_shape(mesh)["fsdp"] + coord["fsdp"]
+
+
+def validate_divisibility(mesh, *, batch: int | None = None,
+                          seq: int | None = None, heads: int | None = None,
+                          embed: int | None = None) -> None:
+    """Early, readable errors instead of a failing collective."""
+    s = mesh_shape(mesh)
+    checks = [
+        ("batch", batch, s.get("data", 1) * s.get("fsdp", 1)),
+        ("seq", seq, s.get("sequence", 1)),
+        ("heads", heads, s.get("tensor", 1)),
+        ("embed", embed, s.get("tensor", 1)),
+    ]
+    for name, value, div in checks:
+        if value is not None and div > 1 and value % div:
+            raise ValueError(f"{name}={value} not divisible by mesh factor {div}")
+
+
+#: the axes whose parallelism is not ported yet, and the ROADMAP.md item
+#: that ports each
+UNPORTED_AXES = {"tensor": "A6a-ii", "expert": "A6a-ii",
+                 "sequence": "A6b", "stage": "A6c"}
+
+
+def check_ported_axes(sizes: dict[str, int]) -> None:
+    """Raise ValueError naming its ROADMAP.md item for an axis past 1
+    that the port cannot run yet (data and fsdp run at any size)."""
+    for axis, item in UNPORTED_AXES.items():
+        n = sizes.get(axis, 1)
+        if n not in (1, -1):
+            raise ValueError(
+                f"mesh axis {axis}={n} is not ported yet (ROADMAP.md "
+                f"queue {item}); the port shards over data and fsdp")

@@ -157,8 +157,8 @@ class LLMModel:
         if pp > 1 or tp > 1:
             raise ValueError(
                 f"parallel stage={pp} tensor={tp}: the port runs on one card "
-                "(ROADMAP.md queue A6, parallelism)")
-        check_one_card_mesh(dict(mesh or {}))
+                "(ROADMAP.md queue A6c, parallelism)")
+        check_one_card_mesh(dict(mesh or {}), "A6c")
         if sample_k_max != 64:
             raise ValueError("sample_k_max: the port's sampler has a fixed "
                              "64-candidate window (LLMEngine.SAMPLE_K_MAX)")

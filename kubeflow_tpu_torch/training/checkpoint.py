@@ -26,6 +26,17 @@ and unmanifested ones in a manifested tree (moved into `_quarantine/`),
 and trusts a tree with no manifests at all. The port hashes a step's
 files on a few threads at once (hashlib releases the interpreter lock).
 
+A sharded state (DTensor leaves, the trainer on a mesh) is saved as whole
+leaves, in the files, hashes and manifest an unsharded save of the same
+state writes, so it restores onto any mesh or onto one process, as
+orbax's global arrays do: rank 0 decides whether a step is saved and
+every rank takes its decision, every rank gathers each leaf in turn,
+rank 0 writes, and its outcome (done, or the error) is sent to every
+rank, which raises with it. A restore hands each whole leaf, read one
+at a time, to a `keep` that places this rank's block
+(`Trainer.restore_leaf`), and `restore_or_init` takes the step rank 0
+finds intact.
+
 Saves are synchronous: the port's optimizer updates the params in place,
 so `save` copies the state to the host before the next step can change
 it, and returns once the step is committed and manifested. The seconds of
@@ -279,10 +290,12 @@ class _Reader:
     are allocated on `device` (or the like tensor's own device) from the
     like tensor's shape and dtype and filled from the step's files."""
 
-    def __init__(self, step_dir: str, files: dict[str, str], device):
+    def __init__(self, step_dir: str, files: dict[str, str], device,
+                 keep=None):
         self.step_dir = step_dir
         self.files = files
         self.device = device
+        self.keep = keep
         self.nbytes = 0
         self._open: dict[str, safetensors.SafeFile] = {}
 
@@ -316,12 +329,16 @@ class _Reader:
                     f"checkpoint tensor {name}: {tuple(src.shape)} "
                     f"{src.dtype}, the state wants {tuple(like.shape)} "
                     f"{like.dtype}")
+            self.nbytes += src.numel() * src.element_size()
+            if self.keep is not None:
+                out = self.keep(path.lstrip("/"), src)
+                if out is not None:
+                    return out
             dev = self.device if self.device is not None else like.device
             if torch.device(dev).type == "meta":
                 raise ValueError("restoring into meta tensors needs a device")
             out = torch.empty(like.shape, dtype=like.dtype, device=dev)
             out.copy_(src)
-            self.nbytes += src.numel() * src.element_size()
             return out.requires_grad_(like.requires_grad)
         if "value" not in stored:
             raise ValueError(f"checkpoint tree at {path}: not a scalar")
@@ -333,11 +350,12 @@ class _Reader:
         self._open = {}
 
 
-def _read_step(step_dir: str, like: Any, device, subtree: str | None = None
-               ) -> tuple[Any, int]:
+def _read_step(step_dir: str, like: Any, device, subtree: str | None = None,
+               keep=None) -> tuple[Any, int]:
     """(state, bytes read) of one step directory, or of its `subtree`, a
     "/"-joined key path ("params", "params/lora"); only that subtree's
-    files are read."""
+    files are read. `keep(path, tensor)`, when given, places each tensor
+    read (None: read it as `like` says)."""
     with open(os.path.join(step_dir, TREE_NAME)) as f:
         meta = json.load(f)
     stored = meta["tree"]
@@ -345,7 +363,7 @@ def _read_step(step_dir: str, like: Any, device, subtree: str | None = None
         stored = stored.get("dict", {}).get(key)
         if stored is None:
             raise ValueError(f"{step_dir} holds no {subtree!r}")
-    reader = _Reader(step_dir, meta["files"], device)
+    reader = _Reader(step_dir, meta["files"], device, keep)
     try:
         out = reader.read(stored, like, "")
     finally:
@@ -353,6 +371,27 @@ def _read_step(step_dir: str, like: Any, device, subtree: str | None = None
     if device is not None and torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return out, reader.nbytes
+
+
+def _is_sharded(tensors: dict[str, torch.Tensor]) -> bool:
+    """Whether a state holds DTensors (a sharded trainer's)."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in tensors.values())
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A leaf as its whole tensor: a DTensor's blocks gathered (every rank
+    calls this), a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    from kubeflow_tpu_torch.parallel.sharding import gather
+
+    return gather(t.to_local(), t.device_mesh, t.placements)
 
 
 # -- the manager --------------------------------------------------------------
@@ -391,18 +430,79 @@ class CheckpointManager:
              force: bool = False) -> bool:
         """Commit `state` as `step` when the rule (or `force`) says so;
         returns whether it saved. A step that exists is never
-        overwritten."""
-        if not force and not self.should_save(step):
-            return False
-        final = os.path.join(self.directory, str(step))
-        if os.path.exists(final):
-            raise ValueError(f"checkpoint for step {step} already exists "
-                             f"under {self.directory}")
+        overwritten. A sharded state is decided by rank 0 alone (its
+        `force` and its view of its directory) for every rank."""
         t0 = time.perf_counter()
         tensors: dict[str, torch.Tensor] = {}
         tree = _flatten(state, (), tensors)
+        if _is_sharded(tensors):
+            return self._save_sharded(step, tree, tensors, force, t0)
+        if not self._decide(step, force):
+            return False
         # the host copy: after this the caller may change the state
         host = {n: t.detach().cpu() for n, t in tensors.items()}
+        self._write(step, tree, host, t0)
+        return True
+
+    def _decide(self, step: int, force: bool) -> bool:
+        """Whether `step` is saved; raises when it exists."""
+        if not force and not self.should_save(step):
+            return False
+        if os.path.exists(os.path.join(self.directory, str(step))):
+            raise ValueError(f"checkpoint for step {step} already exists "
+                             f"under {self.directory}")
+        return True
+
+    def _save_sharded(self, step: int, tree, tensors: dict[str, Any],
+                      force: bool, t0: float) -> bool:
+        """Rank 0 decides and the others take its decision, so ranks that
+        see other directories (node-local paths) run the same
+        collectives; every rank gathers each leaf in turn and rank 0
+        writes; rank 0's outcome is sent to the others, so a failed
+        write raises on every rank instead of leaving them waiting."""
+        import torch.distributed as dist
+
+        primary = dist.get_rank() == 0
+        decision: list[Any] = [None]
+        if primary:
+            try:
+                decision[0] = self._decide(step, force)
+            except ValueError as e:
+                decision[0] = str(e)
+        dist.broadcast_object_list(decision, src=0)
+        if isinstance(decision[0], str):
+            raise ValueError(decision[0])
+        if not decision[0]:
+            return False
+        host = {}
+        for n, t in tensors.items():
+            whole = _whole(t)
+            if primary:
+                host[n] = whole.detach().cpu()
+            del whole
+        outcome: list[str | None] = [None]
+        failed = None
+        if primary:
+            try:
+                self._write(step, tree, host, t0)
+            except Exception as e:
+                failed = e
+                outcome[0] = f"{type(e).__name__}: {e}"
+        del host
+        dist.broadcast_object_list(outcome, src=0)
+        if failed is not None:
+            raise failed
+        if outcome[0] is not None:
+            raise RuntimeError(f"checkpoint step {step}: rank 0's write "
+                               f"failed: {outcome[0]}")
+        if not primary:
+            self.last_save = None
+        return True
+
+    def _write(self, step: int, tree, host: dict[str, torch.Tensor],
+               t0: float) -> None:
+        """Commit the host copy `host` as `step`: files, tree, rename,
+        manifest, then the old steps go; sets last_save."""
         t1 = time.perf_counter()
         groups: dict[str, list[str]] = {}
         for n in host:
@@ -410,6 +510,7 @@ class CheckpointManager:
         shards = [s for g, names in groups.items()
                   for s in _shards(names, host, g)]
         files = {n: fname for fname, names in shards for n in names}
+        final = os.path.join(self.directory, str(step))
         tmp = os.path.join(self.directory, f".{step}.tmp-{os.getpid()}")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -428,7 +529,6 @@ class CheckpointManager:
         os.replace(tmp, final)
         _fsync_dir(self.directory)
         t2 = time.perf_counter()
-        del host
         stats = {"step": step, "bytes": nbytes, "host_copy_s": t1 - t0,
                  "write_s": t2 - t1}
         try:
@@ -443,7 +543,6 @@ class CheckpointManager:
         stats["total_s"] = time.perf_counter() - t0
         stats["write_gb_per_s"] = nbytes / 1e9 / max(stats["write_s"], 1e-9)
         self.last_save = stats
-        return True
 
     def _remove_old(self) -> None:
         """orbax's LatestN: all but the newest max_to_keep steps go."""
@@ -478,13 +577,15 @@ class CheckpointManager:
         return None
 
     def restore(self, state_like: dict[str, Any], step: int | None = None,
-                *, device=None) -> dict[str, Any]:
+                *, device=None, keep=None) -> dict[str, Any]:
         """The state of `step` in the structure of `state_like` (tensors
         or meta tensors of the right shapes, dtypes and requires_grad;
         scalars are taken from the checkpoint). Tensors are allocated on
-        `device`, or on the like tensor's device, and read into. With no explicit step, the
-        newest intact step is used: a corrupt or partial newest step is
-        quarantined and the restore falls back."""
+        `device`, or on the like tensor's device, and read into; with
+        `keep(path, whole)`, each leaf is what keep makes of it (a
+        sharded trainer's block) unless it returns None. With no explicit
+        step, the newest intact step is used: a corrupt or partial newest
+        step is quarantined and the restore falls back."""
         t0 = time.perf_counter()
         step = step if step is not None else self.latest_intact_step()
         t1 = time.perf_counter()
@@ -494,7 +595,7 @@ class CheckpointManager:
         if step_dir is None:
             raise FileNotFoundError(
                 f"no checkpoint for step {step} under {self.directory}")
-        out, nbytes = _read_step(step_dir, state_like, device)
+        out, nbytes = _read_step(step_dir, state_like, device, keep=keep)
         t2 = time.perf_counter()
         self.last_restore = {"step": step, "bytes": nbytes,
                              "verify_s": t1 - t0, "read_s": t2 - t1}
@@ -512,13 +613,25 @@ def restore_or_init(trainer, directory: str | None):
     intact step straight into tensors allocated from the state's shapes
     (`trainer.abstract_state()`) on the trainer's device, with no
     throwaway random init (at 8B scale an init is gigabytes of wasted
-    work); else initialize fresh. Returns (state, resumed)."""
+    work); else initialize fresh. On a mesh, rank 0 picks the step (and
+    quarantines what it must) and every rank restores that step's blocks
+    (`trainer.restore_leaf`). Returns (state, resumed)."""
     if directory:
         mngr = CheckpointManager(directory)
-        step = mngr.latest_intact_step()
+        sharded = getattr(trainer, "layout", None) is not None
+        if sharded:
+            import torch.distributed as dist
+
+            pick = [mngr.latest_intact_step() if dist.get_rank() == 0
+                    else None]
+            dist.broadcast_object_list(pick, src=0)
+            step = pick[0]
+        else:
+            step = mngr.latest_intact_step()
         if step is not None:
-            state = mngr.restore(trainer.abstract_state(), step=step,
-                                 device=trainer.device)
+            state = mngr.restore(
+                trainer.abstract_state(), step=step, device=trainer.device,
+                keep=trainer.restore_leaf if sharded else None)
             mngr.close()
             return state, True
         mngr.close()

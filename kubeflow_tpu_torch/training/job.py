@@ -31,14 +31,30 @@ KTPU_TRIAL_NAME, is a global of the JAX package and is not taken here.
 Cancellation (pod deletion, elastic scale-down) is honored at each logged
 step: the cancel event maps to SystemExit(143), SIGTERM's code, which the
 ExitCode restart policy retries.
+
+Past one process (KTPU_NUM_PROCESSES > 1) the target starts the process
+group itself (`runtime.initialize_distributed`: NCCL on the card
+KTPU_DEVICE_IDS names, gloo for cpu) and the trainer shards over the
+config's `mesh`; the JAX target leaves the group to the program. Rank 0
+writes the metrics and the checkpoints. One process runs one rank, so a
+multi-rank job runs its pods on the subprocess backend:
+
+    template:
+      backend: subprocess
+      argv: [python, -m, kubeflow_tpu_torch.training.job]
+      env:
+        KTPU_TRAINER_CONFIG: '{"model": "llama", "mesh": {"fsdp": -1}, ...}'
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 from typing import Any
 
+from kubeflow_tpu_torch.runtime import (initialize_distributed, rank_device,
+                                        worker_context)
 from kubeflow_tpu_torch.training.checkpoint import restore_or_init
 from kubeflow_tpu_torch.training.metrics_writer import MetricsWriter
 from kubeflow_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -58,15 +74,36 @@ def config_from_env(env: dict[str, str]) -> tuple[TrainerConfig, int]:
 
 def train_target(env: dict[str, str], cancel: threading.Event) -> None:
     """Train a registered model from the pod's env (see the module doc)."""
+    ctx = worker_context(env)
+    device = env.get(DEVICE_ENV, "cuda")
+    group = ctx.num_processes > 1
+    if group:
+        initialize_distributed(ctx, device=device)
+        device = rank_device(ctx, device)
+    try:
+        _train(env, cancel, device, ctx.is_primary, sharded=group)
+    finally:
+        if group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(env: dict[str, str], cancel: threading.Event, device,
+           primary: bool, sharded: bool) -> None:
+    """The job on `device`; `sharded`: on a mesh of the config's `mesh`
+    over the running process group."""
+    from kubeflow_tpu_torch.parallel import make_mesh
     from kubeflow_tpu_torch.training import data as data_lib
 
     cfg, num_steps = config_from_env(env)
-    metrics = MetricsWriter(env.get("KTPU_METRICS_FILE"))
-    trainer = Trainer(cfg, device=env.get(DEVICE_ENV, "cuda"),
-                      metrics=metrics)
+    metrics = MetricsWriter(env.get("KTPU_METRICS_FILE") if primary
+                            else None, echo=primary)
+    trainer = Trainer(cfg, device=device, metrics=metrics,
+                      mesh=make_mesh(cfg.mesh) if sharded else None)
     state, resumed = restore_or_init(trainer, cfg.checkpoint_dir)
     start = int(state["step"])
-    if resumed:
+    if resumed and primary:
         print(f"resumed from checkpoint at step {start}", flush=True)
     remaining = max(0, num_steps - start)
 
@@ -82,4 +119,9 @@ def train_target(env: dict[str, str], cancel: threading.Event) -> None:
         if hasattr(data, "close"):
             data.close()
         metrics.close()
-    print(f"training done: {num_steps} steps", flush=True)
+    if primary:
+        print(f"training done: {num_steps} steps", flush=True)
+
+
+if __name__ == "__main__":   # a subprocess-backend pod: the env is the pod's
+    train_target(dict(os.environ), threading.Event())

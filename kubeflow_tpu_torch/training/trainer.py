@@ -26,7 +26,31 @@ leaf whose "/"-joined path does not start with it, as the JAX trainer's
 optax.multi_transform with set_to_zero does: a frozen leaf has no
 optimizer state, is never updated or decayed, and needs no gradient;
 clipping still takes the global norm of every gradient it is given.
-Meshes past one card are not ported yet (ROADMAP.md queue A6).
+
+On a mesh (`mesh=`, a DeviceMesh of `parallel/mesh.py`) the trainer
+shards the state over the `data` and `fsdp` axes, as the JAX trainer's
+`param_sharding` and `_state_sharding` place it: each param by its
+family's `logical_axes` through the rules (`parallel/sharding.py`), each
+moment as its param, the step counter and the optimizer's count
+replicated. A leaf is a DTensor whose local tensor is this rank's block,
+and `init_state` keeps each block as its leaf is made, so one whole leaf
+exists at a time. A step gathers the params into plain tensors (the
+family code and the kernels never see a DTensor), runs the one-card
+forward and backward on this rank's rows of the global batch (the block
+of PartitionSpec(("data", "fsdp")) at its coordinate), reduce-scatters
+each gradient over `fsdp` and all-reduces it over `data`, and runs the
+optimizer on the blocks. The loss is the global batch's: a next-token
+family's masked-token mean over every rank's tokens (each rank scales
+its mean by its share of the tokens before the backward), a classifier's
+mean over every row; `tokens` is the global count, and `grad_norm` and
+the clip take the norm over every block once. The axes past data and
+fsdp, and a family whose loss needs the global batch (the registry's
+`needs_global_batch`: Mixtral's routing) past one rank, raise naming
+their ROADMAP.md item. A step holds every whole param and then every
+whole gradient at once before reducing them, so a rank's peak is the
+whole f32 params and grads plus its blocks and the activations: at
+Llama-3-8B widths about 64 GB before the blocks, which is why full 8B
+training does not fit a rank yet (ROADMAP.md A6a, the per-layer gather).
 """
 
 from __future__ import annotations
@@ -42,6 +66,8 @@ import torch
 
 from kubeflow_tpu_torch._device import check_one_card_mesh, resolve_device
 from kubeflow_tpu_torch.models import registry
+from kubeflow_tpu_torch.parallel import mesh as mesh_lib
+from kubeflow_tpu_torch.parallel import sharding
 from kubeflow_tpu_torch.training.data import DatasetConfig
 from kubeflow_tpu_torch.training.metrics_writer import MetricsWriter
 
@@ -173,19 +199,23 @@ class Optimizer:
     @torch.no_grad()
     def update(self, grads: list[torch.Tensor | None], state: dict[str, Any],
                params: list[torch.Tensor],
-               paths: list[str] | None = None) -> None:
+               paths: list[str] | None = None,
+               norm: torch.Tensor | None = None) -> None:
         """One update of the trainable `params` in place; `state` and
         `grads` (which the caller hands over) are updated in place too, to
         keep the passes over the f32 state few. A frozen param's grad may
         be None (counted as zeros by the clip); a given one still counts
-        in the global norm, as optax clips before multi_transform."""
+        in the global norm, as optax clips before multi_transform. `norm`
+        is the gradients' global norm when the caller has it (a sharded
+        trainer's norm over every rank's blocks)."""
         cfg = self.cfg
         grads = [None if g is None else g.float() for g in grads]
         if cfg.grad_clip:
             # optax: keep when norm < max_norm, else scale by max_norm /
             # norm (1 where kept, so no host sync is needed)
             present = [g for g in grads if g is not None]
-            norm = global_norm(present)
+            if norm is None:
+                norm = global_norm(present)
             factor = torch.where(norm < cfg.grad_clip, torch.ones_like(norm),
                                  cfg.grad_clip / norm)
             torch._foreach_mul_(present, factor)
@@ -235,18 +265,29 @@ class TrainerConfig:
     profile_dir: str | None = None
     profile_start_step: int = 2
     profile_num_steps: int = 3
+    # the job's mesh (a MeshConfig or its dict) and logical-axis rules
+    # over DEFAULT_RULES
+    mesh: mesh_lib.MeshConfig = dataclasses.field(
+        default_factory=mesh_lib.MeshConfig)
+    sharding_rules: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        self.mesh = mesh_lib.mesh_config(self.mesh)
 
     @staticmethod
     def from_dict(raw: dict[str, Any]) -> "TrainerConfig":
         """A trainer config from the keys of a job's KTPU_TRAINER_CONFIG
         (examples/llama-jaxjob.yaml). `num_steps` sets the schedule's
-        total_steps unless the optimizer pins it, as the JAX job does;
-        `mesh` is accepted only when every axis is 1 or -1 (one card)."""
+        total_steps unless the optimizer pins it, as the JAX job does.
+        `mesh` takes data and fsdp at any size; an axis past one card
+        needs a process group (`runtime.initialize_distributed`), and the
+        axes not ported yet raise naming their ROADMAP.md item."""
         raw = dict(raw)
         num_steps = raw.pop("num_steps", None)
         opt = dict(raw.pop("optimizer", {}))
         dataset = raw.pop("dataset", {})
-        check_one_card_mesh(raw.pop("mesh", {}))
+        mesh = mesh_lib.mesh_config(raw.pop("mesh", {}))
+        check_mesh(mesh)
         known = {f.name for f in dataclasses.fields(TrainerConfig)}
         unknown = set(raw) - known
         if unknown:
@@ -255,15 +296,51 @@ class TrainerConfig:
         if num_steps is not None and "total_steps" not in opt:
             opt["total_steps"] = int(num_steps)
         return TrainerConfig(**raw, optimizer=OptimizerConfig(**opt),
-                             dataset=DatasetConfig(**dataset))
+                             dataset=DatasetConfig(**dataset), mesh=mesh)
+
+
+def _group_running() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _world_size() -> int:
+    """The process group's size, 1 when none is running."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if _group_running() else 1
+
+
+def check_mesh(mesh: mesh_lib.MeshConfig) -> None:
+    """The axes not ported yet raise naming their ROADMAP.md item; a mesh
+    that wants more ranks than the process group has raises too (one
+    card when no group is running)."""
+    sizes = mesh.axis_sizes()
+    mesh_lib.check_ported_axes(sizes)
+    want = math.prod(n for n in sizes.values() if n != -1)
+    world = _world_size()
+    if want > world:
+        raise ValueError(
+            f"mesh {sizes} wants {want} ranks but the process group has "
+            f"{world}" + ("" if world > 1 else
+                          ": without a process group the port runs on one "
+                          "card (start one with "
+                          "runtime.initialize_distributed)"))
+
+
+#: metrics a sharded step sums over the ranks; every other metric is a
+#: mean over the global batch
+SUMMED_METRICS = ("tokens",)
 
 
 class Trainer:
-    """One registered model's train step on one device: forward, loss,
-    backward (autograd, through the attention kernels' backward) and the
-    optimizer update, eagerly."""
+    """One registered model's train step: forward, loss, backward
+    (autograd, through the attention kernels' backward) and the optimizer
+    update, eagerly, on one device, or on this rank's card of `mesh`
+    (sharded only when given one)."""
 
-    def __init__(self, config: TrainerConfig, *, device="cuda",
+    def __init__(self, config: TrainerConfig, *, device="cuda", mesh=None,
                  metrics: MetricsWriter | None = None):
         self.config = config
         self.device = resolve_device(device)
@@ -271,6 +348,47 @@ class Trainer:
         self.model_cfg = self.model.config_cls(**config.model_overrides)
         self.optimizer = make_optimizer(config.optimizer)
         self.metrics = metrics or MetricsWriter()
+        self.mesh = mesh
+        self.layout = None
+        if mesh is None:
+            check_one_card_mesh(config.mesh.axis_sizes())
+        else:
+            self.layout = self._layout()
+
+    # -- the sharded state ---------------------------------------------------
+
+    def _layout(self) -> "StateLayout":
+        import torch.distributed as dist
+
+        mesh = self.mesh
+        mesh_lib.check_ported_axes(mesh_lib.mesh_shape(mesh))
+        n = mesh_lib.num_data_shards(mesh)
+        if self.model.needs_global_batch and n > 1:
+            raise ValueError(
+                f"{self.config.model} on a mesh of data x fsdp = {n}: its "
+                "loss needs the global batch (routing: expert capacity, "
+                "slot priority, the aux and z losses over the global "
+                "batch's tokens), and per-rank routing would drop other "
+                "tokens (ROADMAP.md queue A6a-ii)")
+        if mesh.mesh.numel() != dist.get_world_size():
+            raise ValueError(
+                f"the trainer's mesh holds {mesh.mesh.numel()} of the "
+                f"{dist.get_world_size()} ranks; give it every rank")
+        mesh_lib.validate_divisibility(mesh, batch=self.config.batch_size)
+        abstract = self.model.abstract(self.model_cfg)
+        named = named_leaves(abstract)
+        paths = [p for p, _ in named]
+        axes = sharding.axes_by_path(self.model.logical_axes(self.model_cfg))
+        if set(axes) != set(paths):
+            raise ValueError(
+                f"{self.config.model}'s logical_axes do not match its "
+                f"params: {sorted(set(axes) ^ set(paths))}")
+        return StateLayout(mesh, {
+            p: sharding.spec_placements(sharding.logical_to_spec(
+                axes[p], self.config.sharding_rules), mesh)
+            for p in paths}, {p: t.shape for p, t in named},
+            [paths[i] for i in self.optimizer.trainable_indices(
+                len(paths), paths)], self.device)
 
     def abstract_state(self) -> dict[str, Any]:
         """The train state's shapes and dtypes as meta tensors, params
@@ -282,11 +400,42 @@ class Trainer:
         """{"params", "opt_state", "step"}: params from the model's init at
         config.seed unless given (e.g. converted from the JAX package).
         Only trainable params require grad; the frozen ones get no
-        optimizer state."""
+        optimizer state. On a mesh every leaf is this rank's block of it
+        (a DTensor), kept as the leaf is made."""
+        if self.layout is not None:
+            lay = self.layout
+            if params is None:
+                blocks = self.model.init(self.model_cfg,
+                                         seed=self.config.seed,
+                                         device=self.device, keep=lay.keep)
+                params = _map_leaves(blocks, lay.wrap_param)
+            else:
+                params = _map_leaves(params, lambda path, t: lay.distribute(
+                    "params/" + path, t))
+            return self._sharded_state(params)
         if params is None:
             params = self.model.init(self.model_cfg, seed=self.config.seed,
                                      device=self.device)
         return self._state(params)
+
+    def _sharded_state(self, params) -> dict[str, Any]:
+        """The state around sharded params: each trainable param's moments
+        as DTensors of its placements."""
+        named = named_leaves(params)
+        paths = [path for path, _ in named]
+        opt = self.optimizer.init([p.to_local() for _, p in named], paths)
+        for key, moments in opt.items():
+            if isinstance(moments, list):
+                opt[key] = [self.layout.wrap(f"opt_state/{key}/{j}", m)
+                            for j, m in enumerate(moments)]
+        return {"params": params, "opt_state": opt, "step": 0}
+
+    def restore_leaf(self, path: str, full: torch.Tensor):
+        """A checkpoint restore's `keep`: this rank's block of the state
+        leaf at `path`, as a DTensor on the device (None off a mesh)."""
+        if self.layout is None:
+            return None
+        return self.layout.distribute(path, full)
 
     def _state(self, params) -> dict[str, Any]:
         named = named_leaves(params)
@@ -299,13 +448,26 @@ class Trainer:
                 "step": 0}
 
     def to_device(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+        """A host batch on the device; on a mesh, this rank's rows of the
+        global batch (the block of PartitionSpec(("data", "fsdp")) at its
+        coordinate)."""
+        batch = {k: np.asarray(v) for k, v in batch.items()}
+        if self.layout is not None:
+            n = mesh_lib.num_data_shards(self.mesh)
+            i = mesh_lib.data_shard_index(self.mesh)
+            for v in batch.values():
+                mesh_lib.validate_divisibility(self.mesh, batch=v.shape[0])
+            batch = {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
+                     for k, v in batch.items()}
+        return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
     def train_step(self, state: dict[str, Any],
                    batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """One step in place on `state`; returns the step's metrics as
         0-d tensors (loss, tokens, grad_norm before clipping)."""
+        if self.layout is not None:
+            return self._sharded_step(state, batch)
         named = named_leaves(state["params"])
         paths = [path for path, _ in named]
         params = [p for _, p in named]
@@ -320,6 +482,60 @@ class Trainer:
         out = {k: v.detach() for k, v in metrics.items()}
         out["grad_norm"] = global_norm([g for g in grads if g is not None])
         self.optimizer.update(grads, state["opt_state"], params, paths)
+        state["step"] += 1
+        return out
+
+    def _sharded_step(self, state: dict[str, Any],
+                      batch: dict[str, torch.Tensor]
+                      ) -> dict[str, torch.Tensor]:
+        import torch.distributed as dist
+
+        lay = self.layout
+        named = named_leaves(state["params"])
+        paths = [path for path, _ in named]
+        blocks = [p for _, p in named]
+        idx = self.optimizer.trainable_indices(len(blocks), paths)
+        trains = set(idx)
+        # whole params as plain tensors: the family code and the kernels
+        # never see a DTensor
+        full = [sharding.gather(p.to_local(), lay.mesh, p.placements)
+                .detach().requires_grad_(i in trains)
+                for i, p in enumerate(blocks)]
+        loss, metrics = self.model.loss_fn(
+            _rebuild(state["params"], iter(full)), batch, self.model_cfg)
+        # the global batch's mean: this rank's mean times its share of the
+        # global weight (tokens counted by the loss, else rows), exactly 1
+        # on one rank
+        first = next(iter(batch.values()))
+        weight = (metrics["tokens"].detach().float() if "tokens" in metrics
+                  else torch.tensor(float(first.shape[0]),
+                                    device=first.device))
+        total = weight.clone()
+        dist.all_reduce(total)
+        scale = weight / total.clamp_min(1.0)
+        full_grads = list(torch.autograd.grad(loss * scale,
+                                              [full[i] for i in idx]))
+        del full, loss
+        grads: list[torch.Tensor | None] = [None] * len(blocks)
+        for j, i in enumerate(idx):
+            grads[i] = sharding.reduce_grad(full_grads[j], lay.mesh,
+                                            blocks[i].placements)
+            full_grads[j] = None
+        norm = lay.global_norm([(grads[i], blocks[i].placements)
+                                for i in idx])
+        keys = list(metrics)
+        vec = torch.stack([
+            metrics[k].detach().float() if k in SUMMED_METRICS
+            else metrics[k].detach().float() * scale for k in keys])
+        dist.all_reduce(vec)
+        out = dict(zip(keys, vec.unbind()))
+        out["grad_norm"] = norm
+        opt = state["opt_state"]
+        local = {k: ([m.to_local() for m in v] if isinstance(v, list) else v)
+                 for k, v in opt.items()}
+        self.optimizer.update(grads, local, [p.to_local() for p in blocks],
+                              paths, norm=norm)
+        opt["count"] = local["count"]
         state["step"] += 1
         return out
 
@@ -384,15 +600,17 @@ class Trainer:
             prof.close()
         if ckpt is not None:
             final = start + num_steps
-            # the interval may have saved it already
-            if ckpt.latest_step() != final:
-                self._save(ckpt, final, state, force=True)
+            # the interval may have saved it already (on a mesh, rank
+            # 0's directory decides for every rank)
+            self._save(ckpt, final, state,
+                       force=ckpt.latest_step() != final)
             ckpt.close()
         return state
 
     def _save(self, ckpt, step: int, state: dict[str, Any],
               force: bool = False) -> None:
-        if ckpt.save(step, state, force=force) and self.metrics.echo:
+        if ckpt.save(step, state, force=force) and self.metrics.echo \
+                and ckpt.last_save is not None:
             print(f"[checkpoint {step}] {json.dumps(ckpt.last_save)}",
                   flush=True)
 
@@ -401,3 +619,99 @@ class Trainer:
         CPU)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+def _map_leaves(tree, fn, path: str = ""):
+    """Nested dicts and lists with fn(path, leaf) at each tensor, path the
+    "/"-joined keys (`named_leaves`' paths)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn, f"{path}/{i}" if path
+                                      else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _rebuild(tree, values: Iterator):
+    """`tree`'s structure with its leaves replaced, in `named_leaves`'
+    order, by the next items of `values`."""
+    if isinstance(tree, dict):
+        out = {k: _rebuild(tree[k], values) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, values) for v in tree)
+    return next(values)
+
+
+class StateLayout:
+    """Where each leaf of a sharded train state lives: its placements on
+    the mesh (moments as their param), its whole shape, and the per-leaf
+    moves between whole tensors and this rank's blocks."""
+
+    def __init__(self, mesh, placements: dict[str, tuple],
+                 shapes: dict[str, torch.Size], trainable: list[str],
+                 device: torch.device):
+        self.mesh = mesh
+        self.device = device
+        self.placements = {"params/" + p: pl for p, pl in placements.items()}
+        self.shapes = {"params/" + p: s for p, s in shapes.items()}
+        for j, p in enumerate(trainable):
+            for key in ("mu", "nu", "trace"):
+                self.placements[f"opt_state/{key}/{j}"] = placements[p]
+                self.shapes[f"opt_state/{key}/{j}"] = shapes[p]
+        for path, pl in self.placements.items():
+            sharding.check_divisible(self.shapes[path], mesh, pl, path)
+        self._holders: dict[tuple, torch.Tensor] = {}
+
+    def keep(self, path: str, t: torch.Tensor, layer: int | None = None
+             ) -> torch.Tensor:
+        """An init's `keep`: a copy of this rank's block of the param leaf
+        at `path` (of its layer `layer` for a stacked leaf made layer by
+        layer), so the whole leaf can be freed."""
+        block = sharding.local_chunk(t, self.mesh,
+                                     self.placements["params/" + path],
+                                     offset=0 if layer is None else 1)
+        return block.clone(memory_format=torch.contiguous_format)
+
+    def wrap(self, path: str, block: torch.Tensor):
+        """The DTensor of a state leaf from this rank's block."""
+        from torch.distributed.tensor import DTensor
+
+        shape = self.shapes[path]
+        return DTensor.from_local(
+            block, self.mesh, self.placements[path], run_check=False,
+            shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+    def wrap_param(self, path: str, block: torch.Tensor):
+        return self.wrap("params/" + path, block)
+
+    def distribute(self, path: str, full: torch.Tensor):
+        """The DTensor of a state leaf from its whole tensor (this rank's
+        block copied to the device); None for a path with no placement."""
+        pl = self.placements.get(path)
+        if pl is None:
+            return None
+        return sharding.distribute(full, self.mesh, pl, self.device)
+
+    def global_norm(self, grads: list[tuple[torch.Tensor, tuple]]
+                    ) -> torch.Tensor:
+        """The norm of the whole gradients from the blocks: each block's
+        norm, gathered from every rank, each leaf's taken once from the
+        ranks that hold one copy of it, in leaf order (on one rank the
+        unsharded trainer's vector of norms)."""
+        import torch.distributed as dist
+
+        local = torch.stack(torch._foreach_norm([g.float()
+                                                 for g, _ in grads]))
+        every = torch.empty((dist.get_world_size(), local.numel()),
+                            dtype=local.dtype, device=local.device)
+        dist.all_gather_into_tensor(every, local[None])
+        parts = []
+        for j, (_, pl) in enumerate(grads):
+            if pl not in self._holders:
+                self._holders[pl] = sharding.holders(self.mesh, pl).to(
+                    every.device)
+            parts.append(every[self._holders[pl], j])
+        return torch.linalg.vector_norm(torch.cat(parts))

@@ -84,3 +84,15 @@ def test_the_rl_and_multi_model_modules_are_scanned():
                 "rl/anakin.py", "rl/packing.py", "rl/job.py",
                 "serving/model.py", "serving/storage.py"):
         assert port / rel in FILES, rel
+
+
+def test_the_parallel_and_runtime_modules_are_scanned():
+    """The port's process-group bootstrap, mesh and sharding rules are
+    among the scanned files, as is the multi-rank test helper."""
+    port = ROOT / "kubeflow_tpu_torch"
+    for rel in ("runtime/__init__.py", "runtime/bootstrap.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/sharding.py"):
+        assert port / rel in FILES, rel
+    helper = ROOT / "tests" / "torch_ranks.py"
+    assert not [n for n in _imports(helper) if n.split(".")[0] in BANNED]

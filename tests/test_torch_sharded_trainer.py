@@ -1,0 +1,281 @@
+"""The port's Trainer on a data x fsdp mesh (training/trainer.py,
+parallel/) against the JAX Trainer on the same mesh of virtual CPU
+devices and against the port's one-rank trainer. The port's ranks are
+gloo processes (tests/torch_ranks.py); the JAX trainer runs here.
+
+Llama's tiny config at f32 on {data: 2, fsdp: 2}: the global batches
+carry loss masks whose token counts differ between the ranks' rows, so a
+mean of the ranks' means would show; three steps' loss, tokens and
+grad_norm, each rank's blocks against the JAX arrays' addressable shards
+at the same mesh coordinate, the resident bytes, an init's blocks. LoRA
+on {fsdp: 2} (frozen leaves without state) and the MNIST CNN on
+{data: 2} against JAX; the axes and the model not ported yet raise."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from kubeflow_tpu.parallel import MeshConfig
+from kubeflow_tpu.training import trainer as jtrainer
+from kubeflow_tpu_torch.training import trainer as ttrainer
+from kubeflow_tpu_torch.training.metrics_writer import MetricsWriter
+
+import torch_ranks
+
+torch.set_num_threads(2)
+
+TINY = dict(vocab_size=512, d_model=64, n_layers=2, n_heads=8, n_kv_heads=4,
+            d_ff=128, max_seq_len=128, rope_theta=10000.0)
+OPT = dict(learning_rate=1e-2, warmup_steps=1, total_steps=10)
+B, S, STEPS = 8, 16, 3
+# f32 against XLA on another mesh: sums in another order
+RTOL = 2e-5
+
+
+def _llama_batches():
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(STEPS):
+        mask = np.ones((B, S), np.float32)
+        mask[2:4, 5:] = 0.0          # rank 1's rows: fewer tokens
+        mask[4:6, 1:] = 0.0          # rank 2's rows: none past the first
+        mask[6, ::2] = 0.0           # rank 3's: one row half masked
+        out.append({"tokens": rng.integers(0, 512, (B, S)).astype(np.int32),
+                    "loss_mask": mask})
+    return out
+
+
+def _mnist_batches():
+    rng = np.random.default_rng(3)
+    return [{"image": rng.normal(size=(4, 28, 28, 1)).astype(np.float32),
+             "label": rng.integers(0, 10, 4).astype(np.int32)}
+            for _ in range(STEPS)]
+
+
+MNIST = dict(c1=4, c2=8, hidden=16)
+
+
+def _jax_init(model, overrides, batch, mesh, n_dev):
+    cfg = jtrainer.TrainerConfig(
+        model=model, model_overrides=overrides, batch_size=batch,
+        optimizer=jtrainer.OptimizerConfig(**OPT), mesh=mesh, seed=0)
+    jt = jtrainer.Trainer(cfg, devices=jax.devices()[:n_dev],
+                          metrics=MetricsWriter(echo=False))
+    state = jt.init_state()
+    return jt, state, [np.array(x) for x in jax.tree.leaves(state["params"])]
+
+
+def _jax_steps(jt, state, batches):
+    step = None
+    log = []
+    for b in batches:
+        b = jt.shard_batch(b)
+        step = step or jt.compiled_step(state, b)
+        state, m = step(state, b)
+        log.append({k: float(v) for k, v in jax.device_get(m).items()})
+    return state, log
+
+
+def _port_one_rank(model, overrides, batch, params, batches):
+    t = ttrainer.Trainer(ttrainer.TrainerConfig(
+        model=model, model_overrides=overrides, batch_size=batch,
+        optimizer=ttrainer.OptimizerConfig(**OPT), seed=0), device="cpu",
+        metrics=MetricsWriter(echo=False))
+    state = t.init_state(ttrainer._rebuild(
+        t.model.abstract(t.model_cfg),
+        iter(torch.from_numpy(np.array(a)) for a in params)))
+    log = [{k: float(v) for k, v in
+            t.train_step(state, t.to_device(b)).items()} for b in batches]
+    return t, state, log
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("sharded"))
+    lb, mb = _llama_batches(), _mnist_batches()
+    llama_over = dict(TINY, dtype="float32")
+    jt, jstate, jinit = _jax_init("llama", dict(TINY, dtype=jnp.float32), B,
+                                  MeshConfig(data=2, fsdp=2), 4)
+    torch_ranks.write_inputs("llama", d, {
+        "config": dict(model="llama", model_overrides=llama_over,
+                       batch_size=B, optimizer=ttrainer.OptimizerConfig(
+                           **OPT), seed=0),
+        "params": jinit, "batches": lb})
+    mjt, mjstate, minit = _jax_init("mnist_cnn", dict(MNIST), 4,
+                                    MeshConfig(data=2), 2)
+    lora_over = dict(rank=2, llama=llama_over)
+    lora_batches = [{"tokens": b["tokens"][:4]} for b in lb]
+    torch_ranks.write_inputs("lora_mnist", d, {
+        "lora": {"config": dict(
+            model="llama_lora", model_overrides=lora_over, batch_size=4,
+            optimizer=ttrainer.OptimizerConfig(trainable_prefix="lora",
+                                               **OPT), seed=0),
+            "batches": lora_batches},
+        "mnist": {"config": dict(
+            model="mnist_cnn", model_overrides=dict(MNIST), batch_size=4,
+            optimizer=ttrainer.OptimizerConfig(**OPT), seed=0),
+            "params": minit, "batches": mb}})
+    h1 = torch_ranks.start("llama", 4, d)
+    h2 = torch_ranks.start("lora_mnist", 2, d)
+    # the JAX steps run while the ranks do
+    jstate, jlog = _jax_steps(jt, jstate, lb)
+    mjstate, mjlog = _jax_steps(mjt, mjstate, mb)
+    ranks, lm = torch_ranks.finish(h1), torch_ranks.finish(h2)
+    return dict(jt=jt, jstate=jstate, jinit=jinit, jlog=jlog, ranks=ranks,
+                lm=lm, mjt=mjt, mjstate=mjstate, minit=minit, mjlog=mjlog,
+                lb=lb, mb=mb, lora_over=lora_over,
+                lora_batches=lora_batches)
+
+
+def _close(a, b, **kw):
+    for x, y in zip(a, b):
+        for k in ("loss", "grad_norm", "tokens"):
+            if k in x or k in y:
+                np.testing.assert_allclose(x[k], y[k], **kw, err_msg=k)
+
+
+def test_llama_matches_jax_and_one_rank(runs):
+    """Loss (the global masked-token mean), tokens (the global count) and
+    grad_norm on every rank equal the JAX trainer's on {data: 2, fsdp:
+    2}, and the port's one-rank trainer's on the same params and
+    batches."""
+    ranks = runs["ranks"]
+    counts = [b["loss_mask"][:, 1:].reshape(4, -1).sum(1)
+              for b in runs["lb"]]
+    assert all(len(set(c.tolist())) > 1 for c in counts)   # unequal ranks
+    _, _, one = _port_one_rank("llama", dict(TINY, dtype="float32"), B,
+                               runs["jinit"], runs["lb"])
+    for r in ranks:
+        assert [x["tokens"] for x in r["log"]] == \
+            [float(c.sum()) for c in counts]
+        _close(r["log"], runs["jlog"], rtol=RTOL)
+        _close(r["log"], one, rtol=RTOL)
+        assert r["log"] == ranks[0]["log"]
+    # the mean of the ranks' means is another number
+    assert abs(runs["jlog"][0]["loss"] - ranks[0]["log"][0]["loss"]) < 1e-4
+
+
+def _coords(mesh):
+    """{jax device: (data, fsdp) coordinate} of a JAX mesh."""
+    out = {}
+    for idx in np.ndindex(mesh.devices.shape):
+        out[mesh.devices[idx]] = idx[:2]
+    return out
+
+
+def test_llama_blocks_equal_jax_addressable_shards(runs):
+    """After three steps each rank's block of each param and moment
+    equals the JAX array's addressable shard at its mesh coordinate,
+    the array placed by the JAX trainer's param_sharding (the jitted
+    step's outputs keep the shardings XLA chose)."""
+    coords = _coords(runs["jt"].mesh)
+    place = jax.tree.leaves(runs["jt"].param_sharding,
+                            is_leaf=lambda x: hasattr(x, "spec"))
+    by_coord = {r["coord"][:2]: r for r in runs["ranks"]}
+    jopt = runs["jstate"]["opt_state"]
+    # optax chain: (clip state, (scale_by_adam state, ...))
+    adam = next(s for s in jax.tree.leaves(
+        jopt, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(s, "mu"))
+    for key, jtree in (("params", runs["jstate"]["params"]),
+                       ("mu", adam.mu), ("nu", adam.nu)):
+        for i, leaf in enumerate(jax.tree.leaves(jtree)):
+            leaf = jax.device_put(leaf, place[i])
+            for shard in leaf.addressable_shards:
+                mine = by_coord[coords[shard.device]][key][i]
+                np.testing.assert_allclose(
+                    mine, np.asarray(shard.data), rtol=1e-4, atol=1e-6,
+                    err_msg=f"{key} {i}")
+    assert all(r["count"] == STEPS for r in runs["ranks"])
+
+
+def test_resident_bytes_are_the_rules_share(runs):
+    """A rank holds its share of params and moments: embed-ish dims over
+    fsdp halve, norms replicate."""
+    t = ttrainer.Trainer(ttrainer.TrainerConfig(
+        model="llama", model_overrides=dict(TINY, dtype="float32")),
+        device="cpu")
+    want = 0
+    for path, leaf in ttrainer.named_leaves(t.model.abstract(t.model_cfg)):
+        share = 1 if path.endswith("norm") else 2   # embed -> fsdp
+        want += 3 * leaf.numel() * 4 // share       # param, mu, nu
+    for r in runs["ranks"]:
+        assert r["resident"] == want
+        assert sum(a.nbytes for a in r["params"]) * 3 == want
+
+
+def test_init_keeps_each_ranks_block(runs):
+    """init_state on the mesh: each rank's blocks gather to the one-rank
+    trainer's init bit for bit, and each block is that rank's chunk."""
+    t = ttrainer.Trainer(ttrainer.TrainerConfig(
+        model="llama", model_overrides=dict(TINY, dtype="float32"),
+        batch_size=B), device="cpu")
+    want = [x.detach().numpy() for x in ttrainer.leaves(
+        t.init_state()["params"])]
+    for r in runs["ranks"]:
+        for a, b in zip(r["fresh_whole"], want):
+            assert np.array_equal(a, b)
+        f = r["coord"][1]
+        for blk, whole, (path, _) in zip(
+                r["fresh_blocks"], want, ttrainer.named_leaves(
+                    t.model.abstract(t.model_cfg))):
+            dim = {"embed": 1, "lm_head": 0}.get(path, 1)
+            if path.endswith("norm"):
+                assert np.array_equal(blk, whole)
+            elif path in ("layers/wo", "layers/w_down"):
+                assert np.array_equal(blk, np.split(whole, 2, axis=2)[f])
+            else:
+                assert np.array_equal(blk, np.split(whole, 2, axis=dim)[f])
+
+
+def test_lora_on_fsdp2_keeps_no_state_for_frozen_leaves(runs):
+    """llama_lora on {fsdp: 2}: moments exist for the adapters alone,
+    the base does not move, and the run equals the one-rank trainer's."""
+    _, state, one = _port_one_rank_lora(runs)
+    for r in runs["lm"]:
+        assert r["lora_moments"] == [
+            tuple(x.shape) for x in state["opt_state"]["mu"]]
+        assert len(r["lora_moments"]) == len(r["lora_adapters"]) == 8
+        assert not r["lora_base_moved"]
+        _close(r["lora_log"], one, rtol=RTOL)
+        for a, b in zip(r["lora_whole"], ttrainer.leaves(state["params"])):
+            np.testing.assert_allclose(a, b.detach().numpy(), rtol=1e-4,
+                                       atol=1e-6)
+
+
+def _port_one_rank_lora(runs):
+    t = ttrainer.Trainer(ttrainer.TrainerConfig(
+        model="llama_lora", model_overrides=runs["lora_over"], batch_size=4,
+        optimizer=ttrainer.OptimizerConfig(trainable_prefix="lora", **OPT),
+        seed=0), device="cpu", metrics=MetricsWriter(echo=False))
+    state = t.init_state()
+    log = [{k: float(v) for k, v in t.train_step(
+        state, t.to_device(b)).items()} for b in runs["lora_batches"]]
+    return t, state, log
+
+
+def test_mnist_on_data2_matches_jax(runs):
+    for r in runs["lm"]:
+        _close(r["mnist_log"], runs["mjlog"], rtol=RTOL)
+        for a, b in zip(r["mnist_whole"],
+                        jax.tree.leaves(runs["mjstate"]["params"])):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4,
+                                       atol=1e-6)
+
+
+def test_unported_axes_and_mixtral_raise(runs):
+    """Mixtral past one rank and a tensor axis raise naming A6a-ii, on
+    the ranks, and so does Mixtral's family registered under another
+    name (the family declares it, not its name); sequence and stage name
+    A6b and A6c in the config."""
+    for r in runs["ranks"]:
+        assert "A6a-ii" in r["mixtral"] and "global batch" in r["mixtral"]
+        assert "A6a-ii" in r["moe_alias"] and \
+            r["moe_alias"].startswith("moe_alias on a mesh")
+        assert "A6a-ii" in r["tensor"]
+    for mesh, item in (({"tensor": 2}, "A6a-ii"), ({"expert": 2}, "A6a-ii"),
+                       ({"sequence": 2}, "A6b"), ({"stage": 4}, "A6c")):
+        with pytest.raises(ValueError, match=item):
+            ttrainer.TrainerConfig.from_dict({"mesh": mesh})
