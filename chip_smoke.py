@@ -290,8 +290,9 @@ Phases, in order; any failure exits non-zero before the result line:
       step's time inside and outside the window;
   (j3) training job: examples/llama-longctx-jaxjob.yaml's trainer config
       (J3_JOB: a Llama of head dim 128 with a bf16 first moment, B=1 x
-      S=8192) cut to 4 of its 8 layers (2 when the temp directory cannot
-      hold three checkpoints; printed) and 6 steps logged each step, over
+      S=8192) cut to 3 of its 8 layers (1 when the temp directory cannot
+      hold three checkpoints; printed; 4 layers until (n) took the
+      split checks) and 6 steps logged each step, over
       a token_file corpus of 2^24 uint32 tokens from --seed (write_corpus;
       batches/s of the native loader and the Python twin),
       checkpoint_every 2, keep_checkpoints 2, through training/job.py
@@ -410,26 +411,53 @@ Phases, in order; any failure exits non-zero before the result line:
       pull's seconds, parameter and resident GB;
   (n) sharded trainer (after (mm)): a one-rank NCCL process group on a
       file:// store (no port bound; the NCCL version printed), the
-      meshes {"data": -1} and {"fsdp": -1} (every axis 1, on cuda),
-      (j)'s config on the Trainer over {"fsdp": -1} for N_STEPS steps
-      from --seed: every state leaf a DTensor, B1-B3 launched at least
-      once per layer a step, step 1's loss bit for bit (j)'s run 1 and
-      every loss and grad_norm within TRAIN_LOSS_RTOL of it (the
-      bit-equality of each printed); then training/job.py's job from a
-      pod env of KTPU_NUM_PROCESSES=1 and N_JOB (mesh {"fsdp": -1}) on
-      the group, as train_target runs it past one process: four
-      sharded steps logged, steps 2 and 4 saved, B1-B3 launched. Prints
-      the median step beside (j)'s with the card's name and power limit,
-      the state's GB on the rank and the phase's peak memory; the group
-      is destroyed before the phase ends. One card: NCCL across cards,
-      fsdp's memory saving and multi-card speed are not checked here;
+      meshes {"data": -1}, {"fsdp": -1}, {"tensor": -1} and
+      {"expert": -1} (every axis 1, on cuda); (j)'s config on the Trainer
+      over {"fsdp": -1} and over {"tensor": -1}, (m6)'s over
+      {"expert": -1}, N_STEPS steps each from --seed: every state leaf a
+      DTensor, B1-B3 launched at least once per layer a step, step 1's
+      loss bit for bit the unsharded run 1's ((j)'s, (m6)'s) and every
+      loss, aux loss and grad_norm within TRAIN_LOSS_RTOL of it (the
+      bit-equality of each printed); (n.t) one Llama-3-8B-width layer
+      (random weights, B=2 x S=4096) split over N_TENSOR = 2 tensor ranks
+      in this process (each rank's column blocks of wq/wk/wv and
+      w_gate/w_up, row blocks of wo and w_down, run one after the other,
+      their reduce-outs summed by hand): the output and the gradients of
+      x and of every leaf within N_SPLIT_TOL of the unsplit layer's, B1,
+      B2 and B3 each launched twice at the rank's H=16 (KV=4 before
+      their expansion), then held against their plain versions at B=2
+      S=4096 H=16 D=128 causal (times, bound, SDPA) as in (h); and
+      Llama-3-8B's lm_head and embedding (V=128256) split into N_TENSOR
+      vocabulary halves at B=2 x S=4096: the cross-entropy from each
+      half's `sharding.vocab_shard_stats`, combined by hand as
+      `vocab_parallel_ce`'s all-reduces combine them, and each half's
+      `vocab_shard_grad` within N_CE_TOL of log_softmax over the whole
+      vocabulary and its gradient; the halves' `llama.embed_partial`
+      lookups summed bit for bit the whole table's, their table
+      gradient within N_CE_TOL; (n.e)
+      Mixtral-8x7B's MoE block at (m6)'s widths (B=1 x S=4096) split
+      over N_EXPERT = 2 expert ranks the same way (one routing, each
+      rank's dispatch, combine and expert blocks): the output, aux loss
+      and gradients within N_SPLIT_TOL; (n.r) the RLJob example's
+      learner (2048 envs x 64 steps) over {"data": -1}: its update graph
+      captures the NCCL all-reduces (counted), and R_REPLAYS replays give
+      (r)'s unsharded learner's state and metrics bit for bit; then
+      training/job.py's job from a pod env of KTPU_NUM_PROCESSES=1 and
+      N_JOB (mesh {"fsdp": -1}) on the group, as train_target runs it
+      past one process: four sharded steps logged, steps 2 and 4 saved,
+      B1-B3 launched. Prints each run's median step beside the unsharded
+      one's with the card's name and power limit, the state's GB on the
+      rank and the phase's peak memory; the group is destroyed before
+      the phase ends. One card: NCCL across cards, the splits' memory
+      saving and multi-card speed are not checked here;
 Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the paged engine's run for
 K2-paged, the paged serving breakdown for K3-paged, the trainer for
 B1-B3), then K1, K2 and K2-paged again at (e5)'s verify shapes (K1's
 verify round at the row count (e5) launched most, with its launches
-there), and B1-B3 at (m4)'s shape with (m4)'s launches; the last line is
+there), B1-B3 at (m4)'s shape with (m4)'s launches, and B1-B3 at a
+Llama-3-8B tensor rank's shape with (n.t)'s launches; the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab OTHER_TREE
@@ -1766,7 +1794,7 @@ J3_JOB = {"model": "llama", "batch_size": 1, "num_steps": 30,
           "mesh": {"data": -1},
           "optimizer": {"learning_rate": 0.0003, "warmup_steps": 10,
                         "mu_dtype": "bfloat16"}}
-J3_LAYERS = 4
+J3_LAYERS = 3
 J3_DISK_BUDGET_GB = 45 * 2 ** 30 / 1e9
 J3_OTHER_WRITES_GB = 17.0   # (e6)'s 16.06 GB, the builds, traces, corpus
 J3_CORPUS_TOKENS = 1 << 24       # uint32 tokens, 64 MiB, from --seed
@@ -2756,7 +2784,8 @@ def m7_serve(label: str, job: dict, trainer, state, seed: int,
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
-def families_phase(seed: int, gen, keep: str | None = None) -> dict:
+def families_phase(seed: int, gen, keep: str | None = None
+                    ) -> tuple[dict, dict]:
     """(m): each family's trainer config (m_jobs) on a port Trainer, 6
     steps twice from --seed on for_model's data, with cuDNN's
     deterministic algorithms: finite losses, the repeat's losses bit for
@@ -2767,7 +2796,8 @@ def families_phase(seed: int, gen, keep: str | None = None) -> dict:
     supernet's derived architecture, and (m7). B1-B3 are first held to
     their plain versions at (m4)'s shape. With `keep`, the trained
     params of MM_FAMILIES are saved there for (mm). Returns B1-B3's
-    kernel-line entries at (m4)'s shape, with (m4)'s launches."""
+    kernel-line entries at (m4)'s shape, with (m4)'s launches, and
+    (m6)'s run 1 (losses, aux losses, grad norms, median step) for (n)."""
     print(f"m families on {card_line()}", flush=True)
     # deterministic cuDNN algorithms: with the defaults, (m1)'s repeat
     # differed after step 3 in a full run (not when (m) ran alone); the
@@ -2780,7 +2810,7 @@ def families_phase(seed: int, gen, keep: str | None = None) -> dict:
         torch.backends.cudnn.deterministic = cudnn_deterministic
 
 
-def _families(seed: int, gen, keep: str | None) -> dict:
+def _families(seed: int, gen, keep: str | None) -> tuple[dict, dict]:
     b, s, h, d = M4_ATTN
     attn = train_attn_case(gen, b, s, False, False, h=h, d=d)
     for kern, c in attn.items():
@@ -2792,6 +2822,7 @@ def _families(seed: int, gen, keep: str | None) -> dict:
     m_reference_phase(seed)
     root = tempfile.mkdtemp(prefix="chip-smoke-m-")
     stats: dict[str, dict] = {}
+    m6_ref: dict = {}
     try:
         for label, job in m_jobs().items():
             runs = []
@@ -2825,11 +2856,15 @@ def _families(seed: int, gen, keep: str | None) -> dict:
             first, second = ([m["loss"] for m in r] for r in runs)
             check(first == second, f"{label}: run 2's losses {second} "
                                    f"differ from run 1's {first}")
+            if label == "m6 mixtral":   # (n) holds {expert: -1} to run 1
+                m6_ref = {k: [m[k] for m in runs[0]]
+                          for k in ("loss", "aux_loss", "grad_norm")}
+                m6_ref["step_time_s_median"] = st["step_time_s_median"]
             stats[label] = st
             print(f"{label}: {json.dumps(st)}", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return attn
+    return attn, m6_ref
 
 
 def m_family_stats(label, job, trainer, state, log, launches, peak,
@@ -6048,7 +6083,9 @@ def rl_update_profile(learner, state) -> dict:
 
 def rl_phase(seed: int):
     """(r): the RLJob example's learner on the card (module doc). Returns
-    the learner, its update graph captured."""
+    the learner, its update graph captured, and the bits of its state
+    and metrics after its first R_REPLAYS updates ((n.r) holds the
+    learner over {"data": -1} to them)."""
     from kubeflow_tpu_torch.rl.anakin import AnakinLearner, net_leaves
     from kubeflow_tpu_torch.rl.config import (LEARNER_METRICS,
                                               REWARD_METRIC, parse_rl_config)
@@ -6150,7 +6187,7 @@ def rl_phase(seed: int):
           f"r: a port kernel was launched: {dict(_build.LAUNCHES)}")
     print("r: launched none of the eight kernels (the RL path has no "
           "Pallas kernel)", flush=True)
-    return learner
+    return learner, graph
 
 
 #: (r2): bench.py's packing point against the flagship engine: its
@@ -6465,8 +6502,8 @@ cs.trainer_phase(seed, {n: case[n]["shape_key"] for n in
 # -- (n) the sharded trainer on a one-rank process group ----------------------
 
 
-#: (n): steps of (j)'s config on the sharded trainer, held to (j)'s first
-#: steps
+#: (n): steps of each sharded trainer run, held to the first steps of the
+#: unsharded run of the same config ((j)'s, (m6)'s)
 N_STEPS = 3
 #: (n)'s train_target job: a small Llama (head dim 128, so B1-B3 run on
 #: real heads) on {"fsdp": -1}, logged and saved each step
@@ -6478,17 +6515,355 @@ N_JOB = {"model": "llama", "batch_size": 2, "num_steps": 4, "log_every": 1,
                              "d_ff": 1024, "max_seq_len": 1024},
          "optimizer": {"warmup_steps": 2},
          "dataset": {"seq_len": 1024}}
+#: (n)'s tensor split in one process: Llama-3-8B's 32 query and 8 kv heads
+#: over two tensor ranks (16 and 4 a rank), B=2 x S=4096 as (j)
+N_TENSOR = 2
+#: (n)'s expert split in one process: Mixtral-8x7B's 8 experts over two
+#: expert ranks (4 a rank), B=1 x S=4096 as (m6)
+N_EXPERT = 2
+#: (n.t)'s vocabulary split in f32 (the cross-entropy, its logits
+#: gradient, the embedding's table gradient) against the whole
+#: vocabulary's, as a share of the largest value: the halves' sums of
+#: exponentials are rescaled to the common max (one more rounding) and
+#: summed in another order
+N_CE_TOL = 1e-5
+#: the split layer's output and every gradient against the unsplit
+#: layer's on the same inputs, as a share of the tensor's largest value:
+#: the split rounds its row-parallel partial sums in f32 before one cast
+#: to bf16 where the unsplit layer rounds each GEMM's output to bf16, so
+#: the two differ by a few bf16 roundings (2^-8 each)
+N_SPLIT_TOL = 2 ** -6
 
 
-def sharded_trainer_phase(seed: int, ref: dict) -> dict:
-    """(n): a one-rank NCCL process group on a file:// store (no port is
-    bound), the meshes {"data": -1} and {"fsdp": -1}, (j)'s config on the
-    sharded trainer over {"fsdp": -1} for N_STEPS steps from (j)'s seed
-    (module doc), then train_target's job from KTPU_NUM_PROCESSES=1 and
-    N_JOB on the group's mesh; the group is destroyed before the phase ends. `ref` is (j)'s run 1:
-    its per-step losses, grad norms and median step time."""
-    import torch.distributed as dist
+def n_trainer_run(label: str, cfg, mesh, ref: dict, keys) -> dict:
+    """N_STEPS of the sharded Trainer on `mesh` (every leaf a DTensor,
+    B1-B3 launched at least once per layer a step) held to the unsharded
+    run `ref` of the same config: step 1's loss bit for bit, every value
+    of `keys` within TRAIN_LOSS_RTOL (the embedding gradient's
+    scatter-add may sum in another order between runs); the bit-equality
+    of each value is recorded."""
     from torch.distributed.tensor import DTensor
+
+    trainer = train.Trainer(cfg, device=DEV, mesh=mesh,
+                            metrics=MetricsWriter(echo=False))
+    state = trainer.init_state()
+    check(all(isinstance(p, DTensor)
+              for p in train.leaves(state["params"])
+              + train.leaves([state["opt_state"]["mu"],
+                              state["opt_state"]["nu"]])),
+          f"(n) {label}: a state leaf is not a DTensor")
+    data = train_data.make_dataset(cfg.dataset, cfg.model,
+                                   trainer.model_cfg, cfg.batch_size,
+                                   fallback_seed=cfg.seed)
+    _build.reset_launches()
+    log = []
+    trainer.train(data, N_STEPS, state,
+                  step_callback=lambda s, m: log.append(m))
+    launches = {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
+    for name, n in launches.items():
+        check(n >= N_STEPS * trainer.model_cfg.n_layers,
+              f"(n) {label}: {name} launched {n} times in {N_STEPS} "
+              "sharded steps")
+    check(log[0]["loss"] == ref["loss"][0],
+          f"(n) {label}: step 1 loss {log[0]['loss']!r} vs the unsharded "
+          f"run's {ref['loss'][0]!r}")
+    diffs, bits = {}, {}
+    for key in keys:
+        d = [abs(m[key] - r) / abs(r) for m, r in zip(log, ref[key])]
+        check(max(d) <= TRAIN_LOSS_RTOL,
+              f"(n) {label}: {key} {[m[key] for m in log]} vs the "
+              f"unsharded run's {ref[key][:N_STEPS]}")
+        diffs[key] = max(d)
+        bits[key] = [m[key] == r for m, r in zip(log, ref[key])]
+    steady = sorted(m["step_time_s"] for m in log[1:])
+    stats = {key: [m[key] for m in log] for key in keys}
+    stats.update(
+        bit_equal_to_unsharded=bits, max_rel_diff=diffs, launches=launches,
+        step_time_s_median=steady[len(steady) // 2],
+        state_gb_per_rank=sum(p.to_local().nbytes for p in train.leaves(
+            [state["params"], state["opt_state"]["mu"],
+             state["opt_state"]["nu"]])) / 1e9)
+    print(f"sharded trainer {label}: {card_line()}; {json.dumps(stats)}",
+          flush=True)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def split_err(name: str, got, want) -> float:
+    """|got - want|'s max as a share of |want|'s max, held to
+    N_SPLIT_TOL."""
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max().clamp_min(1e-30)).item()
+    check(math.isfinite(err) and err <= N_SPLIT_TOL,
+          f"(n) {name}: off the unsplit layer's by {err:.4g} of its max "
+          f"(tol {N_SPLIT_TOL:.4g})")
+    return err
+
+
+def megatron_layer_phase(seed: int) -> dict:
+    """(n.t): one Llama-3-8B-width decoder layer (random f32 weights, bf16
+    compute, B=2 x S=4096, (j)'s widths) unsplit, then as N_TENSOR tensor
+    ranks' bodies one after the other in this process (each rank's column
+    blocks of wq/wk/wv and w_gate/w_up, row blocks of wo and w_down,
+    `llama.attention_partial` and `llama.mlp_partial`), their reduce-outs
+    summed by hand: the output and the gradients of x and of every leaf
+    against the unsplit layer's (a random cotangent), B1-B3 launched at
+    the rank's heads. Returns the errors and the split run's launches and
+    shapes."""
+    from kubeflow_tpu_torch.ops.norms import rms_norm
+
+    cfg = llama.LlamaConfig(**train_config(seed).model_overrides)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    b, s, d, t = 2, 4096, cfg.d_model, N_TENSOR
+    layer = {n: (torch.randn(sh, generator=gen, device=DEV) / sh[0] ** 0.5
+                 ).requires_grad_()
+             for n, sh in llama.matmul_shapes(cfg).items()}
+    for n in ("attn_norm", "mlp_norm"):
+        layer[n] = (1 + 0.1 * torch.randn(d, generator=gen, device=DEV)
+                    ).requires_grad_()
+    x = torch.randn(b, s, d, generator=gen, device=DEV).to(
+        cfg.dtype).requires_grad_()
+    cot = torch.randn(b, s, d, generator=gen, device=DEV)
+    rope = llama._rope(cfg, torch.arange(s, device=DEV))
+    names = sorted(layer)
+    leaves = [x] + [layer[n] for n in names]
+    out = llama._layer_body(cfg, x, layer, rope, None)
+    want = [out.detach()] + list(torch.autograd.grad(
+        (out.float() * cot).sum(), leaves))
+    del out
+    def block(r):
+        return {n: (w if n.endswith("norm") else
+                    w.chunk(t, dim=0 if n in llama.ROW_PARALLEL else 1)[r])
+                for n, w in layer.items()}
+    _build.reset_launches()
+    blocks = [block(r) for r in range(t)]
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    part = sum(llama.attention_partial(cfg, h, blk, rope, None)
+               for blk in blocks)
+    x1 = x + part.to(x.dtype)
+    h2 = rms_norm(x1, layer["mlp_norm"], cfg.norm_eps)
+    out = x1 + sum(llama.mlp_partial(cfg, h2, blk)
+                   for blk in blocks).to(x.dtype)
+    got = [out.detach()] + list(torch.autograd.grad(
+        (out.float() * cot).sum(), leaves))
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
+    shapes = {k: [dict(key) for key in _build.SHAPES[k]]
+              for k in TRAINING_KERNELS}
+    heads = cfg.n_heads // t
+    for k in TRAINING_KERNELS:
+        check(launches[k] == t and all(sh["h"] == heads
+                                       for sh in shapes[k]),
+              f"(n.t): {k} launched {launches[k]} times at {shapes[k]} "
+              f"(want {t} at H={heads})")
+    errs = {n: split_err(f"t {n}", g, w) for n, g, w in zip(
+        ["out", "x"] + names, got, want)}
+    del got, want, layer, x, blocks, h, h2, x1, out, part
+    torch.cuda.empty_cache()
+    stats = {"tensor": t, "heads_per_rank": heads,
+             "kv_heads_per_rank": cfg.n_kv_heads // t, "errs": errs,
+             "launches": launches, "shapes": shapes,
+             "vocab": vocab_split_check(cfg, seed)}
+    print(f"(n.t) Megatron layer at Llama-3-8B width, T={t}, B={b} S={s}, "
+          f"{heads} query and {cfg.n_kv_heads // t} kv heads a rank, "
+          f"{card_line()}: {json.dumps(stats)}", flush=True)
+    return stats
+
+
+def ce_err(name: str, got, want) -> float:
+    """|got - want|'s max as a share of |want|'s max, held to N_CE_TOL."""
+    err = ((got - want).abs().max()
+           / want.abs().max().clamp_min(1e-30)).item()
+    check(math.isfinite(err) and err <= N_CE_TOL,
+          f"(n.t) {name}: off the whole vocabulary's by {err:.4g} of its "
+          f"max (tol {N_CE_TOL:.4g})")
+    return err
+
+
+def vocab_split_check(cfg, seed: int) -> dict:
+    """(n.t)'s vocabulary split at Llama-3-8B's vocabulary and width (B=2
+    x S=4096, random weights): the logits of a bf16 hidden state through
+    an f32 lm_head in bf16 compute (as `llama.apply`), split into
+    N_TENSOR column halves; each half's `sharding.vocab_shard_stats`
+    combined by hand as `vocab_parallel_ce`'s all-reduces combine them
+    (the max, then the rescaled sums and the target logits summed), and
+    each half's `sharding.vocab_shard_grad` from the combined statistics,
+    against log_softmax over the whole vocabulary and its autograd
+    gradient (a random cotangent). Then the embedding table split into
+    N_TENSOR row halves: the halves' `llama.embed_partial` lookups summed
+    (as `llama._embed`'s reduce-out) against the whole table's lookup,
+    bit for bit, and the table's gradient through both."""
+    from kubeflow_tpu_torch.parallel import sharding
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 2)
+    n, d, v, t = 2 * 4096, cfg.d_model, cfg.vocab_size, N_TENSOR
+    h = torch.randn(n, d, generator=gen, device=DEV).to(cfg.dtype)
+    head = torch.randn(d, v, generator=gen, device=DEV) / d ** 0.5
+    logits = quant.matmul_f32_out(h, head, cfg.dtype)
+    del h, head
+    targets = torch.randint(0, v, (n,), generator=gen, device=DEV)
+    g = torch.rand(n, generator=gen, device=DEV)
+    whole = logits.requires_grad_()
+    want = -torch.log_softmax(whole, dim=-1).gather(
+        -1, targets[:, None])[:, 0]
+    want_grad, = torch.autograd.grad((want * g).sum(), whole)
+    want = want.detach()
+    logits = logits.detach()
+    vr = v // t
+    halves = logits.split(vr, dim=-1)
+    parts = [sharding.vocab_shard_stats(c, targets, r * vr)
+             for r, c in enumerate(halves)]
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    total = sum(s * torch.exp(m - top) for m, s, _ in parts)
+    tgt = sum(x for _, _, x in parts)
+    got = torch.log(total) + top - tgt
+    errs = {"ce": ce_err("ce", got, want)}
+    del got, want
+    got_grad = torch.cat([
+        sharding.vocab_shard_grad(c, targets, r * vr, top, total, g)
+        for r, c in enumerate(halves)], dim=-1)
+    errs["ce_logits_grad"] = ce_err("ce logits grad", got_grad, want_grad)
+    del got_grad, want_grad, logits, halves, whole
+    torch.cuda.empty_cache()
+    tokens = torch.randint(0, v, (2, 4096), generator=gen, device=DEV)
+    table = torch.randn(v, d, generator=gen, device=DEV).requires_grad_()
+    cot = torch.randn(2, 4096, d, generator=gen, device=DEV)
+    want = table[tokens].to(cfg.dtype)
+    want_grad, = torch.autograd.grad((want.float() * cot).sum(), table)
+    got = sum(llama.embed_partial(blk, tokens, r * vr)
+              for r, blk in enumerate(table.split(vr, dim=0))).to(cfg.dtype)
+    got_grad, = torch.autograd.grad((got.float() * cot).sum(), table)
+    check(torch.equal(got, want),
+          "(n.t): the embedding halves' lookups do not sum to the whole "
+          "table's")
+    errs["embed_grad"] = ce_err("embed grad", got_grad, want_grad)
+    errs["embed_grad_bit_equal"] = torch.equal(got_grad, want_grad)
+    del table, got, want, got_grad, want_grad, cot
+    torch.cuda.empty_cache()
+    return {"vocab": v, "vocab_per_rank": vr, "rows": n, "errs": errs,
+            "embed_bit_equal": True}
+
+
+def expert_layer_phase(seed: int) -> dict:
+    """(n.e): Mixtral-8x7B's MoE block at (m6)'s widths (random f32
+    weights, bf16 compute, B=1 x S=4096, capacity factor 1.25) unsplit,
+    then as N_EXPERT expert ranks' bodies in this process (one routing,
+    each rank's dispatch and combine for its experts and its expert
+    blocks through `moe.experts_partial`, the partial outputs summed by
+    hand in f32): the output, the aux loss and the gradients of the input,
+    the router and the experts against the unsplit block's."""
+    from kubeflow_tpu_torch.ops import moe
+
+    mcfg = moe_llama.MoELlamaConfig(**m_jobs()["m6 mixtral"][
+        "model_overrides"])
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    d, f, e, n = mcfg.d_model, mcfg.d_ff, mcfg.n_experts, 4096
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=DEV)
+                / shape[-2] ** 0.5).requires_grad_()
+    router, w_gate, w_up, w_down = w(d, e), w(e, d, f), w(e, d, f), \
+        w(e, f, d)
+    h = torch.randn(1, n, d, generator=gen, device=DEV).to(
+        mcfg.dtype).requires_grad_()
+    cot = torch.randn(1, n, d, generator=gen, device=DEV)
+    leaves = [h, router, w_gate, w_up, w_down]
+    names = ["h", "router", "w_gate", "w_up", "w_down"]
+
+    def grads(out, aux):
+        return [out.detach(), aux.detach()] + list(torch.autograd.grad(
+            (out.float() * cot).sum() + 100.0 * aux, leaves))
+    want = grads(*moe.moe_mlp(h, router, w_gate, w_up, w_down,
+                              mcfg.moe_args, dtype=mcfg.dtype))
+    xt = h.reshape(n, d)
+    dispatch, combine, aux = moe.route(xt.float() @ router.float(),
+                                       mcfg.moe_args)
+    per = e // N_EXPERT
+    part = sum(moe.experts_partial(
+        xt, dispatch[:, r * per:(r + 1) * per],
+        combine[:, r * per:(r + 1) * per], w_gate[r * per:(r + 1) * per],
+        w_up[r * per:(r + 1) * per], w_down[r * per:(r + 1) * per],
+        mcfg.dtype).float() for r in range(N_EXPERT))
+    got = grads(part.to(mcfg.dtype).reshape(1, n, d), aux)
+    errs = {k: split_err(f"e {k}", g, v) for k, g, v in zip(
+        ["out", "aux"] + names, got, want)}
+    kept = int(dispatch.sum())
+    del got, want, leaves, dispatch, combine, part, xt
+    del router, w_gate, w_up, w_down, h
+    torch.cuda.empty_cache()
+    stats = {"experts": e, "expert_ranks": N_EXPERT,
+             "experts_per_rank": per, "tokens": n,
+             "slots_kept": kept, "errs": errs}
+    print(f"(n.e) MoE block at Mixtral-8x7B width, {{expert: {N_EXPERT}}}, "
+          f"{card_line()}: {json.dumps(stats)}", flush=True)
+    return stats
+
+
+def n_rl_run(seed: int, mesh, rl_ref: list) -> dict:
+    """(n.r): the RLJob example's learner (R_JOB, 2048 envs x 64 steps)
+    with its env batch over the mesh's data axis (one rank): the update
+    graph captured with its all-reduces (over data: the grads, the
+    metrics; the all-gather of the advantages), R_REPLAYS replays bit for
+    bit (r)'s unsharded learner's first updates (`rl_ref`)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.rl.anakin import AnakinLearner
+    from kubeflow_tpu_torch.rl.config import parse_rl_config
+
+    cfg, _, _ = parse_rl_config(dict(R_JOB, seed=seed))
+    learner = AnakinLearner(cfg, device=DEV, mesh=mesh)
+    calls, real = [], dist.all_reduce
+
+    def counted(*a, **kw):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return real(*a, **kw)
+    state = learner.init(seed)
+    t = time.monotonic()
+    dist.all_reduce = counted
+    try:
+        state, m = learner.step(state)
+    finally:
+        dist.all_reduce = real
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t
+    check(learner._graph is not None and sum(calls) > 0,
+          f"(n.r): the update graph captured {sum(calls)} all-reduces "
+          f"({len(calls)} calls)")
+    for _ in range(R_REPLAYS - 1):
+        state, m = learner.step(state)
+    bits = rl_bits(learner, state, m)
+    same = [torch.equal(a, b) for a, b in zip(bits, rl_ref)]
+    check(len(bits) == len(rl_ref) and all(same),
+          f"(n.r): {same.count(False)} of {len(same)} state and metric "
+          "tensors differ from (r)'s unsharded learner's")
+    stats = {"n_envs": cfg.n_envs, "rollout_len": cfg.rollout_len,
+             "all_reduces_captured": sum(calls),
+             "all_reduce_calls": len(calls), "capture_s": capture_s,
+             "replays_bit_equal_to_r": R_REPLAYS}
+    print(f"(n.r) RL learner on {{data: -1}}, {card_line()}: "
+          f"{json.dumps(stats)}", flush=True)
+    del learner, state, m, bits
+    return stats
+
+
+def sharded_trainer_phase(seed: int, ref: dict, gen, m6_ref: dict,
+                          rl_ref: list) -> dict:
+    """(n): a one-rank NCCL process group on a file:// store (no port is
+    bound), the meshes {"data": -1}, {"fsdp": -1}, {"tensor": -1} and
+    {"expert": -1}; (j)'s config on the sharded trainer over {"fsdp": -1}
+    and {"tensor": -1}, (m6)'s over {"expert": -1}, N_STEPS steps each
+    from (j)'s and (m6)'s seeds; the tensor and expert splits of one
+    layer in this process (n.t, n.e) and B1-B3 at the tensor rank's
+    shape against their plain versions; the RL learner over {"data": -1}
+    (n.r); then train_target's job from KTPU_NUM_PROCESSES=1 and N_JOB on
+    the group's mesh; the group is destroyed before the phase ends.
+    `ref` is (j)'s run 1 (per-step losses, grad norms, median step time),
+    `m6_ref` (m6)'s run 1, `rl_ref` (r)'s first updates' bits. Returns
+    the stats, with B1-B3's kernel-line entries at the tensor rank's
+    shape."""
+    import torch.distributed as dist
 
     from kubeflow_tpu_torch.parallel import make_mesh, mesh_shape
     from kubeflow_tpu_torch.training import job as train_job
@@ -6504,62 +6879,38 @@ def sharded_trainer_phase(seed: int, ref: dict) -> dict:
         print(f"sharded trainer: NCCL {torch.cuda.nccl.version()}, world "
               f"size {dist.get_world_size()}, backend {dist.get_backend()}",
               flush=True)
-        meshes = {axis: make_mesh({axis: -1}) for axis in ("data", "fsdp")}
+        meshes = {axis: make_mesh({axis: -1})
+                  for axis in ("data", "fsdp", "tensor", "expert")}
         for axis, mesh in meshes.items():
             check(mesh_shape(mesh) == {a: 1 for a in mesh.mesh_dim_names}
                   and mesh.device_type == "cuda",
                   f"(n): mesh {{{axis}: -1}} is {mesh_shape(mesh)} on "
                   f"{mesh.device_type}")
         cfg = train_config(seed)
-        trainer = train.Trainer(cfg, device=DEV, mesh=meshes["fsdp"],
-                                metrics=MetricsWriter(echo=False))
-        state = trainer.init_state()
-        check(all(isinstance(p, DTensor)
-                  for p in train.leaves(state["params"])
-                  + train.leaves([state["opt_state"]["mu"],
-                                  state["opt_state"]["nu"]])),
-              "(n): a state leaf is not a DTensor")
-        data = train_data.make_dataset(cfg.dataset, cfg.model,
-                                       trainer.model_cfg, cfg.batch_size,
-                                       fallback_seed=cfg.seed)
-        _build.reset_launches()
-        log = []
-        trainer.train(data, N_STEPS, state,
-                      step_callback=lambda s, m: log.append(m))
-        launches = {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
-        for name, n in launches.items():
-            check(n >= N_STEPS * trainer.model_cfg.n_layers,
-                  f"(n): {name} launched {n} times in {N_STEPS} sharded "
-                  "steps")
-        # step 1's loss is the forward's alone: bit for bit; the rest
-        # carry the embedding gradient's scatter-add, whose order moves
-        # between runs, so they are held to (j)'s own run-to-run bound
-        check(log[0]["loss"] == ref["loss"][0],
-              f"(n): step 1 loss {log[0]['loss']!r} vs (j)'s "
-              f"{ref['loss'][0]!r}")
-        diffs = {}
-        for key in ("loss", "grad_norm"):
-            d = [abs(m[key] - r) / abs(r) for m, r in zip(log, ref[key])]
-            check(max(d) <= TRAIN_LOSS_RTOL,
-                  f"(n): {key} {[m[key] for m in log]} vs (j)'s "
-                  f"{ref[key][:N_STEPS]}")
-            diffs[key] = max(d)
-        bits = [m["loss"] == r for m, r in zip(log, ref["loss"])] + [
-            m["grad_norm"] == r for m, r in zip(log, ref["grad_norm"])]
-        steady = sorted(m["step_time_s"] for m in log[1:])
-        step_s = steady[len(steady) // 2]
-        stats = {"losses": [m["loss"] for m in log],
-                 "grad_norms": [m["grad_norm"] for m in log],
-                 "bit_equal_to_j": bits,
-                 "max_rel_diff_vs_j": diffs, "launches": launches,
-                 "step_time_s_median": step_s,
-                 "j_step_time_s_median": ref["step_time_s_median"],
-                 "state_gb_per_rank": sum(
-                     p.to_local().nbytes for p in train.leaves(
-                         [state["params"], state["opt_state"]["mu"],
-                          state["opt_state"]["nu"]])) / 1e9}
-        del trainer, state
+        stats = {"fsdp": n_trainer_run("{fsdp: -1}", cfg, meshes["fsdp"],
+                                       ref, ("loss", "grad_norm"))}
+        stats["fsdp"]["j_step_time_s_median"] = ref["step_time_s_median"]
+        stats["tensor"] = n_trainer_run("{tensor: -1}", cfg,
+                                        meshes["tensor"], ref,
+                                        ("loss", "grad_norm"))
+        mcfg = train.TrainerConfig.from_dict(dict(
+            m_jobs()["m6 mixtral"], log_every=1, seed=seed))
+        stats["expert"] = n_trainer_run("{expert: -1}", mcfg,
+                                        meshes["expert"], m6_ref,
+                                        ("loss", "aux_loss", "grad_norm"))
+        stats["megatron_layer"] = megatron_layer_phase(seed)
+        case = train_attn_case(gen, 2, 4096, True, False,
+                               h=cfg.model_overrides["n_heads"] // N_TENSOR)
+        for kern, c in case.items():
+            errs = " ".join(f"{n} worst row {w:.3g}" for n, (_, w) in
+                            c["errs"].items())
+            c["launches"] = stats["megatron_layer"]["launches"][kern]
+            print(f"{kern} at the tensor rank's B=2 S=4096 H="
+                  f"{cfg.model_overrides['n_heads'] // N_TENSOR} D=128 "
+                  f"causal, {card_line()}: {errs}; {fmt(c)}", flush=True)
         torch.cuda.empty_cache()
+        stats["expert_layer"] = expert_layer_phase(seed)
+        stats["rl"] = n_rl_run(seed, meshes["data"], rl_ref)
         # the pod target's job on this group, as train_target runs it
         # past one process: the trainer on a mesh of the config's mesh
         sharded_steps = [0]
@@ -6597,12 +6948,17 @@ def sharded_trainer_phase(seed: int, ref: dict) -> dict:
         stats["job"] = {"losses": [r["metrics"]["loss"] for r in rows],
                         "saved_steps": steps, "launches": job_launches}
         stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        print(f"sharded trainer: {card_line()}; {json.dumps(stats)}",
-              flush=True)
-        print(f"sharded trainer: median step {step_s:.4f} s on the "
-              f"{{fsdp: 1}} mesh against (j)'s {ref['step_time_s_median']:.4f}"
-              f" s unsharded; peak {stats['peak_memory_gb']:.2f} GB",
-              flush=True)
+        print(f"sharded trainer: {card_line()}; job "
+              f"{json.dumps(stats['job'])}; peak "
+              f"{stats['peak_memory_gb']:.2f} GB", flush=True)
+        med = {k: stats[k]["step_time_s_median"]
+               for k in ("fsdp", "tensor", "expert")}
+        print(f"sharded trainer: median step {med['fsdp']:.4f} s on "
+              f"{{fsdp: 1}}, {med['tensor']:.4f} s on {{tensor: 1}} "
+              f"against (j)'s {ref['step_time_s_median']:.4f} s unsharded; "
+              f"{med['expert']:.4f} s on {{expert: 1}} against (m6)'s "
+              f"{m6_ref['step_time_s_median']:.4f} s", flush=True)
+        stats["attn_cases"] = case
         return stats
     finally:
         dist.destroy_process_group()
@@ -6681,8 +7037,11 @@ def main(argv=None) -> int:
                                         tokens)
     launches["flash_decode_paged"] = p_launches["flash_decode_paged"]
     shapes["flash_decode_paged"] = p_shapes["flash_decode_paged"]
+    rl_ref = []
+
     def rl_phases(slab):
-        learner = phase("r RL", rl_phase, args.seed)
+        learner, bits = phase("r RL", rl_phase, args.seed)
+        rl_ref.extend(bits)
         phase("r2 packing", packing_phase, slab, learner, args.seed)
 
     e3_k3_shapes, _ = phase("e3 flagship engine", flagship_phase, engine,
@@ -6744,13 +7103,14 @@ def main(argv=None) -> int:
     phase("l2 LoRA job", lora_job_phase, args.seed)
     mm_root = tempfile.mkdtemp(prefix="chip-smoke-mm-")
     try:
-        m4_attn = phase("m model families", families_phase, args.seed, gen,
-                        mm_root)
+        m4_attn, m6_ref = phase("m model families", families_phase,
+                                args.seed, gen, mm_root)
         phase("mm multi-model serving", multimodel_phase, args.seed,
               mm_root)
     finally:
         shutil.rmtree(mm_root, ignore_errors=True)
-    phase("n sharded trainer", sharded_trainer_phase, args.seed, train_stats)
+    n_stats = phase("n sharded trainer", sharded_trainer_phase, args.seed,
+                    train_stats, gen, m6_ref, rl_ref)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     kernels = []
     for name in _build.KERNELS:
@@ -6798,6 +7158,17 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": f"{c['shape']} (m4, ViT-B/16)"})
+    # B1-B3 at a Llama-3-8B tensor rank's heads (T=2), launched by (n.t)
+    for name in TRAINING_KERNELS:
+        c = n_stats["attn_cases"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"kubeflow_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": c["launches"],
+            "max_abs_err": c["err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": f"{c['shape']} (n.t, a tensor rank of Llama-3-8B)"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

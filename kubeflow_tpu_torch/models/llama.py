@@ -17,6 +17,20 @@ The KV cache is updated IN PLACE by verify_step/decode_step (the JAX
 functions return a new cache): at 8B width the cache is about a gigabyte,
 and rewriting it per step would double the step's memory traffic.
 
+On a mesh with a `tensor` axis past one rank (the trainer's
+`active_mesh`, read through `sharding.regions`) the training forward
+runs Megatron splits on the rank's blocks: wq/wk/wv and w_gate/w_up
+column-parallel (a rank's nh/T query and nkv/T kv heads, counted from
+its block's width), wo and w_down row-parallel with an all-reduce of
+their f32 partial sums, the embedding vocab-parallel (a masked lookup
+of the rank's vocabulary rows, all-reduced), the lm_head
+column-parallel and the cross-entropy vocab-parallel
+(`sharding.vocab_parallel_ce`: the [B, S, vocab] logits are never
+gathered). B1-B3 run unchanged on the local heads. Rank r's query heads
+use kv heads [r·nkv/T, (r+1)·nkv/T), the GQA grouping only when nkv
+divides by T; otherwise the forward raises (ROADMAP.md queue A6a-iii).
+The serving functions take whole params and no split.
+
 Multi-adapter serving: every serving function takes the JAX `lora`/`ids`
 pair. lora = {target: {"a": [L, A, d_in, r], "b": [L, A, r, d_out]}}
 (f32, adapter 0 all zeros, b pre-scaled by alpha / rank) and ids [B] the
@@ -47,10 +61,15 @@ from kubeflow_tpu_torch.ops.flash_decode import flash_decode_attention
 from kubeflow_tpu_torch.ops.flash_prefill import flash_prefill_attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rope import apply_rope_tables, rope_tables
+from kubeflow_tpu_torch.parallel import sharding
 
 Params = dict[str, Any]
 
 QUANT_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+#: the matmul leaves a tensor split makes row-parallel (split over their
+#: input rows, the partial sums all-reduced); the others are
+#: column-parallel
+ROW_PARALLEL = ("wo", "w_down")
 REMAT_POLICIES = ("none", "minimal", "full")
 
 
@@ -258,18 +277,81 @@ def quantize_params(params: Params) -> Params:
 
 
 def _attention(cfg: LlamaConfig, x: torch.Tensor, layer: Params, rope,
-               segment_ids) -> torch.Tensor:
+               segment_ids, tp=None) -> torch.Tensor:
     """Pre-norm causal GQA self-attention block with its residual; the
-    attention itself is flash attention (B1 forward, B2/B3 backward)."""
+    attention itself is flash attention (B1 forward, B2/B3 backward).
+    With `tp` (the Regions of a tensor split) the layer's blocks are this
+    rank's and the block's partial sum is all-reduced over `tensor`."""
+    if tp is not None:
+        h = tp.copy_in(rms_norm(x, layer["attn_norm"], cfg.norm_eps),
+                       "tensor")
+        part = attention_partial(cfg, h, layer, rope, segment_ids)
+        return x + tp.reduce_out(part, "tensor").to(x.dtype)
     q, k, v = _project_qkv(cfg, layer, x, rope)
     b, s = x.shape[:2]
     out = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
     return x + quant.matmul(out.reshape(b, s, -1), layer["wo"], cfg.dtype)
 
 
+def attention_partial(cfg: LlamaConfig, h: torch.Tensor, layer: Params,
+                      rope, segment_ids) -> torch.Tensor:
+    """One tensor rank's share of the attention block: the normed input h
+    [B, S, D] through its column blocks of wq/wk/wv (the heads counted
+    from the blocks' widths), flash attention on those heads and its row
+    block of wo -> its f32 partial sum [B, S, D] of the block's output
+    (the ranks' partials sum to the unsplit block's)."""
+    b, s, _ = h.shape
+    hd = cfg.head_dim
+    q = quant.matmul(h, layer["wq"], cfg.dtype).reshape(b, s, -1, hd)
+    k = quant.matmul(h, layer["wk"], cfg.dtype).reshape(b, s, -1, hd)
+    v = quant.matmul(h, layer["wv"], cfg.dtype).reshape(b, s, -1, hd)
+    q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
+    out = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
+    return quant.matmul_f32_out(out.reshape(b, s, -1), layer["wo"],
+                                cfg.dtype)
+
+
+def mlp_partial(cfg: LlamaConfig, h: torch.Tensor,
+                layer: Params) -> torch.Tensor:
+    """One tensor rank's share of the SwiGLU MLP: the normed input h
+    through its column blocks of w_gate/w_up and its row block of w_down
+    -> its f32 partial sum of the MLP's output."""
+    gate = quant.matmul(h, layer["w_gate"], cfg.dtype)
+    up = quant.matmul(h, layer["w_up"], cfg.dtype)
+    return quant.matmul_f32_out(F.silu(gate) * up, layer["w_down"],
+                                cfg.dtype)
+
+
 def _layer_body(cfg: LlamaConfig, x: torch.Tensor, layer: Params, rope,
-                segment_ids) -> torch.Tensor:
-    return _mlp(cfg, _attention(cfg, x, layer, rope, segment_ids), layer)
+                segment_ids, tp=None) -> torch.Tensor:
+    x = _attention(cfg, x, layer, rope, segment_ids, tp)
+    if tp is not None:
+        h = tp.copy_in(rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
+                       "tensor")
+        return x + tp.reduce_out(mlp_partial(cfg, h, layer),
+                                 "tensor").to(x.dtype)
+    return _mlp(cfg, x, layer)
+
+
+def tensor_split(cfg: LlamaConfig):
+    """The Regions of the active mesh when its `tensor` axis splits the
+    layer (more than one rank), else None. Raises where the split would
+    not keep whole query groups: the kv heads must divide by the tensor
+    size (ROADMAP.md queue A6a-iii), as must the query heads."""
+    tp = sharding.regions()
+    if tp.size("tensor") == 1:
+        return None
+    t = tp.size("tensor")
+    if cfg.n_heads % t:
+        raise ValueError(f"n_heads={cfg.n_heads} not divisible by the "
+                         f"tensor axis {t}")
+    if cfg.n_kv_heads % t:
+        raise ValueError(
+            f"n_kv_heads={cfg.n_kv_heads} not divisible by the tensor axis "
+            f"{t}: a rank's query heads would need kv heads of another "
+            "rank (ROADMAP.md queue A6a-iii, kv heads replicated past "
+            "the tensor size)")
+    return tp
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -301,25 +383,38 @@ def apply_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     each layer under cfg's remat policy."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+    tp = tensor_split(cfg)
     rope = _rope(cfg, positions)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, tp)
     body = _remat(cfg, lambda x, layer: _layer_body(cfg, x, layer, rope,
-                                                    segment_ids))
+                                                    segment_ids, tp))
     for layer in unstack_layers(params["layers"]):
         x = body(x, layer)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    # the lm_head's input enters the rank's vocabulary columns
+    return x if tp is None else tp.copy_in(x, "tensor")
 
 
 def apply(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
           positions: torch.Tensor | None = None,
           segment_ids: torch.Tensor | None = None) -> torch.Tensor:
-    """[B, S] tokens -> [B, S, vocab] f32 logits."""
+    """[B, S] tokens -> [B, S, vocab] f32 logits (under a tensor split,
+    this rank's vocabulary columns of them)."""
     x = apply_hidden(params, tokens, cfg, positions=positions,
                      segment_ids=segment_ids)
     return quant.matmul_f32_out(x, params["lm_head"], cfg.dtype)
 
 
-def _token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _token_loss(logits: torch.Tensor, targets: torch.Tensor,
+                tp=None) -> torch.Tensor:
+    """-log softmax(logits)[target] per position; under a tensor split
+    `logits` are the rank's vocabulary columns and the loss is the
+    vocab-parallel cross-entropy."""
+    if tp is not None:
+        v = logits.shape[-1]
+        return sharding.vocab_parallel_ce(logits, targets,
+                                          tp.rank("tensor") * v,
+                                          tp.groups["tensor"])
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, targets[..., None])[..., 0]
 
@@ -335,7 +430,7 @@ def loss_fn(params: Params, batch: dict[str, torch.Tensor],
     tokens = batch["tokens"].long()
     logits = apply(params, tokens, cfg,
                    segment_ids=batch.get("segment_ids"))[:, :-1]
-    token_loss = _token_loss(logits, tokens[:, 1:])
+    token_loss = _token_loss(logits, tokens[:, 1:], tensor_split(cfg))
     mask = batch.get("loss_mask")
     mask = (torch.ones_like(token_loss) if mask is None
             else mask[:, 1:].float())
@@ -345,9 +440,9 @@ def loss_fn(params: Params, batch: dict[str, torch.Tensor],
     return loss, {"loss": loss, "tokens": n}
 
 
-def _chunk_loss(h, targets, valid, lm_head, dtype):
+def _chunk_loss(h, targets, valid, lm_head, dtype, tp=None):
     logits = quant.matmul_f32_out(h, lm_head, dtype)
-    return (_token_loss(logits, targets) * valid).sum()
+    return (_token_loss(logits, targets, tp) * valid).sum()
 
 
 def _chunked_ce_loss(params: Params, batch: dict[str, torch.Tensor],
@@ -372,11 +467,12 @@ def _chunked_ce_loss(params: Params, batch: dict[str, torch.Tensor],
         valid = valid * torch.cat(
             [mask[:, 1:].float(), torch.zeros(b, 1, device=tokens.device)],
             dim=1)
+    tp = tensor_split(cfg)
     total = torch.zeros((), device=tokens.device)
     for i in range(0, s, c):
         total = total + checkpoint(
             _chunk_loss, h[:, i:i + c], targets[:, i:i + c],
-            valid[:, i:i + c], params["lm_head"], cfg.dtype,
+            valid[:, i:i + c], params["lm_head"], cfg.dtype, tp,
             use_reentrant=False)
     n = valid.sum()
     loss = total / n.clamp_min(1.0)
@@ -495,9 +591,28 @@ def _wo(cfg: LlamaConfig, out: torch.Tensor, layer: Params,
     return _adapted(out, layer, "wo", lora_layer, ids, cfg.dtype)
 
 
-def _embed(params: Params, tokens: torch.Tensor,
-           cfg: LlamaConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.dtype)
+def _embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+           tp=None) -> torch.Tensor:
+    """The token embeddings in cfg.dtype; under a tensor split the table
+    is this rank's vocabulary rows: a masked lookup, summed over
+    `tensor` in the table's dtype (one rank holds each row: exact)."""
+    table = params["embed"]
+    if tp is None:
+        return table[tokens].to(cfg.dtype)
+    part = embed_partial(table, tokens, tp.rank("tensor") * table.shape[0])
+    return tp.reduce_out(part, "tensor").to(cfg.dtype)
+
+
+def embed_partial(table: torch.Tensor, tokens: torch.Tensor,
+                  start: int) -> torch.Tensor:
+    """One tensor rank's share of the embedding: the rows of its block
+    `table` of vocabulary rows [start, start + V_r) for the tokens inside
+    it, zeros for the others (the ranks' shares sum to the lookup in the
+    whole table)."""
+    v = table.shape[0]
+    local = tokens - start
+    inside = (local >= 0) & (local < v)
+    return table[local.clamp(0, v - 1)] * inside[..., None].to(table.dtype)
 
 
 def prefill_attention(cfg: LlamaConfig, q, k, v, cks=None, cvs=None, *,

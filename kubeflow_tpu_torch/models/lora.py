@@ -15,7 +15,8 @@ optimizer state either: AdamW's moments exist only for the adapters.
 plain llama tree for the engines, `quantize_params` after it), and
 `adapter_only` the checkpoint-sized artifact. `logical_axes` shards an
 adapter like its target's matching dim: a keeps the input axis, b the
-output axis.
+output axis; under a tensor split the merged blocks are the rank's
+(`loss_fn`).
 """
 
 from __future__ import annotations
@@ -179,4 +180,18 @@ def apply(params: Params, tokens: torch.Tensor, cfg: LoraLlamaConfig, **kw):
 
 def loss_fn(params: Params, batch: dict[str, torch.Tensor],
             cfg: LoraLlamaConfig):
+    """The merged model's loss. Under a tensor split (`llama.tensor_split`)
+    each merged block is this rank's: a column target's b is split with
+    its output and a row target's a with its input rows, so the factor
+    that stays whole (a column target's a, a row target's b) enters
+    through copy_in, its gradient summed over `tensor` (each rank's block
+    gives a partial one)."""
+    tp = llama.tensor_split(cfg.base_cfg)
+    if tp is not None:
+        whole = {t: "b" if t in llama.ROW_PARALLEL else "a"
+                 for t in cfg.targets}
+        params = {**params, "lora": {
+            t: {k: tp.copy_in(v, "tensor") if k == whole[t] else v
+                for k, v in ab.items()}
+            for t, ab in params["lora"].items()}}
     return llama.loss_fn(merge(params, cfg), batch, cfg.base_cfg)

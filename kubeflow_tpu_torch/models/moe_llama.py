@@ -6,9 +6,13 @@ layers.
 
 The tree is the JAX one: the Llama leaves less the dense MLP, plus
 router [L, D, E] and stacked experts w_gate/w_up [L, E, D, F], w_down
-[L, E, F, D]. `logical_axes` is the JAX one; the trainer refuses
-Mixtral past one rank until routing runs over the global batch's tokens
-(ROADMAP.md queue A6a-ii).
+[L, E, F, D]. `logical_axes` is the JAX one. On a mesh (the trainer's
+`active_mesh`) the attention, embedding, lm_head and cross-entropy take
+llama's tensor split, the experts the `expert` and `tensor` splits of
+ops/moe.py, and the routing is the global batch's; the loss is then the
+global batch's too (a masked-token mean over every shard's tokens plus
+the global aux), which the registry's `needs_global_batch` tells the
+trainer not to scale.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from kubeflow_tpu_torch.models.common import (init_tree, meta_tree,
 from kubeflow_tpu_torch.ops import quant
 from kubeflow_tpu_torch.ops.moe import MoEArgs, moe_mlp
 from kubeflow_tpu_torch.ops.norms import rms_norm
+from kubeflow_tpu_torch.parallel import sharding
 
 Params = dict[str, Any]
 
@@ -96,12 +101,13 @@ def abstract_params(cfg: MoELlamaConfig) -> Params:
     return meta_tree(_spec(cfg), cfg.param_dtype)
 
 
-def _layer_body(cfg: MoELlamaConfig, x, aux, layer, rope, segment_ids):
-    x = llama._attention(cfg, x, layer, rope, segment_ids)
+def _layer_body(cfg: MoELlamaConfig, x, aux, layer, rope, segment_ids,
+                regions=None, tp=None):
+    x = llama._attention(cfg, x, layer, rope, segment_ids, tp)
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     out, layer_aux = moe_mlp(h, layer["router"], layer["w_gate"],
                              layer["w_up"], layer["w_down"], cfg.moe_args,
-                             dtype=cfg.dtype)
+                             dtype=cfg.dtype, regions=regions)
     return x + out, aux + layer_aux
 
 
@@ -110,17 +116,22 @@ def apply(params: Params, tokens: torch.Tensor, cfg: MoELlamaConfig, *,
           segment_ids: torch.Tensor | None = None,
           return_aux: bool = False):
     """[B, S] tokens -> [B, S, vocab] f32 logits (and the summed router
-    aux loss with return_aux), each layer under cfg's remat policy."""
+    aux loss with return_aux), each layer under cfg's remat policy. On a
+    mesh (module doc) the logits are this rank's vocabulary columns."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+    regions = sharding.regions()
+    tp = llama.tensor_split(cfg)
     rope = llama._rope(cfg, positions)
-    x = llama._embed(params, tokens.long(), cfg)
+    x = llama._embed(params, tokens.long(), cfg, tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     body = llama._remat(cfg, lambda x, aux, layer: _layer_body(
-        cfg, x, aux, layer, rope, segment_ids))
+        cfg, x, aux, layer, rope, segment_ids, regions, tp))
     for layer in unstack_layers(params["layers"]):
         x, aux = body(x, aux, layer)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if tp is not None:
+        x = tp.copy_in(x, "tensor")
     logits = quant.matmul_f32_out(x, params["lm_head"], cfg.dtype)
     return (logits, aux) if return_aux else logits
 
@@ -128,17 +139,22 @@ def apply(params: Params, tokens: torch.Tensor, cfg: MoELlamaConfig, *,
 def loss_fn(params: Params, batch: dict[str, torch.Tensor],
             cfg: MoELlamaConfig):
     """Next-token cross-entropy plus the router aux loss: (ce + aux,
-    {"loss": ce, "aux_loss", "tokens"})."""
+    {"loss": ce, "aux_loss", "tokens"}). On a mesh both are the global
+    batch's (ce the masked-token mean over every shard's tokens; its
+    gradient this shard's part) and `tokens` is this shard's count."""
     tokens = batch["tokens"].long()
     logits, aux = apply(params, tokens, cfg,
                         segment_ids=batch.get("segment_ids"),
                         return_aux=True)
-    token_loss = llama._token_loss(logits[:, :-1], tokens[:, 1:])
+    token_loss = llama._token_loss(logits[:, :-1], tokens[:, 1:],
+                                   llama.tensor_split(cfg))
     mask = batch.get("loss_mask")
     mask = (torch.ones_like(token_loss) if mask is None
             else mask[:, 1:].float())
     n = mask.sum()
-    ce = (token_loss * mask).sum() / n.clamp_min(1.0)
+    regions = sharding.regions()
+    total = regions.sum_batch(n.detach())
+    ce = regions.sum_batch((token_loss * mask).sum() / total.clamp_min(1.0))
     return ce + aux, {"loss": ce, "aux_loss": aux, "tokens": n}
 
 

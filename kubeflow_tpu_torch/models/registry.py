@@ -7,8 +7,12 @@ is here: the Llama decoder (`llama`) and its LoRA fine-tune
 (`nas_cnn`) with its DARTS supernet (`darts_supernet`). `abstract` gives
 init's tree as meta tensors: a checkpoint restores into it;
 `logical_axes` gives its logical sharding axes, leaf for leaf
-(parallel/sharding.py); `needs_global_batch` marks a family whose step
-the sharded trainer cannot split by rows."""
+(parallel/sharding.py); `needs_global_batch` marks a family whose loss
+is already the global batch's on a mesh (the trainer does not scale
+it), and `local_blocks` the families that compute on `tensor`- and
+`expert`-local blocks (Megatron splits); every other family runs those
+axes with its blocks at rest and its compute repeated on each rank of
+the group."""
 
 from __future__ import annotations
 
@@ -27,21 +31,28 @@ class ModelDef(NamedTuple):
     logical_axes: Callable   # cfg -> init's tree of logical axis tuples
     # the loss depends on the global batch past a mean over its rows or
     # tokens (Mixtral's routing: capacity, slot priority and the aux
-    # losses over every token), so a step cannot be split by rows
+    # losses over every token): on a mesh the family computes the global
+    # batch's loss itself (`sharding.regions`), and the trainer takes it
+    # and its metrics as they are, unscaled
     needs_global_batch: bool = False
+    # the family computes on tensor- and expert-local blocks (Megatron
+    # splits under `sharding.regions`): the trainer gathers its params
+    # over the other mesh axes only
+    local_blocks: bool = False
 
 
 _REGISTRY: dict[str, ModelDef] = {
     "llama": ModelDef(llama.LlamaConfig, llama.init, llama.apply,
                       llama.loss_fn, llama.abstract_params,
-                      llama.logical_axes),
+                      llama.logical_axes, local_blocks=True),
     "llama_lora": ModelDef(lora.LoraLlamaConfig, lora.init, lora.apply,
                            lora.loss_fn, lora.abstract_params,
-                      lora.logical_axes),
+                           lora.logical_axes, local_blocks=True),
     "mixtral": ModelDef(moe_llama.MoELlamaConfig, moe_llama.init,
                         moe_llama.apply, moe_llama.loss_fn,
                         moe_llama.abstract_params,
-                        moe_llama.logical_axes, needs_global_batch=True),
+                        moe_llama.logical_axes, needs_global_batch=True,
+                        local_blocks=True),
     "mnist_cnn": ModelDef(mnist_cnn.MnistConfig, mnist_cnn.init,
                           mnist_cnn.apply, mnist_cnn.loss_fn,
                           mnist_cnn.abstract_params,

@@ -11,20 +11,28 @@ a -1 axis resolves against the world size (on one card, -1 is one card,
 as it is for a one-device JAX process), and ranks are laid out row-major
 over AXIS_ORDER, as the JAX mesh lays out its device list
 (`np.asarray(claimed).reshape(shape)`). A mesh smaller than the world
-claims its first ranks. Not ported yet: the multi-slice arrangement
-`_hybrid_device_array`, whose counterpart is a data axis across nodes,
-and `stage_submeshes` (ROADMAP.md A6a-ii and A6c).
+claims its first ranks. When the claimed ranks span several nodes (a
+rank's node is its host, learned once per process group), `arrange_ranks`
+lays `data` across the nodes and every other axis inside one node, so
+that only the gradient all-reduce crosses nodes: the counterpart of the
+JAX `_hybrid_device_array` over DCN-connected slices, with the same
+fallback to the flat order (and a warning) where the data axis cannot
+stride the nodes evenly. Not ported yet: `stage_submeshes` (ROADMAP.md
+A6c).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import math
 import threading
-from typing import Iterator
+from typing import Iterator, Sequence
 
 import torch
+
+log = logging.getLogger(__name__)
 
 # Canonical axis order: `data` outermost, `tensor`/`sequence` innermost.
 AXIS_ORDER = ("data", "fsdp", "stage", "expert", "sequence", "tensor")
@@ -108,9 +116,60 @@ def make_mesh(config: MeshConfig | dict | None = None, *,
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     config = config.resolved(dist.get_world_size())
     sizes = config.axis_sizes()
-    shape = tuple(sizes[a] for a in AXIS_ORDER)
-    ranks = torch.arange(math.prod(shape)).reshape(shape)
+    n = math.prod(sizes.values())
+    ranks = arrange_ranks(node_ids()[:n], sizes)
     return DeviceMesh(device_type, ranks, mesh_dim_names=AXIS_ORDER)
+
+
+def arrange_ranks(nodes: Sequence, sizes: dict[str, int]) -> torch.Tensor:
+    """The mesh's ranks [data, fsdp, stage, expert, sequence, tensor] from
+    each claimed rank's node (nodes[r] is rank r's) and the axis sizes.
+    On one node, and wherever the data axis cannot stride the nodes
+    evenly (nodes of unequal rank counts, or a data size the node count
+    does not divide), the flat row-major order; otherwise `data` across
+    the nodes and every other axis inside one node: the ranks grouped by
+    node (nodes in order of their first rank), each node's laid out
+    row-major over the inner shape (data / nodes, the rest), the node
+    index the major part of the data coordinate."""
+    shape = tuple(sizes[a] for a in AXIS_ORDER)
+    flat = torch.arange(math.prod(shape)).reshape(shape)
+    groups: dict = {}
+    for r, node in enumerate(nodes):
+        groups.setdefault(node, []).append(r)
+    if len(groups) <= 1:
+        return flat
+    n_nodes = len(groups)
+    per_node = list(groups.values())
+    if len({len(g) for g in per_node}) != 1 or sizes["data"] % n_nodes:
+        log.warning(
+            "the process group spans %d nodes but the mesh %s cannot "
+            "stride them with the data axis; falling back to the flat rank "
+            "order: collectives of the other axes may cross nodes",
+            n_nodes, {k: v for k, v in sizes.items() if v > 1})
+        return flat
+    inner = dict(sizes, data=sizes["data"] // n_nodes)
+    inner_shape = tuple(inner[a] for a in AXIS_ORDER)
+    stacked = torch.stack([torch.tensor(g).reshape(inner_shape)
+                           for g in per_node])
+    return stacked.reshape(shape)
+
+
+_NODES: list = [None, None]   # [the process group, its ranks' nodes]
+
+
+def node_ids() -> list[str]:
+    """Each rank's node, rank by rank: its host name, all-gathered once
+    per process group."""
+    import socket
+
+    import torch.distributed as dist
+
+    group = dist.distributed_c10d._get_default_group()
+    if _NODES[0] is not group:
+        out: list = [None] * dist.get_world_size()
+        dist.all_gather_object(out, socket.gethostname())
+        _NODES[:] = [group, out]
+    return _NODES[1]
 
 
 def single_device_mesh(device_type: str | None = None):
@@ -123,8 +182,8 @@ def mesh_shape(mesh) -> dict[str, int]:
 
 
 # Ambient mesh: for code that needs the mesh without having it passed
-# (the JAX package's `active_mesh` / `get_active_mesh`; nothing of the
-# port sets it yet).
+# (the JAX package's `active_mesh` / `get_active_mesh`; the sharded
+# trainer sets it around a family's loss, `sharding.regions` reads it).
 _ACTIVE = threading.local()
 
 
@@ -176,16 +235,17 @@ def validate_divisibility(mesh, *, batch: int | None = None,
 
 #: the axes whose parallelism is not ported yet, and the ROADMAP.md item
 #: that ports each
-UNPORTED_AXES = {"tensor": "A6a-ii", "expert": "A6a-ii",
-                 "sequence": "A6b", "stage": "A6c"}
+UNPORTED_AXES = {"sequence": "A6b", "stage": "A6c"}
 
 
 def check_ported_axes(sizes: dict[str, int]) -> None:
     """Raise ValueError naming its ROADMAP.md item for an axis past 1
-    that the port cannot run yet (data and fsdp run at any size)."""
+    that the port cannot run yet (data, fsdp, expert and tensor run at
+    any size)."""
     for axis, item in UNPORTED_AXES.items():
         n = sizes.get(axis, 1)
         if n not in (1, -1):
             raise ValueError(
                 f"mesh axis {axis}={n} is not ported yet (ROADMAP.md "
-                f"queue {item}); the port shards over data and fsdp")
+                f"queue {item}); the port shards over data, fsdp, expert "
+                "and tensor")

@@ -14,13 +14,27 @@ over a size-1 axis is.
 The collectives a sharded trainer needs are here too, written per leaf
 on the groups of the mesh dims of more than one rank: `local_chunk` (the
 rank's block of a whole tensor), `gather` (the whole tensor from the
-blocks) and `reduce_grad` (a gradient summed over every rank,
+blocks, over the mesh dims asked for) and `reduce_grad` (a gradient
+summed over the axes that split the batch, `data` and `fsdp`:
 reduce-scattered where its param is sharded and all-reduced where it is
-replicated).
+replicated; never summed over `tensor` or `expert`, whose ranks see the
+same rows).
+
+The Megatron region operators are here as well, for a family that
+computes on `tensor`- and `expert`-local blocks (the registry's
+`local_blocks`): `copy_in` (identity forward, all-reduce backward) where
+a replicated activation enters a rank-local product, `reduce_out`
+(all-reduce forward, identity backward) where rank-local partial sums
+leave it, and `vocab_parallel_ce`, the cross-entropy of logits split
+over the vocabulary (its per-rank statistics and gradient group-free in
+`vocab_shard_stats` and `vocab_shard_grad`). `regions()` gives a family
+the groups of the mesh its trainer runs it on (`mesh.active_mesh`), and
+NO_REGIONS, whose operators are the identity, off a mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping, Sequence
 
 import torch
@@ -207,13 +221,24 @@ def _dim_group(mesh, i: int):
     return mesh.get_group(mesh.mesh_dim_names[i])
 
 
-def gather(local: torch.Tensor, mesh, placements) -> torch.Tensor:
-    """The whole tensor from each rank's block: one all-gather per
-    sharded mesh dim, innermost first (a plain tensor, not a DTensor)."""
+#: the mesh axes that split a batch's rows: a gradient sums over them
+BATCH_AXES = ("data", "fsdp")
+
+
+def gather(local: torch.Tensor, mesh, placements,
+           dims: Sequence[str] | None = None) -> torch.Tensor:
+    """The tensor gathered from each rank's block over the mesh dims named
+    in `dims` (every dim by default): one all-gather per sharded mesh
+    dim, innermost first (a plain tensor, not a DTensor). A family that
+    computes on `tensor`- and `expert`-local blocks gathers over the
+    others only."""
     import torch.distributed as dist
 
+    names = mesh.mesh_dim_names
     out = local
     for i, d in reversed(_sharded_dims(mesh, placements)):
+        if dims is not None and names[i] not in dims:
+            continue
         k = mesh.size(i)
         src = out.movedim(d, 0).contiguous()
         buf = torch.empty((k * src.shape[0], *src.shape[1:]),
@@ -223,26 +248,228 @@ def gather(local: torch.Tensor, mesh, placements) -> torch.Tensor:
     return out.contiguous() if out is not local else out
 
 
-def reduce_grad(grad: torch.Tensor, mesh, placements) -> torch.Tensor:
-    """A whole gradient summed over every rank of the mesh, as this
-    rank's block of its param: reduce-scatter over each mesh dim the
-    param is sharded on (outermost first), all-reduce over the others
-    (skipped on a dim of one rank, where it is the identity)."""
+def reduce_grad(grad: torch.Tensor, mesh, placements,
+                whole: Sequence[str] | None = None) -> torch.Tensor:
+    """This rank's block of a param's gradient summed over the axes that
+    split the batch (BATCH_AXES), mesh dims taken outermost first: a
+    reduce-scatter where the param is sharded, an all-reduce where it is
+    replicated (skipped on a dim of one rank). Over `tensor` and `expert`
+    nothing is summed: their ranks see the same rows, and a rank either
+    computed its own block's gradient or the same whole gradient as its
+    peers. `whole` names the mesh dims over which `grad` is whole (the
+    dims `gather` gathered; every dim by default): on such a dim outside
+    BATCH_AXES the rank keeps its chunk."""
     import torch.distributed as dist
 
+    names = mesh.mesh_dim_names
     out = grad
     shard = dict((i, d) for i, d in _sharded_dims(mesh, placements))
     for i in range(mesh.ndim):
+        k = mesh.size(i)
+        if names[i] not in BATCH_AXES:
+            if i in shard and (whole is None or names[i] in whole):
+                out = out.chunk(k, dim=shard[i])[mesh.get_coordinate()[i]]
+            continue
         group = _dim_group(mesh, i)
         if i in shard:
             d = shard[i]
-            k = mesh.size(i)
             src = out.movedim(d, 0).contiguous()
             buf = torch.empty((src.shape[0] // k, *src.shape[1:]),
                               dtype=src.dtype, device=src.device)
             dist.reduce_scatter_tensor(buf, src, group=group)
             out = buf.movedim(0, d)
-        elif mesh.size(i) > 1:
+        elif k > 1:
             out = out.contiguous()
             dist.all_reduce(out, group=group)
     return out.contiguous()
+
+
+# -- Megatron regions ---------------------------------------------------------
+
+
+def _all_reduce_groups(t: torch.Tensor, groups) -> torch.Tensor:
+    import torch.distributed as dist
+
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over `groups` backward
+    (a replicated activation entering rank-local products)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_groups(g.contiguous().clone(), ctx.groups), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """All-reduce over `groups` forward (rank-local partial sums leaving a
+    region); identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _all_reduce_groups(x.contiguous().clone(), groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def vocab_shard_stats(logits: torch.Tensor, targets: torch.Tensor,
+                      start: int) -> tuple[torch.Tensor, ...]:
+    """One rank's statistics of the cross-entropy of f32 logits [..., V_r]
+    holding vocabulary columns [start, start + V_r), targets [...] global
+    ids: (the row max m, the sum of exp(logits - m), the target's logit
+    where it lies in these columns, else 0). The ranks' statistics make
+    the whole vocabulary's: M = max m_r, S = sum s_r exp(m_r - M), T =
+    sum t_r, and the loss is log S + M - T."""
+    v = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    s = torch.exp(logits - m[..., None]).sum(dim=-1)
+    local = targets - start
+    inside = (local >= 0) & (local < v)
+    t = logits.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0] * inside
+    return m, s, t
+
+
+def vocab_shard_grad(logits: torch.Tensor, targets: torch.Tensor,
+                     start: int, m: torch.Tensor, s: torch.Tensor,
+                     g: torch.Tensor) -> torch.Tensor:
+    """The gradient of the loss log S + M - T, times g [...], with
+    respect to one rank's logits [..., V_r] (`vocab_shard_stats`): the
+    whole vocabulary's softmax from the combined M and S, less the
+    target's one-hot, on these columns alone."""
+    v = logits.shape[-1]
+    grad = torch.exp(logits - m[..., None])
+    grad.mul_((g / s)[..., None])
+    local = targets - start
+    inside = (local >= 0) & (local < v)
+    grad.scatter_add_(-1, local.clamp(0, v - 1)[..., None],
+                      -(inside.to(g.dtype) * g)[..., None])
+    return grad
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """-log softmax(logits)[target] per row of logits split over the
+    vocabulary: each rank's `vocab_shard_stats` combined over `group`
+    (the row max, then the rescaled sums of exponentials and the target
+    logits in one all-reduce). Backward: `vocab_shard_grad`, on this
+    rank's columns alone."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, group):
+        import torch.distributed as dist
+
+        m, s, t = vocab_shard_stats(logits, targets, start)
+        if group is not None:
+            top = m.clone()
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+            st = torch.stack([s * torch.exp(m - top), t])
+            dist.all_reduce(st, group=group)
+            m, (s, t) = top, st.unbind()
+        ctx.start = start
+        ctx.save_for_backward(logits, targets, m, s)
+        return torch.log(s) + m - t
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets, m, s = ctx.saved_tensors
+        return (vocab_shard_grad(logits, targets, ctx.start, m, s, g),
+                None, None, None)
+
+
+def vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor,
+                      start: int, group) -> torch.Tensor:
+    """Per-row cross-entropy of f32 logits [..., V_r] holding vocabulary
+    columns [start, start + V_r) of this rank of `group` (None: the whole
+    vocabulary), targets [...] global ids. The logits are never
+    gathered."""
+    return _VocabParallelCE.apply(logits, targets.long(), start, group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Regions:
+    """The `tensor` and `expert` split a family computes under, and the
+    data shards of the batch, on one mesh: each axis' size, this rank's
+    index on it and its group (None on an axis of one rank)."""
+
+    sizes: dict
+    ranks: dict
+    groups: dict
+    n_shards: int
+    shard: int
+
+    def size(self, axis: str) -> int:
+        return self.sizes.get(axis, 1)
+
+    def rank(self, axis: str) -> int:
+        return self.ranks.get(axis, 0)
+
+    def _groups(self, axes) -> tuple:
+        return tuple(self.groups[a] for a in axes
+                     if self.groups.get(a) is not None)
+
+    def copy_in(self, x: torch.Tensor, *axes: str) -> torch.Tensor:
+        """x unchanged forward; its gradient summed over `axes` backward."""
+        groups = self._groups(axes)
+        return _CopyIn.apply(x, groups) if groups else x
+
+    def reduce_out(self, x: torch.Tensor, *axes: str) -> torch.Tensor:
+        """x summed over `axes` forward; the gradient passed through."""
+        groups = self._groups(axes)
+        return _ReduceOut.apply(x, groups) if groups else x
+
+    def sum_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the data shards (the BATCH_AXES groups), forward
+        only in value: the gradient passes through to this shard's
+        part."""
+        return self.reduce_out(x, *BATCH_AXES)
+
+    def gather_shards(self, x: torch.Tensor) -> torch.Tensor:
+        """[n_shards, ...] of every data shard's x (no gradient), in the
+        order PartitionSpec(("data", "fsdp")) numbers the shards."""
+        import torch.distributed as dist
+
+        out = x.detach()[None]
+        for axis in reversed(BATCH_AXES):
+            g = self.groups.get(axis)
+            if g is None:
+                continue
+            k = self.sizes[axis]
+            buf = torch.empty((k * out.shape[0], *out.shape[1:]),
+                              dtype=out.dtype, device=out.device)
+            dist.all_gather_into_tensor(buf, out.contiguous(), group=g)
+            out = buf
+        return out
+
+
+#: the Regions off a mesh: one rank on every axis, every region operator
+#: the identity
+NO_REGIONS = Regions(sizes={}, ranks={}, groups={}, n_shards=1, shard=0)
+
+
+def regions(mesh=None) -> Regions:
+    """The Regions of `mesh` (the active mesh by default), NO_REGIONS
+    without one. A family reads it at the top of its forward."""
+    from kubeflow_tpu_torch.parallel.mesh import (data_shard_index,
+                                                  get_active_mesh,
+                                                  num_data_shards)
+
+    mesh = get_active_mesh() if mesh is None else mesh
+    if mesh is None:
+        return NO_REGIONS
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    return Regions(
+        sizes={n: mesh.size(i) for i, n in enumerate(names)},
+        ranks={n: coord[i] for i, n in enumerate(names)},
+        groups={n: (_dim_group(mesh, i) if mesh.size(i) > 1 else None)
+                for i, n in enumerate(names)},
+        n_shards=num_data_shards(mesh), shard=data_shard_index(mesh))

@@ -33,12 +33,28 @@ What a graph needs, and how the body gives it:
   from it on the card. (The trainer's `Optimizer` computes them from a
   host-side count, which a graph captured once would freeze.)
 
+- **The env batch over `data`.** With `mesh=` (a DeviceMesh of
+  `parallel/mesh.py` whose other axes are 1) a rank steps its
+  n_envs / D envs, the global envs [r·n/D, (r+1)·n/D), and its params
+  and optimizer state are the replicated whole. The draws and the env
+  resets are keyed by the global env index (an injected `draws` returns
+  the global batch's rows and a rank takes its own), so the sharded
+  learner's trajectories are the one-rank learner's. The advantages are
+  normalised by the global batch's mean and std (the advantages
+  all-gathered over `data`: [T, n] is small), the PPO terms are means
+  over the global batch (each rank's mean times its share), the grads
+  are all-reduced inside the update (on the card an NCCL all-reduce
+  captured in the update's graph, on gloo eager), and `rollout_reward`,
+  `episodes` and `last_mean_return` are the global batch's. The
+  all-reduce runs at every data size, one rank included.
+
 No Pallas kernel lies on this path: the JAX learner's products are
 plain `@`, and here `torch.matmul`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -46,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch.parallel import sharding
 from kubeflow_tpu_torch.rl.config import REWARD_METRIC, AnakinConfig
 from kubeflow_tpu_torch.rl.envs import make_env
 from kubeflow_tpu_torch.serving.llm import _mix32, gc_paused
@@ -145,24 +162,28 @@ def gae_advantages(rewards: torch.Tensor, dones: torch.Tensor,
 
 def ppo_loss(params: dict[str, Any], batch: dict[str, torch.Tensor], *,
              clip_eps: float | None, entropy_coef: float, value_coef: float,
-             apply_fn: Callable = net_apply
+             apply_fn: Callable = net_apply, share: float | None = None
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Clipped-surrogate PPO objective (A2C when clip_eps is None).
     batch: obs [N, d], action [N], logp [N] (behavior log-probs),
-    advantage [N], return [N]."""
+    advantage [N], return [N]. `share`: this batch's fraction of a
+    global batch split over ranks; each mean is scaled by it, so the
+    ranks' terms sum to the global batch's."""
+    def mean(x):
+        return x.mean() if share is None else x.mean() * share
     logits, values = apply_fn(params, batch["obs"])
     logp_all = F.log_softmax(logits, dim=-1)
     logp = logp_all.gather(-1, batch["action"][..., None])[..., 0]
-    entropy = -(logp_all.exp() * logp_all).sum(dim=-1).mean()
+    entropy = -mean((logp_all.exp() * logp_all).sum(dim=-1))
     adv = batch["advantage"]
     if clip_eps is None:
-        pg = -(logp * adv).mean()
+        pg = -mean(logp * adv)
     else:
         ratio = torch.exp(logp - batch["logp"])
-        pg = -torch.minimum(
+        pg = -mean(torch.minimum(
             ratio * adv,
-            ratio.clamp(1.0 - clip_eps, 1.0 + clip_eps) * adv).mean()
-    v_loss = ((values - batch["return"]) ** 2).mean()
+            ratio.clamp(1.0 - clip_eps, 1.0 + clip_eps) * adv))
+    v_loss = mean((values - batch["return"]) ** 2)
     loss = pg + value_coef * v_loss - entropy_coef * entropy
     return loss, {"pg_loss": pg, "value_loss": v_loss, "entropy": entropy}
 
@@ -180,15 +201,17 @@ class Transition(NamedTuple):
 
 
 def hash_uniform(seed: torch.Tensor, update: torch.Tensor, t: int, n: int,
-                 lanes: int) -> torch.Tensor:
+                 lanes: int, first: int = 0) -> torch.Tensor:
     """[n, lanes] f32 uniforms in [0, 1) keyed by (seed, update, step t,
     env, lane), from 23 hashed bits as `jax.random.uniform` makes its
-    floats; seed and update are int64 device tensors (read in a graph)."""
+    floats, for the envs [first, first + n); seed and update are int64
+    device tensors (read in a graph)."""
     dev = update.device
     k = _mix32((seed * 0x9E3779B1 + 0x7F4A7C15) & _M32)
     k = _mix32((k ^ (update * 0x85EBCA77 & _M32)) & _M32)
     k = _mix32((k + (t * 0xC2B2AE3D & _M32)) & _M32)
-    env = torch.arange(n, device=dev, dtype=torch.int64)[:, None]
+    env = torch.arange(first, first + n, device=dev,
+                       dtype=torch.int64)[:, None]
     lane = torch.arange(lanes, device=dev, dtype=torch.int64)[None]
     x = _mix32((k ^ (env * 0x27D4EB2F + lane * 0x165667B1)) & _M32)
     x = _mix32((x + env * lanes + lane) & _M32)
@@ -212,11 +235,40 @@ class AnakinLearner:
     fetching metrics to the host only at the logging cadence."""
 
     def __init__(self, cfg: AnakinConfig, device="cuda",
-                 draws: Callable | None = None):
+                 draws: Callable | None = None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.env = make_env(cfg.env, **cfg.env_kwargs)
-        self.draws = draws or self._hash_draws
+        self._draws = draws
+        self.mesh = mesh
+        # the data group's sums and gathers (`sharding.Regions`); the
+        # identity off a mesh
+        self._regions = sharding.NO_REGIONS
+        self.n_local, self.first = cfg.n_envs, 0
+        data = cfg.mesh.get("data", 1)
+        if mesh is None and data not in (1, -1):
+            raise ValueError(
+                f"mesh data={data}: the env batch over data needs a process "
+                "group and its mesh (runtime.initialize_distributed, "
+                "AnakinLearner(mesh=make_mesh(cfg.mesh)))")
+        if mesh is not None:
+            from kubeflow_tpu_torch.parallel import mesh as mesh_lib
+
+            shape = mesh_lib.mesh_shape(mesh)
+            other = {a: n for a, n in shape.items() if a != "data" and n > 1}
+            if other:
+                raise ValueError(f"the learner's mesh {shape}: only the data "
+                                 "axis splits the env batch")
+            mesh_lib.validate_divisibility(mesh, batch=cfg.n_envs)
+            d = shape["data"]
+            self.n_local = cfg.n_envs // d
+            self.first = mesh.get_coordinate()[
+                mesh.mesh_dim_names.index("data")] * self.n_local
+            # the group even at one rank: the update graph holds its
+            # collectives at every data size
+            self._regions = dataclasses.replace(
+                sharding.regions(mesh),
+                groups={"data": mesh.get_group("data")})
         self._state: dict[str, Any] | None = None
         self._graph = None
         self._out: dict[str, torch.Tensor] | None = None
@@ -237,7 +289,7 @@ class AnakinLearner:
             p.requires_grad_(True)
         seed_t = torch.tensor(seed, dtype=torch.int64, device=dev)
         u = hash_uniform(seed_t, torch.tensor(-1, device=dev), 0,
-                         cfg.n_envs, self.env.reset_draws)
+                         self.n_local, self.env.reset_draws, self.first)
         env_state, obs = self.env.reset(u)
         return {
             "params": params,
@@ -249,16 +301,23 @@ class AnakinLearner:
                        for p in net_leaves(params)]},
             "env_state": env_state,
             "obs": obs,
-            "ep_ret": torch.zeros(cfg.n_envs, device=dev),
+            "ep_ret": torch.zeros(self.n_local, device=dev),
             "last_mean_return": torch.zeros((), device=dev),
             "seed": seed_t,
             "update": torch.zeros((), dtype=torch.int64, device=dev),
         }
 
-    def _hash_draws(self, update: torch.Tensor, t: int, seed: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    def draws(self, update: torch.Tensor, t: int, seed: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(gumbel [n, A], reset uniforms [n, R]) of this rank's envs at
+        step t of an update: the injected `draws`' rows of them, else the
+        counter hash of the global env index."""
+        if self._draws is not None:
+            g, r = self._draws(update, t, seed)
+            mine = slice(self.first, self.first + self.n_local)
+            return g[mine], r[mine]
         a, r = self.env.num_actions, self.env.reset_draws
-        u = hash_uniform(seed, update, t, self.cfg.n_envs, a + r)
+        u = hash_uniform(seed, update, t, self.n_local, a + r, self.first)
         return gumbel_of(u[:, :a]), u[:, a:]
 
     @staticmethod
@@ -325,33 +384,51 @@ class AnakinLearner:
             adv, returns = gae_advantages(traj.reward, traj.done, traj.value,
                                           last_value, cfg.gamma,
                                           cfg.gae_lambda)
-            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+            # every rank's envs in global env order: [T, n_envs]
+            every = self._regions.gather_shards(adv).permute(
+                1, 0, 2).reshape(adv.shape[0], -1)
+            adv = (adv - every.mean()) / (every.std(correction=0) + 1e-8)
             flat = {"obs": traj.obs.reshape(-1, env.obs_dim),
                     "action": traj.action.reshape(-1),
                     "logp": traj.logp.reshape(-1),
                     "advantage": adv.reshape(-1),
                     "return": returns.reshape(-1)}
         leaves = net_leaves(params)
+        share = None if self.mesh is None else self.n_local / cfg.n_envs
         for _ in range(cfg.ppo_epochs):
             loss, aux = ppo_loss(params, flat, clip_eps=cfg.clip_eps,
                                  entropy_coef=cfg.entropy_coef,
-                                 value_coef=cfg.value_coef)
-            grads = torch.autograd.grad(loss, leaves)
-            self._apply_updates(leaves, list(grads), s["opt_state"])
+                                 value_coef=cfg.value_coef, share=share)
+            grads = list(torch.autograd.grad(loss, leaves))
+            if self.mesh is not None:   # the global batch's gradient
+                with torch.no_grad():
+                    flat_g = self._regions.sum_batch(torch.cat(
+                        [g.reshape(-1) for g in grads]))
+                    grads = [x.view_as(g) for x, g in zip(
+                        flat_g.split([g.numel() for g in grads]), grads)]
+            self._apply_updates(leaves, grads, s["opt_state"])
         with torch.no_grad():
-            n_done = traj.done.sum()
-            mean_ret = torch.where(
-                n_done > 0,
-                torch.stack(completed).sum() / n_done.clamp_min(1),
-                s["last_mean_return"])
+            reward = traj.reward.mean()
+            vec = torch.stack([
+                torch.stack(completed).sum(),
+                traj.done.sum().to(torch.float32),
+                reward if share is None else reward * share,
+                loss.detach(), aux["entropy"].detach(),
+                aux["pg_loss"].detach(), aux["value_loss"].detach()])
+            (done_ret, n_done, reward, loss_v, entropy, pg,
+             v_loss) = self._regions.sum_batch(vec).unbind()
+            n_done = n_done.to(torch.int64)
+            mean_ret = torch.where(n_done > 0,
+                                   done_ret / n_done.clamp_min(1),
+                                   s["last_mean_return"])
             metrics = {
                 REWARD_METRIC: mean_ret,
-                "rollout_reward": traj.reward.mean(),
+                "rollout_reward": reward,
                 "episodes": n_done,
-                "loss": loss.detach(),
-                "entropy": aux["entropy"].detach(),
-                "pg_loss": aux["pg_loss"].detach(),
-                "value_loss": aux["value_loss"].detach()}
+                "loss": loss_v,
+                "entropy": entropy,
+                "pg_loss": pg,
+                "value_loss": v_loss}
             for dst, src in zip(s["env_state"], env_state):
                 dst.copy_(src)
             s["obs"].copy_(obs)
@@ -449,6 +526,7 @@ class AnakinLearner:
         return state, history
 
     def env_steps_per_update(self) -> int:
+        """The global batch's env steps an update (every rank's)."""
         return self.cfg.n_envs * self.cfg.rollout_len
 
     def measure_steps_per_s(self, state: dict[str, Any], *,

@@ -2,9 +2,10 @@
 `AnakinConfig`, the env kwargs map and `parse_rl_config`, accepting and
 rejecting exactly what the JAX copy does, with the same messages (the JAX
 `RLJobController.validate` admits an RLJob's KTPU_RL_CONFIG before the
-port ever sees it). One difference: `mesh` must be a mesh the port runs,
-known axes each 1 or -1 (`_device.check_one_card_mesh`): the env batch
-lives on one card (over the data axis is ROADMAP.md queue A6a-ii)."""
+port ever sees it). One difference: `mesh` must be a mesh the port runs:
+known axes, `data` at any size (the env batch over the process group's
+ranks, `anakin.AnakinLearner(mesh=)`), every other axis 1 or -1
+(`_device.check_one_card_mesh`)."""
 
 from __future__ import annotations
 
@@ -60,7 +61,9 @@ class AnakinConfig:
         for k, lo in ENV_KWARG_MIN.items():
             if k in self.env_kwargs and self.env_kwargs[k] < lo:
                 raise ValueError(f"env_kwargs.{k} must be >= {lo}")
-        check_one_card_mesh(self.mesh, "A6a-ii")
+        # the env batch runs over data; the params are replicated
+        check_one_card_mesh({k: v for k, v in self.mesh.items()
+                             if k != "data"})
 
     def to_json(self) -> dict[str, Any]:
         d = dataclasses.asdict(self)

@@ -27,13 +27,24 @@ tails. The JAX target's second path, a direct report into its
 in-process observation DB under KTPU_TRIAL_NAME, is a global of the JAX
 package and is not taken here. Cancellation is checked before every
 update and maps to SystemExit(143), SIGTERM's code.
+
+Past one process (KTPU_NUM_PROCESSES > 1) the target starts the process
+group itself (`runtime.initialize_distributed`: NCCL on the card
+KTPU_DEVICE_IDS names, gloo for cpu), as `training/job.py` does, and the
+learner runs its env batch over the config's mesh (`{"data": -1}`: every
+rank); rank 0 writes the metrics. One process runs one rank, so such a
+learner runs its pods on the subprocess backend with `argv: [python, -m,
+kubeflow_tpu_torch.rl.job]`.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 
 from kubeflow_tpu_torch.rl.config import parse_rl_config
+from kubeflow_tpu_torch.runtime import (initialize_distributed, rank_device,
+                                        worker_context)
 from kubeflow_tpu_torch.training.metrics_writer import MetricsWriter
 
 #: the pod env key that names the learner's device
@@ -43,12 +54,36 @@ DEVICE_ENV = "KTPU_TORCH_DEVICE"
 def rl_learner_target(env: dict[str, str],
                       cancel: threading.Event) -> None:
     """Run an Anakin learner from the pod's env (see the module doc)."""
-    from kubeflow_tpu_torch.rl.anakin import AnakinLearner
-
     cfg, num_updates, log_every = parse_rl_config(
         env.get("KTPU_RL_CONFIG", "{}"))
-    metrics = MetricsWriter(env.get("KTPU_METRICS_FILE"))
-    learner = AnakinLearner(cfg, device=env.get(DEVICE_ENV, "cuda"))
+    ctx = worker_context(env)
+    device = env.get(DEVICE_ENV, "cuda")
+    group = ctx.num_processes > 1
+    if group:
+        initialize_distributed(ctx, device=device)
+        device = rank_device(ctx, device)
+    try:
+        _learn(env, cancel, cfg, num_updates, log_every, device,
+               ctx.is_primary, group)
+    finally:
+        if group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _learn(env: dict[str, str], cancel: threading.Event, cfg,
+           num_updates: int, log_every: int, device, primary: bool,
+           sharded: bool) -> None:
+    """The learner on `device`; `sharded`: its env batch over the mesh of
+    the config's `mesh` on the running process group."""
+    from kubeflow_tpu_torch.parallel import make_mesh
+    from kubeflow_tpu_torch.rl.anakin import AnakinLearner
+
+    metrics = MetricsWriter(env.get("KTPU_METRICS_FILE") if primary
+                            else None, echo=primary)
+    learner = AnakinLearner(cfg, device=device,
+                            mesh=make_mesh(cfg.mesh) if sharded else None)
     state = learner.init(cfg.seed)
 
     def on_log(update: int, scalars: dict[str, float]) -> None:
@@ -66,6 +101,11 @@ def rl_learner_target(env: dict[str, str],
                       callback=on_log, should_stop=cancelled)
     finally:
         metrics.close()
-    print(f"rl training done: {num_updates} updates on {cfg.env} "
-          f"({learner.env_steps_per_update()} env-steps/update)",
-          flush=True)
+    if primary:
+        print(f"rl training done: {num_updates} updates on {cfg.env} "
+              f"({learner.env_steps_per_update()} env-steps/update)",
+              flush=True)
+
+
+if __name__ == "__main__":   # a subprocess-backend pod: the env is the pod's
+    rl_learner_target(dict(os.environ), threading.Event())

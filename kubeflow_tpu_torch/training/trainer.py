@@ -28,28 +28,38 @@ optimizer state, is never updated or decayed, and needs no gradient;
 clipping still takes the global norm of every gradient it is given.
 
 On a mesh (`mesh=`, a DeviceMesh of `parallel/mesh.py`) the trainer
-shards the state over the `data` and `fsdp` axes, as the JAX trainer's
-`param_sharding` and `_state_sharding` place it: each param by its
-family's `logical_axes` through the rules (`parallel/sharding.py`), each
-moment as its param, the step counter and the optimizer's count
-replicated. A leaf is a DTensor whose local tensor is this rank's block,
-and `init_state` keeps each block as its leaf is made, so one whole leaf
-exists at a time. A step gathers the params into plain tensors (the
-family code and the kernels never see a DTensor), runs the one-card
-forward and backward on this rank's rows of the global batch (the block
-of PartitionSpec(("data", "fsdp")) at its coordinate), reduce-scatters
-each gradient over `fsdp` and all-reduces it over `data`, and runs the
-optimizer on the blocks. The loss is the global batch's: a next-token
-family's masked-token mean over every rank's tokens (each rank scales
-its mean by its share of the tokens before the backward), a classifier's
-mean over every row; `tokens` is the global count, and `grad_norm` and
-the clip take the norm over every block once. The axes past data and
-fsdp, and a family whose loss needs the global batch (the registry's
-`needs_global_batch`: Mixtral's routing) past one rank, raise naming
-their ROADMAP.md item. A step holds every whole param and then every
-whole gradient at once before reducing them, so a rank's peak is the
-whole f32 params and grads plus its blocks and the activations: at
-Llama-3-8B widths about 64 GB before the blocks, which is why full 8B
+shards the state over the `data`, `fsdp`, `expert` and `tensor` axes, as
+the JAX trainer's `param_sharding` and `_state_sharding` place it: each
+param by its family's `logical_axes` through the rules
+(`parallel/sharding.py`), each moment as its param, the step counter and
+the optimizer's count replicated. A leaf is a DTensor whose local tensor
+is this rank's block, and `init_state` keeps each block as its leaf is
+made, so one whole leaf exists at a time. A step gathers the params into
+plain tensors (the family code and the kernels never see a DTensor) and
+runs the family's forward and backward on this rank's rows of the global
+batch (the block of PartitionSpec(("data", "fsdp")) at its coordinate:
+the ranks of one (data, fsdp) coordinate, across `tensor` and `expert`,
+see the same rows) under `active_mesh`. A family with the registry's
+`local_blocks` (the Llama decoder, its LoRA and Mixtral) gets its params
+gathered over the batch axes only and computes on its `tensor` and
+`expert` blocks (Megatron splits, `sharding.regions`); every other family
+gets whole params and repeats its compute on each rank of those axes,
+keeping its block of each gradient. Each gradient is then reduce-scattered
+over `fsdp` and all-reduced over `data` (never summed over `tensor` or
+`expert`), and the optimizer runs on the blocks. The loss is the global
+batch's: a next-token family's masked-token mean over every shard's
+tokens (each rank scales its mean by its shard's share of the tokens
+before the backward, the shares summed over the batch axes alone, so a
+shard counts once), a classifier's mean over every row, and as it comes
+for a family whose loss is already the global batch's (the registry's
+`needs_global_batch`: Mixtral's routing and aux loss); `tokens` is the
+global count, and `grad_norm` and the clip take the norm over every
+block once (a replicated leaf from one holder). The axes past these
+(sequence, stage) raise naming their ROADMAP.md item. A step holds every
+whole param and then every whole gradient at once before reducing them,
+so a rank's peak is the whole f32 params and grads (whole over the batch
+axes) plus its blocks and the activations: at Llama-3-8B widths about 64
+GB before the blocks without a tensor split, which is why full 8B
 training does not fit a rank yet (ROADMAP.md A6a, the per-layer gather).
 """
 
@@ -362,14 +372,6 @@ class Trainer:
 
         mesh = self.mesh
         mesh_lib.check_ported_axes(mesh_lib.mesh_shape(mesh))
-        n = mesh_lib.num_data_shards(mesh)
-        if self.model.needs_global_batch and n > 1:
-            raise ValueError(
-                f"{self.config.model} on a mesh of data x fsdp = {n}: its "
-                "loss needs the global batch (routing: expert capacity, "
-                "slot priority, the aux and z losses over the global "
-                "batch's tokens), and per-rank routing would drop other "
-                "tokens (ROADMAP.md queue A6a-ii)")
         if mesh.mesh.numel() != dist.get_world_size():
             raise ValueError(
                 f"the trainer's mesh holds {mesh.mesh.numel()} of the "
@@ -383,12 +385,17 @@ class Trainer:
             raise ValueError(
                 f"{self.config.model}'s logical_axes do not match its "
                 f"params: {sorted(set(axes) ^ set(paths))}")
+        # a family on local blocks gathers over the batch axes alone
+        gathered = (tuple(a for a in mesh.mesh_dim_names
+                          if a not in ("tensor", "expert"))
+                    if self.model.local_blocks else
+                    tuple(mesh.mesh_dim_names))
         return StateLayout(mesh, {
             p: sharding.spec_placements(sharding.logical_to_spec(
                 axes[p], self.config.sharding_rules), mesh)
             for p in paths}, {p: t.shape for p, t in named},
             [paths[i] for i in self.optimizer.trainable_indices(
-                len(paths), paths)], self.device)
+                len(paths), paths)], self.device, gathered)
 
     def abstract_state(self) -> dict[str, Any]:
         """The train state's shapes and dtypes as meta tensors, params
@@ -488,56 +495,83 @@ class Trainer:
     def _sharded_step(self, state: dict[str, Any],
                       batch: dict[str, torch.Tensor]
                       ) -> dict[str, torch.Tensor]:
-        import torch.distributed as dist
+        out, grads = self.sharded_grads(state, batch)
+        named = named_leaves(state["params"])
+        paths = [path for path, _ in named]
+        opt = state["opt_state"]
+        local = {k: ([m.to_local() for m in v] if isinstance(v, list) else v)
+                 for k, v in opt.items()}
+        self.optimizer.update(grads, local, [p.to_local() for _, p in named],
+                              paths, norm=out["grad_norm"])
+        opt["count"] = local["count"]
+        state["step"] += 1
+        return out
 
+    def sharded_grads(self, state: dict[str, Any],
+                      batch: dict[str, torch.Tensor]
+                      ) -> tuple[dict[str, torch.Tensor], list]:
+        """A sharded step's metrics (global, with `grad_norm`) and each
+        param's gradient as this rank's block (None for a frozen one),
+        before the optimizer runs."""
         lay = self.layout
+        mesh = lay.mesh
         named = named_leaves(state["params"])
         paths = [path for path, _ in named]
         blocks = [p for _, p in named]
         idx = self.optimizer.trainable_indices(len(blocks), paths)
         trains = set(idx)
-        # whole params as plain tensors: the family code and the kernels
-        # never see a DTensor
-        full = [sharding.gather(p.to_local(), lay.mesh, p.placements)
+        # params as plain tensors (whole over the gathered axes): the
+        # family code and the kernels never see a DTensor
+        full = [sharding.gather(p.to_local(), mesh, p.placements,
+                                lay.gathered)
                 .detach().requires_grad_(i in trains)
                 for i, p in enumerate(blocks)]
-        loss, metrics = self.model.loss_fn(
-            _rebuild(state["params"], iter(full)), batch, self.model_cfg)
-        # the global batch's mean: this rank's mean times its share of the
-        # global weight (tokens counted by the loss, else rows), exactly 1
-        # on one rank
-        first = next(iter(batch.values()))
-        weight = (metrics["tokens"].detach().float() if "tokens" in metrics
-                  else torch.tensor(float(first.shape[0]),
-                                    device=first.device))
-        total = weight.clone()
-        dist.all_reduce(total)
-        scale = weight / total.clamp_min(1.0)
-        full_grads = list(torch.autograd.grad(loss * scale,
+        with mesh_lib.active_mesh(mesh):
+            loss, metrics = self.model.loss_fn(
+                _rebuild(state["params"], iter(full)), batch,
+                self.model_cfg)
+        global_loss = self.model.needs_global_batch
+        batch_sum = sharding.regions(mesh).sum_batch
+        if global_loss:   # the family's loss is the global batch's already
+            scale = None
+        else:
+            # the global batch's mean: this rank's mean times its shard's
+            # share of the global weight (tokens counted by the loss, else
+            # rows), summed over the batch axes alone (the ranks of one
+            # shard see the same rows); exactly 1 on one shard
+            first = next(iter(batch.values()))
+            weight = (metrics["tokens"].detach().float()
+                      if "tokens" in metrics
+                      else torch.tensor(float(first.shape[0]),
+                                        device=first.device))
+            total = batch_sum(weight)
+            scale = weight / total.clamp_min(1.0)
+            loss = loss * scale
+        full_grads = list(torch.autograd.grad(loss,
                                               [full[i] for i in idx]))
         del full, loss
         grads: list[torch.Tensor | None] = [None] * len(blocks)
         for j, i in enumerate(idx):
-            grads[i] = sharding.reduce_grad(full_grads[j], lay.mesh,
-                                            blocks[i].placements)
+            grads[i] = sharding.reduce_grad(full_grads[j], mesh,
+                                            blocks[i].placements,
+                                            lay.gathered)
             full_grads[j] = None
         norm = lay.global_norm([(grads[i], blocks[i].placements)
                                 for i in idx])
         keys = list(metrics)
+        summed = [k in SUMMED_METRICS for k in keys]
         vec = torch.stack([
-            metrics[k].detach().float() if k in SUMMED_METRICS
-            else metrics[k].detach().float() * scale for k in keys])
-        dist.all_reduce(vec)
+            metrics[k].detach().float() if s or global_loss
+            else metrics[k].detach().float() * scale
+            for k, s in zip(keys, summed)])
+        if global_loss:   # only the counts are this shard's
+            mask = torch.tensor(summed, device=vec.device)
+            vec = torch.where(mask, batch_sum(vec * mask), vec)
+        else:
+            vec = batch_sum(vec)
         out = dict(zip(keys, vec.unbind()))
         out["grad_norm"] = norm
-        opt = state["opt_state"]
-        local = {k: ([m.to_local() for m in v] if isinstance(v, list) else v)
-                 for k, v in opt.items()}
-        self.optimizer.update(grads, local, [p.to_local() for p in blocks],
-                              paths, norm=norm)
-        opt["count"] = local["count"]
-        state["step"] += 1
-        return out
+        return out, grads
 
     def train(self, data: Iterator[dict[str, Any]], num_steps: int,
               state: dict[str, Any] | None = None,
@@ -647,14 +681,18 @@ def _rebuild(tree, values: Iterator):
 
 class StateLayout:
     """Where each leaf of a sharded train state lives: its placements on
-    the mesh (moments as their param), its whole shape, and the per-leaf
-    moves between whole tensors and this rank's blocks."""
+    the mesh (moments as their param), its whole shape, the mesh dims a
+    step gathers it over, and the per-leaf moves between whole tensors
+    and this rank's blocks."""
 
     def __init__(self, mesh, placements: dict[str, tuple],
                  shapes: dict[str, torch.Size], trainable: list[str],
-                 device: torch.device):
+                 device: torch.device, gathered: tuple[str, ...]):
         self.mesh = mesh
         self.device = device
+        # the mesh dims a step gathers the params over (and so over which
+        # a gradient comes whole)
+        self.gathered = gathered
         self.placements = {"params/" + p: pl for p, pl in placements.items()}
         self.shapes = {"params/" + p: s for p, s in shapes.items()}
         for j, p in enumerate(trainable):

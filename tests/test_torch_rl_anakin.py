@@ -273,15 +273,18 @@ def test_metrics_accounting_and_a2c():
 
 
 def test_one_card_mesh_and_the_device_default():
-    """{"data": -1} (the RLJob example's mesh) is one card; an axis of 2
-    is refused naming A6, as the JAX divisibility check refuses what it
-    cannot lay out; cuda, the default, raises without a GPU."""
+    """{"data": -1} (the RLJob example's mesh) is one card without a
+    process group; data 2 needs one (the learner's `mesh=`); another
+    axis of 2 is refused naming A6, as the JAX divisibility check refuses
+    what it cannot lay out; cuda, the default, raises without a GPU."""
     learner = tanakin.AnakinLearner(_tiny(n_envs=32, mesh={"data": -1}),
                                     device="cpu")
     _, m = learner.step(learner.init(0))
     assert np.isfinite(float(m["loss"]))
+    with pytest.raises(ValueError, match="process group"):
+        tanakin.AnakinLearner(_tiny(mesh={"data": 2}), device="cpu")
     with pytest.raises(ValueError, match="A6"):
-        _tiny(mesh={"data": 2})
+        _tiny(mesh={"fsdp": 2})
     with pytest.raises(ValueError, match="unknown mesh axis"):
         _tiny(mesh={"rows": 1})
     with mock.patch.object(torch.cuda, "is_available", lambda: False):

@@ -9,7 +9,8 @@ mean of the ranks' means would show; three steps' loss, tokens and
 grad_norm, each rank's blocks against the JAX arrays' addressable shards
 at the same mesh coordinate, the resident bytes, an init's blocks. LoRA
 on {fsdp: 2} (frozen leaves without state) and the MNIST CNN on
-{data: 2} against JAX; the axes and the model not ported yet raise."""
+{data: 2} against JAX; the axes not ported yet (sequence, stage)
+raise."""
 
 import numpy as np
 import pytest
@@ -266,16 +267,17 @@ def test_mnist_on_data2_matches_jax(runs):
 
 
 def test_unported_axes_and_mixtral_raise(runs):
-    """Mixtral past one rank and a tensor axis raise naming A6a-ii, on
-    the ranks, and so does Mixtral's family registered under another
-    name (the family declares it, not its name); sequence and stage name
-    A6b and A6c in the config."""
+    """The axes still to come raise naming their ROADMAP.md items: on the
+    ranks, a trainer on {fsdp: 2, sequence: 2} names A6b and one on
+    {data: 2, stage: 2} A6c; in the config, sequence and stage do the
+    same at any size past one, while tensor, expert and Mixtral's family
+    (the model the name once refused) are taken."""
     for r in runs["ranks"]:
-        assert "A6a-ii" in r["mixtral"] and "global batch" in r["mixtral"]
-        assert "A6a-ii" in r["moe_alias"] and \
-            r["moe_alias"].startswith("moe_alias on a mesh")
-        assert "A6a-ii" in r["tensor"]
-    for mesh, item in (({"tensor": 2}, "A6a-ii"), ({"expert": 2}, "A6a-ii"),
-                       ({"sequence": 2}, "A6b"), ({"stage": 4}, "A6c")):
+        assert "sequence=2" in r["sequence"] and "A6b" in r["sequence"]
+        assert "stage=2" in r["stage"] and "A6c" in r["stage"]
+    for mesh, item in (({"sequence": 2}, "A6b"), ({"stage": 4}, "A6c"),
+                       ({"tensor": 2, "sequence": 8}, "A6b")):
         with pytest.raises(ValueError, match=item):
             ttrainer.TrainerConfig.from_dict({"mesh": mesh})
+    for mesh in ({"tensor": 1}, {"expert": -1}):
+        ttrainer.TrainerConfig.from_dict({"model": "mixtral", "mesh": mesh})

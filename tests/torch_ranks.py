@@ -120,27 +120,10 @@ def _raises(fn) -> str:
     return ""
 
 
-def _moe_trainer(inp: dict, name: str):
-    return _trainer(dict(inp, config=dict(inp["config"], model=name,
-                                          model_overrides={})),
-                    {"data": 2, "fsdp": 2})
-
-
-def _moe_under(name: str, inp: dict) -> str:
-    """The refusal of Mixtral's family registered under another name."""
-    from kubeflow_tpu_torch.models import registry
-
-    registry._REGISTRY[name] = registry.get("mixtral")
-    try:
-        return _raises(lambda: _moe_trainer(inp, name))
-    finally:
-        del registry._REGISTRY[name]
-
-
 def case_llama(inp: dict) -> dict:
     """{data: 2, fsdp: 2}: three steps from the given params and global
     batches; the blocks, the resident bytes, an init's blocks, and the
-    refusals of the axes and the model not ported yet."""
+    refusals of the axes not ported yet."""
     from kubeflow_tpu_torch.training.trainer import leaves
 
     t = _trainer(inp, {"data": 2, "fsdp": 2})
@@ -159,9 +142,9 @@ def case_llama(inp: dict) -> dict:
                              state["opt_state"]["nu"]])),
         "fresh_blocks": _blocks(fresh["params"]),
         "fresh_whole": _whole(fresh["params"]),
-        "mixtral": _raises(lambda: _moe_trainer(inp, "mixtral")),
-        "moe_alias": _moe_under("moe_alias", inp),
-        "tensor": _raises(lambda: _trainer(inp, {"data": 2, "tensor": 2})),
+        "sequence": _raises(lambda: _trainer(inp, {"fsdp": 2,
+                                                   "sequence": 2})),
+        "stage": _raises(lambda: _trainer(inp, {"data": 2, "stage": 2})),
     }
 
 
@@ -261,6 +244,148 @@ def case_views(inp: dict) -> dict:
         ckpt.safetensors.save_file = real
     return {"dir": mngr.directory, "steps": steps, "exists": exists,
             "failed": failed, "steps_after": mngr.all_steps()}
+
+
+def _steps(inp: dict, mesh: dict, **model_over) -> dict:
+    """Three steps of inp's config on `mesh` from its params and batches
+    (model_overrides updated by model_over): the log, this rank's
+    coordinate and blocks."""
+    cfg = dict(inp["config"])
+    cfg["model_overrides"] = dict(cfg["model_overrides"], **model_over)
+    t = _trainer(dict(inp, config=cfg), mesh)
+    state = t.init_state(_params(t, inp["params"]))
+    return {"log": _run(t, state, inp["batches"]),
+            "coord": tuple(t.mesh.get_coordinate()),
+            "params": _blocks(state["params"])}
+
+
+def _recorded(fn):
+    """fn() with the heads B1-B3's wrapper sees and the vocabulary width
+    the cross-entropy sees recorded: (fn's result, {"heads": {(q heads,
+    kv heads)}, "ce_width": {width}})."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.parallel import sharding
+
+    seen = {"heads": set(), "ce_width": set()}
+    attn, ce = llama.flash_attention, sharding.vocab_parallel_ce
+
+    def flash(q, k, v, **kw):
+        seen["heads"].add((q.shape[2], k.shape[2]))
+        return attn(q, k, v, **kw)
+
+    def vocab_ce(logits, *a):
+        seen["ce_width"].add(logits.shape[-1])
+        return ce(logits, *a)
+    llama.flash_attention, sharding.vocab_parallel_ce = flash, vocab_ce
+    try:
+        return fn(), seen
+    finally:
+        llama.flash_attention, sharding.vocab_parallel_ce = attn, ce
+
+
+def case_tensor(inp: dict) -> dict:
+    """Llama on {fsdp: 2, tensor: 2} (the heads and vocabulary widths the
+    kernels and the loss see recorded), on {data: 2, tensor: 2}, the same
+    with ce_chunk, and the refusal of a kv head count the tensor axis
+    does not divide."""
+    fsdp, seen = _recorded(lambda: _steps(inp, {"fsdp": 2, "tensor": 2}))
+    gqa = dict(inp, config=dict(inp["config"], model_overrides=dict(
+        inp["config"]["model_overrides"], n_kv_heads=2)))
+    t = _trainer(gqa, {"tensor": 4})
+    state = t.init_state()
+    return {"fsdp": fsdp, "seen": seen,
+            "data": _steps(inp, {"data": 2, "tensor": 2}),
+            "chunk": _steps(inp, {"data": 2, "tensor": 2}, ce_chunk=4),
+            "gqa": _raises(lambda: t.train_step(
+                state, t.to_device(inp["batches"][0])))}
+
+
+def case_tensor2(inp: dict) -> dict:
+    """llama_lora on {tensor: 2} and BERT on {tensor: 2} (compute
+    repeated on both ranks), each from the given params; whether the
+    LoRA base's blocks moved."""
+    lo = _trainer(inp["lora"], {"tensor": 2})
+    state = lo.init_state(_params(lo, inp["lora"]["params"]))
+    base = _blocks(state["params"]["base"])
+    lora = {"log": _run(lo, state, inp["lora"]["batches"]),
+            "coord": tuple(lo.mesh.get_coordinate()),
+            "params": _blocks(state["params"])}
+    lora["base_moved"] = any(not np.array_equal(a, b) for a, b in zip(
+        base, _blocks(state["params"]["base"])))
+    return {"lora": lora, "bert": _steps(inp["bert"], {"tensor": 2})}
+
+
+def _router_grads(inp: dict, mesh: dict) -> list[np.ndarray]:
+    """Each layer's router gradient of the global batch's loss (this
+    rank's block, whole here: the router is split over no axis of
+    `mesh`) from the given params and the first batch."""
+    from kubeflow_tpu_torch.training.trainer import named_leaves
+
+    t = _trainer(inp, mesh)
+    state = t.init_state(_params(t, inp["params"]))
+    _, grads = t.sharded_grads(state, t.to_device(inp["batches"][0]))
+    i = [p for p, _ in named_leaves(state["params"])].index("layers/router")
+    return grads[i].detach().numpy().copy()
+
+
+def case_expert(inp: dict) -> dict:
+    """Mixtral on {data: 2, fsdp: 2}, {data: 2, expert: 2} and {expert:
+    2, tensor: 2}, three steps each, and the router's gradient on
+    {data: 2, expert: 2}."""
+    return {"data_fsdp": _steps(inp, {"data": 2, "fsdp": 2}),
+            "data_expert": _steps(inp, {"data": 2, "expert": 2}),
+            "expert_tensor": _steps(inp, {"expert": 2, "tensor": 2}),
+            "router": _router_grads(inp, {"data": 2, "expert": 2})}
+
+
+def case_expert2(inp: dict) -> dict:
+    """The router's gradient on {expert: 2}."""
+    return {"router": _router_grads(inp, {"expert": 2})}
+
+
+def case_rl(inp: dict) -> dict:
+    """The Anakin learner on {data: 2}: its own draws for three updates
+    from its seed, then the JAX learner's draws injected (`draws`, the
+    global batch's rows) from the JAX init."""
+    import torch.distributed as dist
+    from kubeflow_tpu_torch.models import interop
+    from kubeflow_tpu_torch.parallel import make_mesh
+    from kubeflow_tpu_torch.rl import anakin, envs
+    from kubeflow_tpu_torch.rl.config import AnakinConfig
+
+    mesh = make_mesh({"data": 2})
+    own = anakin.AnakinLearner(AnakinConfig(**inp["own"]), device="cpu",
+                               mesh=mesh)
+    state = own.init(0)
+    first_obs = state["obs"].clone()
+    log = []
+    for _ in range(3):
+        state, m = own.step(state)
+        log.append({k: float(v) for k, v in m.items()})
+    out = {"rank": dist.get_rank(), "first_obs": first_obs.numpy(),
+           "own_log": log, "own_params": [
+               p.detach().numpy().copy()
+               for p in anakin.net_leaves(state["params"])]}
+    draws = inp["draws"]
+    jl = anakin.AnakinLearner(
+        AnakinConfig(**inp["jax"]), device="cpu", mesh=mesh,
+        draws=lambda up, t, seed: draws[int(up)][t])
+    js = jl.init(0)
+    rows = slice(jl.first, jl.first + jl.n_local)
+    js["params"] = interop.from_jax_tree(
+        inp["jax_params"], anakin.abstract_net(4, (16, 16), 2),
+        device="cpu")
+    js["env_state"] = envs.CartPoleState(
+        *(torch.from_numpy(x[rows].copy()) for x in inp["jax_env_state"]))
+    js["obs"] = torch.from_numpy(inp["jax_obs"][rows].copy())
+    jlog = []
+    for _ in range(3):
+        js, m = jl.step(js)
+        jlog.append({k: float(v) for k, v in m.items()})
+    out.update(jax_log=jlog, jax_obs=js["obs"].numpy().copy(),
+               jax_params=[p.detach().numpy().copy()
+                           for p in anakin.net_leaves(js["params"])])
+    return out
 
 
 def main() -> None:
