@@ -450,15 +450,42 @@ Phases, in order; any failure exits non-zero before the result line:
       rank and the phase's peak memory; the group is destroyed before
       the phase ends. One card: NCCL across cards, the splits' memory
       saving and multi-card speed are not checked here;
+  (s) sequence parallelism: (s.t) on a one-rank NCCL group (file://
+      store), examples/llama-longctx-jaxjob.yaml's config (J3_JOB) at its
+      full 8 layers and width, B=1 x 8192 synthetic tokens from --seed,
+      N_STEPS steps unsharded with attention_impl "flash", then on the
+      sharded trainer over {"sequence": -1} with "ring" and "ulysses"
+      (at one rank: flash attention): step 1's loss bit for bit the
+      flash run's, every loss and grad norm within TRAIN_LOSS_RTOL, B1-B3
+      launched every layer; the median steps with the card's name and
+      power limit and the peak memories; the group is destroyed. (s.r)
+      the example's attention (16 query, 8 kv heads of 128, causal, two
+      documents whose boundary lies inside a shard) as S_RANKS = 4 ring
+      ranks' forward and backward steps in this process
+      (`ring_fwd_step`, `ring_merge`, `ring_bwd_step`, the kv-width
+      shards rotated by hand) against the unsharded B1-B3 at S=8192
+      within S_RING_TOL of the largest value, B1, B2 and B3 launched
+      N(N+1)/2 = 10 times each (nothing for a future shard), the steps'
+      ms beside the unsharded kernels'; (s.u) Ulysses' rank bodies (4
+      query and 2 kv heads of the whole sequence each) bit for bit the
+      unsharded run's heads, 4 launches each; a ring step whose query
+      rows include 300 that see no key (B1: o = 0, lse <= -1e29, no NaN;
+      B2/B3 from the merged lse against their plain versions, dq = 0
+      there); B1-B3 against their plain versions and timed, with their
+      bounds and SDPA's time, at a ring step (B=1, 2048 rows, H=16,
+      non-causal, query ids other than the keys') and at Ulysses' rank
+      (B=1, S=8192, H=4, causal). One card: NCCL P2P and all-to-all
+      across cards and their overlap with the kernels are not checked;
 Each phase prints its seconds. The line before the last is
 {"kernels": [...]}, each kernel timed at a shape its path launched it at
 (the 8B engine run for the serving kernels, the paged engine's run for
 K2-paged, the paged serving breakdown for K3-paged, the trainer for
 B1-B3), then K1, K2 and K2-paged again at (e5)'s verify shapes (K1's
 verify round at the row count (e5) launched most, with its launches
-there), B1-B3 at (m4)'s shape with (m4)'s launches, and B1-B3 at a
-Llama-3-8B tensor rank's shape with (n.t)'s launches; the last line is
-{"ok": true, "device": {...}}.
+there), B1-B3 at (m4)'s shape with (m4)'s launches, B1-B3 at a
+Llama-3-8B tensor rank's shape with (n.t)'s launches, and B1-B3 at a
+ring step's and at Ulysses' rank's shape with (s.r)'s and (s.u)'s
+launches; the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab OTHER_TREE
 
@@ -1285,9 +1312,13 @@ def two_documents(b: int, s: int) -> torch.Tensor:
     return seg
 
 
-def visible_pairs(b: int, s: int, causal: bool, seg) -> int:
+def visible_pairs(b: int, s: int, causal: bool, seg, seg_q=None) -> int:
     """(query row, key) pairs visible in this input, summed over the
-    batch: the work the attention kernels must do for it."""
+    batch: the work the attention kernels must do for it. With seg_q
+    (not causal) the query rows' ids differ from the keys' `seg`."""
+    if seg_q is not None:
+        return sum(int((seg_q[i, :, None] == seg[i, None, :]).sum())
+                   for i in range(b))
     total = 0
     for i in range(b):
         lens = ([s] if seg is None else
@@ -1297,18 +1328,21 @@ def visible_pairs(b: int, s: int, causal: bool, seg) -> int:
     return total
 
 
-def train_attn_case(gen, b, s, causal, segments, h=32, d=128):
+def train_attn_case(gen, b, s, causal, segments, h=32, d=128, ids=None):
     """B1, B2 and B3 at one shape against their plain versions (run per
     batch row, to hold the [H, S, S] f32 scores of one row at a time),
     repeat-launch bitwise equality, and each kernel's, plain and SDPA
-    times with its bound. Returns {kernel: case}."""
+    times with its bound. `ids` = (query ids, key ids) [B, S]: a ring
+    step's segments, the query rows' other than the keys'. Returns
+    {kernel: case}."""
     def mk():
         return torch.randn(b, s, h, d, device=DEV, generator=gen).to(
             torch.bfloat16)
 
     q, k, v, do = mk(), mk(), mk(), mk()
-    seg = two_documents(b, s) if segments else None
-    kw = dict(causal=causal, segment_ids=seg)
+    seg_q, seg = (None, two_documents(b, s) if segments else None) \
+        if ids is None else ids
+    kw = dict(causal=causal, segment_ids=seg, q_segment_ids=seg_q)
     _build.reset_launches()
     o, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa.row_delta(o, do)
@@ -1327,7 +1361,8 @@ def train_attn_case(gen, b, s, causal, segments, h=32, d=128):
     def rows(i):
         sl = slice(i, i + 1)
         return dict(causal=causal,
-                    segment_ids=None if seg is None else seg[sl]), sl
+                    segment_ids=None if seg is None else seg[sl],
+                    q_segment_ids=None if seg_q is None else seg_q[sl]), sl
 
     def plain_fwd_all():
         outs = []
@@ -1352,7 +1387,8 @@ def train_attn_case(gen, b, s, causal, segments, h=32, d=128):
                                          lse[sl], delta[sl], **kwi))
         return [torch.cat(x) for x in zip(*outs)]
 
-    name = f"B={b} S={s} causal={causal} segments={segments}"
+    name = f"B={b} S={s} causal={causal} segments={segments}" + (
+        "" if ids is None else " (query ids other than the keys')")
     ro, rlse = plain_fwd_all()
     errs = {"o": attn_err(o, ro, f"B1 {name} o", ATTN_ROW_TOL),
             "lse": attn_err(lse, rlse, f"B1 {name} lse", ATTN_ROW_TOL)}
@@ -1380,7 +1416,8 @@ def train_attn_case(gen, b, s, causal, segments, h=32, d=128):
                   for x in (q, k, v))
     mask = None
     if seg is not None:
-        mask = seg[:, None, :, None] == seg[:, None, None, :]
+        mask = (seg if seg_q is None else seg_q)[:, None, :, None] \
+            == seg[:, None, None, :]
         if causal:
             mask = mask & torch.ones(s, s, dtype=torch.bool,
                                      device=DEV).tril()
@@ -1396,10 +1433,10 @@ def train_attn_case(gen, b, s, causal, segments, h=32, d=128):
 
     lib_fb = time_ms([sdpa_fwd_bwd], 10)
     del qt, kt, vt, mask
-    pairs = h * visible_pairs(b, s, causal, seg)
+    pairs = h * visible_pairs(b, s, causal, seg, seg_q)
     x = b * s * h * d * 2           # one bf16 [B, S, H, D] tensor
     rowv = b * h * s * 4            # one f32 [B, H, S] vector
-    segb = 0 if seg is None else b * s * 4
+    segb = 0 if seg is None else (1 if seg_q is None else 2) * b * s * 4
     bounds = {"fwd": bound_ms(4 * x + rowv + segb, 4.0 * d * pairs),
               "dq": bound_ms(5 * x + 2 * rowv + segb, 6.0 * d * pairs),
               "dkv": bound_ms(6 * x + 2 * rowv + segb, 8.0 * d * pairs)}
@@ -6535,7 +6572,8 @@ N_CE_TOL = 1e-5
 N_SPLIT_TOL = 2 ** -6
 
 
-def n_trainer_run(label: str, cfg, mesh, ref: dict, keys) -> dict:
+def n_trainer_run(label: str, cfg, mesh, ref: dict, keys,
+                  tag: str = "n") -> dict:
     """N_STEPS of the sharded Trainer on `mesh` (every leaf a DTensor,
     B1-B3 launched at least once per layer a step) held to the unsharded
     run `ref` of the same config: step 1's loss bit for bit, every value
@@ -6551,7 +6589,7 @@ def n_trainer_run(label: str, cfg, mesh, ref: dict, keys) -> dict:
               for p in train.leaves(state["params"])
               + train.leaves([state["opt_state"]["mu"],
                               state["opt_state"]["nu"]])),
-          f"(n) {label}: a state leaf is not a DTensor")
+          f"({tag}) {label}: a state leaf is not a DTensor")
     data = train_data.make_dataset(cfg.dataset, cfg.model,
                                    trainer.model_cfg, cfg.batch_size,
                                    fallback_seed=cfg.seed)
@@ -6562,16 +6600,17 @@ def n_trainer_run(label: str, cfg, mesh, ref: dict, keys) -> dict:
     launches = {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
     for name, n in launches.items():
         check(n >= N_STEPS * trainer.model_cfg.n_layers,
-              f"(n) {label}: {name} launched {n} times in {N_STEPS} "
+              f"({tag}) {label}: {name} launched {n} times in {N_STEPS} "
               "sharded steps")
     check(log[0]["loss"] == ref["loss"][0],
-          f"(n) {label}: step 1 loss {log[0]['loss']!r} vs the unsharded "
+          f"({tag}) {label}: step 1 loss {log[0]['loss']!r} vs the "
+          "unsharded "
           f"run's {ref['loss'][0]!r}")
     diffs, bits = {}, {}
     for key in keys:
         d = [abs(m[key] - r) / abs(r) for m, r in zip(log, ref[key])]
         check(max(d) <= TRAIN_LOSS_RTOL,
-              f"(n) {label}: {key} {[m[key] for m in log]} vs the "
+              f"({tag}) {label}: {key} {[m[key] for m in log]} vs the "
               f"unsharded run's {ref[key][:N_STEPS]}")
         diffs[key] = max(d)
         bits[key] = [m[key] == r for m, r in zip(log, ref[key])]
@@ -6583,8 +6622,8 @@ def n_trainer_run(label: str, cfg, mesh, ref: dict, keys) -> dict:
         state_gb_per_rank=sum(p.to_local().nbytes for p in train.leaves(
             [state["params"], state["opt_state"]["mu"],
              state["opt_state"]["nu"]])) / 1e9)
-    print(f"sharded trainer {label}: {card_line()}; {json.dumps(stats)}",
-          flush=True)
+    print(f"sharded trainer ({tag}) {label}: {card_line()}; "
+          f"{json.dumps(stats)}", flush=True)
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -6965,6 +7004,362 @@ def sharded_trainer_phase(seed: int, ref: dict, gen, m6_ref: dict,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- (s) sequence parallelism: the ring and Ulysses ---------------------------
+
+
+#: (s.r)'s and (s.u)'s ranks of the sequence split, run in one process
+S_RANKS = 4
+#: (s.r)'s ring against the unsharded kernels at S=8192, as a share of the
+#: tensor's largest value: the ring rounds each step's o to bf16 (B1's
+#: output) before its f32 merge and sums the steps' bf16 dq, dk and dv
+#: parts in f32, where the unsharded kernels round once, so the two
+#: differ by a few bf16 roundings (2^-8 each)
+S_RING_TOL = 2 ** -6
+#: the ring step's rows: key ids 0 then 1 from S_KEY_SPLIT; query ids 1,
+#: then 2 (absent from the keys: rows that see no key) over S_BLIND, then 0
+S_KEY_SPLIT = 900
+S_BLIND = (700, 1000)
+
+
+def s_config(seed: int, impl: str, mesh: dict) -> train.TrainerConfig:
+    """(s.t)'s job: examples/llama-longctx-jaxjob.yaml's config (J3_JOB)
+    at its full width and depth, attention_impl `impl` on `mesh`, logged
+    each step, from `seed`; its token_file corpus replaced by the
+    synthetic stream of `seed` at the same seq_len."""
+    return train.TrainerConfig.from_dict(dict(
+        J3_JOB, log_every=1, seed=seed, mesh=mesh,
+        model_overrides=dict(J3_JOB["model_overrides"], attention_impl=impl),
+        dataset={"seq_len": J3_JOB["dataset"]["seq_len"]}))
+
+
+def s_flash_run(cfg) -> dict:
+    """N_STEPS of the unsharded trainer (no mesh): per-step losses and
+    grad norms, the median step and the peak memory."""
+    trainer = train.Trainer(cfg, device=DEV,
+                            metrics=MetricsWriter(echo=False))
+    state = trainer.init_state()
+    data = train_data.make_dataset(cfg.dataset, cfg.model,
+                                   trainer.model_cfg, cfg.batch_size,
+                                   fallback_seed=cfg.seed)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    log = []
+    trainer.train(data, N_STEPS, state,
+                  step_callback=lambda s, m: log.append(m))
+    for name in TRAINING_KERNELS:
+        check(_build.LAUNCHES[name] >= N_STEPS * trainer.model_cfg.n_layers,
+              f"(s.t) flash: {name} launched {_build.LAUNCHES[name]} times")
+    steady = sorted(m["step_time_s"] for m in log[1:])
+    stats = {"loss": [m["loss"] for m in log],
+             "grad_norm": [m["grad_norm"] for m in log],
+             "step_time_s_median": steady[len(steady) // 2],
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"(s.t) flash, no mesh, {card_line()}: {json.dumps(stats)}",
+          flush=True)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def s_err(name: str, got, want) -> float:
+    """|got - want|'s max as a share of |want|'s max, held to
+    S_RING_TOL."""
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max().clamp_min(1e-30)).item()
+    check(math.isfinite(err) and err <= S_RING_TOL,
+          f"(s.r) {name}: off the unsharded kernels' by {err:.4g} of its max "
+          f"(tol {S_RING_TOL:.4g})")
+    return err
+
+
+def s_attn_inputs(gen, b, s, h, hkv, d):
+    def mk(heads):
+        return torch.randn(b, s, heads, d, generator=gen, device=DEV).to(
+            torch.bfloat16)
+    return mk(h), mk(hkv), mk(hkv), mk(h)
+
+
+def ring_steps(q, k, v, do, seg, n, causal=True):
+    """Every rank's forward and backward ring steps in this process
+    (`ring_fwd_step`, `ring_merge`, `ring_bwd_step`), the shards rotated
+    by hand: (o, dq, dk, dv) whole, o and dq in q's dtype, dk and dv f32
+    at kv width."""
+    from kubeflow_tpu_torch.ops import ring_attention as ra
+
+    qs, ks, vs, dos = (x.chunk(n, dim=1) for x in (q, k, v, do))
+    segs = seg.chunk(n, dim=1)
+    outs, lses = [], []
+    for me in range(n):
+        b, s_loc, h, _ = qs[me].shape
+        o = torch.zeros(qs[me].shape, dtype=torch.float32, device=DEV)
+        lse = torch.full((b, h, s_loc), fa.NEG_INF, device=DEV)
+        for src in range(n):
+            if ra.runs_step(causal, src, me):
+                o, lse = ra.ring_merge(o, lse, *ra.ring_fwd_step(
+                    qs[me].contiguous(), ks[src].contiguous(),
+                    vs[src].contiguous(), segs[me].contiguous(),
+                    segs[src].contiguous(), diag=causal and src == me))
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    dq = [torch.zeros(x.shape, device=DEV) for x in qs]
+    dk = [torch.zeros(x.shape, device=DEV) for x in ks]
+    dv = [torch.zeros(x.shape, device=DEV) for x in vs]
+    for me in range(n):
+        do_me = dos[me].contiguous()
+        delta = fa.row_delta(outs[me], do_me)
+        for src in range(n):
+            if ra.runs_step(causal, src, me):
+                dq_p, dk_p, dv_p = ra.ring_bwd_step(
+                    qs[me].contiguous(), ks[src].contiguous(),
+                    vs[src].contiguous(), do_me, lses[me], delta,
+                    segs[me].contiguous(), segs[src].contiguous(),
+                    diag=causal and src == me)
+                dq[me] += dq_p.float()
+                dk[src] += dk_p
+                dv[src] += dv_p
+    return (torch.cat(outs, dim=1), torch.cat(dq, dim=1).to(q.dtype),
+            torch.cat(dk, dim=1), torch.cat(dv, dim=1))
+
+
+def ring_steps_phase(seed: int) -> dict:
+    """(s.r): the long-context example's attention (B=1, S=8192, 16 query
+    and 8 kv heads of 128, causal, two packed documents whose boundary
+    lies inside shard 2) split over S_RANKS ring ranks in this process:
+    each rank's forward and backward steps through the port's step
+    functions, the kv-width shards rotated by hand, against the
+    unsharded B1-B3 at S=8192 (GQA expanded; dk and dv folded to kv
+    width in f32) within S_RING_TOL; B1, B2 and B3 launched N(N+1)/2
+    times each (no launch for a future shard). Times the ring's steps
+    beside the unsharded kernels."""
+    from kubeflow_tpu_torch.ops import ring_attention as ra
+    from kubeflow_tpu_torch.ops.attention import repeat_kv
+
+    mo = J3_JOB["model_overrides"]
+    b, s, h, hkv = 1, J3_JOB["dataset"]["seq_len"], mo["n_heads"], \
+        mo["n_kv_heads"]
+    d, n, groups = mo["d_model"] // h, S_RANKS, h // hkv
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+    q, k, v, do = s_attn_inputs(gen, b, s, h, hkv, d)
+    seg = two_documents(b, s)
+
+    def whole():
+        kw = dict(causal=True, segment_ids=seg)
+        ke, ve = repeat_kv(k, groups).contiguous(), repeat_kv(
+            v, groups).contiguous()
+        o, lse = fa.flash_fwd(q, ke, ve, **kw)
+        dq, dk, dv = fa.flash_bwd(q, ke, ve, o, lse, do, **kw)
+        return o, dq, ra._fold(dk, groups), ra._fold(dv, groups)
+
+    want = whole()
+    _build.reset_launches()
+    got = ring_steps(q, k, v, do, seg, n)
+    torch.cuda.synchronize()
+    launches = {name: _build.LAUNCHES[name] for name in TRAINING_KERNELS}
+    shapes = {name: [dict(key) for key in _build.SHAPES[name]]
+              for name in TRAINING_KERNELS}
+    steps = n * (n + 1) // 2
+    check(all(x == steps for x in launches.values()),
+          f"(s.r): launches {launches}, want {steps} each")
+    check(all(sh["sq"] == s // n and sh["sk"] == s // n
+              for name in TRAINING_KERNELS for sh in shapes[name]),
+          f"(s.r): a kernel ran at another shape than a shard's: {shapes}")
+    errs = {name: s_err(name, g, w) for name, g, w in zip(
+        ("o", "dq", "dk", "dv"), got, want)}
+    del got, want
+    ms = {"ring_steps": time_ms([lambda: ring_steps(q, k, v, do, seg, n)],
+                                3),
+          "unsharded": time_ms([whole], 3)}
+    stats = {"ranks": n, "s_loc": s // n, "errs": errs, "tol": S_RING_TOL,
+             "launches": launches, "ms_fwd_bwd": ms}
+    print(f"(s.r) ring at B={b} S={s} H={h} kv heads {hkv} D={d} causal, two "
+          f"documents, {n} ranks' steps in one process, {card_line()}: "
+          f"{json.dumps(stats)}", flush=True)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return stats
+
+
+def ulysses_heads_phase(seed: int) -> dict:
+    """(s.u): Ulysses' body at the long-context example's attention (B=1,
+    S=8192, 16 query and 8 kv heads of 128, causal) over S_RANKS ranks in
+    this process: each rank's `flash_attention` on its 4 query and 2 kv
+    heads of the whole sequence (the heads the all-to-all hands it)
+    against the unsharded run's heads: o, dq, dk and dv bit for bit (B1-B3
+    compute each head alone); B1-B3 launched once a rank."""
+    mo = J3_JOB["model_overrides"]
+    b, s, h, hkv = 1, J3_JOB["dataset"]["seq_len"], mo["n_heads"], \
+        mo["n_kv_heads"]
+    d, n = mo["d_model"] // h, S_RANKS
+    gen = torch.Generator(device=DEV).manual_seed(seed + 5)
+    q, k, v, do = s_attn_inputs(gen, b, s, h, hkv, d)
+
+    def run(qx, kx, vx, dox):
+        xs = [x.contiguous().requires_grad_() for x in (qx, kx, vx)]
+        o = fa.flash_attention(*xs, causal=True)
+        return [o.detach()] + list(torch.autograd.grad(o, xs,
+                                                       dox.contiguous()))
+
+    want = run(q, k, v, do)
+    _build.reset_launches()
+    hq, hk = h // n, hkv // n
+    bits, errs = [], {}
+    for j in range(n):
+        sq, sk = slice(j * hq, (j + 1) * hq), slice(j * hk, (j + 1) * hk)
+        got = run(q[:, :, sq], k[:, :, sk], v[:, :, sk], do[:, :, sq])
+        for name, g, w in zip(("o", "dq", "dk", "dv"), got,
+                              (want[0][:, :, sq], want[1][:, :, sq],
+                               want[2][:, :, sk], want[3][:, :, sk])):
+            bits.append(torch.equal(g, w))
+            errs[name] = max(errs.get(name, 0.0), (
+                (g.float() - w.float()).abs().max()
+                / w.float().abs().max()).item())
+    torch.cuda.synchronize()
+    launches = {name: _build.LAUNCHES[name] for name in TRAINING_KERNELS}
+    check(all(x == n for x in launches.values()),
+          f"(s.u): launches {launches}, want {n} each")
+    check(all(bits), f"(s.u): a rank's heads differ from the unsharded "
+                     f"run's (max error of its max {errs})")
+    stats = {"ranks": n, "heads_per_rank": hq, "kv_heads_per_rank": hk,
+             "bit_equal": all(bits), "launches": launches}
+    print(f"(s.u) Ulysses' rank body at B={b} S={s}, {hq} query and {hk} "
+          f"kv heads a rank, {card_line()}: {json.dumps(stats)}",
+          flush=True)
+    del q, k, v, do, want
+    torch.cuda.empty_cache()
+    return stats
+
+
+def blind_rows_check(gen) -> dict:
+    """A ring step whose query rows S_BLIND see no key (their document is
+    absent from the arriving shard), at the ring step's shape (B=1, 2048
+    rows, 16 heads of 128, not causal): B1 gives o = 0 and lse <= -1e29
+    there and nothing NaN; B2 and B3, given the global lse and delta of
+    this step merged with a second shard where those rows see keys, are
+    held to their plain versions and give those rows a zero dq."""
+    from kubeflow_tpu_torch.ops import ring_attention as ra
+
+    b, s, h, d = 1, 2048, 16, 128
+    q, k1, v1, do = s_attn_inputs(gen, b, s, h, h, d)
+    _, k2, v2, _ = s_attn_inputs(gen, b, s, h, h, d)
+    seg_q, seg_1 = ring_step_ids(s)
+    seg_2 = torch.full_like(seg_1, 2)
+    o1, lse1 = fa.flash_fwd(q, k1, v1, causal=False, segment_ids=seg_1,
+                            q_segment_ids=seg_q)
+    blind = slice(*S_BLIND)
+    check(torch.isfinite(o1).all().item()
+          and not torch.isnan(lse1).any().item()
+          and (o1[:, blind] == 0).all().item()
+          and (lse1[:, :, blind] <= -1e29).all().item(),
+          "(s) B1: rows that see no key are not o = 0, lse <= -1e29")
+    o2, lse2 = fa.flash_fwd(q, k2, v2, causal=False, segment_ids=seg_2,
+                            q_segment_ids=seg_q)
+    o, lse = ra.ring_merge(torch.zeros(q.shape, device=DEV),
+                           torch.full((b, h, s), fa.NEG_INF, device=DEV),
+                           o1, lse1)
+    o, lse = ra.ring_merge(o, lse, o2, lse2)
+    o = o.to(q.dtype)
+    delta = fa.row_delta(o, do)
+    kw = dict(causal=False, segment_ids=seg_1, q_segment_ids=seg_q)
+    dq = fa.flash_bwd_dq(q, k1, v1, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k1, v1, do, lse, delta, **kw)
+    check((dq[:, blind] == 0).all().item(),
+          "(s) B2: a row that sees no key has a nonzero dq")
+    name = "B2/B3 ring step with the global lse"
+    worst = {
+        "dq": attn_err(dq, fa.plain_bwd_dq(q, k1, v1, do, lse, delta, **kw),
+                       f"{name} dq", ATTN_ROW_TOL, grad=True)[1]}
+    rdk, rdv = fa.plain_bwd_dkv(q, k1, v1, do, lse, delta, **kw)
+    worst["dk"] = attn_err(dk, rdk, f"{name} dk", ATTN_ROW_TOL, grad=True)[1]
+    worst["dv"] = attn_err(dv, rdv, f"{name} dv", ATTN_ROW_TOL, grad=True)[1]
+    print(f"(s) rows that see no key ({S_BLIND[1] - S_BLIND[0]} of {s}): B1 "
+          "o = 0, lse <= -1e29, no NaN; B2/B3 from the merged lse, worst "
+          f"rows {json.dumps(worst)} (tol {ATTN_ROW_TOL:.3g}), dq = 0 there",
+          flush=True)
+    return worst
+
+
+def ring_step_ids(s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(query ids, key ids) [1, s] int32 of a ring step: the keys are
+    documents 0 and 1, the queries documents 1, 2 (rows S_BLIND, none of
+    whose keys arrived) and 0."""
+    seg_k = torch.zeros(1, s, dtype=torch.int32, device=DEV)
+    seg_k[:, S_KEY_SPLIT:] = 1
+    seg_q = torch.ones(1, s, dtype=torch.int32, device=DEV)
+    seg_q[:, S_BLIND[0]:S_BLIND[1]] = 2
+    seg_q[:, S_BLIND[1]:] = 0
+    return seg_q, seg_k
+
+
+def sequence_phase(seed: int, gen) -> dict:
+    """(s): a one-rank NCCL process group on a file:// store and the mesh
+    {"sequence": -1}; (s.t) the long-context example's config at its
+    full width and depth on the unsharded trainer with "flash", then on
+    the sharded trainer over {"sequence": -1} with "ring" and "ulysses"
+    (one rank: flash attention, B1-B3 every layer), N_STEPS each, step
+    1's loss bit for bit the flash run's and every loss and grad norm
+    within TRAIN_LOSS_RTOL; the group is destroyed. Then (s.r) the ring's
+    steps and (s.u) Ulysses' rank bodies in one process, the rows that
+    see no key, and B1-B3 against their plain versions and timed at a
+    ring step's shape and at Ulysses' rank's. Returns the stats with the
+    kernel-line entries of both shapes."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import make_mesh, mesh_shape
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-s-")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "pg"), world_size=1, rank=0, device_id=dev)
+    stats = {}
+    try:
+        mesh = make_mesh({"sequence": -1})
+        check(mesh_shape(mesh) == {a: 1 for a in mesh.mesh_dim_names},
+              f"(s): mesh {{sequence: -1}} is {mesh_shape(mesh)}")
+        ref = s_flash_run(s_config(seed, "flash", J3_JOB["mesh"]))
+        stats["flash"] = ref
+        for impl in ("ring", "ulysses"):
+            torch.cuda.reset_peak_memory_stats()
+            run = n_trainer_run(f"{impl} on {{sequence: -1}}",
+                                s_config(seed, impl, {"sequence": -1}),
+                                mesh, ref, ("loss", "grad_norm"), tag="s.t")
+            run["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            stats[impl] = run
+            print(f"(s.t) {impl} on {{sequence: 1}}, {card_line()}: median "
+                  f"step {run['step_time_s_median']:.4f} s against flash's "
+                  f"{ref['step_time_s_median']:.4f} s unsharded; peak "
+                  f"{run['peak_memory_gb']:.2f} GB (flash "
+                  f"{ref['peak_memory_gb']:.2f} GB)", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["ring_steps"] = ring_steps_phase(seed)
+    stats["ulysses"]["heads"] = ulysses_heads_phase(seed)
+    stats["blind_rows"] = blind_rows_check(gen)
+    cases = {}
+    mo = J3_JOB["model_overrides"]
+    h = mo["n_heads"]
+    ring_case = train_attn_case(gen, 1, 2048, False, True, h=h,
+                                ids=ring_step_ids(2048))
+    uly_case = train_attn_case(gen, 1, J3_JOB["dataset"]["seq_len"], True,
+                               False, h=h // S_RANKS)
+    for label, case, launches in (
+            ("a ring step of the long-context example (s.r)", ring_case,
+             stats["ring_steps"]["launches"]),
+            ("Ulysses' rank of the long-context example (s.u)", uly_case,
+             stats["ulysses"]["heads"]["launches"])):
+        for kern, c in case.items():
+            c["launches"] = launches[kern]
+            c["shape"] = f"{c['shape']} ({label})"
+            errs = " ".join(f"{n} worst row {w:.3g}" for n, (_, w) in
+                            c["errs"].items())
+            print(f"{kern} at {label}, {card_line()}: {errs}; {fmt(c)}",
+                  flush=True)
+        cases[label] = case
+    stats["attn_cases"] = cases
+    return stats
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7111,6 +7506,7 @@ def main(argv=None) -> int:
         shutil.rmtree(mm_root, ignore_errors=True)
     n_stats = phase("n sharded trainer", sharded_trainer_phase, args.seed,
                     train_stats, gen, m6_ref, rl_ref)
+    s_stats = phase("s sequence parallel", sequence_phase, args.seed, gen)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     kernels = []
     for name in _build.KERNELS:
@@ -7169,6 +7565,19 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": f"{c['shape']} (n.t, a tensor rank of Llama-3-8B)"})
+    # B1-B3 at a ring step's and at Ulysses' rank's shape, with (s.r)'s
+    # and (s.u)'s launches
+    for case in s_stats["attn_cases"].values():
+        for name in TRAINING_KERNELS:
+            c = case[name]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"kubeflow_tpu_torch/csrc/{name}.cu",
+                "replaces": REPLACES[name], "launches": c["launches"],
+                "max_abs_err": c["err"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                "shape": c["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

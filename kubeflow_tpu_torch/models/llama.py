@@ -31,6 +31,16 @@ use kv heads [r·nkv/T, (r+1)·nkv/T), the GQA grouping only when nkv
 divides by T; otherwise the forward raises (ROADMAP.md queue A6a-iii).
 The serving functions take whole params and no split.
 
+On a mesh with a `sequence` axis past one rank each rank holds its
+columns of the batch (the trainer's `to_device`): RoPE takes each
+column's global position, the attention runs across the ranks (`attend`:
+ring attention for attention_impl "ring" and "flash", Ulysses for
+"ulysses"; on the rank's tensor heads when a tensor split is on too),
+and the loss reads its next-token targets and their weights by global
+position from the batch (`targets`, `target_mask`), so a shard's last
+column takes the next shard's first token and only the global last has
+no target.
+
 Multi-adapter serving: every serving function takes the JAX `lora`/`ids`
 pair. lora = {target: {"a": [L, A, d_in, r], "b": [L, A, r, d_out]}}
 (f32, adapter 0 all zeros, b pre-scaled by alpha / rank) and ids [B] the
@@ -60,7 +70,9 @@ from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.flash_decode import flash_decode_attention
 from kubeflow_tpu_torch.ops.flash_prefill import flash_prefill_attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
+from kubeflow_tpu_torch.ops.ring_attention import ring_attention
 from kubeflow_tpu_torch.ops.rope import apply_rope_tables, rope_tables
+from kubeflow_tpu_torch.ops.ulysses import ulysses_attention
 from kubeflow_tpu_torch.parallel import sharding
 
 Params = dict[str, Any]
@@ -71,6 +83,8 @@ QUANT_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 #: column-parallel
 ROW_PARALLEL = ("wo", "w_down")
 REMAT_POLICIES = ("none", "minimal", "full")
+#: the training attention bodies (`attend`)
+ATTENTION_IMPLS = ("flash", "ring", "ulysses")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,10 +110,11 @@ class LlamaConfig:
     # checkpoint, so the [B, S, vocab] f32 logits never exist whole
     ce_chunk: int = 0
     # The JAX config's implementation keys, so a job's model_overrides
-    # carry over. Each is stored and checked, and nothing branches on it:
-    # attention always runs the kernel wrappers (the plain version only
-    # for CPU tensors), and the layer loop is JAX's unrolled one, whose
-    # results equal the scan's, so any scan_layers describes it.
+    # carry over. Attention always runs the kernel wrappers (the plain
+    # version only for CPU tensors): attention_impl picks the body on a
+    # `sequence` axis past one rank (`attend`) and nothing else; the
+    # layer loop is JAX's unrolled one, whose results equal the scan's,
+    # so any scan_layers describes it.
     attention_impl: str = "flash"
     scan_layers: bool = True
     pipeline_microbatches: int = 0
@@ -112,8 +127,8 @@ class LlamaConfig:
         for name in ("attention_impl", "decode_attention_impl",
                      "prefill_attention_impl"):
             value = getattr(self, name)
-            allowed = ("flash",) if name == "attention_impl" else (
-                "auto", "flash")
+            allowed = (ATTENTION_IMPLS if name == "attention_impl"
+                       else ("auto", "flash"))
             if value in allowed:
                 continue
             if value == "xla":
@@ -121,10 +136,6 @@ class LlamaConfig:
                     f"{name}='xla': the port has no plain-version path on "
                     "the card; CUDA tensors always take the kernels "
                     "(ROADMAP.md north star, rule 4)")
-            if name == "attention_impl" and value in ("ring", "ulysses"):
-                raise ValueError(
-                    f"attention_impl={value!r}: sequence-parallel attention "
-                    "is not ported yet (ROADMAP.md queue A6b, parallelism)")
             raise ValueError(f"unknown {name} {value!r}")
         if self.pipeline_microbatches != 0:
             raise ValueError(
@@ -279,7 +290,7 @@ def quantize_params(params: Params) -> Params:
 def _attention(cfg: LlamaConfig, x: torch.Tensor, layer: Params, rope,
                segment_ids, tp=None) -> torch.Tensor:
     """Pre-norm causal GQA self-attention block with its residual; the
-    attention itself is flash attention (B1 forward, B2/B3 backward).
+    attention itself is `attend` (B1 forward, B2/B3 backward).
     With `tp` (the Regions of a tensor split) the layer's blocks are this
     rank's and the block's partial sum is all-reduced over `tensor`."""
     if tp is not None:
@@ -289,15 +300,33 @@ def _attention(cfg: LlamaConfig, x: torch.Tensor, layer: Params, rope,
         return x + tp.reduce_out(part, "tensor").to(x.dtype)
     q, k, v = _project_qkv(cfg, layer, x, rope)
     b, s = x.shape[:2]
-    out = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
+    out = attend(cfg, q, k, v, segment_ids)
     return x + quant.matmul(out.reshape(b, s, -1), layer["wo"], cfg.dtype)
+
+
+def attend(cfg: LlamaConfig, q, k, v, segment_ids) -> torch.Tensor:
+    """Causal GQA attention of one layer's q [B, S, H, D] and k/v
+    [B, S, Hkv, D] (a tensor rank's heads under a tensor split): flash
+    attention (B1-B3) off a `sequence` split; on one (the active mesh's
+    `sequence` axis past one rank, S this rank's columns), Ulysses for
+    attention_impl "ulysses" and ring attention for "ring" and "flash"
+    (the counterpart of the JAX `_attention`'s dispatch)."""
+    group = sharding.regions().groups.get("sequence")
+    if group is None:
+        return flash_attention(q, k, v, causal=True,
+                               segment_ids=segment_ids)
+    if cfg.attention_impl == "ulysses":
+        return ulysses_attention(q, k, v, group=group, causal=True,
+                                 segment_ids=segment_ids)
+    return ring_attention(q, k, v, group=group, causal=True,
+                          segment_ids=segment_ids)
 
 
 def attention_partial(cfg: LlamaConfig, h: torch.Tensor, layer: Params,
                       rope, segment_ids) -> torch.Tensor:
     """One tensor rank's share of the attention block: the normed input h
     [B, S, D] through its column blocks of wq/wk/wv (the heads counted
-    from the blocks' widths), flash attention on those heads and its row
+    from the blocks' widths), `attend` on those heads and its row
     block of wo -> its f32 partial sum [B, S, D] of the block's output
     (the ranks' partials sum to the unsplit block's)."""
     b, s, _ = h.shape
@@ -306,7 +335,7 @@ def attention_partial(cfg: LlamaConfig, h: torch.Tensor, layer: Params,
     k = quant.matmul(h, layer["wk"], cfg.dtype).reshape(b, s, -1, hd)
     v = quant.matmul(h, layer["wv"], cfg.dtype).reshape(b, s, -1, hd)
     q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
-    out = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
+    out = attend(cfg, q, k, v, segment_ids)
     return quant.matmul_f32_out(out.reshape(b, s, -1), layer["wo"],
                                 cfg.dtype)
 
@@ -382,7 +411,7 @@ def apply_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     """[B, S] tokens -> [B, S, d_model] after the final norm (no lm_head),
     each layer under cfg's remat policy."""
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        positions = global_positions(tokens)
     tp = tensor_split(cfg)
     rope = _rope(cfg, positions)
     x = _embed(params, tokens, cfg, tp)
@@ -393,6 +422,14 @@ def apply_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     # the lm_head's input enters the rank's vocabulary columns
     return x if tp is None else tp.copy_in(x, "tensor")
+
+
+def global_positions(tokens: torch.Tensor) -> torch.Tensor:
+    """The global position of each of tokens' S columns: rank * S +
+    arange(S) on the active mesh's `sequence` rank, arange(S) off one."""
+    s = tokens.shape[1]
+    return (sharding.regions().rank("sequence") * s
+            + torch.arange(s, device=tokens.device))
 
 
 def apply(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
@@ -422,22 +459,52 @@ def _token_loss(logits: torch.Tensor, targets: torch.Tensor,
 def loss_fn(params: Params, batch: dict[str, torch.Tensor],
             cfg: LlamaConfig):
     """Next-token cross-entropy: batch has tokens [B, S] and optionally
-    loss_mask [B, S] (1 where the target counts) and segment_ids [B, S].
-    The forward runs on the full sequence and the logits shift after.
-    Returns (loss, {"loss", "tokens"})."""
+    loss_mask [B, S] (1 where the target counts) and segment_ids [B, S];
+    on a sequence shard also the targets by global position (module
+    doc). The forward runs on the full sequence and the logits shift
+    after. Returns (loss, {"loss", "tokens"})."""
     if cfg.ce_chunk:
         return _chunked_ce_loss(params, batch, cfg)
     tokens = batch["tokens"].long()
-    logits = apply(params, tokens, cfg,
-                   segment_ids=batch.get("segment_ids"))[:, :-1]
-    token_loss = _token_loss(logits, tokens[:, 1:], tensor_split(cfg))
-    mask = batch.get("loss_mask")
-    mask = (torch.ones_like(token_loss) if mask is None
-            else mask[:, 1:].float())
+    logits = apply(params, tokens, cfg, segment_ids=batch.get("segment_ids"))
+    logits, targets, mask = next_token_terms(logits, batch, tokens)
+    token_loss = _token_loss(logits, targets, tensor_split(cfg))
     total = (token_loss * mask).sum()
     n = mask.sum()
     loss = total / n.clamp_min(1.0)
     return loss, {"loss": loss, "tokens": n}
+
+
+def next_token_terms(logits: torch.Tensor, batch: dict, tokens):
+    """(logits, targets, weights) of the next-token loss: with the
+    batch's `targets` and `target_mask` (a sequence shard's, by global
+    position) every position as given; otherwise the logits of every
+    position but the last against the next tokens, weighted by the
+    loss_mask at the target (or 1)."""
+    if "targets" in batch:
+        return logits, batch["targets"].long(), batch["target_mask"].float()
+    mask = batch.get("loss_mask")
+    return (logits[:, :-1], tokens[:, 1:],
+            torch.ones(tokens[:, 1:].shape, device=tokens.device)
+            if mask is None else mask[:, 1:].float())
+
+
+def shifted_targets(batch: dict, tokens: torch.Tensor):
+    """(targets, weights) [B, S] of every position: the next token,
+    weighted by the loss_mask at it, and 0 at the last position, which
+    has none; a sequence shard's as the batch gives them."""
+    if "targets" in batch:
+        return batch["targets"].long(), batch["target_mask"].float()
+    b, s = tokens.shape
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    valid = torch.ones(b, s, device=tokens.device)
+    valid[:, -1] = 0.0
+    mask = batch.get("loss_mask")
+    if mask is not None:   # by target position, as the plain path
+        valid = valid * torch.cat(
+            [mask[:, 1:].float(), torch.zeros(b, 1, device=tokens.device)],
+            dim=1)
+    return targets, valid
 
 
 def _chunk_loss(h, targets, valid, lm_head, dtype, tp=None):
@@ -449,24 +516,16 @@ def _chunked_ce_loss(params: Params, batch: dict[str, torch.Tensor],
                      cfg: LlamaConfig):
     """The loss with the lm_head and log-softmax run per ce_chunk tokens
     under checkpoint, so one [B, C, vocab] block of logits is live at a
-    time, forward and backward. The same loss as the plain path; S must
-    divide by ce_chunk."""
+    time, forward and backward. The same loss as the plain path; S (a
+    sequence shard's columns) must divide by ce_chunk."""
     tokens = batch["tokens"].long()
-    b, s = tokens.shape
+    s = tokens.shape[1]
     c = cfg.ce_chunk
     if s % c:
         raise ValueError(f"seq_len {s} must divide by ce_chunk {c}")
     h = apply_hidden(params, tokens, cfg,
                      segment_ids=batch.get("segment_ids"))
-    # targets roll left; the last position has no target
-    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-    valid = torch.ones(b, s, device=tokens.device)
-    valid[:, -1] = 0.0
-    mask = batch.get("loss_mask")
-    if mask is not None:   # by target position, as the plain path
-        valid = valid * torch.cat(
-            [mask[:, 1:].float(), torch.zeros(b, 1, device=tokens.device)],
-            dim=1)
+    targets, valid = shifted_targets(batch, tokens)
     tp = tensor_split(cfg)
     total = torch.zeros((), device=tokens.device)
     for i in range(0, s, c):

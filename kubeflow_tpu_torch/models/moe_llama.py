@@ -8,9 +8,10 @@ The tree is the JAX one: the Llama leaves less the dense MLP, plus
 router [L, D, E] and stacked experts w_gate/w_up [L, E, D, F], w_down
 [L, E, F, D]. `logical_axes` is the JAX one. On a mesh (the trainer's
 `active_mesh`) the attention, embedding, lm_head and cross-entropy take
-llama's tensor split, the experts the `expert` and `tensor` splits of
-ops/moe.py, and the routing is the global batch's; the loss is then the
-global batch's too (a masked-token mean over every shard's tokens plus
+llama's tensor split and its sequence split (a rank's columns, ring or
+Ulysses attention), the experts the `expert` and `tensor` splits of
+ops/moe.py, and the routing is the global batch's (every rank's tokens
+in the global [B, S] order); the loss is then the global batch's too (a masked-token mean over every shard's tokens plus
 the global aux), which the registry's `needs_global_batch` tells the
 trainer not to scale.
 """
@@ -119,7 +120,7 @@ def apply(params: Params, tokens: torch.Tensor, cfg: MoELlamaConfig, *,
     aux loss with return_aux), each layer under cfg's remat policy. On a
     mesh (module doc) the logits are this rank's vocabulary columns."""
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        positions = llama.global_positions(tokens)
     regions = sharding.regions()
     tp = llama.tensor_split(cfg)
     rope = llama._rope(cfg, positions)
@@ -146,11 +147,8 @@ def loss_fn(params: Params, batch: dict[str, torch.Tensor],
     logits, aux = apply(params, tokens, cfg,
                         segment_ids=batch.get("segment_ids"),
                         return_aux=True)
-    token_loss = llama._token_loss(logits[:, :-1], tokens[:, 1:],
-                                   llama.tensor_split(cfg))
-    mask = batch.get("loss_mask")
-    mask = (torch.ones_like(token_loss) if mask is None
-            else mask[:, 1:].float())
+    logits, targets, mask = llama.next_token_terms(logits, batch, tokens)
+    token_loss = llama._token_loss(logits, targets, llama.tensor_split(cfg))
     n = mask.sum()
     regions = sharding.regions()
     total = regions.sum_batch(n.detach())

@@ -9,10 +9,12 @@ init's tree as meta tensors: a checkpoint restores into it;
 `logical_axes` gives its logical sharding axes, leaf for leaf
 (parallel/sharding.py); `needs_global_batch` marks a family whose loss
 is already the global batch's on a mesh (the trainer does not scale
-it), and `local_blocks` the families that compute on `tensor`- and
-`expert`-local blocks (Megatron splits); every other family runs those
+it), `local_blocks` the families that compute on `tensor`- and
+`expert`-local blocks (Megatron splits; every other family runs those
 axes with its blocks at rest and its compute repeated on each rank of
-the group."""
+the group), and `splits_sequence` the families that run a `sequence`
+axis (the Llama family: each rank its columns of the batch; the others
+raise, ROADMAP.md queue A6b-ii)."""
 
 from __future__ import annotations
 
@@ -39,20 +41,25 @@ class ModelDef(NamedTuple):
     # splits under `sharding.regions`): the trainer gathers its params
     # over the other mesh axes only
     local_blocks: bool = False
+    # the family runs on a rank's columns of the batch (its `sequence`
+    # shard), its attention across the sequence group
+    splits_sequence: bool = False
 
 
 _REGISTRY: dict[str, ModelDef] = {
     "llama": ModelDef(llama.LlamaConfig, llama.init, llama.apply,
                       llama.loss_fn, llama.abstract_params,
-                      llama.logical_axes, local_blocks=True),
+                      llama.logical_axes, local_blocks=True,
+                      splits_sequence=True),
     "llama_lora": ModelDef(lora.LoraLlamaConfig, lora.init, lora.apply,
                            lora.loss_fn, lora.abstract_params,
-                           lora.logical_axes, local_blocks=True),
+                           lora.logical_axes, local_blocks=True,
+                           splits_sequence=True),
     "mixtral": ModelDef(moe_llama.MoELlamaConfig, moe_llama.init,
                         moe_llama.apply, moe_llama.loss_fn,
                         moe_llama.abstract_params,
                         moe_llama.logical_axes, needs_global_batch=True,
-                        local_blocks=True),
+                        local_blocks=True, splits_sequence=True),
     "mnist_cnn": ModelDef(mnist_cnn.MnistConfig, mnist_cnn.init,
                           mnist_cnn.apply, mnist_cnn.loss_fn,
                           mnist_cnn.abstract_params,

@@ -8,7 +8,12 @@ Three CUDA kernels replace the three TPU kernels: csrc/flash_attn_fwd.cu
 (`_fwd_kernel`), csrc/flash_attn_dq.cu (`_bwd_dq_kernel`) and
 csrc/flash_attn_dkv.cu (`_bwd_dkv_kernel`). Layout is BSHD throughout:
 q [B, Sq, H, D], k/v [B, Sk, H, D] with the GQA heads already expanded,
-lse and delta [B, H, Sq] f32, segment ids [B, Sk] int32.
+lse and delta [B, H, Sq] f32, segment ids [B, Sk] int32. A query-side
+array `q_segment_ids` [B, Sq] may stand beside them (a ring step: the
+local shard's ids for the queries, the arriving shard's for the keys);
+without it the query rows read their ids from the key array. A row that
+sees no key (its segment absent from the keys) gets o = 0 and lse about
+-1e30 from the forward and adds nothing in the backward.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version below, which does the kernels'
@@ -37,24 +42,39 @@ def _seg_offset(sq: int, sk: int, q_offset: int) -> int:
     return q_offset if sq != sk else 0
 
 
+def check_segments(segment_ids, q_segment_ids, sq: int, sk: int) -> None:
+    """A query-side array needs the key-side one, and Sq == Sk: the
+    kernels read both with one row stride."""
+    if q_segment_ids is None:
+        return
+    if segment_ids is None:
+        raise ValueError("q_segment_ids needs segment_ids (the keys' ids)")
+    if sq != sk:
+        raise ValueError(
+            f"q_segment_ids with Sq={sq} != Sk={sk}: the kernels read the "
+            "query and key ids with one row stride")
+
+
 def _visible(sq: int, sk: int, *, causal: bool, q_offset: int,
-             segment_ids, device) -> torch.Tensor:
+             segment_ids, device, q_segment_ids=None) -> torch.Tensor:
     """[B or 1, 1, Sq, Sk] bool: key t visible to query row i."""
     q_pos = torch.arange(sq, device=device)[:, None] + q_offset
     k_pos = torch.arange(sk, device=device)[None, :]
     mask = (q_pos >= k_pos) if causal else torch.ones(
         sq, sk, dtype=torch.bool, device=device)
     mask = mask[None, None]
+    check_segments(segment_ids, q_segment_ids, sq, sk)
     if segment_ids is not None:
-        off = _seg_offset(sq, sk, q_offset)
-        seg_q = segment_ids[:, off:off + sq]
-        mask = mask & (seg_q[:, None, :, None]
+        if q_segment_ids is None:
+            off = _seg_offset(sq, sk, q_offset)
+            q_segment_ids = segment_ids[:, off:off + sq]
+        mask = mask & (q_segment_ids[:, None, :, None]
                        == segment_ids[:, None, None, :])
     return mask
 
 
 def plain_fwd(q, k, v, *, causal=True, scale=None, q_offset=0,
-              segment_ids=None):
+              segment_ids=None, q_segment_ids=None):
     """(o [B, Sq, H, D] in q.dtype, lse [B, H, Sq] f32): the forward
     kernel's arithmetic in one pass — f32 scores times scale, masked to
     -1e30, p = exp(s - m) zeroed where masked, l clamped to 1e-30, p
@@ -65,7 +85,7 @@ def plain_fwd(q, k, v, *, causal=True, scale=None, q_offset=0,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     valid = _visible(q.shape[1], k.shape[1], causal=causal,
                      q_offset=q_offset, segment_ids=segment_ids,
-                     device=q.device)
+                     device=q.device, q_segment_ids=q_segment_ids)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s > NEG_INF / 2, torch.exp(s - m), torch.zeros_like(s))
@@ -82,14 +102,16 @@ def row_delta(o, do):
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_probs(q, k, v, do, lse, delta, causal, scale, segment_ids):
+def _bwd_probs(q, k, v, do, lse, delta, causal, scale, segment_ids,
+               q_segment_ids):
     """(p, ds) [B, H, Sq, Sk] f32 of the backward: p = exp(s - lse) zeroed
     where masked, ds = p * (dO.v^T - delta) * scale."""
     d = q.shape[-1]
     scale = 1.0 / (d ** 0.5) if scale is None else scale
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     valid = _visible(q.shape[1], k.shape[1], causal=causal, q_offset=0,
-                     segment_ids=segment_ids, device=q.device)
+                     segment_ids=segment_ids, device=q.device,
+                     q_segment_ids=q_segment_ids)
     p = torch.where(valid, torch.exp(s - lse[..., None]),
                     torch.zeros_like(s))
     del s
@@ -98,18 +120,20 @@ def _bwd_probs(q, k, v, do, lse, delta, causal, scale, segment_ids):
 
 
 def plain_bwd_dq(q, k, v, do, lse, delta, *, causal=True, scale=None,
-                 segment_ids=None):
+                 segment_ids=None, q_segment_ids=None):
     """dq = ds.k with ds rounded to k.dtype (the dq kernel's formula)."""
-    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale, segment_ids)
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale, segment_ids,
+                       q_segment_ids)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
     return dq.to(q.dtype)
 
 
 def plain_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, scale=None,
-                  segment_ids=None):
+                  segment_ids=None, q_segment_ids=None):
     """(dk, dv): dv = p^T.dO with p rounded to dO's dtype, dk = ds^T.q with
     ds rounded to q.dtype (the dk/dv kernel's formulas)."""
-    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale, segment_ids)
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale, segment_ids,
+                       q_segment_ids)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
     del p
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
@@ -117,11 +141,12 @@ def plain_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, scale=None,
 
 
 def plain_bwd(q, k, v, o, lse, do, *, causal=True, scale=None,
-              segment_ids=None):
+              segment_ids=None, q_segment_ids=None):
     """(dq, dk, dv) at q_offset 0 by the backward kernels' explicit
     formulas (not autograd)."""
     delta = row_delta(o, do)
-    kw = dict(causal=causal, scale=scale, segment_ids=segment_ids)
+    kw = dict(causal=causal, scale=scale, segment_ids=segment_ids,
+              q_segment_ids=q_segment_ids)
     dq = plain_bwd_dq(q, k, v, do, lse, delta, **kw)
     return (dq, *plain_bwd_dkv(q, k, v, do, lse, delta, **kw))
 
@@ -173,14 +198,28 @@ def _check(name, q, k, v, do=None):
     return b, sq, sk, h, d
 
 
-def _segments(segment_ids, b, sk, dev):
-    """(int32 [B, Sk] contiguous or None, its row stride)."""
+def _ids(x, shape, dev, name):
+    x = x.to(device=dev, dtype=torch.int32).contiguous()
+    if x.shape != shape:
+        raise ValueError(f"{name} {tuple(x.shape)} != {shape}")
+    return x
+
+
+def _segments(segment_ids, q_segment_ids, b, sq, sk, q_offset, dev):
+    """(seg_q, seg_k, row stride, the tensors behind them): the int32
+    addresses the kernels read query row i's and key t's ids of batch b
+    at (seg_q and seg_k + 4 (b * stride + i or t)), None without
+    segments. Without q_segment_ids the query rows read the key array
+    from `_seg_offset`."""
+    check_segments(segment_ids, q_segment_ids, sq, sk)
     if segment_ids is None:
-        return None, 0
-    seg = segment_ids.to(device=dev, dtype=torch.int32).contiguous()
-    if seg.shape != (b, sk):
-        raise ValueError(f"segment_ids {tuple(seg.shape)} != {(b, sk)}")
-    return seg, sk
+        return None, None, 0, ()
+    seg = _ids(segment_ids, (b, sk), dev, "segment_ids")
+    if q_segment_ids is None:
+        return (seg.data_ptr() + 4 * _seg_offset(sq, sk, q_offset),
+                seg.data_ptr(), sk, (seg,))
+    seg_q = _ids(q_segment_ids, (b, sq), dev, "q_segment_ids")
+    return seg_q.data_ptr(), seg.data_ptr(), sk, (seg_q, seg)
 
 
 def _stream(dev):
@@ -198,60 +237,61 @@ def _on_cpu(x, name) -> bool:
 
 
 def flash_fwd(q, k, v, *, causal=True, scale=None, q_offset=0,
-              segment_ids=None):
+              segment_ids=None, q_segment_ids=None):
     """(o [B, Sq, H, D], lse [B, H, Sq] f32); B1 for CUDA tensors."""
     q_offset = int(q_offset)
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if _on_cpu(q, "flash_attn_fwd"):
         return plain_fwd(q, k, v, causal=causal, scale=scale,
-                         q_offset=q_offset, segment_ids=segment_ids)
+                         q_offset=q_offset, segment_ids=segment_ids,
+                         q_segment_ids=q_segment_ids)
     b, sq, sk, h, d = _check("flash_attn_fwd", q, k, v)
     scale = 1.0 / (d ** 0.5) if scale is None else scale
-    seg, stride = _segments(segment_ids, b, sk, q.device)
-    off = _seg_offset(sq, sk, q_offset)
+    seg_q, seg_k, stride, _keep = _segments(segment_ids, q_segment_ids, b,
+                                            sq, sk, q_offset, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     err = _fn("flash_attn_fwd", "kft_flash_attn_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        seg.data_ptr() + 4 * off if seg is not None else None,
-        seg.data_ptr() if seg is not None else None,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q, seg_k,
         o.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, stride, q_offset,
         int(causal), float(scale), _stream(q.device))
     _build.check(err, "flash_attn_fwd")
     _build.count_launch("flash_attn_fwd", b=b, sq=sq, sk=sk, h=h, d=d,
                         causal=bool(causal), q_offset=q_offset,
-                        segmented=seg is not None)
+                        segmented=seg_k is not None)
     return o, lse
 
 
-def _bwd_args(name, q, k, v, do, lse, delta, segment_ids, scale):
+def _bwd_args(name, q, k, v, do, lse, delta, segment_ids, q_segment_ids,
+              scale):
     b, sq, sk, h, d = _check(name, q, k, v, do)
     for x in (lse, delta):
         if x.shape != (b, h, sq) or x.dtype != torch.float32 \
                 or not x.is_contiguous() or x.device != q.device:
             raise TypeError(f"{name}: lse and delta must be contiguous f32 "
                             "[B, H, Sq] on q's device")
-    seg, stride = _segments(segment_ids, b, sk, q.device)
+    seg = _segments(segment_ids, q_segment_ids, b, sq, sk, 0, q.device)
     scale = 1.0 / (d ** 0.5) if scale is None else scale
-    return seg, stride, float(scale), dict(
-        b=b, sq=sq, sk=sk, h=h, d=d, segmented=seg is not None)
+    return seg, float(scale), dict(
+        b=b, sq=sq, sk=sk, h=h, d=d, segmented=seg[1] is not None)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=True, scale=None,
-                 segment_ids=None):
+                 segment_ids=None, q_segment_ids=None):
     """dq [B, Sq, H, D] from lse and delta [B, H, Sq]; B2 for CUDA
     tensors."""
-    kw = dict(causal=causal, scale=scale, segment_ids=segment_ids)
+    kw = dict(causal=causal, scale=scale, segment_ids=segment_ids,
+              q_segment_ids=q_segment_ids)
     if _on_cpu(q, "flash_attn_dq"):
         return plain_bwd_dq(q, k, v, do, lse, delta, **kw)
-    seg, stride, scale, shape = _bwd_args("flash_attn_dq", q, k, v, do, lse,
-                                          delta, segment_ids, scale)
-    seg_ptr = seg.data_ptr() if seg is not None else None
+    (seg_q, seg_k, stride, _keep), scale, shape = _bwd_args(
+        "flash_attn_dq", q, k, v, do, lse, delta, segment_ids,
+        q_segment_ids, scale)
     dq = torch.empty_like(q)
     err = _fn("flash_attn_dq", "kft_flash_attn_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), seg_ptr, seg_ptr, dq.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), seg_q, seg_k, dq.data_ptr(),
         shape["b"], shape["h"], shape["sq"], shape["sk"], shape["d"], stride,
         int(causal), scale, _stream(q.device))
     _build.check(err, "flash_attn_dq")
@@ -260,19 +300,20 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=True, scale=None,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, scale=None,
-                  segment_ids=None):
+                  segment_ids=None, q_segment_ids=None):
     """(dk, dv) [B, Sk, H, D]; B3 for CUDA tensors."""
-    kw = dict(causal=causal, scale=scale, segment_ids=segment_ids)
+    kw = dict(causal=causal, scale=scale, segment_ids=segment_ids,
+              q_segment_ids=q_segment_ids)
     if _on_cpu(q, "flash_attn_dkv"):
         return plain_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    seg, stride, scale, shape = _bwd_args("flash_attn_dkv", q, k, v, do,
-                                          lse, delta, segment_ids, scale)
-    seg_ptr = seg.data_ptr() if seg is not None else None
+    (seg_q, seg_k, stride, _keep), scale, shape = _bwd_args(
+        "flash_attn_dkv", q, k, v, do, lse, delta, segment_ids,
+        q_segment_ids, scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     err = _fn("flash_attn_dkv", "kft_flash_attn_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), seg_ptr, seg_ptr, dk.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), seg_q, seg_k, dk.data_ptr(),
         dv.data_ptr(), shape["b"], shape["h"], shape["sq"], shape["sk"],
         shape["d"], stride, int(causal), scale, _stream(q.device))
     _build.check(err, "flash_attn_dkv")
@@ -281,12 +322,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, scale=None,
 
 
 def flash_bwd(q, k, v, o, lse, do, *, causal=True, scale=None,
-              segment_ids=None):
+              segment_ids=None, q_segment_ids=None):
     """(dq, dk, dv) at q_offset 0: delta, then B2 and B3 (their plain
     versions for CPU tensors)."""
     do = do.contiguous()
     delta = row_delta(o, do)
-    kw = dict(causal=causal, scale=scale, segment_ids=segment_ids)
+    kw = dict(causal=causal, scale=scale, segment_ids=segment_ids,
+              q_segment_ids=q_segment_ids)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
 

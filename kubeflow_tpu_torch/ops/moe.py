@@ -15,13 +15,15 @@ any Pallas kernel; here they are torch.einsum (cuBLAS on the card).
 
 On a mesh (`regions`, the `sharding.Regions` of the trainer's mesh) the
 routing is the global batch's, as GSPMD computes the JAX function over
-the global arrays: the capacity counts T = B·S of every data shard, a
-token's slot is its place in the global token order (the shards
-rank-major, as PartitionSpec(("data", "fsdp")) lays the rows out: each
-round's per-expert counts are all-gathered and an exclusive prefix over
-the shards offsets this shard's `fill`), and the Switch and z losses are
-means over every token (f_e and p_e summed over the shards before their
-product). A rank of the `expert` axis holds E/X experts, and of the
+the global arrays: the capacity counts T = B·S of every batch shard, a
+token's slot is its place in the global [B, S] token order flattened
+rows outer and columns inner (the data shards' rows as
+PartitionSpec(("data", "fsdp")) lays them out, each row's `sequence`
+blocks in rank order: each round's per-row, per-expert counts are
+all-gathered and an exclusive prefix over the row blocks in that order
+offsets this rank's rows, `Regions.tokens_before`), and the Switch and z
+losses are means over every token (f_e and p_e summed over the shards
+before their product). A rank of the `expert` axis holds E/X experts, and of the
 `tensor` axis a column block of w_gate/w_up and a row block of w_down:
 it builds dispatch and combine for its own experts only, and the
 combine's partial output is all-reduced over `expert` and `tensor`. A
@@ -59,20 +61,22 @@ def expert_capacity(tokens: int, n_experts: int, top_k: int,
     return max(cap, top_k)   # never below top_k so tiny shapes route
 
 
-def route(gate_logits: torch.Tensor, args: MoEArgs, regions=None):
-    """Top-k routing with static capacity: gate_logits [T, E] f32 ->
-    (dispatch [T, E, C] f32 of 0/1, combine [T, E, C] f32, aux scalar).
+def route(gate_logits: torch.Tensor, args: MoEArgs, regions=None,
+          rows: int = 1):
+    """Top-k routing with static capacity: gate_logits [T, E] f32 of
+    `rows` rows of T / rows tokens each -> (dispatch [T, E, C] f32 of
+    0/1, combine [T, E, C] f32, aux scalar).
 
     k rounds of argmax (the first index on ties, as jnp.argmax); a token's
     slot in its expert is the running count of that expert's tokens
-    before it, this round's cumsum over tokens plus the `fill` of earlier
-    rounds and of the shards before this one (`regions`, NO_REGIONS by
-    default: the module doc). The routing and the combine read the
-    logits through `copy_in` over `expert` and `tensor`; the aux and z
-    losses read them directly."""
+    before it: this round's cumsum along its row, the tokens of earlier
+    rounds (`fill`) and those of the row blocks before it in the global
+    order (`regions`, NO_REGIONS by default: the module doc). The routing
+    and the combine read the logits through `copy_in` over `expert` and
+    `tensor`; the aux and z losses read them directly."""
     regions = NO_REGIONS if regions is None else regions
     t, e = gate_logits.shape
-    n = t * regions.n_shards
+    n = t * regions.n_shards * regions.size("sequence")
     cap = expert_capacity(n, e, args.top_k, args.capacity_factor)
     probs = torch.softmax(gate_logits, dim=-1)
     dev = gate_logits.device
@@ -87,10 +91,11 @@ def route(gate_logits: torch.Tensor, args: MoEArgs, regions=None):
         gate = remaining.gather(1, idx[:, None])[:, 0]
         onehot = F.one_hot(idx, e)                                   # [T, E]
         remaining = remaining * (1.0 - onehot.float())
-        every = regions.gather_shards(onehot.sum(dim=0))   # [shards, E]
-        pos_in_e = (onehot.cumsum(dim=0) - 1 + fill[None, :]
-                    + every[:regions.shard].sum(dim=0)[None, :])
-        fill = fill + every.sum(dim=0)
+        by_row = onehot.reshape(rows, -1, e)
+        before, total = regions.tokens_before(by_row.sum(dim=1))
+        pos_in_e = (by_row.cumsum(dim=1) - 1 + before[:, None, :]
+                    ).reshape(t, e) + fill[None, :]
+        fill = fill + total
         pos = (pos_in_e * onehot).sum(dim=-1)                         # [T]
         keep = pos < cap          # overflow dropped for this expert
         # jax.nn.one_hot of an index >= cap is all zeros; keep zeros it
@@ -143,7 +148,7 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     xt = x.reshape(b * s, d)
     # bf16 @ f32 promotes to f32 in JAX
     dispatch, combine, aux = route(xt.float() @ router_w.float(), args,
-                                   regions)
+                                   regions, rows=b)
     e_r = w_gate.shape[0]
     mine = slice(regions.rank("expert") * e_r,
                  (regions.rank("expert") + 1) * e_r)

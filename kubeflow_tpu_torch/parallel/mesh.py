@@ -235,17 +235,18 @@ def validate_divisibility(mesh, *, batch: int | None = None,
 
 #: the axes whose parallelism is not ported yet, and the ROADMAP.md item
 #: that ports each
-UNPORTED_AXES = {"sequence": "A6b", "stage": "A6c"}
+UNPORTED_AXES = {"stage": "A6c"}
 
 
 def check_ported_axes(sizes: dict[str, int]) -> None:
     """Raise ValueError naming its ROADMAP.md item for an axis past 1
-    that the port cannot run yet (data, fsdp, expert and tensor run at
-    any size)."""
+    that the port cannot run yet (data, fsdp, expert, sequence and
+    tensor run at any size; the families that split a sequence are the
+    trainer's to check)."""
     for axis, item in UNPORTED_AXES.items():
         n = sizes.get(axis, 1)
         if n not in (1, -1):
             raise ValueError(
                 f"mesh axis {axis}={n} is not ported yet (ROADMAP.md "
-                f"queue {item}); the port shards over data, fsdp, expert "
-                "and tensor")
+                f"queue {item}); the port shards over data, fsdp, expert, "
+                "sequence and tensor")

@@ -15,10 +15,11 @@ The collectives a sharded trainer needs are here too, written per leaf
 on the groups of the mesh dims of more than one rank: `local_chunk` (the
 rank's block of a whole tensor), `gather` (the whole tensor from the
 blocks, over the mesh dims asked for) and `reduce_grad` (a gradient
-summed over the axes that split the batch, `data` and `fsdp`:
-reduce-scattered where its param is sharded and all-reduced where it is
-replicated; never summed over `tensor` or `expert`, whose ranks see the
-same rows).
+summed over the axes that split the batch's tokens, `data` and `fsdp`
+over its rows and `sequence` over its columns: reduce-scattered where
+its param is sharded and all-reduced where it is replicated; never
+summed over `tensor` or `expert`, whose ranks see the same tokens).
+`ring_peers` names the sequence group's ring neighbours.
 
 The Megatron region operators are here as well, for a family that
 computes on `tensor`- and `expert`-local blocks (the registry's
@@ -221,8 +222,20 @@ def _dim_group(mesh, i: int):
     return mesh.get_group(mesh.mesh_dim_names[i])
 
 
-#: the mesh axes that split a batch's rows: a gradient sums over them
-BATCH_AXES = ("data", "fsdp")
+#: the mesh axes that split a batch's tokens (`data` and `fsdp` its
+#: rows, `sequence` its columns): a gradient sums over them
+BATCH_AXES = ("data", "fsdp", "sequence")
+
+
+def ring_peers(group) -> tuple[int, int]:
+    """(the next rank, the previous rank) of `group`'s ring, as global
+    ranks: rank r of the group sends to r + 1 and receives from r - 1
+    (mod its size), the direction of the JAX ring's ppermute."""
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return (dist.get_global_rank(group, (r + 1) % n),
+            dist.get_global_rank(group, (r - 1) % n))
 
 
 def gather(local: torch.Tensor, mesh, placements,
@@ -254,7 +267,7 @@ def reduce_grad(grad: torch.Tensor, mesh, placements,
     split the batch (BATCH_AXES), mesh dims taken outermost first: a
     reduce-scatter where the param is sharded, an all-reduce where it is
     replicated (skipped on a dim of one rank). Over `tensor` and `expert`
-    nothing is summed: their ranks see the same rows, and a rank either
+    nothing is summed: their ranks see the same tokens, and a rank either
     computed its own block's gradient or the same whole gradient as its
     peers. `whole` names the mesh dims over which `grad` is whole (the
     dims `gather` gathered; every dim by default): on such a dim outside
@@ -396,9 +409,10 @@ def vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class Regions:
-    """The `tensor` and `expert` split a family computes under, and the
-    data shards of the batch, on one mesh: each axis' size, this rank's
-    index on it and its group (None on an axis of one rank)."""
+    """The `tensor`, `expert` and `sequence` split a family computes
+    under, and the data shards of the batch's rows, on one mesh: each
+    axis' size, this rank's index on it and its group (None on an axis of
+    one rank)."""
 
     sizes: dict
     ranks: dict
@@ -427,14 +441,16 @@ class Regions:
         return _ReduceOut.apply(x, groups) if groups else x
 
     def sum_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """x summed over the data shards (the BATCH_AXES groups), forward
-        only in value: the gradient passes through to this shard's
-        part."""
+        """x summed over the batch's shards (the BATCH_AXES groups),
+        forward only in value: the gradient passes through to this
+        shard's part."""
         return self.reduce_out(x, *BATCH_AXES)
 
     def gather_shards(self, x: torch.Tensor) -> torch.Tensor:
-        """[n_shards, ...] of every data shard's x (no gradient), in the
-        order PartitionSpec(("data", "fsdp")) numbers the shards."""
+        """[n_shards * N_seq, ...] of every batch shard's x (no
+        gradient), in rank order over (data, fsdp, sequence): the data
+        shards as PartitionSpec(("data", "fsdp")) numbers them, each
+        one's sequence blocks within it."""
         import torch.distributed as dist
 
         out = x.detach()[None]
@@ -448,6 +464,25 @@ class Regions:
             dist.all_gather_into_tensor(buf, out.contiguous(), group=g)
             out = buf
         return out
+
+    def tokens_before(self, counts: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """counts [B_loc, ...]: a count over this rank's tokens of each of
+        its rows (its columns of the row). Returns ([B_loc, ...] the sum
+        over every token before each of this rank's row blocks in the
+        global batch's flattened [B, S] order, the sum over the global
+        batch): the order the JAX package's GSPMD sees, rows outer and
+        columns inner, so a row's sequence blocks come in rank order
+        after every block of the rows before it (no gradient)."""
+        b, n_seq = counts.shape[0], self.size("sequence")
+        every = self.gather_shards(counts)
+        rest = counts.shape[1:]
+        every = every.reshape(self.n_shards, n_seq, b, *rest).transpose(
+            1, 2).reshape(self.n_shards * b * n_seq, *rest)
+        before = every.cumsum(dim=0) - every
+        idx = ((self.shard * b + torch.arange(b, device=counts.device))
+               * n_seq + self.rank("sequence"))
+        return before[idx], every.sum(dim=0)
 
 
 #: the Regions off a mesh: one rank on every axis, every region operator

@@ -257,8 +257,11 @@ class AnakinLearner:
             shape = mesh_lib.mesh_shape(mesh)
             other = {a: n for a, n in shape.items() if a != "data" and n > 1}
             if other:
-                raise ValueError(f"the learner's mesh {shape}: only the data "
-                                 "axis splits the env batch")
+                raise ValueError(
+                    f"the learner's mesh {shape}: only the data axis splits "
+                    "the env batch" + (" (a sequence split is ROADMAP.md "
+                                       "queue A6b-ii)"
+                                       if "sequence" in other else ""))
             mesh_lib.validate_divisibility(mesh, batch=cfg.n_envs)
             d = shape["data"]
             self.n_local = cfg.n_envs // d

@@ -62,6 +62,12 @@ class AnakinConfig:
             if k in self.env_kwargs and self.env_kwargs[k] < lo:
                 raise ValueError(f"env_kwargs.{k} must be >= {lo}")
         # the env batch runs over data; the params are replicated
+        seq = self.mesh.get("sequence", 1)
+        if seq not in (1, -1):
+            raise ValueError(
+                f"mesh axis sequence={seq}: the RL learner splits no "
+                "sequence (ROADMAP.md queue A6b-ii, sequence parallelism "
+                "outside the Llama family)")
         check_one_card_mesh({k: v for k, v in self.mesh.items()
                              if k != "data"})
 

@@ -39,23 +39,30 @@ plain tensors (the family code and the kernels never see a DTensor) and
 runs the family's forward and backward on this rank's rows of the global
 batch (the block of PartitionSpec(("data", "fsdp")) at its coordinate:
 the ranks of one (data, fsdp) coordinate, across `tensor` and `expert`,
-see the same rows) under `active_mesh`. A family with the registry's
+see the same rows) under `active_mesh`; on a `sequence` axis past one
+rank also on its columns of those rows (the block of ("batch", "seq"),
+the JAX `batch_seq_spec`), given the next-token targets by global
+position (`sequence_columns`). Only the Llama family (the registry's
+`splits_sequence`) runs a `sequence` axis; the others raise naming
+ROADMAP.md queue A6b-ii. A family with the registry's
 `local_blocks` (the Llama decoder, its LoRA and Mixtral) gets its params
 gathered over the batch axes only and computes on its `tensor` and
 `expert` blocks (Megatron splits, `sharding.regions`); every other family
 gets whole params and repeats its compute on each rank of those axes,
 keeping its block of each gradient. Each gradient is then reduce-scattered
 over `fsdp` and all-reduced over `data` (never summed over `tensor` or
-`expert`), and the optimizer runs on the blocks. The loss is the global
-batch's: a next-token family's masked-token mean over every shard's
-tokens (each rank scales its mean by its shard's share of the tokens
-before the backward, the shares summed over the batch axes alone, so a
-shard counts once), a classifier's mean over every row, and as it comes
+`expert`), and summed over `sequence` as well, whose ranks see other
+tokens of the same rows; the optimizer runs on the blocks. The loss is
+the global batch's: a next-token family's masked-token mean over every
+shard's tokens (each rank scales its mean by its shard's share of the
+tokens before the backward, the shares summed over the batch axes
+alone, data, fsdp and sequence, so a shard counts once), a classifier's
+mean over every row, and as it comes
 for a family whose loss is already the global batch's (the registry's
 `needs_global_batch`: Mixtral's routing and aux loss); `tokens` is the
 global count, and `grad_norm` and the clip take the norm over every
-block once (a replicated leaf from one holder). The axes past these
-(sequence, stage) raise naming their ROADMAP.md item. A step holds every
+block once (a replicated leaf from one holder). The `stage` axis raises
+naming its ROADMAP.md item (A6c). A step holds every
 whole param and then every whole gradient at once before reducing them,
 so a rank's peak is the whole f32 params and grads (whole over the batch
 axes) plus its blocks and the activations: at Llama-3-8B widths about 64
@@ -297,7 +304,7 @@ class TrainerConfig:
         opt = dict(raw.pop("optimizer", {}))
         dataset = raw.pop("dataset", {})
         mesh = mesh_lib.mesh_config(raw.pop("mesh", {}))
-        check_mesh(mesh)
+        check_mesh(mesh, raw.get("model", "llama"))
         known = {f.name for f in dataclasses.fields(TrainerConfig)}
         unknown = set(raw) - known
         if unknown:
@@ -322,12 +329,28 @@ def _world_size() -> int:
     return dist.get_world_size() if _group_running() else 1
 
 
-def check_mesh(mesh: mesh_lib.MeshConfig) -> None:
-    """The axes not ported yet raise naming their ROADMAP.md item; a mesh
-    that wants more ranks than the process group has raises too (one
-    card when no group is running)."""
+def check_sequence(model: str, sizes: dict[str, int]) -> None:
+    """A `sequence` axis past one rank needs a family that splits its
+    sequence (the registry's `splits_sequence`, the Llama family); any
+    other raises naming ROADMAP.md queue A6b-ii."""
+    n = sizes.get("sequence", 1)
+    if n in (1, -1) or registry.get(model).splits_sequence:
+        return
+    families = sorted(name for name in registry.names()
+                      if registry.get(name).splits_sequence)
+    raise ValueError(
+        f"mesh axis sequence={n}: {model!r} does not split its sequence yet "
+        f"(ROADMAP.md queue A6b-ii); the families that do: {families}")
+
+
+def check_mesh(mesh: mesh_lib.MeshConfig, model: str = "llama") -> None:
+    """The axes not ported yet raise naming their ROADMAP.md item, and so
+    does a `sequence` axis for a family that does not split its sequence
+    (`check_sequence`); a mesh that wants more ranks than the process
+    group has raises too (one card when no group is running)."""
     sizes = mesh.axis_sizes()
     mesh_lib.check_ported_axes(sizes)
+    check_sequence(model, sizes)
     want = math.prod(n for n in sizes.values() if n != -1)
     world = _world_size()
     if want > world:
@@ -372,6 +395,7 @@ class Trainer:
 
         mesh = self.mesh
         mesh_lib.check_ported_axes(mesh_lib.mesh_shape(mesh))
+        check_sequence(self.config.model, mesh_lib.mesh_shape(mesh))
         if mesh.mesh.numel() != dist.get_world_size():
             raise ValueError(
                 f"the trainer's mesh holds {mesh.mesh.numel()} of the "
@@ -457,7 +481,9 @@ class Trainer:
     def to_device(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
         """A host batch on the device; on a mesh, this rank's rows of the
         global batch (the block of PartitionSpec(("data", "fsdp")) at its
-        coordinate)."""
+        coordinate) and, on a `sequence` axis past one rank, its columns
+        of them with the targets by global position
+        (`sequence_columns`)."""
         batch = {k: np.asarray(v) for k, v in batch.items()}
         if self.layout is not None:
             n = mesh_lib.num_data_shards(self.mesh)
@@ -466,6 +492,11 @@ class Trainer:
                 mesh_lib.validate_divisibility(self.mesh, batch=v.shape[0])
             batch = {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
                      for k, v in batch.items()}
+            n_seq = mesh_lib.mesh_shape(self.mesh)["sequence"]
+            if n_seq > 1:
+                j = self.mesh.get_coordinate()[
+                    self.mesh.mesh_dim_names.index("sequence")]
+                batch = sequence_columns(batch, n_seq, j)
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
@@ -538,7 +569,7 @@ class Trainer:
             # the global batch's mean: this rank's mean times its shard's
             # share of the global weight (tokens counted by the loss, else
             # rows), summed over the batch axes alone (the ranks of one
-            # shard see the same rows); exactly 1 on one shard
+            # shard see the same tokens); exactly 1 on one shard
             first = next(iter(batch.values()))
             weight = (metrics["tokens"].detach().float()
                       if "tokens" in metrics
@@ -653,6 +684,28 @@ class Trainer:
         CPU)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+def sequence_columns(batch: dict[str, np.ndarray], n: int,
+                     j: int) -> dict[str, np.ndarray]:
+    """The columns [j S/n, (j + 1) S/n) of every [B, S] entry of a host
+    batch, with `targets` and `target_mask` added by global position
+    first: position i's target is token i + 1, weighted by the loss_mask
+    there (or 1), and the global last position has none, as the JAX loss
+    shifts the whole sequence. A shard's last column so takes the next
+    shard's first token."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if s % n:
+        raise ValueError(f"seq={s} not divisible by mesh factor {n}")
+    weights = np.ones((b, s), np.float32)
+    weights[:, -1] = 0.0
+    if "loss_mask" in batch:
+        weights[:, :-1] *= batch["loss_mask"][:, 1:]
+    full = dict(batch, target_mask=weights, targets=np.concatenate(
+        [tokens[:, 1:], tokens[:, :1]], axis=1))
+    c = s // n
+    return {k: v[:, j * c:(j + 1) * c] for k, v in full.items()}
 
 
 def _map_leaves(tree, fn, path: str = ""):

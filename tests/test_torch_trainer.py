@@ -211,14 +211,23 @@ def test_longctx_job_model_overrides_build_a_trainer(tmp_path):
 
 @pytest.mark.parametrize("key,value,match", [
     ("attention_impl", "xla", "plain-version"),
-    ("attention_impl", "ring", "A6"),
-    ("attention_impl", "ulysses", "A6"),
+    ("attention_impl", "ring", "builds"),
+    ("attention_impl", "ulysses", "builds"),
     ("decode_attention_impl", "xla", "plain-version"),
     ("prefill_attention_impl", "xla", "plain-version"),
     ("pipeline_microbatches", 2, "A6"),
     ("attention_impl", "bogus", "unknown"),
 ])
 def test_llama_config_rejects_unported_impls(key, value, match):
+    """The keys the port has no path for raise; "ring" and "ulysses" (the
+    sequence-parallel bodies, which run flash attention off a sequence
+    axis) build, in the config and the trainer."""
+    if match == "builds":
+        assert tllama.LlamaConfig(**{key: value}).attention_impl == value
+        trainer = ttrainer.Trainer(ttrainer.TrainerConfig(
+            model_overrides=dict(TINY, **{key: value})), device="cpu")
+        assert trainer.model_cfg.attention_impl == value
+        return
     with pytest.raises(ValueError, match=match):
         tllama.LlamaConfig(**{key: value})
     with pytest.raises(ValueError, match=match):

@@ -123,7 +123,8 @@ def _raises(fn) -> str:
 def case_llama(inp: dict) -> dict:
     """{data: 2, fsdp: 2}: three steps from the given params and global
     batches; the blocks, the resident bytes, an init's blocks, and the
-    refusals of the axes not ported yet."""
+    refusals of a family outside the Llama family on a sequence axis and
+    of the stage axis."""
     from kubeflow_tpu_torch.training.trainer import leaves
 
     t = _trainer(inp, {"data": 2, "fsdp": 2})
@@ -142,8 +143,10 @@ def case_llama(inp: dict) -> dict:
                              state["opt_state"]["nu"]])),
         "fresh_blocks": _blocks(fresh["params"]),
         "fresh_whole": _whole(fresh["params"]),
-        "sequence": _raises(lambda: _trainer(inp, {"fsdp": 2,
-                                                   "sequence": 2})),
+        "sequence": _raises(lambda: _trainer(
+            dict(inp, config=dict(inp["config"], model="bert",
+                                  model_overrides={})),
+            {"fsdp": 2, "sequence": 2})),
         "stage": _raises(lambda: _trainer(inp, {"data": 2, "stage": 2})),
     }
 
@@ -385,6 +388,139 @@ def case_rl(inp: dict) -> dict:
     out.update(jax_log=jlog, jax_obs=js["obs"].numpy().copy(),
                jax_params=[p.detach().numpy().copy()
                            for p in anakin.net_leaves(js["params"])])
+    return out
+
+
+def _sequence_group(mesh: dict):
+    """(the `sequence` group of a mesh over every rank, this rank's index
+    on it, the axis size)."""
+    from kubeflow_tpu_torch.parallel import make_mesh
+
+    m = make_mesh(mesh)
+    i = m.mesh_dim_names.index("sequence")
+    return m.get_group("sequence"), m.get_coordinate()[i], m.size(i)
+
+
+def _seq_block(x, j: int, n: int) -> torch.Tensor:
+    """Rank j's block of n along dim 1 of a whole numpy array."""
+    return torch.from_numpy(np.array(x)).chunk(n, dim=1)[j].contiguous()
+
+
+def _attention_runs(inp: dict, attend) -> dict:
+    """Each of inp's cases through attend(q, k, v, group=, causal=,
+    segment_ids=) on this rank's sequence shard of {sequence: 4}, its
+    gradients from the case's cotangent: the blocks of o, dq, dk, dv."""
+    group, j, n = _sequence_group({"sequence": 4})
+    out = []
+    for c in inp["cases"]:
+        q, k, v = (_seq_block(c[x], j, n).requires_grad_()
+                   for x in ("q", "k", "v"))
+        seg = None if c["seg"] is None else _seq_block(c["seg"], j, n)
+        o = attend(q, k, v, group=group, causal=c["causal"],
+                   segment_ids=seg)
+        grads = torch.autograd.grad((o * _seq_block(c["cot"], j, n)).sum(),
+                                    (q, k, v))
+        out.append({"o": o.detach().numpy(), **{
+            name: g.numpy() for name, g in zip(("dq", "dk", "dv"), grads)}})
+    return {"rank": j, "cases": out}
+
+
+def case_ring(inp: dict) -> dict:
+    """The port's ring on {sequence: 4} for each case; the B1-B3 calls
+    each rank made (a causal rank computes its own and past shards
+    alone)."""
+    from kubeflow_tpu_torch.ops import ring_attention as ra
+
+    calls = []
+    real = {n: getattr(ra, n) for n in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")}
+
+    def counted(name):
+        def fn(*a, **kw):
+            calls[-1][name] += 1
+            return real[name](*a, **kw)
+        return fn
+
+    def attend(*a, **kw):
+        calls.append(dict.fromkeys(real, 0))
+        return ra.ring_attention(*a, **kw)
+    for name in real:
+        setattr(ra, name, counted(name))
+    try:
+        out = _attention_runs(inp, attend)
+    finally:
+        for name, fn in real.items():
+            setattr(ra, name, fn)
+    out["calls"] = calls
+    return out
+
+
+def case_ulysses(inp: dict) -> dict:
+    """The port's Ulysses on {sequence: 4} for each case; the first
+    case's q resharded to heads and back; the refusal of a head count the
+    axis does not divide."""
+    from kubeflow_tpu_torch.ops import ulysses as ul
+
+    out = _attention_runs(inp, ul.ulysses_attention)
+    group, j, n = _sequence_group({"sequence": 4})
+    x = _seq_block(inp["cases"][0]["q"], j, n)
+    heads = ul.seq_to_heads(x, group)
+    odd = torch.zeros(1, 4, 6, 8)
+    out.update(heads=heads.numpy(), back=ul.heads_to_seq(heads,
+                                                         group).numpy(),
+               odd_heads=_raises(lambda: ul.ulysses_attention(
+                   odd, odd, odd, group=group)))
+    return out
+
+
+def _bodies(fn):
+    """fn() with the attention bodies the Llama dispatch called counted:
+    (fn's result, {"flash": n, "ring": n, "ulysses": n})."""
+    from kubeflow_tpu_torch.models import llama
+
+    names = {"flash": "flash_attention", "ring": "ring_attention",
+             "ulysses": "ulysses_attention"}
+    real = {k: getattr(llama, v) for k, v in names.items()}
+    seen = dict.fromkeys(names, 0)
+
+    def counted(key):
+        def body(*a, **kw):
+            seen[key] += 1
+            return real[key](*a, **kw)
+        return body
+    for k, v in names.items():
+        setattr(llama, v, counted(k))
+    try:
+        return fn(), seen
+    finally:
+        for k, v in names.items():
+            setattr(llama, v, real[k])
+
+
+def case_seq(inp: dict) -> dict:
+    """Llama's sequence splits through the trainer: ring, Ulysses and
+    flash on {data: 2, sequence: 2}, Ulysses on {sequence: 2, tensor:
+    2}, ring and Ulysses on {data: 4} (no sequence axis), ce_chunk with
+    the ring, each with the attention bodies counted; Mixtral and LoRA on
+    {data: 2, sequence: 2}; BERT on {data: 2, sequence: 2} refused."""
+    ds = {"data": 2, "sequence": 2}
+    runs = {"ring": (ds, dict(attention_impl="ring")),
+            "ulysses": (ds, dict(attention_impl="ulysses")),
+            "flash": (ds, dict(attention_impl="flash")),
+            "tensor": ({"sequence": 2, "tensor": 2},
+                       dict(attention_impl="ulysses")),
+            "ring_data": ({"data": 4}, dict(attention_impl="ring")),
+            "ulysses_data": ({"data": 4}, dict(attention_impl="ulysses")),
+            "chunk": (ds, dict(attention_impl="ring", ce_chunk=4))}
+    out = {}
+    for key, (mesh, over) in runs.items():
+        out[key], out[key]["bodies"] = _bodies(
+            lambda: _steps(inp, mesh, **over))
+    out["mixtral"] = _steps(inp["mixtral"], ds)
+    out["lora"] = _steps(inp["lora"], ds)
+    out["bert"] = _raises(lambda: _trainer(
+        dict(inp, config=dict(inp["config"], model="bert",
+                              model_overrides={})), ds))
     return out
 
 
