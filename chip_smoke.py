@@ -104,6 +104,21 @@ Phases, in order; any failure exits non-zero before the result line:
       prompt tokens computed and reused, the warmups and the store's
       bytes; then K3 against its plain version at each continuation shape
       it launched at;
+  (p) stage-sharded serving: StageShardedEngine at stage 3 over (e)'s
+      weights with the flagship settings and the prefix cache (layer
+      slabs 11/11/10, microbatches of 6/5/5 slots, every stage on the
+      one card), warmed up, once with the sync schedule and once with
+      the overlapped one, replays (e4)'s traffic: every row's tokens,
+      logprobs, top-5 logprobs and cached tokens, and the continuation
+      waves, equal (e4)'s first slab run bit for bit; no capture after
+      warmup; the slabs views of the stacked weights (the engine adds
+      its KV slabs and under 64 MB else); K1 225 x 3, K2 32 x 3 and K3 0
+      launches a decode step; the decode step's wall (16 slots at 1024)
+      beside (e4)'s single program's; then an eager stage_timing burst
+      on the sync engine (every stage launches K1, K2 and K3; the
+      measured bubble beside the schedule's (S-1)/(M+S-1)); then K2 over
+      slot rows [6, 11) of a 16-slot slab (split_slots 16) against its
+      plain version and the whole slab's launch, bit for bit;
   (e5) speculation: the ISVC's whole engine config (the flagship
       settings with prefix_cache and speculative 6, spec_ngram 3, the
       adaptive draft length) over (e)'s weights: a slab LLMEngine (run
@@ -482,7 +497,8 @@ Each phase prints its seconds. The line before the last is
 K2-paged, the paged serving breakdown for K3-paged, the trainer for
 B1-B3), then K1, K2 and K2-paged again at (e5)'s verify shapes (K1's
 verify round at the row count (e5) launched most, with its launches
-there), B1-B3 at (m4)'s shape with (m4)'s launches, B1-B3 at a
+there), K2 at (p)'s slot window with (p.1)'s launches at B=5, B1-B3 at
+(m4)'s shape with (m4)'s launches, B1-B3 at a
 Llama-3-8B tensor rank's shape with (n.t)'s launches, and B1-B3 at a
 ring step's and at Ulysses' rank's shape with (s.r)'s and (s.u)'s
 launches; the last line is {"ok": true, "device": {...}}.
@@ -536,9 +552,12 @@ from kubeflow_tpu_torch.ops import flash_prefill as fp
 from kubeflow_tpu_torch.ops import quant
 from kubeflow_tpu_torch.ops import quant_matmul as qm
 from kubeflow_tpu_torch.ops.attention import KERNEL_MIN_HEAD_DIM
+from kubeflow_tpu_torch.parallel.pipeline import (microbatch_ranges,
+                                                  stage_bounds)
 from kubeflow_tpu_torch.serving.agent import EngineSupervisor
 from kubeflow_tpu_torch.serving.llm import LLMEngine
 from kubeflow_tpu_torch.serving.llm_runtime import LLMModel
+from kubeflow_tpu_torch.serving.multichip import StageShardedEngine
 from kubeflow_tpu_torch.serving.paged import PagedLLMEngine
 from kubeflow_tpu_torch.serving.scheduler import (NativeScheduler,
                                                   ShedPolicy, TenantOverQuota,
@@ -828,30 +847,47 @@ def attn_err(got, ref, name, row_tol, grad=False):
 
 
 def k2_case(gen, s_v, span, int8, b=8, nh=32, nkv=8, hd=128,
-            slot_stride=None, lengths="ragged", times=True):
+            slot_stride=None, lengths="ragged", times=True, window=None):
     """K2 against its plain version, a repeat launch bit for bit, and its
     times (with times). lengths: "ragged" (random, the first slot
     reaching the end of the span), "zero" (every slot at position 0) or
     "one_long" (the first slot at the end, the others in its first 100
-    positions)."""
-    q = torch.randn(b, s_v, nh, hd, device=DEV, generator=gen).to(
+    positions). window (start, n): the b slots are slot rows [start,
+    start + b) of a slab of n slots, as a stage of the stage-sharded
+    engine hands a microbatch over (split_slots n), and give the bits of
+    a launch over the whole slab."""
+    start, n = window or (0, b)
+    q_all = torch.randn(n, s_v, nh, hd, device=DEV, generator=gen).to(
         torch.bfloat16)
-    k, v, ks, vs = kv_inputs(gen, b, span, nkv, hd, int8, slot_stride)
+    kv_all = kv_inputs(gen, n, span, nkv, hd, int8, slot_stride)
     top = {"ragged": span - s_v + 1, "zero": 1, "one_long": 100}[lengths]
     mode = lengths
-    lengths = torch.randint(0, top, (b,), device=DEV, generator=gen,
-                            dtype=torch.int32)
+    lengths_all = torch.randint(0, top, (n,), device=DEV, generator=gen,
+                                dtype=torch.int32)
     if mode != "zero":
-        lengths[0] = span - s_v
+        lengths_all[start] = span - s_v
+    rows = slice(start, start + b)
+    q, lengths = q_all[rows], lengths_all[rows]
+    k, v, ks, vs = [None if x is None else x[rows] for x in kv_all]
     kw = dict(k_scale=ks, v_scale=vs)
-    got = fd.flash_decode_attention(q, k, v, lengths, **kw)
-    again = fd.flash_decode_attention(q, k, v, lengths, **kw)
+    split = n if window else None
+    got = fd.flash_decode_attention(q, k, v, lengths, split_slots=split,
+                                    **kw)
+    again = fd.flash_decode_attention(q, k, v, lengths, split_slots=split,
+                                      **kw)
     ref = fd.flash_decode_plain(q, k, v, lengths, **kw)
     name = (f"K2 B={b} S_v={s_v} span={span} hd={hd} int8={int8} "
-            f"lengths={mode}")
+            f"lengths={mode}" + (f" window={window}" if window else ""))
     err, worst = attn_err(got, ref, name, ATTN_ROW_TOL)
     check(torch.equal(got, again), f"{name}: a second launch gave other "
                                    "bits")
+    if window is not None:
+        whole = fd.flash_decode_attention(q_all, kv_all[0], kv_all[1],
+                                          lengths_all, k_scale=kv_all[2],
+                                          v_scale=kv_all[3])
+        check(torch.equal(whole[rows], got),
+              f"{name}: the window's rows give other bits than the launch "
+              "over the whole slab")
     if not times:
         return dict(err=err, worst_row=worst, row_tol=ATTN_ROW_TOL)
     elem = 1 if int8 else 2
@@ -859,8 +895,8 @@ def k2_case(gen, s_v, span, int8, b=8, nh=32, nkv=8, hd=128,
     copies = [tuple(slab_copy(x) for x in (k, v, ks, vs))
               for _ in range(n_copies(kv_bytes))]
     ms = time_ms([lambda c=c: fd.flash_decode_attention(
-        q, c[0], c[1], lengths, k_scale=c[2], v_scale=c[3])
-        for c in copies], 50)
+        q, c[0], c[1], lengths, k_scale=c[2], v_scale=c[3],
+        split_slots=split) for c in copies], 50)
     plain = time_ms([lambda c=c: fd.flash_decode_plain(
         q, c[0], c[1], lengths, k_scale=c[2], v_scale=c[3])
         for c in copies], 10)
@@ -1831,7 +1867,7 @@ J3_JOB = {"model": "llama", "batch_size": 1, "num_steps": 30,
           "mesh": {"data": -1},
           "optimizer": {"learning_rate": 0.0003, "warmup_steps": 10,
                         "mu_dtype": "bfloat16"}}
-J3_LAYERS = 3
+J3_LAYERS = 2
 J3_DISK_BUDGET_GB = 45 * 2 ** 30 / 1e9
 J3_OTHER_WRITES_GB = 17.0   # (e6)'s 16.06 GB, the builds, traces, corpus
 J3_CORPUS_TOKENS = 1 << 24       # uint32 tokens, 64 MiB, from --seed
@@ -2958,7 +2994,11 @@ def warm(engine, label) -> float:
     print(f"{label}: warmup {sec:.2f} s, {g['captures']} decode graphs "
           f"captured, graph pool {g['pool_bytes'] / 1e6:.1f} MB; keys "
           f"{g['keys']}", flush=True)
-    check(g["captures"] == len(g["keys"]) > 0,
+    # a stage-sharded engine holds one graph a (span, sample): its chunks
+    # replay it
+    graphs = (len({key[1:] for key in g["keys"]})
+              if isinstance(engine, StageShardedEngine) else len(g["keys"]))
+    check(g["captures"] == graphs > 0,
           f"{label}: warmup captured no decode graph")
     return sec
 
@@ -3476,14 +3516,19 @@ def bank_check(engine) -> None:
                       f"e4 paged: slot {slot}'s table is not the trie's "
                       "blocks")
             else:
-                for j, name in enumerate(("k", "k_s", "v", "v_s")):
-                    stored = torch.cat([b[j] for b in m.payloads], dim=2)
-                    check(stored.dtype == (torch.int8 if j % 2 == 0
-                                           else torch.float32)
-                          and torch.equal(stored[:, 0], engine.cache[name][
-                              :, slot, :aligned]),
-                          f"e4: slot {slot}: stored {name} differs from "
-                          "the slot's rows")
+                # a stage-sharded engine banks a payload a stage
+                stages = engine.cache.get("stages")
+                for st, cache in enumerate(stages or [engine.cache]):
+                    blocks = ([b[st] for b in m.payloads] if stages
+                              else m.payloads)
+                    for j, name in enumerate(("k", "k_s", "v", "v_s")):
+                        stored = torch.cat([b[j] for b in blocks], dim=2)
+                        check(stored.dtype == (torch.int8 if j % 2 == 0
+                                               else torch.float32)
+                              and torch.equal(stored[:, 0], cache[name][
+                                  :, slot, :aligned]),
+                              f"e4: slot {slot}: stored {name} differs "
+                              f"from the slot's rows (stage {st})")
         finally:
             engine.kvcache.release(m)
         seen += 1
@@ -3561,7 +3606,8 @@ def prefix_cache_phase(engine, seed: int):
     between, and its freed bytes counted), PagedLLMEngines of 128 and
     E4_SMALL_POOL blocks, each with prefix_cache, and a cold slab engine
     without the cache, run twice; each warmed up. Returns the K3 shapes
-    of the first slab run."""
+    of the first slab run, and what (p) replays: the prompts, the second
+    turns, the first slab run and the slab engine's decode step."""
     cfg = engine.cfg
     prompts = e4_prompts(cfg, seed)
     runs, launches, warmup_s = {}, {}, {}
@@ -3601,6 +3647,7 @@ def prefix_cache_phase(engine, seed: int):
             check(got == want == freed, "e4: the store's bytes are not "
                                         "n_blocks x block bytes")
             runs["repeat"] = e4_run(eng, prompts, memo["turns"], "repeat")
+            memo["step"] = step_wall_ms(eng)
         if label == "cold":
             runs["cold repeat"] = e4_run(eng, prompts, memo["turns"], "cold")
         check(eng.graph_stats()["captures"] == captures,
@@ -3707,7 +3754,238 @@ def prefix_cache_phase(engine, seed: int):
           "wave per (p, t), tokens equal slab/paged/small pool/repeat, "
           "store bytes as reckoned, the valve fired, hits within tolerance "
           "of cold", flush=True)
-    return k3_shapes
+    return k3_shapes, {"prompts": prompts, "turns": memo["turns"],
+                       "slab": slab, "step": memo["step"]}
+
+
+# (p): stage-sharded serving at full width. StageShardedEngine over (e)'s
+# Llama-3-8B int8 weights at the flagship settings with the prefix cache
+# (the default store, 32 logical blocks), P_STAGES stages: layer slabs of
+# 11, 11 and 10 layers and decode microbatches of 6, 5 and 5 slots, all
+# on the one card (virtual staging). (p.1) replays (e4)'s traffic with
+# the sync schedule and (p.2) with the overlapped one, each on an engine
+# of its own, warmed up: every token, logprob and top-5 logprob, the
+# cached tokens and the continuation waves equal (e4)'s first slab run
+# bit for bit. (p.3) arms stage_timing on the sync engine for one decode
+# burst of P_TIMING_NEW tokens: the measured bubble beside the
+# schedule's (S-1)/(M+S-1), and each stage's K1, K2 and K3 launches.
+# (p.k) holds K2 over a stage's window of slot rows to its plain version.
+P_STAGES = 3
+P_TIMING_NEW = 16
+# K2's window: slot rows [6, 11) of the 16-slot slab, microbatch 1
+P_K2_WINDOW = (6, 5)
+P_K2_SPAN = 1024
+# the decode-step wall: every slot at this length, the largest chunk
+# replayed this many times
+P_STEP_FILL = 1024
+P_STEP_ITERS = 10
+
+
+def step_wall_ms(engine) -> dict:
+    """One decode step's wall on a warm idle engine: every slot active at
+    length fill, the engine's largest chunk replayed (greedy) iters
+    times after an untimed run, the card synchronized after each. Returns
+    the median ms a step and the serving kernels' launches a step; resets
+    the slot state (the junk KV rows are dead, as the profiler leaves
+    them). fill = P_STEP_FILL, iters = P_STEP_ITERS."""
+    fill, iters = P_STEP_FILL, P_STEP_ITERS
+    steps = engine.decode_chunk
+    span = engine._pick_span(fill + steps * (iters + 1))
+    active = torch.ones(engine.n_slots, dtype=torch.bool, device=DEV)
+    engine.lengths.fill_(fill)
+    engine.last_tokens.fill_(1)
+    engine._decode_chunk(steps, span, active, sample=False)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        engine._decode_chunk(steps, span, active, sample=False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3 / steps)
+    launches = {n: _build.LAUNCHES[n] / (iters * steps)
+                for n in SERVING_KERNELS}
+    engine.lengths.zero_()
+    engine.last_tokens.zero_()
+    engine._host_lengths[:] = 0
+    engine._active_host = None
+    if hasattr(engine, "pipeline_perf"):
+        engine.pipeline_perf(reset=True)
+    return {"ms": float(np.median(times)), "span": span, "steps": steps,
+            "launches": launches}
+
+
+def p_rows(run) -> list:
+    """Every row of an (e4) traffic run as its tokens, logprobs, top-5
+    logprobs and cached tokens."""
+    return [(row["tokens"], row["logprobs"], row["top"], row["cached"])
+            for stage in ("sys", "burst", "turns", "pressure")
+            for row in run[stage][0]]
+
+
+def p_timed_burst(eng, prompts) -> dict:
+    """(p.3): one burst through the sync engine with stage_timing armed:
+    its decode runs eagerly, each stage program bracketed; each stage's
+    K1/K2 launches (its decode programs) and K3 launches (its prefill
+    and continuation programs) counted apart. Returns the pipeline
+    accounting and the per-stage launches."""
+    per_stage = [dict.fromkeys(SERVING_KERNELS, 0) for _ in eng.params]
+
+    def counted(s, fn, *a, **kw):
+        before = dict(_build.LAUNCHES)
+        out = fn(*a, **kw)
+        for n in SERVING_KERNELS:
+            per_stage[s][n] += _build.LAUNCHES[n] - before[n]
+        return out
+
+    def stage_of(layers):
+        return next(s for s, slab in enumerate(eng.params)
+                    if slab["layers"] is layers)
+
+    decode = eng._stage_decode
+    inner = {n: getattr(llama, n)
+             for n in ("prefill_inner", "prefill_continue_inner")}
+    eng._stage_decode = lambda s, *a: counted(s, decode, s, *a)
+    for n, fn in inner.items():
+        setattr(llama, n, lambda layers, *a, fn=fn, **kw: counted(
+            stage_of(layers), fn, layers, *a, **kw))
+    eng.stage_timing = True
+    eng.pipeline_perf(reset=True)
+    try:
+        rows, stats = run_batch(eng, prompts, P_TIMING_NEW)
+        pp = eng.pipeline_perf(reset=True)
+    finally:
+        eng.stage_timing = False
+        del eng._stage_decode
+        for n, fn in inner.items():
+            setattr(llama, n, fn)
+    check(all(len(r["tokens"]) == P_TIMING_NEW for r in rows),
+          "p.3: wrong token counts")
+    return {"pipeline": pp, "per_stage": per_stage, "stats": stats}
+
+
+def stage_phase(engine, seed: int, e4: dict, gen) -> dict:
+    """(p): see P_* above. Returns K2's slot-window case with its
+    launches in (p.1)."""
+    cfg = engine.cfg
+    prompts, turns, ref = e4["prompts"], e4["turns"], e4["slab"]
+    want = p_rows(ref)
+    S = P_STAGES
+    # at 8B: layer slabs of 11, 11 and 10, microbatches of 6, 5 and 5
+    bounds = stage_bounds(cfg.n_layers, S)
+    mbs = microbatch_ranges(FLAGSHIP["n_slots"], S)
+    M = len(mbs)
+    summary, steps, p_k2_launches = {}, {"e4 single": e4["step"]}, 0
+    single_bytes = engine.mesh_info()["params_bytes"]
+    for schedule in ("sync", "overlapped"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = StageShardedEngine(engine.params, cfg, device=DEV, stage=S,
+                                 stage_schedule=schedule, prefix_cache=True,
+                                 **FLAGSHIP)
+        added = torch.cuda.memory_allocated() - before
+        kv_bytes = sum(t.nbytes for c in eng.cache["stages"]
+                       for t in c.values())
+        info = eng.mesh_info()
+        check(info["stage_layers"] == [hi - lo for lo, hi in bounds]
+              and info["microbatches"] == [list(r) for r in mbs]
+              and info["virtual_stages"],
+              f"p: geometry {json.dumps(info)}")
+        check(info["params_bytes"] == single_bytes,
+              f"p: slabs hold {info['params_bytes']} bytes, the model "
+              f"{single_bytes}")
+        check(all(eng.params[s]["layers"]["wq"]["q"].untyped_storage()
+                  .data_ptr() == engine.params["layers"]["wq"]["q"]
+                  .untyped_storage().data_ptr() for s in range(S)),
+              "p: a stage's slab is not a view of the stacked weights")
+        # the engine adds its KV slabs and slot state (the penalty counts,
+        # 16 x 128256 int32, and smaller), never a copy of the weights
+        check(added - kv_bytes < 64e6,
+              f"p: the engine added {added} bytes, its KV slabs "
+              f"{kv_bytes}")
+        warm_s = warm(eng, f"p {schedule}")
+        g = eng.graph_stats()
+        _build.reset_launches()
+        run = e4_run(eng, prompts, turns, f"p {schedule}")
+        launches = dict(_build.LAUNCHES)
+        if schedule == "sync":
+            p_k2_launches = sum(n for key, n in
+                                _build.SHAPES["flash_decode"].items()
+                                if dict(key)["b"] == P_K2_WINDOW[1])
+        check(eng.graph_stats()["captures"] == g["captures"],
+              f"p {schedule}: a decode graph was captured after warmup")
+        got = p_rows(run)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a[0] != b[0]:
+                j = next(j for j, (x, y) in enumerate(zip(a[0], b[0]))
+                         if x != y)
+                check(False, f"p {schedule}: row {i}'s tokens first differ "
+                             f"from (e4)'s at {j}: {a[0][j]} != {b[0][j]}")
+            check(a == b, f"p {schedule}: row {i}'s logprobs, top-5 or "
+                          "cached tokens differ from (e4)'s")
+        check(len(got) == len(want), "p: row count")
+        check(run["waves"] == ref["waves"],
+              f"p {schedule}: waves {run['waves']} != {ref['waves']}")
+        for n in SERVING_KERNELS:
+            check(launches[n] > 0, f"p {schedule}: {n} never launched")
+        step = step_wall_ms(eng)
+        steps[schedule] = step
+        per_step = step["launches"]
+        # each microbatch through every layer's 7 matmuls and its
+        # attention, then the lm_head (at 8B: 225 x 3 and 32 x 3)
+        check(per_step == {"quant_matmul": (7 * cfg.n_layers + 1) * M,
+                           "flash_decode": cfg.n_layers * M,
+                           "flash_prefill": 0},
+              f"p {schedule}: launches a decode step {per_step}")
+        summary[schedule] = dict(
+            warmup_s=round(warm_s, 2), captures=g["captures"],
+            pool_mb=round(g["pool_bytes"] / 1e6, 1),
+            added_gb=round(added / 1e9, 3), kv_gb=round(kv_bytes / 1e9, 3),
+            peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+            run_launches=launches)
+        if schedule == "sync":
+            timed = p_timed_burst(eng, prompts["burst"])
+            pp = timed["pipeline"]
+            check(pp["steps"] > 0 and pp["bubble_frac"] is not None
+                  and pp["schedule_bubble_frac"] == round((S - 1) / (
+                      M + S - 1), 4),
+                  f"p.3: pipeline accounting {json.dumps(pp)}")
+            for s, counts in enumerate(timed["per_stage"]):
+                for n in SERVING_KERNELS:
+                    check(counts[n] > 0,
+                          f"p.3: stage {s} never launched {n}: {counts}")
+            print(f"p.3 stage_timing burst ({len(prompts['burst'])} x "
+                  f"{P_TIMING_NEW} tokens, eager): measured bubble_frac "
+                  f"{pp['bubble_frac']} beside schedule_bubble_frac "
+                  f"{pp['schedule_bubble_frac']}; {json.dumps(pp)}; "
+                  f"per-stage launches {json.dumps(timed['per_stage'])}",
+                  flush=True)
+            print(f"p mesh_info: {json.dumps(info)}", flush=True)
+        eng.close()
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"p: {json.dumps(summary)}", flush=True)
+    print("p decode step wall (16 slots at length "
+          f"{P_STEP_FILL}, chunk of {e4['step']['steps']}, ms a step): "
+          + json.dumps({k: round(v["ms"], 4) for k, v in steps.items()}),
+          flush=True)
+    print("p: (e4)'s tokens, logprobs and top-5 bit for bit under both "
+          "schedules, K1/K2/K3 launched on every stage, no capture after "
+          "warmup", flush=True)
+    start, b = P_K2_WINDOW
+    c = k2_case(gen, 1, P_K2_SPAN, True, b=b,
+                slot_stride=FLAGSHIP["max_len"] * 8 * 128,
+                window=(start, FLAGSHIP["n_slots"]))
+    c["launches"] = p_k2_launches
+    c["shape"] = (f"B={b} at slot_start {start} of a "
+                  f"{FLAGSHIP['n_slots']}-slot slab, S_v=1 span "
+                  f"{P_K2_SPAN} int8 (p.k; launches: (p.1)'s K2 launches "
+                  f"at B={b}, the 5-slot microbatches)")
+    print(f"p.k K2 slot window: {fmt(c)}", flush=True)
+    return c
 
 
 # (e5): speculation on the flagship engines: the ISVC's whole engine config
@@ -5689,7 +5967,7 @@ def step_breakdown(engine, steps: int = 8) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n_slots, iters = engine.n_slots, 3
+    n_slots, iters = engine.n_slots, 2
     active = torch.ones(n_slots, dtype=torch.bool, device=DEV)
     paged = "tbl" in engine.cache
     if paged:
@@ -7442,9 +7720,12 @@ def main(argv=None) -> int:
     e3_k3_shapes, _ = phase("e3 flagship engine", flagship_phase, engine,
                             args.seed, rl_phases)
     phase("e3 K3 shapes", continuation_shape_phase, gen, e3_k3_shapes)
-    e4_k3_shapes = phase("e4 prefix cache", prefix_cache_phase, engine,
-                         args.seed)
+    e4_k3_shapes, e4_ref = phase("e4 prefix cache", prefix_cache_phase,
+                                 engine, args.seed)
     phase("e4 K3 shapes", continuation_shape_phase, gen, e4_k3_shapes, "e4")
+    p_k2 = phase("p stage-sharded serving", stage_phase, engine, args.seed,
+                 e4_ref, gen)
+    del e4_ref
     e5_shapes = phase("e5 speculation", spec_phase, engine, args.seed)
     verify_cases = phase("e5 verify shapes", verify_shape_phase, gen,
                          e5_shapes)
@@ -7543,6 +7824,15 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"]})
+    # K2 over a stage's window of slot rows, with (p)'s launches there
+    kernels.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": "kubeflow_tpu_torch/csrc/flash_decode.cu",
+        "replaces": REPLACES["flash_decode"], "launches": p_k2["launches"],
+        "max_abs_err": p_k2["err"], "ms": p_k2["ms"],
+        "plain_ms": p_k2["plain_ms"], "bound_ms": p_k2["bound_ms"],
+        "bound_by": p_k2["bound_by"], "library_ms": p_k2["library_ms"],
+        "shape": p_k2["shape"]})
     # B1-B3 at ViT-B/16's non-causal shape, launched by (m4)
     for name in TRAINING_KERNELS:
         c = m4_attn[name]

@@ -39,7 +39,11 @@
 //   - Split by live keys: each block derives its share of the key tiles
 //     on the device from lengths[b] (the min(T, lengths[b] + S_v) live
 //     keys, split evenly over the cluster), so no block walks dead tiles.
-//     The host picks the cluster size from (B, kv, T) alone, no sync.
+//     The host picks the cluster size from (B, kv, T) alone, no sync. A
+//     row's bits depend on the cluster size (it orders the merge), so a
+//     launch over a window of a slab's slots (a stage's microbatch) passes
+//     the slab's slot count as split_b and sums each row's keys as the
+//     launch over every slot does.
 //   - Bytes in flight: every thread issues cp.async copies of the int8
 //     (or bf16) K/V tiles and their scales into a ring of kStages stages,
 //     kStages - 1 tiles ahead of the one computed, so a block's whole
@@ -608,10 +612,10 @@ cudaError_t launch(const Params& p, int B, int n_split, cudaStream_t st) {
 }
 
 template <bool kPaged>
-cudaError_t launch_kv(Params p, int B, int hd, int int8_kv,
+cudaError_t launch_kv(Params p, int B, int split_b, int hd, int int8_kv,
                       cudaStream_t st) {
   p.n_grp = row_groups(p.H, p.kv, p.s_v);
-  const int n_split = choose_split(B * p.kv * p.n_grp, p.T);
+  const int n_split = choose_split(split_b * p.kv * p.n_grp, p.T);
   if (int8_kv) {
     if (hd == 128) return launch<int8_t, 128, kPaged>(p, B, n_split, st);
     if (hd == 64) return launch<int8_t, 64, kPaged>(p, B, n_split, st);
@@ -634,13 +638,16 @@ extern "C" long long kft_flash_decode_workspace(int B, int s_v, int H, int kv,
   return supported(B, H, kv, s_v) ? 0 : -1;
 }
 
+// split_b: the slot count whose (slot, kv head, row group) columns size
+// the cluster, B for a launch over a whole slab, the slab's slot count for
+// a window of its slots.
 extern "C" int kft_flash_decode(const void* q, const void* k, const void* v,
                                 const void* k_scale, const void* v_scale,
                                 const void* lengths, void* out, int B,
                                 int s_v, int H, int kv, int hd, int T,
-                                long long kv_sb, long long s_sb, int int8_kv,
-                                float scale, void* stream) {
-  if (!supported(B, H, kv, s_v) || T < 1)
+                                int split_b, long long kv_sb, long long s_sb,
+                                int int8_kv, float scale, void* stream) {
+  if (!supported(B, H, kv, s_v) || T < 1 || split_b < 1)
     return (int)cudaErrorInvalidValue;
   Params p{static_cast<const __nv_bfloat16*>(q), k, v,
            static_cast<const float*>(k_scale),
@@ -648,7 +655,7 @@ extern "C" int kft_flash_decode(const void* q, const void* k, const void* v,
            static_cast<const int*>(lengths),
            static_cast<__nv_bfloat16*>(out), kv_sb, s_sb, s_v, H, kv, T,
            1, scale, nullptr, 0, 0};
-  return (int)launch_kv<false>(p, B, hd, int8_kv,
+  return (int)launch_kv<false>(p, B, split_b, hd, int8_kv,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -672,6 +679,6 @@ extern "C" int kft_flash_decode_paged(const void* q, const void* k,
            static_cast<const int*>(lengths),
            static_cast<__nv_bfloat16*>(out), 0, 0, s_v, H, kv, nb * bt,
            1, scale, static_cast<const int*>(tables), bt, tbl_stride};
-  return (int)launch_kv<true>(p, B, hd, int8_kv,
+  return (int)launch_kv<true>(p, B, B, hd, int8_kv,
                               static_cast<cudaStream_t>(stream));
 }

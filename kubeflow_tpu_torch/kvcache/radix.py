@@ -392,3 +392,124 @@ class RadixKVCache:
                 assert n.parent.children[n.key] is n
             assert count == self._n_blocks, (count, self._n_blocks)
             assert count <= self.capacity_blocks
+
+
+class StageMatchResult:
+    """A pinned longest prefix across every stage's chain (the
+    stage-sharded engine's MatchResult): `tokens` is the shortest
+    per-stage match (a block is usable only while every stage holds it),
+    `payloads[i]` the tuple of per-stage payloads of block i. Release
+    through StagePartitionedKVCache.release."""
+
+    __slots__ = ("tokens", "payloads", "_inner")
+
+    def __init__(self, tokens: int, payloads: list[tuple],
+                 inner: list[MatchResult]):
+        self.tokens = tokens
+        self.payloads = payloads
+        self._inner = inner
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.payloads)
+
+
+class StagePartitionedKVCache:
+    """A stage-aware view over one RadixKVCache (the JAX
+    `StagePartitionedKVCache`): every logical block is stored once per
+    pipeline stage, stage s's slice of the [L, ...] rows, under the
+    namespace (ns, stage), so KV banked for one stage never reaches
+    another stage's slab. Capacity, eviction and the LRU clock are the
+    inner cache's (a logical block costs n_stages blocks; the engine
+    scales the capacity by n_stages); per-tenant insert counts are stage
+    0's alone, so they stay logical.
+
+    match, insert and cached_prefix_len take the minimum across stages:
+    the shared eviction may cut one stage's chain before another's, and
+    a prefix is reusable only where every stage still holds its slice."""
+
+    def __init__(self, inner: RadixKVCache, n_stages: int):
+        if n_stages < 1:
+            raise ValueError("n_stages must be >= 1")
+        self.inner = inner
+        self.n_stages = int(n_stages)
+
+    @property
+    def block_tokens(self) -> int:
+        return self.inner.block_tokens
+
+    @property
+    def capacity_blocks(self) -> int:
+        return self.inner.capacity_blocks
+
+    @property
+    def n_blocks(self) -> int:
+        return self.inner.n_blocks
+
+    def match(self, tokens: Sequence[int], *,
+              max_tokens: int | None = None,
+              namespace: Any = None) -> StageMatchResult:
+        ms = [self.inner.match(tokens, max_tokens=max_tokens,
+                               namespace=(namespace, s))
+              for s in range(self.n_stages)]
+        pos = min(m.tokens for m in ms)
+        nb = pos // self.block_tokens
+        payloads = [tuple(m.payloads[i] for m in ms) for i in range(nb)]
+        return StageMatchResult(pos, payloads, ms)
+
+    def release(self, m: StageMatchResult) -> None:
+        for im in m._inner:
+            self.inner.release(im)
+
+    def cached_prefix_len(self, tokens: Sequence[int], *,
+                          max_tokens: int | None = None,
+                          namespace: Any = None) -> int:
+        return min(self.inner.cached_prefix_len(
+            tokens, max_tokens=max_tokens, namespace=(namespace, s))
+            for s in range(self.n_stages))
+
+    def insert(self, tokens: Sequence[int],
+               payload_fn: Callable[[int, int, int], Any], *,
+               max_tokens: int | None = None,
+               tenant: str | None = None,
+               namespace: Any = None) -> int:
+        """payload_fn(block_index, start, end) returns the tuple of the
+        block's per-stage payloads, made once per block (every stage
+        inserts the same new blocks); stage s stores element s under its
+        own namespace. Returns stage 0's count of new blocks."""
+        memo: dict[int, Any] = {}
+
+        def payload_at(i, a, b):
+            if i not in memo:
+                memo[i] = payload_fn(i, a, b)
+            return memo[i]
+
+        new0 = 0
+        for s in range(self.n_stages):
+            n = self.inner.insert(
+                tokens, lambda i, a, b, s=s: payload_at(i, a, b)[s],
+                max_tokens=max_tokens, tenant=tenant if s == 0 else None,
+                namespace=(namespace, s))
+            if s == 0:
+                new0 = n
+        return new0
+
+    def record_hit(self, tenant: str | None, reused_tokens: int) -> None:
+        self.inner.record_hit(tenant, reused_tokens)
+
+    def record_miss(self, tenant: str | None) -> None:
+        self.inner.record_miss(tenant)
+
+    def stats(self) -> dict[str, Any]:
+        out = self.inner.stats()
+        out["stages"] = self.n_stages
+        # the physical blocks count every stage's copy; capacity planning
+        # wants the logical count beside the hit rates
+        out["logical_blocks"] = out["blocks"] // self.n_stages
+        return out
+
+    def clear(self) -> None:
+        self.inner.clear()
+
+    def check_invariants(self) -> None:
+        self.inner.check_invariants()

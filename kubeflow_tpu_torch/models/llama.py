@@ -140,8 +140,8 @@ class LlamaConfig:
         if self.pipeline_microbatches != 0:
             raise ValueError(
                 f"pipeline_microbatches={self.pipeline_microbatches}: "
-                "pipeline parallelism is not ported yet (ROADMAP.md queue "
-                "A6c, parallelism)")
+                "pipeline-parallel training is not ported yet (ROADMAP.md "
+                "queue A6c-ii, GPipe training)")
         set_dtypes(self, "dtype", "param_dtype")
 
     @property
@@ -272,12 +272,13 @@ def abstract_params(cfg: LlamaConfig) -> Params:
 
 def quantize_params(params: Params) -> Params:
     """Weight-only int8 for serving: every matmul weight becomes
-    {"q", "s"}; embed and the norms stay as they are."""
+    {"q", "s"}; embed and the norms stay as they are. A stage's slab
+    (parallel/pipeline.py) may hold no lm_head."""
     out = dict(params)
     out["layers"] = {k: (quant.quantize_int8(v) if k in QUANT_LEAVES
                          and not quant.is_quantized(v) else v)
                      for k, v in params["layers"].items()}
-    if not quant.is_quantized(params["lm_head"]):
+    if "lm_head" in params and not quant.is_quantized(params["lm_head"]):
         out["lm_head"] = quant.quantize_int8(params["lm_head"])
     return out
 
@@ -691,17 +692,20 @@ def prefill_attention(cfg: LlamaConfig, q, k, v, cks=None, cvs=None, *,
 
 def decode_attention(cfg: LlamaConfig, q, ck, cv, cks, cvs,
                      lengths: torch.Tensor,
-                     tables: torch.Tensor | None = None) -> torch.Tensor:
+                     tables: torch.Tensor | None = None,
+                     split_slots: int | None = None) -> torch.Tensor:
     """GQA decode/verify attention over a span-sliced slab: q [B, S_v, nh,
     hd]; row i of slot b sees keys t <= lengths[b] + i. Returns
     [B, S_v, nh * hd]. With `tables` [B, span // bt] int32, ck/cv are a
     pool layer [N, bt, kv, hd] (cks/cvs [N, bt, kv]) and slot b's span is
-    its table's blocks."""
+    its table's blocks. `split_slots`: the slab's slot count when the B
+    slots are a window of it (K2 then gives each row the bits of a launch
+    over the whole slab)."""
     b, s_v = q.shape[:2]
     out = flash_decode_attention(q, ck, cv, lengths, k_scale=cks,
                                  v_scale=cvs,
                                  scale=1.0 / (cfg.head_dim ** 0.5),
-                                 tables=tables)
+                                 tables=tables, split_slots=split_slots)
     return out.reshape(b, s_v, -1)
 
 
@@ -871,24 +875,34 @@ def _paged_write_coords(tbl: torch.Tensor, lengths: torch.Tensor, s_v: int,
 def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
                  lengths: torch.Tensor, cfg: LlamaConfig,
                  span: int | None = None, lora: Params | None = None,
-                 ids: torch.Tensor | None = None) -> torch.Tensor:
+                 ids: torch.Tensor | None = None,
+                 slot_start: int = 0) -> torch.Tensor:
     """x [B, S_v, D] through the layer stack against the cache (updated in
-    place) -> x. The cache is a slab with one row per slot (B must equal
-    its slot count), or, with "tbl" [B, max_len // bt] in it, the paged
-    block pool [L, N, bt, ...] that the tables index."""
+    place) -> x. The cache is a slab with one row per slot, or, with "tbl"
+    [B, max_len // bt] in it, the paged block pool [L, N, bt, ...] that the
+    tables index (B must then equal the table rows). A slab may hold more
+    slots than x has rows: the rows are slots [slot_start, slot_start + B)
+    (a stage of the stage-sharded engine decodes one microbatch of slots
+    against its slab), and `lengths` is per row of x."""
     b, s_v = x.shape[:2]
     paged = "tbl" in cache
     if paged:
         tbl = cache["tbl"]
         bt = cache["k"].shape[2]
         max_len = tbl.shape[1] * bt
+        if slot_start:
+            raise ValueError("slot_start needs a slab cache: the paged "
+                             "tables hold every slot")
         if tbl.shape[0] != b:
             raise ValueError(f"batch {b} != table rows {tbl.shape[0]}")
     else:
         max_len = cache["k"].shape[2]
-        if cache["k"].shape[1] != b:
+        if not 0 <= slot_start <= cache["k"].shape[1] - b:
             raise ValueError(
-                f"batch {b} != cache slots {cache['k'].shape[1]}")
+                f"slots [{slot_start}, {slot_start + b}) outside the "
+                f"cache's {cache['k'].shape[1]}")
+    # the batch's slot rows of a slab; a pool layer is read whole
+    slots = slice(None) if paged else slice(slot_start, slot_start + b)
     span = max_len if span is None else min(span, max_len)
     quantized = "k_s" in cache
     if paged:
@@ -898,9 +912,12 @@ def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
         # attention reads the whole pool layer; the table slices the span
         tables, span_rows = tbl[:, :span // bt], slice(None)
         positions, w_idx = _paged_write_coords(tbl, lengths, s_v, bt)
+        split_slots = None
     else:
         tables, span_rows = None, slice(0, span)
         positions, rows, wpos, valid = _write_coords(lengths, s_v, max_len)
+        # a window's rows sum their keys as the whole slab's launch does
+        split_slots = cache["k"].shape[1]
     rope = _rope(cfg, positions)
     lengths = lengths.to(torch.int32)
     per_layer = unstack_layers(layers)
@@ -918,10 +935,10 @@ def verify_inner(layers: Params, x: torch.Tensor, cache: Params,
             if paged:   # duplicate coordinates only in block 0, never read
                 cache[name][i][w_idx] = val
             else:
-                _write_rows(cache[name][i], rows, wpos, valid, val)
-        kv = [cache[n][i][:, span_rows] if n in cache else None
+                _write_rows(cache[name][i][slots], rows, wpos, valid, val)
+        kv = [cache[n][i][slots, span_rows] if n in cache else None
               for n in ("k", "v", "k_s", "v_s")]
-        out = decode_attention(cfg, q, *kv, lengths, tables)
+        out = decode_attention(cfg, q, *kv, lengths, tables, split_slots)
         x = x + _wo(cfg, out, layer, ll, ids)
         x = _mlp(cfg, x, layer, ll, ids)
     return x
@@ -1011,7 +1028,7 @@ def load_hf(path: str, cfg: LlamaConfig | None = None, *, device="cuda",
     if mesh is not None:
         raise ValueError(
             "load_hf(mesh=...): sharded parameters are not ported yet "
-            "(ROADMAP.md queue A6c, parallelism)")
+            "(ROADMAP.md queue A6c-iii, tensor-parallel serving)")
     if cfg is None:
         cfg = config_from_hf(path)
     dev = resolve_device(device)

@@ -6,7 +6,11 @@ csrc/flash_decode.cu).
 q [B, S_v, H, hd]; k/v [B, T, kv, hd] — the span-sliced cache slab, int8
 with per-token scales [B, T, kv] f32, or the model dtype; lengths [B]
 int32. Query row i of slot b sees keys t <= lengths[b] + i. Returns
-[B, S_v, H, hd] in q.dtype.
+[B, S_v, H, hd] in q.dtype. `split_slots`: when the B slots are a window
+of a slab's slots (a stage's microbatch of the stage-sharded engine), the
+slab's slot count; the kernel then splits each row's keys as a launch
+over the whole slab does, so a row gets the same bits in either (None:
+B).
 
 Paged mode (`tables` [B, nb] int32): k/v are one layer of the block pool,
 [N, bt, kv, hd] (scales [N, bt, kv]), and slot b's T = nb * bt keys are
@@ -79,7 +83,7 @@ def _lib():
         lib.kft_flash_decode_workspace.argtypes = [ctypes.c_int] * 6
         lib.kft_flash_decode.restype = ctypes.c_int
         lib.kft_flash_decode.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 2
             + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         lib.kft_flash_decode_paged.restype = ctypes.c_int
@@ -154,7 +158,7 @@ def check_slab(q, k, v, k_scale, v_scale, name):
 
 
 def flash_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
-                           scale=None, tables=None):
+                           scale=None, tables=None, split_slots=None):
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, k_scale=k_scale,
                                   v_scale=v_scale, scale=scale,
@@ -164,7 +168,8 @@ def flash_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
     if q.shape[-1] < KERNEL_MIN_HEAD_DIM:
         return on_padded_heads(flash_decode_attention, q, k, v, scale,
                                lengths=lengths, k_scale=k_scale,
-                               v_scale=v_scale, tables=tables)
+                               v_scale=v_scale, tables=tables,
+                               split_slots=split_slots)
     if tables is not None:
         return _flash_decode_paged(q, k, v, lengths, tables, k_scale,
                                    v_scale, scale)
@@ -176,6 +181,9 @@ def flash_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
         raise ValueError("flash_decode: lengths must be int32 [B] on q's "
                          "device")
     _check_shape(b, s_v, nh, nkv, hd, t)
+    split_slots = b if split_slots is None else int(split_slots)
+    if split_slots < 1:
+        raise ValueError("flash_decode: split_slots must be >= 1")
     scale = 1.0 / (hd ** 0.5) if scale is None else scale
     out = torch.empty_like(q)
     dev = q.device
@@ -184,11 +192,13 @@ def flash_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         lengths.data_ptr(), out.data_ptr(), b, s_v, nh, nkv, hd, t,
-        k.stride(0), k_scale.stride(0) if quantized else 0, int(quantized),
-        float(scale), torch.cuda.current_stream(dev).cuda_stream)
+        split_slots, k.stride(0), k_scale.stride(0) if quantized else 0,
+        int(quantized), float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_decode")
     _build.count_launch("flash_decode", b=b, s_v=s_v, nh=nh, nkv=nkv, hd=hd,
-                        t=t, slot_stride=k.stride(0), int8=quantized)
+                        t=t, slot_stride=k.stride(0), int8=quantized,
+                        split_slots=split_slots)
     return out
 
 

@@ -35,15 +35,21 @@ def _kernel_wanted(x: torch.Tensor, q: torch.Tensor) -> bool:
     return q.dim() == 2 and quant_matmul.kernel_applicable(m, *q.shape)
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w; on the CPU with a row's bits independent of the row count
+    (`quant_matmul.rows_mm`)."""
+    return quant_matmul.rows_mm(x, w) if x.device.type == "cpu" else x @ w
+
+
 def matmul(x: torch.Tensor, wt: Any, dtype: torch.dtype) -> torch.Tensor:
     """x @ W for a raw or quantized weight leaf (x: [..., in]). The scale
     multiplies the f32 product, which is then cast to dtype."""
     if is_quantized(wt):
         if _kernel_wanted(x, wt["q"]):
             return quant_matmul.dequant_matmul(x, wt["q"], wt["s"], dtype)
-        return ((x.to(dtype) @ wt["q"].to(dtype)).float()
+        return (_mm(x.to(dtype), wt["q"].to(dtype)).float()
                 * wt["s"]).to(dtype)
-    return x.to(dtype) @ wt.to(dtype)
+    return _mm(x.to(dtype), wt.to(dtype))
 
 
 class _F32OutMatmul(torch.autograd.Function):
@@ -79,7 +85,7 @@ def matmul_f32_out(x: torch.Tensor, wt: Any,
             return quant_matmul.dequant_matmul(x, wt["q"], wt["s"],
                                                torch.float32)
         w = wt["q"].to(dtype).float()
-        return (x.to(dtype).float() @ w) * wt["s"]
+        return _mm(x.to(dtype).float(), w) * wt["s"]
     if x.device.type == "cuda" and dtype != torch.float32:
         return _F32OutMatmul.apply(x.to(dtype), wt.to(dtype))
-    return x.to(dtype).float() @ wt.to(dtype).float()
+    return _mm(x.to(dtype).float(), wt.to(dtype).float())

@@ -34,6 +34,21 @@ def kernel_applicable(m: int, d: int, o: int) -> bool:
             and _pick_block(o, (512, 384, 256, 128)) is not None)
 
 
+def rows_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., d] @ w [d, o] on the CPU, one row at the bits it has in a
+    batch of rows: the BLAS sums a lone row (its matrix-vector path) in
+    another order than the rows of a matrix product, so a lone row goes
+    through as one of two. A stage of the stage-sharded engine multiplies
+    a microbatch of slots, the single program all of them: each row's
+    result must not depend on how many rows came with it."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.shape[0] != 1:
+        return (x2 @ w).reshape(*lead, w.shape[-1])
+    return (torch.cat([x2, torch.zeros_like(x2)]) @ w)[:1].reshape(
+        *lead, w.shape[-1])
+
+
 def dequant_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                          out_dtype: torch.dtype) -> torch.Tensor:
     """The kernel's function in plain PyTorch: x rounded to bf16 (as the
@@ -41,7 +56,7 @@ def dequant_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     f32 sum, cast."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).float()
-    out = (x2 @ q.float()) * s.float()
+    out = rows_mm(x2, q.float()) * s.float()
     return out.to(out_dtype).reshape(*lead, q.shape[1])
 
 

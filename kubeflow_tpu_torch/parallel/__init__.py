@@ -1,5 +1,6 @@
 """The mesh and the logical-axis sharding rules (counterpart of
-kubeflow_tpu/parallel/; the pipeline runner is ROADMAP.md A6c), with
+kubeflow_tpu/parallel/; the GPipe training runner is ROADMAP.md A6c-ii;
+`pipeline` holds the serving half of the stage split), with
 the Megatron region operators of the tensor and expert axes and the
 sequence group's ring."""
 

@@ -18,7 +18,7 @@ that only the gradient all-reduce crosses nodes: the counterpart of the
 JAX `_hybrid_device_array` over DCN-connected slices, with the same
 fallback to the flat order (and a warning) where the data axis cannot
 stride the nodes evenly. Not ported yet: `stage_submeshes` (ROADMAP.md
-A6c).
+A6c-ii).
 """
 
 from __future__ import annotations
@@ -235,7 +235,7 @@ def validate_divisibility(mesh, *, batch: int | None = None,
 
 #: the axes whose parallelism is not ported yet, and the ROADMAP.md item
 #: that ports each
-UNPORTED_AXES = {"stage": "A6c"}
+UNPORTED_AXES = {"stage": "A6c-ii"}
 
 
 def check_ported_axes(sizes: dict[str, int]) -> None:

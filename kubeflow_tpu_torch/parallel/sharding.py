@@ -186,7 +186,7 @@ def local_chunk(full: torch.Tensor, mesh, placements,
         if d < offset:
             raise ValueError("a leaf sharded over its stacked layer axis "
                              "cannot be built layer by layer (ROADMAP.md "
-                             "queue A6c)")
+                             "queue A6c-ii)")
         out = out.chunk(mesh.size(i), dim=d - offset)[coord[i]]
     return out
 

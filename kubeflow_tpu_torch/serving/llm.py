@@ -344,10 +344,7 @@ class LLMEngine:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and cfg.dtype != torch.bfloat16:
             raise ValueError("the CUDA kernels run bfloat16 models")
-        params = _to_device(params, self.device)
-        if quantize == "int8":
-            params = llama.quantize_params(params)
-        self.params = params
+        self.params = self._place_params(params, quantize)
         self.cfg = cfg
         self.kv_quantize = kv_quantize
         self.logprobs_topk = logprobs_topk
@@ -476,6 +473,14 @@ class LLMEngine:
         self._decode_agg = StepAggregator()
         self._decode_mark: dict[int, tuple[int, int]] = {}
         obs_metrics.add_scrape_hook(self, LLMEngine._obs_publish)
+
+    def _place_params(self, params, quantize: str | None):
+        """The params on the engine's device, int8-quantized when asked
+        (leaves already on it and already quantized are kept as they
+        are)."""
+        params = _to_device(params, self.device)
+        return (llama.quantize_params(params) if quantize == "int8"
+                else params)
 
     def _stack_adapters(self, adapters: dict[str, dict]) -> dict:
         """{name: {"lora": {t: {"a", "b"}}, "alpha": f}} -> the device
@@ -1339,11 +1344,9 @@ class LLMEngine:
         plens = [len(self._prompts[a.req_id]) for a in wave]
         self._prefill_computed_tokens += sum(plens)
         tokens = tokens.to(dev)
-        x, (ks, vs) = llama.prefill_hidden(
-            self.params, tokens, self.cfg,
-            **self._lora_kw(self._wave_ids(wave)))
+        x = self._prefill_rows(tokens, [a.slot for a in wave], 0,
+                               ids=self._wave_ids(wave))
         for i, a in enumerate(wave):
-            self._cache_write(a.slot, 0, bucket, ks[:, i], vs[:, i])
             self._hist_write(a.slot, 0, tokens[i])
         rows = torch.arange(len(wave), device=dev)
         last = x[rows, torch.tensor(plens, device=dev) - 1]
@@ -1370,14 +1373,10 @@ class LLMEngine:
         k_prefix, v_prefix = self._stack_prefix(
             [self._materialize_prefix(payloads) for _, payloads in pairs])
         tokens = tokens.to(dev)
-        x, ks, vs = llama.prefill_continue_hidden(
-            self.params, tokens, k_prefix, v_prefix, self.cfg,
-            **self._lora_kw(self._wave_ids(wave)))
+        x = self._prefill_rows(tokens, [a.slot for a in wave], p,
+                               (k_prefix, v_prefix), self._cont_writes_prefix,
+                               ids=self._wave_ids(wave))
         for i, a in enumerate(wave):
-            if self._cont_writes_prefix:
-                self._cache_write(a.slot, 0, p, k_prefix[:, i],
-                                  v_prefix[:, i])
-            self._cache_write(a.slot, p, t, ks[:, i], vs[:, i])
             # the history gets the prefix tokens too: the KV alone cannot
             # give them to the drafter
             self._hist_write(a.slot, 0, self._prompts[a.req_id][:p])
@@ -1401,7 +1400,7 @@ class LLMEngine:
         prompt = self._prompts[action.req_id]
         n, slot, big = len(prompt), action.slot, self.buckets[-1]
         bt = self.prefix_block_tokens
-        lora_kw = self._lora_kw(self._wave_ids([action]))
+        ids = self._wave_ids([action])
         done, pending = 0, None
         if self.prefix_cache_enabled and n - 1 >= bt:
             tenant = self._req_tenant.get(action.req_id)
@@ -1423,32 +1422,57 @@ class LLMEngine:
         self._prefill_computed_tokens += n - done
         if done == 0:
             head = torch.tensor([prompt[:big]], device=dev)
-            x, (ks, vs) = llama.prefill_hidden(self.params, head, self.cfg,
-                                               **lora_kw)
-            self._cache_write(slot, 0, big, ks[:, 0], vs[:, 0])
+            self._prefill_rows(head, [slot], 0, ids=ids)
             self._hist_write(slot, 0, head[0])
             done = big
         last = None
         for chunk_len, t in self._chunk_plan_from(n, done):
-            if pending is not None:
-                k_prefix, v_prefix = pending
-                pending = None
-                if self._cont_writes_prefix:
-                    self._cache_write(slot, 0, done, k_prefix[:, 0],
-                                      v_prefix[:, 0])
+            # the first link after a cache hit writes the matched prefix
+            # into the slot; later links read the slot's own rows
+            from_store = pending is not None
+            if from_store:
+                prefix, pending = pending, None
                 self._hist_write(slot, 0, prompt[:done])
             else:
-                k_prefix, v_prefix = self._extract_prefix(slot, done)
+                prefix = self._extract_prefix(slot, done)
             tail = torch.zeros((1, t), dtype=torch.long)
             tail[0, :chunk_len] = torch.tensor(prompt[done:done + chunk_len])
             tail = tail.to(dev)
-            x, ks, vs = llama.prefill_continue_hidden(
-                self.params, tail, k_prefix, v_prefix, self.cfg, **lora_kw)
-            self._cache_write(slot, done, t, ks[:, 0], vs[:, 0])
+            x = self._prefill_rows(
+                tail, [slot], done, prefix,
+                from_store and self._cont_writes_prefix, ids=ids)
             self._hist_write(slot, done, tail[0])
             last = x[:, chunk_len - 1]
             done += chunk_len
         return self._prefill_finish(last, [action], [n])
+
+    def _prefill_rows(self, tokens: torch.Tensor, slots: list[int],
+                      start: int, prefix: tuple | None = None,
+                      write_prefix: bool = False,
+                      ids: torch.Tensor | None = None) -> torch.Tensor:
+        """The model over prompt rows: tokens [B, T] at positions start ..
+        start + T - 1 of slots[b], against the prefix KV (k, v)
+        [L, B, start, kv, hd] (None at start 0). Writes each row's T new KV
+        rows into its slot, and the prefix rows first when `write_prefix`.
+        Returns x [B, T, D] before the final norm."""
+        lora_kw = self._lora_kw(ids)
+        if prefix is None:
+            x, (ks, vs) = llama.prefill_hidden(self.params, tokens, self.cfg,
+                                               **lora_kw)
+        else:
+            x, ks, vs = llama.prefill_continue_hidden(
+                self.params, tokens, *prefix, self.cfg, **lora_kw)
+        for i, slot in enumerate(slots):
+            if write_prefix:
+                self._cache_write(slot, 0, start, prefix[0][:, i],
+                                  prefix[1][:, i])
+            self._cache_write(slot, start, tokens.shape[1], ks[:, i],
+                              vs[:, i])
+        return x
+
+    def _lm_head(self, x: torch.Tensor) -> torch.Tensor:
+        """final_norm and the lm_head over x [B, S, D]: f32 logits."""
+        return llama.lm_head(self.params, x, self.cfg)
 
     def _prefill_finish(self, last: torch.Tensor, wave: list[PrefillAction],
                         plens: list[int]) -> torch.Tensor:
@@ -1458,7 +1482,7 @@ class LLMEngine:
         generated tokens, and the first one is generated here). Returns
         the packed rows."""
         dev = self.device
-        logits = llama.lm_head(self.params, last[:, None], self.cfg)[:, 0]
+        logits = self._lm_head(last[:, None])[:, 0]
         slot_list = [a.slot for a in wave]
         for a in wave:
             self._samp_host[a.slot] = self._req_samp[a.req_id]
@@ -1513,10 +1537,12 @@ class LLMEngine:
         self.cache["hist"][slot, start:start + len(tokens)] = tokens
 
     def _cache_write(self, slot: int, start: int, count: int,
-                     ks: torch.Tensor, vs: torch.Tensor) -> None:
+                     ks: torch.Tensor, vs: torch.Tensor, *,
+                     cache: dict | None = None) -> None:
         """Write [L, count, kv, hd] KV rows into rows [start, start +
-        count) of a slot, quantizing when the cache is int8."""
-        c = self.cache
+        count) of a slot of `cache` (the engine's slab by default),
+        quantizing when the cache is int8."""
+        c = self.cache if cache is None else cache
         rows = slice(start, start + count)
         if self.kv_quantize == "int8":
             kq, ksc = llama.quantize_kv(ks)
@@ -1529,13 +1555,14 @@ class LLMEngine:
             c["k"][:, slot, rows] = ks.to(c["k"].dtype)
             c["v"][:, slot, rows] = vs.to(c["v"].dtype)
 
-    def _extract_prefix(self, slot: int, p: int
+    def _extract_prefix(self, slot: int, p: int, *, cache: dict | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-        """A slot's first p KV rows as [L, 1, p, kv, hd] in the model
-        dtype (dequantized from int8): the chunked chain's prefix. The JAX
-        slab engine also writes these rows back; re-quantizing dequantized
-        int8 rows gives the same bytes, so the port leaves them."""
-        c = self.cache
+        """A slot's first p KV rows of `cache` (the engine's slab by
+        default) as [L, 1, p, kv, hd] in the model dtype (dequantized from
+        int8): the chunked chain's prefix. The JAX slab engine also writes
+        these rows back; re-quantizing dequantized int8 rows gives the
+        same bytes, so the port leaves them."""
+        c = self.cache if cache is None else cache
         k = c["k"][:, slot, :p][:, None]
         v = c["v"][:, slot, :p][:, None]
         if self.kv_quantize == "int8":
@@ -1597,13 +1624,15 @@ class LLMEngine:
         return (torch.cat([e[0] for e in entries], dim=1),
                 torch.cat([e[1] for e in entries], dim=1))
 
-    def _extract_prefix_raw(self, slot: int, p: int) -> tuple:
-        """A slot's first p KV rows as they are stored, views
-        [L, 1, p, ...]: (k, k_scale, v, v_scale) on an int8 cache, else
-        (k, v)."""
+    def _extract_prefix_raw(self, slot: int, p: int, *,
+                            cache: dict | None = None) -> tuple:
+        """A slot's first p KV rows of `cache` (the engine's slab by
+        default) as they are stored, views [L, 1, p, ...]: (k, k_scale, v,
+        v_scale) on an int8 cache, else (k, v)."""
+        c = self.cache if cache is None else cache
         names = (("k", "k_s", "v", "v_s") if self.kv_quantize == "int8"
                  else ("k", "v"))
-        return tuple(self.cache[n][:, slot, :p][:, None] for n in names)
+        return tuple(c[n][:, slot, :p][:, None] for n in names)
 
     @staticmethod
     def _payload_slice(parts: tuple, s: int, e: int) -> tuple:
@@ -1652,9 +1681,7 @@ class LLMEngine:
         step = active.to(torch.int32)
         outs = []
         for _ in range(steps):
-            logits = llama.decode_step(
-                self.params, self.last_tokens, self.cache, self.lengths,
-                self.cfg, span=span, **self._lora_kw(self.cache.get("aids")))
+            logits = self._decode_logits(span)
             if sample:
                 toks = self._choose(logits, self.samp, self._slot_ids,
                                     self._cnt, self.lengths + 1, True)
@@ -1666,6 +1693,13 @@ class LLMEngine:
             self.last_tokens.copy_(torch.where(active, toks,
                                                self.last_tokens))
         return torch.stack(outs)
+
+    def _decode_logits(self, span: int) -> torch.Tensor:
+        """One decode step's model over every slot: logits [n_slots,
+        vocab] f32, the KV rows written at `lengths`."""
+        return llama.decode_step(
+            self.params, self.last_tokens, self.cache, self.lengths,
+            self.cfg, span=span, **self._lora_kw(self.cache.get("aids")))
 
     def _spec_body(self, steps: int, span: int, kd: int,
                    sample: bool) -> torch.Tensor:
@@ -1848,13 +1882,10 @@ class LLMEngine:
         dev = self.device
         slot0 = self._slot_ids[:1]
         for bucket in self.buckets:
-            x, (ks, vs) = llama.prefill_hidden(
-                self.params, torch.ones((1, bucket), dtype=torch.long,
-                                        device=dev), self.cfg,
-                **self._lora_kw(torch.zeros(1, dtype=torch.long,
-                                            device=dev)))
-            self._cache_write(0, 0, bucket, ks[:, 0], vs[:, 0])
-            logits = llama.lm_head(self.params, x[:, -1:], self.cfg)[:, 0]
+            x = self._prefill_rows(
+                torch.ones((1, bucket), dtype=torch.long, device=dev), [0],
+                0, ids=torch.zeros(1, dtype=torch.long, device=dev))
+            logits = self._lm_head(x[:, -1:])[:, 0]
             toks = self._choose(logits, self.samp[:1], slot0, None,
                                 self.lengths[:1], True)
             self._pack_out(toks, logits)

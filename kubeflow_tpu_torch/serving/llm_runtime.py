@@ -51,9 +51,12 @@ under the same source-hash keys, so a restarted predictor skips nvcc; the
 decode graphs are still captured by `warmup()` at every load (a CUDA
 graph cannot be kept across processes). `mesh` and `parallel` are taken
 when every axis is 1 (one card, as `mesh: {tensor: 1}` in
-examples/hf-llama-inference-service.yaml); an axis above 1 raises naming
-ROADMAP.md queue A6, and the JAX runtime's "pass parallel OR mesh, not
-both" holds.
+examples/hf-llama-inference-service.yaml); `parallel: {stage: P}` with P
+above 1 serves through `serving/multichip.py` `StageShardedEngine` (its
+`stage_schedule` key passed through), raising with `kv_layout: paged` or
+`disaggregated` as the JAX runtime does; `tensor` or a mesh axis above 1
+raises naming ROADMAP.md queue A6c-iii, and the JAX runtime's "pass
+parallel OR mesh, not both" holds.
 
 `disaggregated: true` serves through `serving/disagg.py`
 `DisaggregatedEngine`: a prefill role (`PrefillEngine`) and a decode role
@@ -141,10 +144,14 @@ class LLMModel:
             raise ValueError(
                 "disaggregated serving requires supervised: true (each "
                 "role's crash story is its supervisor)")
-        # config.parallel {tensor, stage} and config.mesh: one card only
-        par = dict(parallel or {})
-        pp = 1 if par.get("stage") is None else int(par["stage"])
-        tp = 1 if par.get("tensor") is None else int(par["tensor"])
+        # config.parallel {stage, tensor, stage_schedule} and config.mesh:
+        # stage > 1 builds the stage-sharded engine (serving/multichip.py);
+        # tensor past one card and a mesh past one card are not ported
+        self._parallel = dict(parallel or {})
+        pp = (1 if self._parallel.get("stage") is None
+              else int(self._parallel["stage"]))
+        tp = (1 if self._parallel.get("tensor") is None
+              else int(self._parallel["tensor"]))
         if pp < 1 or tp < 1:
             raise ValueError("parallel.stage/parallel.tensor must be >= 1")
         if pp > 1 and self._disaggregated:
@@ -154,11 +161,13 @@ class LLMModel:
                 "overlap mechanism)")
         if (pp > 1 or tp > 1) and mesh:
             raise ValueError("pass parallel OR mesh, not both")
-        if pp > 1 or tp > 1:
+        if tp > 1:
             raise ValueError(
-                f"parallel stage={pp} tensor={tp}: the port runs on one card "
-                "(ROADMAP.md queue A6c, parallelism)")
-        check_one_card_mesh(dict(mesh or {}), "A6c")
+                f"parallel tensor={tp}: tensor-parallel serving is not "
+                "ported yet (ROADMAP.md queue A6c-iii, tensor-parallel "
+                "serving)")
+        self._pp = pp
+        check_one_card_mesh(dict(mesh or {}), "A6c-iii")
         if sample_k_max != 64:
             raise ValueError("sample_k_max: the port's sampler has a fixed "
                              "64-candidate window (LLMEngine.SAMPLE_K_MAX)")
@@ -219,6 +228,11 @@ class LLMModel:
         if resolved not in ("slab", "paged"):
             raise ValueError(
                 f"kv_layout must be 'slab' or 'paged', got {resolved!r}")
+        if resolved == "paged" and pp > 1:
+            raise ValueError(
+                "kv_layout=paged does not compose with parallel.stage > 1 "
+                "yet: the stage-sharded engine keeps per-stage KV slabs "
+                "(serving/multichip.py)")
         if resolved == "paged" and self._disaggregated:
             raise ValueError(
                 "kv_layout=paged does not compose with disaggregated "
@@ -385,6 +399,7 @@ class LLMModel:
 
     def load(self) -> None:
         from kubeflow_tpu_torch.serving.llm import LLMEngine
+        from kubeflow_tpu_torch.serving.multichip import StageShardedEngine
         from kubeflow_tpu_torch.serving.paged import PagedLLMEngine
 
         if self._compile_cache:
@@ -418,7 +433,14 @@ class LLMModel:
             # the supervisor restarts through. The first build always
             # warms up (no live request waits on a capture); restarts
             # warm up again unless supervisor.rewarm is false
-            if self._kv_layout == "paged":
+            if self._pp > 1:
+                # config.parallel.stage_schedule: "sync" or "overlapped";
+                # None defers to KTPU_STAGE_OVERLAP, then "sync"
+                eng = StageShardedEngine(
+                    params, cfg, stage=self._pp,
+                    stage_schedule=self._parallel.get("stage_schedule"),
+                    **engine_kw)
+            elif self._kv_layout == "paged":
                 eng = PagedLLMEngine(params, cfg,
                                      pool_blocks=self._pool_blocks,
                                      **engine_kw)

@@ -128,6 +128,8 @@ def _median_times(runs, iters: int) -> list[float]:
 def _leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
     return [tree]
 
 
@@ -184,7 +186,13 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
                              RadixKVCache; None without the cache, and
                              on a paged engine by design (banking is
                              refcounts on pool blocks, nothing moves);
-      pipeline_bubble      — None: the port has no stage-sharded engine.
+      pipeline_bubble      — a stage-sharded engine with `stage_timing`
+                             on: the per-stage idle wall a decode step,
+                             (stages x window - sum of stage busy) /
+                             (stages x steps), from its `pipeline_perf`
+                             over the timed chunks (also returned under
+                             "pipeline"); None on a single-program engine
+                             and with `stage_timing` off.
 
     weight_read + attention_kv_update + sampling_penalties is the
     measured device step (device_step_ms): the stripped chunk's time is
@@ -245,9 +253,12 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
     # a handful of embed rows, never the table), its bytes summed as f32
     # words where they divide into them: each byte is read once and the
     # reduction runs at the memory's rate (an int8 -> f32 converting sum
-    # does not); the value is only a fence
-    read_leaves = [_words(t) for t in _leaves(
-        {k: v for k, v in engine.params.items() if k != "embed"})]
+    # does not); the value is only a fence. A stage-sharded engine holds
+    # a list of per-stage slabs
+    slabs = (engine.params if isinstance(engine.params, list)
+             else [engine.params])
+    read_leaves = [_words(t) for slab in slabs for t in _leaves(
+        {k: v for k, v in slab.items() if k != "embed"})]
     read_bytes = int(sum(t.numel() * t.element_size() for t in read_leaves))
 
     def run_read():
@@ -270,31 +281,50 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
         warm()
 
     t_rtt = _median_time(run_rtt, iters)
+    staged = hasattr(engine, "pipeline_perf")
+    if staged:
+        engine.pipeline_perf(reset=True)   # bracket the timed chunks
     # the full chunk and its sampling-stripped variant in turns: a decode
     # chunk's wall is the host's launch rate, which drifts by tens of
     # percent within seconds, far more than the sampling work it resolves
     t_full, t_nosample = _median_times(
         [run_decode(True), run_decode(False)], iters)
+    # pipeline_bubble: the per-stage idle wall a decode step, from the
+    # stage-sharded engine's own stage timings (the JAX breakdown's)
+    pipe_bubble_ms = pipe_snap = None
+    if staged:
+        pipe_snap = engine.pipeline_perf(reset=True)
+        if pipe_snap["steps"] and pipe_snap["bubble_frac"] is not None:
+            n_st = pipe_snap["stages"]
+            idle = (n_st * pipe_snap["window_s"]
+                    - sum(pipe_snap["stage_busy_s"]))
+            pipe_bubble_ms = round(
+                max(idle, 0.0) / (n_st * pipe_snap["steps"]) * 1e3, 4)
     t_read = max(_median_time(run_read, iters) - t_rtt, 0.0)
 
     cfg = engine.cfg
     cache = engine.cache
+    # a stage-sharded engine's layers are its stages' slabs' layers
+    caches = cache["stages"] if "stages" in cache else [cache]
+    cache = caches[0]
     quantized = "k_s" in cache
     # paged engines keep pool blocks: the probes read through the slot
     # block tables, the same indirection the decode step pays
     paged = "tbl" in cache
     bt_blk = int(cache["k"].shape[2]) if paged else 0
     nb = min(span // bt_blk, int(cache["tbl"].shape[1])) if paged else 0
-    n_layers = int(cache["k"].shape[0])
+    layers = [(c, i) for c in caches for i in range(c["k"].shape[0])]
+    n_layers = len(layers)
 
     def layer_span(name, li):
-        rows_all = engine.cache[name][li]
+        c, i = layers[li]
+        rows_all = c[name][i]
         if paged:
             return rows_all   # whole pool layer; the table slices
         return rows_all[:, :span]
 
     def layer_kv(li):
-        return [layer_span(n, li) if n in engine.cache else None
+        return [layer_span(n, li) if n in cache else None
                 for n in ("k", "v", "k_s", "v_s")]
 
     def tables():
@@ -405,7 +435,8 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
             payload = engine._payload_slice(parts, 0, bt)
             scratch.clear()   # nothing pins the scratch between runs
             handoff.send(probe_tokens, [payload])
-            payload[0].flatten()[0].item()   # value fetch: waits
+            # value fetch: waits (a stage-sharded payload is per stage)
+            _leaves(payload)[-1].flatten()[0].item()
 
         run_handoff()   # untimed first call
         kv_handoff_ms = round(
@@ -455,11 +486,13 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
             "host_fetch_replay_per_step": host_ms,
             "kv_handoff": kv_handoff_ms,
             "kv_gather": kv_gather_ms,
-            "pipeline_bubble": None,
+            "pipeline_bubble": pipe_bubble_ms,
         },
         "host_dispatch_per_step_ms": dispatch_host_ms,
         "perf_counters": perf,
     }
+    if pipe_snap is not None:
+        out["pipeline"] = pipe_snap
     if hbm_gbps:
         floor_ms = read_bytes / (hbm_gbps * 1e9) * 1e3
         out["weight_read_floor_ms"] = round(floor_ms, 4)
@@ -479,7 +512,10 @@ def serving_decode_breakdown(engine, *, steps: int | None = None,
 
     # leave the engine as a fresh one: slot state reset, host mirrors
     # zeroed (the junk cache rows are dead; the next prefill into a slot
-    # rewrites them)
+    # rewrites them), the pipeline accounting reset (the trace run's
+    # chunk is not traffic)
+    if staged:
+        engine.pipeline_perf(reset=True)
     engine.lengths.zero_()
     engine.last_tokens.zero_()
     reset_samp()

@@ -62,7 +62,7 @@ for a family whose loss is already the global batch's (the registry's
 `needs_global_batch`: Mixtral's routing and aux loss); `tokens` is the
 global count, and `grad_norm` and the clip take the norm over every
 block once (a replicated leaf from one holder). The `stage` axis raises
-naming its ROADMAP.md item (A6c). A step holds every
+naming its ROADMAP.md item (A6c-ii). A step holds every
 whole param and then every whole gradient at once before reducing them,
 so a rank's peak is the whole f32 params and grads (whole over the batch
 axes) plus its blocks and the activations: at Llama-3-8B widths about 64

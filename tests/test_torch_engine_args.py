@@ -51,7 +51,9 @@ def test_c3_the_hf_isvc_example_config_builds_an_llmmodel():
     ({"mesh": {"tensor": 2}}, "A6"),
     ({"mesh": {"fsdp": -1, "data": 4}}, "A6"),
     ({"parallel": {"tensor": 2}}, "A6"),
-    ({"parallel": {"stage": 2}}, "A6"),
+    # stage 2 alone serves on one card (StageShardedEngine); with a
+    # tensor split past one card it still raises
+    ({"parallel": {"stage": 2, "tensor": 2}}, "A6"),
     ({"parallel": {"tensor": 2}, "mesh": {"tensor": 1}}, "not both"),
     ({"parallel": {"tensor": 0}}, ">= 1"),
     ({"mesh": {"pipe": 1}}, "unknown mesh axis"),

@@ -96,3 +96,12 @@ def test_the_parallel_and_runtime_modules_are_scanned():
         assert port / rel in FILES, rel
     helper = ROOT / "tests" / "torch_ranks.py"
     assert not [n for n in _imports(helper) if n.split(".")[0] in BANNED]
+
+
+def test_the_stage_serving_modules_are_scanned():
+    """The stage-sharded engine, the stage plan and the module of the
+    stage-keyed prefix store are among the scanned files."""
+    port = ROOT / "kubeflow_tpu_torch"
+    for rel in ("serving/multichip.py", "parallel/pipeline.py",
+                "kvcache/radix.py"):
+        assert port / rel in FILES, rel
