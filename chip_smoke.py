@@ -449,7 +449,22 @@ Phases, in order; any failure exits non-zero before the result line:
       `vocab_shard_grad` within N_CE_TOL of log_softmax over the whole
       vocabulary and its gradient; the halves' `llama.embed_partial`
       lookups summed bit for bit the whole table's, their table
-      gradient within N_CE_TOL; (n.e)
+      gradient within N_CE_TOL; (n.p) (j)'s config at its seed and
+      first batch through the port's GPipe schedule in this process:
+      NP_STAGES = 2 one-stage `pipeline.gpipe` calls chained, each over
+      its slab of 2 layers (`pipeline.llama_stage_fn`) and
+      NP_MICROBATCHES = 2 microbatches of one row
+      (`pipeline.microbatch`), the last one's outputs through
+      `pipeline.llama_loss_tail`, one backward through both; and
+      `pipeline.pipelined_llama_loss` off a mesh: each loss within
+      TRAIN_LOSS_RTOL of (j)'s step 1 and of the unstaged
+      `llama.loss_fn`, each stage's layer gradients and the embed,
+      final_norm and lm_head gradients within N_SPLIT_TOL of the
+      unstaged ones (the bit-equality of each printed), B1-B3 launched
+      at least 4 times a stage at one row, then held against their plain
+      versions at that microbatch's B=1 S=4096 H=32 D=128 causal (times,
+      bound, SDPA) as in (h); the forward-backward seconds beside (j)'s
+      median step and the phase's peak memory; (n.e)
       Mixtral-8x7B's MoE block at (m6)'s widths (B=1 x S=4096) split
       over N_EXPERT = 2 expert ranks the same way (one routing, each
       rank's dispatch, combine and expert blocks): the output, aux loss
@@ -463,8 +478,9 @@ Phases, in order; any failure exits non-zero before the result line:
       B1-B3 launched. Prints each run's median step beside the unsharded
       one's with the card's name and power limit, the state's GB on the
       rank and the phase's peak memory; the group is destroyed before
-      the phase ends. One card: NCCL across cards, the splits' memory
-      saving and multi-card speed are not checked here;
+      the phase ends. One card: NCCL across cards (the stages'
+      point-to-point messages among them), the splits' memory saving,
+      the pipeline's bubble and multi-card speed are not checked here;
   (s) sequence parallelism: (s.t) on a one-rank NCCL group (file://
       store), examples/llama-longctx-jaxjob.yaml's config (J3_JOB) at its
       full 8 layers and width, B=1 x 8192 synthetic tokens from --seed,
@@ -7118,6 +7134,174 @@ def expert_layer_phase(seed: int) -> dict:
     return stats
 
 
+#: (n.p)'s GPipe cut of (j)'s config: stages of the 4 layers and
+#: microbatches of the 2 rows
+NP_STAGES = 2
+NP_MICROBATCHES = 2
+
+
+def pipeline_train_phase(seed: int, ref: dict) -> dict:
+    """(n.p): (j)'s config (Llama-3-8B width, 4 layers, B=2 x S=4096,
+    remat "minimal") at (j)'s seed and first batch through the port's
+    GPipe schedule in this process, twice. Chained: the port's
+    `pipeline.microbatch` cuts the embedded rows into NP_MICROBATCHES
+    microbatches, NP_STAGES one-stage `pipeline.gpipe` calls each run
+    their slab of 2 layers (`pipeline.llama_stage_fn`) over them, the
+    last one's outputs go through `pipeline.llama_loss_tail`, and one
+    backward runs every stage's `gpipe` backward in reverse. Whole:
+    `pipeline.pipelined_llama_loss` off a mesh (one stage of 4 layers
+    over the same microbatches). Holds each loss within TRAIN_LOSS_RTOL
+    of (j)'s step 1 and of the unstaged `llama.loss_fn` here, each
+    stage's layer gradients and the embed, final_norm and lm_head
+    gradients within N_SPLIT_TOL of the unstaged ones (the bit-equality
+    of each printed: a GEMM over one row's 4096 tokens may take another
+    cuBLAS algorithm than over both rows' 8192), and B1-B3 launched at
+    least 2 layers x NP_MICROBATCHES times on each chained stage (its
+    forward call, and its part of the backward, told apart by hooks on
+    the stages' outputs) and 4 layers x NP_MICROBATCHES times in the
+    whole one. Prints the forward-backward times beside (j)'s median
+    step and the phase's peak memory (the peak is reset here)."""
+    from kubeflow_tpu_torch.parallel import pipeline
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    cfg = train_config(seed)
+    trainer = train.Trainer(cfg, device=DEV,
+                            metrics=MetricsWriter(echo=False))
+    mcfg = trainer.model_cfg
+    params = trainer.model.init(mcfg, seed=cfg.seed, device=DEV)
+    data = train_data.make_dataset(cfg.dataset, cfg.model, mcfg,
+                                   cfg.batch_size, fallback_seed=cfg.seed)
+    batch = trainer.to_device(next(data))
+    data.close()
+    names = [n for n, _ in train.named_leaves(params)]
+    leaves = [t.requires_grad_() for t in train.leaves(params)]
+    tokens = batch["tokens"].long()
+
+    def launches():
+        return {k: _build.LAUNCHES[k] for k in TRAINING_KERNELS}
+
+    def since(before):
+        now = launches()
+        return {k: now[k] - before[k] for k in now}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def unstaged():
+        loss, _ = llama.loss_fn(params, batch, mcfg)
+        return loss.item(), dict(zip(names, torch.autograd.grad(
+            loss, leaves)))
+    (want_loss, want), plain_s = timed(unstaged)
+    n_stage = mcfg.n_layers // NP_STAGES
+    slabs = [{n: v[s * n_stage:(s + 1) * n_stage].detach().requires_grad_()
+              for n, v in params["layers"].items()}
+             for s in range(NP_STAGES)]
+    ends = {n: params[n].detach().requires_grad_()
+            for n in ("embed", "final_norm", "lm_head")}
+    stage_fn = pipeline.llama_stage_fn(mcfg, llama.global_positions(tokens))
+    fwd, marks = [], {}
+
+    def chained():
+        h = pipeline.microbatch(llama._embed(ends, tokens, mcfg),
+                                NP_MICROBATCHES)
+        for s in range(NP_STAGES):
+            before = launches()
+            h = pipeline.gpipe(stage_fn, slabs[s], h, group=None)
+            fwd.append(since(before))
+            # runs as the gradient of stage s's output is ready, so just
+            # before stage s's backward
+            h.register_hook(lambda g, s=s: marks.update({s: launches()}))
+        total, n_tok = pipeline.llama_loss_tail(
+            ends, h.reshape(*tokens.shape, -1), batch, mcfg)
+        loss = total / n_tok.clamp_min(1.0)
+        keys = list(ends) + [f"{s}/{n}" for s in range(NP_STAGES)
+                             for n in slabs[s]]
+        grads = torch.autograd.grad(loss, list(ends.values()) + [
+            t for slab in slabs for t in slab.values()])
+        marks[-1] = launches()
+        return loss.item(), dict(zip(keys, grads))
+    (staged_loss, got), staged_s = timed(chained)
+    per_stage = [{k: fwd[s][k] + marks[s - 1][k] - marks[s][k]
+                  for k in TRAINING_KERNELS} for s in range(NP_STAGES)]
+    for n in params["layers"]:
+        got["layers/" + n] = torch.cat([got.pop(f"{s}/{n}")
+                                        for s in range(NP_STAGES)])
+
+    def whole():
+        before = launches()
+        loss, _ = pipeline.pipelined_llama_loss(params, batch, mcfg, None,
+                                                NP_MICROBATCHES)
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        return loss.item(), grads, since(before)
+    (whole_loss, whole_got, whole_launches), whole_s = timed(whole)
+    for label, value in (("chained stages", staged_loss),
+                         ("pipelined_llama_loss", whole_loss)):
+        rel = abs(value - ref["loss"][0]) / abs(ref["loss"][0])
+        check(rel <= TRAIN_LOSS_RTOL,
+              f"(n.p): the {label} loss {value!r} vs (j)'s step 1 "
+              f"{ref['loss'][0]!r}")
+        check(abs(value - want_loss) <= TRAIN_LOSS_RTOL * abs(want_loss),
+              f"(n.p): the {label} loss {value!r} vs unstaged {want_loss!r}")
+    errs, bits, whole_errs, whole_bits = {}, {}, {}, {}
+    for n in names:
+        whole_errs[n] = split_err(f"p whole {n}", whole_got[n], want[n])
+        whole_bits[n] = torch.equal(whole_got[n], want[n])
+        if n.startswith("layers/"):
+            for s in range(NP_STAGES):
+                rows = slice(s * n_stage, (s + 1) * n_stage)
+                key = f"stage{s}/{n}"
+                errs[key] = split_err(f"p {key}", got[n][rows],
+                                      want[n][rows])
+                bits[key] = torch.equal(got[n][rows], want[n][rows])
+        else:
+            errs[n] = split_err(f"p {n}", got[n], want[n])
+            bits[n] = torch.equal(got[n], want[n])
+    for s, c in enumerate(per_stage):
+        check(all(c[k] >= n_stage * NP_MICROBATCHES for k in c),
+              f"(n.p): stage {s} launched {c} (want each at least "
+              f"{n_stage * NP_MICROBATCHES})")
+    check(all(v >= mcfg.n_layers * NP_MICROBATCHES
+              for v in whole_launches.values()),
+          f"(n.p): pipelined_llama_loss launched {whole_launches} (want "
+          f"each at least {mcfg.n_layers * NP_MICROBATCHES})")
+    shape_keys = {k: set(_build.SHAPES[k]) for k in TRAINING_KERNELS}
+    stats = {"stages": NP_STAGES, "layers_per_stage": n_stage,
+             "microbatches": NP_MICROBATCHES,
+             "rows_per_microbatch": cfg.batch_size // NP_MICROBATCHES,
+             "loss": staged_loss, "unstaged_loss": want_loss,
+             "j_step1_loss": ref["loss"][0],
+             "loss_bit_equal_to_j": staged_loss == ref["loss"][0],
+             "loss_bit_equal_to_unstaged": staged_loss == want_loss,
+             "grad_errs": errs, "grad_bit_equal": bits,
+             "launches_per_stage": per_stage,
+             "whole": {"loss": whole_loss,
+                       "loss_bit_equal_to_unstaged": whole_loss == want_loss,
+                       "grad_errs": whole_errs, "grad_bit_equal": whole_bits,
+                       "launches": whole_launches, "fwd_bwd_s": whole_s},
+             "staged_fwd_bwd_s": staged_s, "unstaged_fwd_bwd_s": plain_s,
+             "j_step_time_s_median": ref["step_time_s_median"],
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del got, want, whole_got, slabs, ends, params, leaves, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"(n.p) GPipe stages of (j)'s config, {NP_STAGES} stages x "
+          f"{n_stage} layers, {NP_MICROBATCHES} microbatches of "
+          f"{stats['rows_per_microbatch']} row, {card_line()}: "
+          f"{json.dumps(stats)}", flush=True)
+    print(f"(n.p) chained stages' forward-backward {staged_s:.4f} s, "
+          f"pipelined_llama_loss's {whole_s:.4f} s, unstaged "
+          f"{plain_s:.4f} s, (j)'s median step "
+          f"{ref['step_time_s_median']:.4f} s; peak "
+          f"{stats['peak_memory_gb']:.2f} GB", flush=True)
+    stats["shape_keys"] = shape_keys
+    return stats
+
+
 def n_rl_run(seed: int, mesh, rl_ref: list) -> dict:
     """(n.r): the RLJob example's learner (R_JOB, 2048 envs x 64 steps)
     with its env batch over the mesh's data axis (one rank): the update
@@ -7173,7 +7357,8 @@ def sharded_trainer_phase(seed: int, ref: dict, gen, m6_ref: dict,
     and {"tensor": -1}, (m6)'s over {"expert": -1}, N_STEPS steps each
     from (j)'s and (m6)'s seeds; the tensor and expert splits of one
     layer in this process (n.t, n.e) and B1-B3 at the tensor rank's
-    shape against their plain versions; the RL learner over {"data": -1}
+    shape against their plain versions; the GPipe stages of (j)'s config
+    in this process (n.p); the RL learner over {"data": -1}
     (n.r); then train_target's job from KTPU_NUM_PROCESSES=1 and N_JOB on
     the group's mesh; the group is destroyed before the phase ends.
     `ref` is (j)'s run 1 (per-step losses, grad norms, median step time),
@@ -7216,6 +7401,9 @@ def sharded_trainer_phase(seed: int, ref: dict, gen, m6_ref: dict,
                                         meshes["expert"], m6_ref,
                                         ("loss", "aux_loss", "grad_norm"))
         stats["megatron_layer"] = megatron_layer_phase(seed)
+        # (n.p) resets the peak for its own: (n)'s folds in the one before
+        peak = torch.cuda.max_memory_allocated()
+        stats["pipeline"] = pipeline_train_phase(seed, ref)
         case = train_attn_case(gen, 2, 4096, True, False,
                                h=cfg.model_overrides["n_heads"] // N_TENSOR)
         for kern, c in case.items():
@@ -7224,6 +7412,17 @@ def sharded_trainer_phase(seed: int, ref: dict, gen, m6_ref: dict,
             c["launches"] = stats["megatron_layer"]["launches"][kern]
             print(f"{kern} at the tensor rank's B=2 S=4096 H="
                   f"{cfg.model_overrides['n_heads'] // N_TENSOR} D=128 "
+                  f"causal, {card_line()}: {errs}; {fmt(c)}", flush=True)
+        torch.cuda.empty_cache()
+        pcase = train_attn_case(gen, 1, 4096, True, False)
+        for kern, c in pcase.items():
+            errs = " ".join(f"{n} worst row {w:.3g}" for n, (_, w) in
+                            c["errs"].items())
+            c["launches"] = sum(st[kern] for st in
+                                stats["pipeline"]["launches_per_stage"])
+            check(c["shape_key"] in stats["pipeline"]["shape_keys"][kern],
+                  f"(n.p): {kern} never ran at one microbatch's shape")
+            print(f"{kern} at (n.p)'s microbatch B=1 S=4096 H=32 D=128 "
                   f"causal, {card_line()}: {errs}; {fmt(c)}", flush=True)
         torch.cuda.empty_cache()
         stats["expert_layer"] = expert_layer_phase(seed)
@@ -7264,7 +7463,8 @@ def sharded_trainer_phase(seed: int, ref: dict, gen, m6_ref: dict,
               f"(n): train_target launches {job_launches}")
         stats["job"] = {"losses": [r["metrics"]["loss"] for r in rows],
                         "saved_steps": steps, "launches": job_launches}
-        stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stats["peak_memory_gb"] = max(
+            peak, torch.cuda.max_memory_allocated()) / 1e9
         print(f"sharded trainer: {card_line()}; job "
               f"{json.dumps(stats['job'])}; peak "
               f"{stats['peak_memory_gb']:.2f} GB", flush=True)
@@ -7276,6 +7476,7 @@ def sharded_trainer_phase(seed: int, ref: dict, gen, m6_ref: dict,
               f"{med['expert']:.4f} s on {{expert: 1}} against (m6)'s "
               f"{m6_ref['step_time_s_median']:.4f} s", flush=True)
         stats["attn_cases"] = case
+        stats["pipe_attn_cases"] = pcase
         return stats
     finally:
         dist.destroy_process_group()
@@ -7855,6 +8056,17 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": f"{c['shape']} (n.t, a tensor rank of Llama-3-8B)"})
+    # B1-B3 at a GPipe microbatch of (j)'s config, launched by (n.p)
+    for name in TRAINING_KERNELS:
+        c = n_stats["pipe_attn_cases"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"kubeflow_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": c["launches"],
+            "max_abs_err": c["err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": f"{c['shape']} (n.p, a GPipe microbatch of (j))"})
     # B1-B3 at a ring step's and at Ulysses' rank's shape, with (s.r)'s
     # and (s.u)'s launches
     for case in s_stats["attn_cases"].values():

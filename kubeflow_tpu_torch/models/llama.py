@@ -41,6 +41,12 @@ position from the batch (`targets`, `target_mask`), so a shard's last
 column takes the next shard's first token and only the global last has
 no target.
 
+On a mesh with a `stage` axis past one rank `loss_fn` runs the GPipe
+schedule (`parallel/pipeline.py` `pipelined_llama_loss`): each stage
+applies its slab of the stacked layers (`_layer_body` under `_remat`)
+to microbatches of the rank's rows, the first stage embeds and the last
+runs the loss tail; the splits above hold inside each stage.
+
 Multi-adapter serving: every serving function takes the JAX `lora`/`ids`
 pair. lora = {target: {"a": [L, A, d_in, r], "b": [L, A, r, d_out]}}
 (f32, adapter 0 all zeros, b pre-scaled by alpha / rank) and ids [B] the
@@ -117,6 +123,8 @@ class LlamaConfig:
     # so any scan_layers describes it.
     attention_impl: str = "flash"
     scan_layers: bool = True
+    # the GPipe schedule's microbatches on a `stage` axis past one rank
+    # (0: one per stage); nothing off one
     pipeline_microbatches: int = 0
     decode_attention_impl: str = "auto"
     prefill_attention_impl: str = "auto"
@@ -137,11 +145,6 @@ class LlamaConfig:
                     "the card; CUDA tensors always take the kernels "
                     "(ROADMAP.md north star, rule 4)")
             raise ValueError(f"unknown {name} {value!r}")
-        if self.pipeline_microbatches != 0:
-            raise ValueError(
-                f"pipeline_microbatches={self.pipeline_microbatches}: "
-                "pipeline-parallel training is not ported yet (ROADMAP.md "
-                "queue A6c-ii, GPipe training)")
         set_dtypes(self, "dtype", "param_dtype")
 
     @property
@@ -179,7 +182,8 @@ def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
     exists whole (at 8B it would be 32 GB). Non-quantized leaves are kept
     in cfg.param_dtype. `keep(path, tensor, layer=None)`, when given,
     takes each leaf (a stacked leaf one layer at a time) as it is made
-    and returns what the tree holds: a sharded trainer keeps its block."""
+    and returns what the tree holds: a sharded trainer keeps its block,
+    and None for a layer outside its `stage` slab."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
     if keep is not None and quantize:
@@ -207,6 +211,14 @@ def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
                 "q": torch.empty((L, *shape), dtype=torch.int8, device=dev),
                 "s": torch.empty((L, shape[1]), dtype=torch.float32,
                                  device=dev)}
+    else:   # the layers the tree holds (None: of another stage's slab)
+        for name, (shape, _) in shapes.items():
+            probe = torch.empty(shape, dtype=pd, device="meta")
+            held = [b for b in (keep(f"layers/{name}", probe, i)
+                                for i in range(L)) if b is not None]
+            layers[name] = torch.empty((len(held), *held[0].shape),
+                                       dtype=pd, device=dev)
+    filled = dict.fromkeys(shapes, 0)
     for i in range(L):
         for name, (shape, fan_in) in shapes.items():
             w = leaf(shape, fan_in)
@@ -215,10 +227,9 @@ def init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
                 layers[name]["s"][i] = w["s"]
                 continue
             w = keep(f"layers/{name}", w, i)
-            if name not in layers:   # shaped by the first layer's block
-                layers[name] = torch.empty((L, *w.shape), dtype=pd,
-                                           device=dev)
-            layers[name][i] = w
+            if w is not None:
+                layers[name][filled[name]] = w
+                filled[name] += 1
     for name in ("attn_norm", "mlp_norm"):
         layers[name] = keep(f"layers/{name}",
                             torch.ones((L, d), dtype=pd, device=dev))
@@ -463,7 +474,16 @@ def loss_fn(params: Params, batch: dict[str, torch.Tensor],
     loss_mask [B, S] (1 where the target counts) and segment_ids [B, S];
     on a sequence shard also the targets by global position (module
     doc). The forward runs on the full sequence and the logits shift
-    after. Returns (loss, {"loss", "tokens"})."""
+    after. Returns (loss, {"loss", "tokens"}). On the active mesh's
+    `stage` axis past one rank the forward and loss run as the GPipe
+    schedule instead (`parallel/pipeline.py` `pipelined_llama_loss`: the
+    same loss; ce_chunk is not read there, as in JAX)."""
+    if sharding.regions().size("stage") > 1:
+        from kubeflow_tpu_torch.parallel.mesh import get_active_mesh
+        from kubeflow_tpu_torch.parallel.pipeline import pipelined_llama_loss
+
+        return pipelined_llama_loss(params, batch, cfg, get_active_mesh(),
+                                    cfg.pipeline_microbatches or None)
     if cfg.ce_chunk:
         return _chunked_ce_loss(params, batch, cfg)
     tokens = batch["tokens"].long()

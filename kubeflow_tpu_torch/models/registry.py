@@ -14,7 +14,8 @@ it), `local_blocks` the families that compute on `tensor`- and
 axes with its blocks at rest and its compute repeated on each rank of
 the group), and `splits_sequence` the families that run a `sequence`
 axis (the Llama family: each rank its columns of the batch; the others
-raise, ROADMAP.md queue A6b-ii)."""
+raise, ROADMAP.md queue A6b-ii), `pipelines` the families whose loss runs
+the GPipe schedule on a `stage` axis (the Llama decoder and its LoRA)."""
 
 from __future__ import annotations
 
@@ -44,17 +45,24 @@ class ModelDef(NamedTuple):
     # the family runs on a rank's columns of the batch (its `sequence`
     # shard), its attention across the sequence group
     splits_sequence: bool = False
+    # the family's loss runs the GPipe schedule on a `stage` axis past
+    # one rank (parallel/pipeline.py): each rank computes on its stage's
+    # slab of the stacked layers, which stays split over `stage`, and
+    # the leaves outside the slab get their gradients in parts, summed
+    # over `stage`; every other family gathers its slabs over `stage`
+    # and repeats its compute on each stage rank
+    pipelines: bool = False
 
 
 _REGISTRY: dict[str, ModelDef] = {
     "llama": ModelDef(llama.LlamaConfig, llama.init, llama.apply,
                       llama.loss_fn, llama.abstract_params,
                       llama.logical_axes, local_blocks=True,
-                      splits_sequence=True),
+                      splits_sequence=True, pipelines=True),
     "llama_lora": ModelDef(lora.LoraLlamaConfig, lora.init, lora.apply,
                            lora.loss_fn, lora.abstract_params,
                            lora.logical_axes, local_blocks=True,
-                           splits_sequence=True),
+                           splits_sequence=True, pipelines=True),
     "mixtral": ModelDef(moe_llama.MoELlamaConfig, moe_llama.init,
                         moe_llama.apply, moe_llama.loss_fn,
                         moe_llama.abstract_params,

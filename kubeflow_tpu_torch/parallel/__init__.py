@@ -1,15 +1,14 @@
 """The mesh and the logical-axis sharding rules (counterpart of
-kubeflow_tpu/parallel/; the GPipe training runner is ROADMAP.md A6c-ii;
-`pipeline` holds the serving half of the stage split), with
-the Megatron region operators of the tensor and expert axes and the
-sequence group's ring."""
+kubeflow_tpu/parallel/; `pipeline` holds the stage split: the GPipe
+training schedule and the serving half), with the Megatron region
+operators of the tensor and expert axes and the sequence group's
+ring."""
 
 from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_ORDER,
     MeshConfig,
     active_mesh,
     arrange_ranks,
-    check_ported_axes,
     data_shard_index,
     get_active_mesh,
     make_mesh,
@@ -17,6 +16,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     mesh_shape,
     num_data_shards,
     single_device_mesh,
+    stage_submeshes,
     node_ids,
     validate_divisibility,
 )
@@ -46,12 +46,12 @@ __all__ = [
     "mesh_config",
     "mesh_shape",
     "single_device_mesh",
+    "stage_submeshes",
     "active_mesh",
     "get_active_mesh",
     "num_data_shards",
     "data_shard_index",
     "validate_divisibility",
-    "check_ported_axes",
     "DEFAULT_RULES",
     "logical_to_spec",
     "spec_placements",

@@ -17,8 +17,9 @@ lays `data` across the nodes and every other axis inside one node, so
 that only the gradient all-reduce crosses nodes: the counterpart of the
 JAX `_hybrid_device_array` over DCN-connected slices, with the same
 fallback to the flat order (and a warning) where the data axis cannot
-stride the nodes evenly. Not ported yet: `stage_submeshes` (ROADMAP.md
-A6c-ii).
+stride the nodes evenly. `stage_submeshes` cuts a mesh into one mesh per
+`stage` coordinate over the other axes (the stage × tensor serving
+layout's building block).
 """
 
 from __future__ import annotations
@@ -172,6 +173,26 @@ def node_ids() -> list[str]:
     return _NODES[1]
 
 
+def stage_submeshes(mesh) -> list:
+    """One DeviceMesh per `stage` coordinate of `mesh`: stage s gets the
+    ranks at coordinate s, laid over the remaining axes in the mesh's
+    order (the JAX `stage_submeshes`' `np.take(mesh.devices, s,
+    axis=stage)`), so that each stage's collectives stay inside its own
+    group. Every rank of `mesh` calls it (each sub-mesh makes its
+    groups); a rank's own stage is the entry at its coordinate. Raises
+    ValueError on a mesh without a `stage` axis."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = list(mesh.mesh_dim_names or ())
+    if "stage" not in names:
+        raise ValueError(f"mesh has no stage axis: {names}")
+    ax = names.index("stage")
+    sub_names = tuple(n for n in names if n != "stage")
+    return [DeviceMesh(mesh.device_type, mesh.mesh.select(ax, s),
+                       mesh_dim_names=sub_names)
+            for s in range(mesh.mesh.shape[ax])]
+
+
 def single_device_mesh(device_type: str | None = None):
     """A mesh with all axes of size 1 on rank 0 of the process group."""
     return make_mesh(MeshConfig(), device_type=device_type)
@@ -231,22 +252,3 @@ def validate_divisibility(mesh, *, batch: int | None = None,
     for name, value, div in checks:
         if value is not None and div > 1 and value % div:
             raise ValueError(f"{name}={value} not divisible by mesh factor {div}")
-
-
-#: the axes whose parallelism is not ported yet, and the ROADMAP.md item
-#: that ports each
-UNPORTED_AXES = {"stage": "A6c-ii"}
-
-
-def check_ported_axes(sizes: dict[str, int]) -> None:
-    """Raise ValueError naming its ROADMAP.md item for an axis past 1
-    that the port cannot run yet (data, fsdp, expert, sequence and
-    tensor run at any size; the families that split a sequence are the
-    trainer's to check)."""
-    for axis, item in UNPORTED_AXES.items():
-        n = sizes.get(axis, 1)
-        if n not in (1, -1):
-            raise ValueError(
-                f"mesh axis {axis}={n} is not ported yet (ROADMAP.md "
-                f"queue {item}); the port shards over data, fsdp, expert, "
-                "sequence and tensor")

@@ -18,7 +18,9 @@ blocks, over the mesh dims asked for) and `reduce_grad` (a gradient
 summed over the axes that split the batch's tokens, `data` and `fsdp`
 over its rows and `sequence` over its columns: reduce-scattered where
 its param is sharded and all-reduced where it is replicated; never
-summed over `tensor` or `expert`, whose ranks see the same tokens).
+summed over `tensor` or `expert`, whose ranks see the same tokens; over
+`stage` under the GPipe schedule only where each stage holds a part of
+a whole leaf's gradient).
 `ring_peers` names the sequence group's ring neighbours.
 
 The Megatron region operators are here as well, for a family that
@@ -176,18 +178,23 @@ def check_divisible(shape, mesh, placements, what: str = "leaf") -> None:
 
 
 def local_chunk(full: torch.Tensor, mesh, placements,
-                offset: int = 0) -> torch.Tensor:
-    """This rank's block of a whole tensor (a view). `offset` counts
-    leading dims of the leaf that `full` has already been indexed by (a
-    stacked leaf's one layer)."""
+                layer: int | None = None, n_layers: int = 0):
+    """This rank's block of a whole tensor (a view). With `layer`, `full`
+    is that layer of a stacked leaf of `n_layers` layers (its dim d is
+    the leaf's d + 1): the block of it this rank holds, or None where the
+    leaf's stacked axis is split (over `stage`: a stage's slab of
+    contiguous layers) and the rank's slab does not hold the layer."""
     coord = mesh.get_coordinate()
     out = full
+    lo, n = 0, n_layers
     for i, d in _sharded_dims(mesh, placements):
-        if d < offset:
-            raise ValueError("a leaf sharded over its stacked layer axis "
-                             "cannot be built layer by layer (ROADMAP.md "
-                             "queue A6c-ii)")
-        out = out.chunk(mesh.size(i), dim=d - offset)[coord[i]]
+        if layer is not None and d == 0:
+            n //= mesh.size(i)
+            lo += coord[i] * n
+            continue
+        out = out.chunk(mesh.size(i), dim=d - (layer is not None))[coord[i]]
+    if layer is not None and not lo <= layer < lo + n:
+        return None
     return out
 
 
@@ -262,7 +269,8 @@ def gather(local: torch.Tensor, mesh, placements,
 
 
 def reduce_grad(grad: torch.Tensor, mesh, placements,
-                whole: Sequence[str] | None = None) -> torch.Tensor:
+                whole: Sequence[str] | None = None,
+                partial: Sequence[str] = ()) -> torch.Tensor:
     """This rank's block of a param's gradient summed over the axes that
     split the batch (BATCH_AXES), mesh dims taken outermost first: a
     reduce-scatter where the param is sharded, an all-reduce where it is
@@ -271,7 +279,11 @@ def reduce_grad(grad: torch.Tensor, mesh, placements,
     computed its own block's gradient or the same whole gradient as its
     peers. `whole` names the mesh dims over which `grad` is whole (the
     dims `gather` gathered; every dim by default): on such a dim outside
-    BATCH_AXES the rank keeps its chunk."""
+    BATCH_AXES the rank keeps its chunk. `partial` names the mesh dims
+    whose ranks each hold a part of the gradient of a leaf replicated
+    over them (the GPipe schedule's `stage`: the embedding's on the first
+    stage, the loss tail's on the last), all-reduced there; a leaf split
+    over such a dim keeps its block."""
     import torch.distributed as dist
 
     names = mesh.mesh_dim_names
@@ -279,6 +291,11 @@ def reduce_grad(grad: torch.Tensor, mesh, placements,
     shard = dict((i, d) for i, d in _sharded_dims(mesh, placements))
     for i in range(mesh.ndim):
         k = mesh.size(i)
+        if names[i] in partial and i not in shard:
+            if k > 1:
+                out = out.contiguous()
+                dist.all_reduce(out, group=_dim_group(mesh, i))
+            continue
         if names[i] not in BATCH_AXES:
             if i in shard and (whole is None or names[i] in whole):
                 out = out.chunk(k, dim=shard[i])[mesh.get_coordinate()[i]]

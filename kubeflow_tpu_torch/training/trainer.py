@@ -28,7 +28,8 @@ optimizer state, is never updated or decayed, and needs no gradient;
 clipping still takes the global norm of every gradient it is given.
 
 On a mesh (`mesh=`, a DeviceMesh of `parallel/mesh.py`) the trainer
-shards the state over the `data`, `fsdp`, `expert` and `tensor` axes, as
+shards the state over the `data`, `fsdp`, `stage`, `expert` and `tensor`
+axes, as
 the JAX trainer's `param_sharding` and `_state_sharding` place it: each
 param by its family's `logical_axes` through the rules
 (`parallel/sharding.py`), each moment as its param, the step counter and
@@ -61,10 +62,19 @@ mean over every row, and as it comes
 for a family whose loss is already the global batch's (the registry's
 `needs_global_batch`: Mixtral's routing and aux loss); `tokens` is the
 global count, and `grad_norm` and the clip take the norm over every
-block once (a replicated leaf from one holder). The `stage` axis raises
-naming its ROADMAP.md item (A6c-ii). A step holds every
-whole param and then every whole gradient at once before reducing them,
-so a rank's peak is the whole f32 params and grads (whole over the batch
+block once (a replicated leaf from one holder). On a `stage` axis past
+one rank a family with the registry's `pipelines` (the Llama decoder
+and its LoRA) runs the GPipe schedule (`parallel/pipeline.py`): its
+stacked layer leaves stay split over `stage` while it computes, each
+rank running its stage's slab over microbatches of its rows, and the
+leaves outside the slabs (embed, final_norm, lm_head) get their
+gradients in parts, the embedding's on the first stage and the tail's
+on the last, summed over `stage`; the stage ranks see the same rows, so
+`stage` is not a batch axis for the loss's weight. Every other family
+gathers its slabs over `stage` as over the batch axes and repeats its
+compute on each stage rank, keeping its block of each gradient. A step
+holds every whole param and then every whole gradient at once before
+reducing them, so a rank's peak is the whole f32 params and grads (whole over the batch
 axes) plus its blocks and the activations: at Llama-3-8B widths about 64
 GB before the blocks without a tensor split, which is why full 8B
 training does not fit a rank yet (ROADMAP.md A6a, the per-layer gather).
@@ -349,7 +359,6 @@ def check_mesh(mesh: mesh_lib.MeshConfig, model: str = "llama") -> None:
     (`check_sequence`); a mesh that wants more ranks than the process
     group has raises too (one card when no group is running)."""
     sizes = mesh.axis_sizes()
-    mesh_lib.check_ported_axes(sizes)
     check_sequence(model, sizes)
     want = math.prod(n for n in sizes.values() if n != -1)
     world = _world_size()
@@ -394,7 +403,6 @@ class Trainer:
         import torch.distributed as dist
 
         mesh = self.mesh
-        mesh_lib.check_ported_axes(mesh_lib.mesh_shape(mesh))
         check_sequence(self.config.model, mesh_lib.mesh_shape(mesh))
         if mesh.mesh.numel() != dist.get_world_size():
             raise ValueError(
@@ -409,17 +417,21 @@ class Trainer:
             raise ValueError(
                 f"{self.config.model}'s logical_axes do not match its "
                 f"params: {sorted(set(axes) ^ set(paths))}")
-        # a family on local blocks gathers over the batch axes alone
-        gathered = (tuple(a for a in mesh.mesh_dim_names
-                          if a not in ("tensor", "expert"))
-                    if self.model.local_blocks else
-                    tuple(mesh.mesh_dim_names))
+        # a family on local blocks gathers over the batch axes alone; a
+        # pipelined one on a stage axis keeps its stage's slab too, and
+        # the whole leaves' gradients come in parts over `stage`
+        staged = (("stage",) if self.model.pipelines and mesh_lib.mesh_shape(
+            mesh).get("stage", 1) > 1 else ())
+        kept = (("tensor", "expert") if self.model.local_blocks else ()) \
+            + staged
+        gathered = tuple(a for a in mesh.mesh_dim_names if a not in kept)
         return StateLayout(mesh, {
             p: sharding.spec_placements(sharding.logical_to_spec(
                 axes[p], self.config.sharding_rules), mesh)
             for p in paths}, {p: t.shape for p, t in named},
             [paths[i] for i in self.optimizer.trainable_indices(
-                len(paths), paths)], self.device, gathered)
+                len(paths), paths)], self.device, gathered,
+            partial=staged)
 
     def abstract_state(self) -> dict[str, Any]:
         """The train state's shapes and dtypes as meta tensors, params
@@ -578,14 +590,18 @@ class Trainer:
             total = batch_sum(weight)
             scale = weight / total.clamp_min(1.0)
             loss = loss * scale
-        full_grads = list(torch.autograd.grad(loss,
-                                              [full[i] for i in idx]))
+        # a stage's loss reaches only its own leaves (the embedding on
+        # the first, the tail on the last): the others' part is zero;
+        # off a stage axis every trainable leaf must be reached
+        full_grads = list(torch.autograd.grad(
+            loss, [full[i] for i in idx], allow_unused=bool(lay.partial),
+            materialize_grads=bool(lay.partial)))
         del full, loss
         grads: list[torch.Tensor | None] = [None] * len(blocks)
         for j, i in enumerate(idx):
             grads[i] = sharding.reduce_grad(full_grads[j], mesh,
                                             blocks[i].placements,
-                                            lay.gathered)
+                                            lay.gathered, lay.partial)
             full_grads[j] = None
         norm = lay.global_norm([(grads[i], blocks[i].placements)
                                 for i in idx])
@@ -740,12 +756,16 @@ class StateLayout:
 
     def __init__(self, mesh, placements: dict[str, tuple],
                  shapes: dict[str, torch.Size], trainable: list[str],
-                 device: torch.device, gathered: tuple[str, ...]):
+                 device: torch.device, gathered: tuple[str, ...],
+                 partial: tuple[str, ...] = ()):
         self.mesh = mesh
         self.device = device
         # the mesh dims a step gathers the params over (and so over which
         # a gradient comes whole)
         self.gathered = gathered
+        # the mesh dims over which a replicated leaf's gradient comes in
+        # parts (`sharding.reduce_grad`)
+        self.partial = partial
         self.placements = {"params/" + p: pl for p, pl in placements.items()}
         self.shapes = {"params/" + p: s for p, s in shapes.items()}
         for j, p in enumerate(trainable):
@@ -757,13 +777,16 @@ class StateLayout:
         self._holders: dict[tuple, torch.Tensor] = {}
 
     def keep(self, path: str, t: torch.Tensor, layer: int | None = None
-             ) -> torch.Tensor:
+             ) -> torch.Tensor | None:
         """An init's `keep`: a copy of this rank's block of the param leaf
         at `path` (of its layer `layer` for a stacked leaf made layer by
-        layer), so the whole leaf can be freed."""
-        block = sharding.local_chunk(t, self.mesh,
-                                     self.placements["params/" + path],
-                                     offset=0 if layer is None else 1)
+        layer; None for a layer outside this rank's `stage` slab), so the
+        whole leaf can be freed."""
+        path = "params/" + path
+        block = sharding.local_chunk(t, self.mesh, self.placements[path],
+                                     layer, self.shapes[path][0])
+        if block is None:
+            return None
         return block.clone(memory_format=torch.contiguous_format)
 
     def wrap(self, path: str, block: torch.Tensor):

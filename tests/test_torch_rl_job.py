@@ -187,14 +187,25 @@ def test_packing_record_teaches_the_jax_policy(nums):
         pj.allows("rl-learner", ["llm-serving"])
 
 
-def test_measure_interference_counts_chunks():
-    """Two sleeping workloads: solo rates near their chunk rates, packed
-    rates positive, the record's keys the JAX record's."""
-    import time
+def test_measure_interference_counts_chunks(monkeypatch):
+    """Two workloads on a fake clock: solo rates near their chunk rates,
+    packed rates positive, the record's keys the JAX record's. The
+    module's `time` is a clock that only a chunk advances (by 0.01 and
+    0.02 s), one per thread, so the rates are exact whatever the load:
+    the barrier and the rest of the process keep real time."""
+    import types
+
+    clock = threading.local()
+
+    def now():
+        return getattr(clock, "t", 0.0)
+
+    monkeypatch.setattr(tpacking, "time",
+                        types.SimpleNamespace(perf_counter=now))
 
     def work(dt, units):
         def chunk():
-            time.sleep(dt)
+            clock.t = now() + dt
             return units
         return chunk
 

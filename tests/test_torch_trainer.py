@@ -215,18 +215,19 @@ def test_longctx_job_model_overrides_build_a_trainer(tmp_path):
     ("attention_impl", "ulysses", "builds"),
     ("decode_attention_impl", "xla", "plain-version"),
     ("prefill_attention_impl", "xla", "plain-version"),
-    ("pipeline_microbatches", 2, "A6"),
+    ("pipeline_microbatches", 2, "builds"),
     ("attention_impl", "bogus", "unknown"),
 ])
 def test_llama_config_rejects_unported_impls(key, value, match):
     """The keys the port has no path for raise; "ring" and "ulysses" (the
     sequence-parallel bodies, which run flash attention off a sequence
-    axis) build, in the config and the trainer."""
+    axis) and pipeline_microbatches (the GPipe schedule's, read on a
+    stage axis) build, in the config and the trainer."""
     if match == "builds":
-        assert tllama.LlamaConfig(**{key: value}).attention_impl == value
+        assert getattr(tllama.LlamaConfig(**{key: value}), key) == value
         trainer = ttrainer.Trainer(ttrainer.TrainerConfig(
             model_overrides=dict(TINY, **{key: value})), device="cpu")
-        assert trainer.model_cfg.attention_impl == value
+        assert getattr(trainer.model_cfg, key) == value
         return
     with pytest.raises(ValueError, match=match):
         tllama.LlamaConfig(**{key: value})

@@ -123,8 +123,8 @@ def _raises(fn) -> str:
 def case_llama(inp: dict) -> dict:
     """{data: 2, fsdp: 2}: three steps from the given params and global
     batches; the blocks, the resident bytes, an init's blocks, and the
-    refusals of a family outside the Llama family on a sequence axis and
-    of the stage axis."""
+    refusal of a family outside the Llama family on a sequence axis;
+    the same steps on {data: 2, stage: 2} (the GPipe schedule)."""
     from kubeflow_tpu_torch.training.trainer import leaves
 
     t = _trainer(inp, {"data": 2, "fsdp": 2})
@@ -147,7 +147,7 @@ def case_llama(inp: dict) -> dict:
             dict(inp, config=dict(inp["config"], model="bert",
                                   model_overrides={})),
             {"fsdp": 2, "sequence": 2})),
-        "stage": _raises(lambda: _trainer(inp, {"data": 2, "stage": 2})),
+        "stage": _steps(inp, {"data": 2, "stage": 2}),
     }
 
 
@@ -522,6 +522,100 @@ def case_seq(inp: dict) -> dict:
         dict(inp, config=dict(inp["config"], model="bert",
                               model_overrides={})), ds))
     return out
+
+
+def _gpipe_chain(inp: dict) -> dict:
+    """`pipeline.gpipe` on {stage: 4} (the active mesh's stage group) of
+    tanh(h @ w) with this rank's w, over inp's microbatches; the
+    gradients of w and x from the cotangent on the last stage (zeros on
+    the others, which the schedule ignores)."""
+    from kubeflow_tpu_torch.parallel import make_mesh, pipeline
+    from kubeflow_tpu_torch.parallel.mesh import active_mesh
+
+    mesh = make_mesh({"stage": 4})
+    s = mesh.get_coordinate()[mesh.mesh_dim_names.index("stage")]
+    w = torch.from_numpy(inp["ws"][s:s + 1].copy()).requires_grad_()
+    x = torch.from_numpy(inp["x"].copy()).requires_grad_()
+    with active_mesh(mesh):
+        out = pipeline.gpipe(lambda w, h: torch.tanh(h @ w[0]), w, x)
+    cot = torch.from_numpy(inp["cot"])
+    dw, dx = torch.autograd.grad(out, [w, x], cot if s == 3 else
+                                 torch.zeros_like(cot), allow_unused=True)
+    return {"stage": s, "out": out.detach().numpy(), "dw": dw.numpy(),
+            "dx": None if dx is None else dx.numpy()}
+
+
+def case_pipe4(inp: dict) -> dict:
+    """The GPipe schedule on 4 ranks: the raw runner (`_gpipe_chain`);
+    the Llama Trainer on {stage: 4} at pipeline_microbatches 0 and 4;
+    on {data: 2, stage: 2} a microbatch count that the rank's rows do
+    not divide; LoRA and BERT (its blocks at rest over `stage`) on
+    {data: 2, stage: 2}; the trainer configs of a {stage: 4} mesh."""
+    from kubeflow_tpu_torch.training.trainer import TrainerConfig
+
+    return {"gpipe": _gpipe_chain(inp["gpipe"]),
+            "configs": {model: TrainerConfig.from_dict(
+                {"model": model, "mesh": {"stage": 4}}).mesh.stage
+                for model in ("llama", "bert")},
+            "m0": _steps(inp, {"stage": 4}),
+            "m4": _steps(inp, {"stage": 4}, pipeline_microbatches=4),
+            "uneven": _raises(lambda: _steps(
+                inp, {"data": 2, "stage": 2}, pipeline_microbatches=8)),
+            "lora": _steps(inp["lora"], {"data": 2, "stage": 2}),
+            "bert": _steps(inp["bert"], {"data": 2, "stage": 2})}
+
+
+def case_stage8(inp: dict) -> dict:
+    """The GPipe schedule composed with the other axes on 8 ranks, two
+    steps each: {data, fsdp} x stage x tensor, data x stage x fsdp,
+    data x stage x sequence (ring, Ulysses), packed segments with a loss
+    mask on data x stage x tensor; `stage_submeshes`' rank layouts of
+    {stage: 2, tensor: 2, data: 2} and {stage: 4, tensor: 2}, and its
+    refusal of a mesh without a stage axis."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from kubeflow_tpu_torch.parallel import make_mesh, stage_submeshes
+
+    dst = {"data": 2, "stage": 2, "tensor": 2}
+    dss = {"data": 2, "stage": 2, "sequence": 2}
+    runs = {"dp_pp_tp": (dst, {}),
+            "fsdp_pp_tp": ({"fsdp": 2, "stage": 2, "tensor": 2}, {}),
+            "dp_pp_fsdp": ({"data": 2, "stage": 2, "fsdp": 2}, {}),
+            "ring": (dss, dict(attention_impl="ring")),
+            "ulysses": (dss, dict(attention_impl="ulysses"))}
+    out = {k: _steps(inp, mesh, **over) for k, (mesh, over) in runs.items()}
+    out["packed"] = _steps(dict(inp, batches=inp["packed"]), dst)
+    out["submeshes"] = {
+        key: [(m.mesh.tolist(), m.mesh_dim_names)
+              for m in stage_submeshes(make_mesh(shape))]
+        for key, shape in (("stage2", {"stage": 2, "tensor": 2,
+                                       "data": 2}),
+                           ("stage4", {"stage": 4, "tensor": 2}))}
+    out["no_stage"] = _raises(lambda: stage_submeshes(DeviceMesh(
+        "cpu", torch.arange(8), mesh_dim_names=("data",))))
+    return out
+
+
+def case_stage2(inp: dict) -> dict:
+    """{stage: 2}: two steps saving a checkpoint (the last, forced),
+    the whole state after them, and the blocks restore_or_init gives a
+    new trainer from the save against the trained blocks."""
+    from kubeflow_tpu_torch.training.checkpoint import restore_or_init
+
+    t = _trainer(inp, {"stage": 2}, checkpoint_dir=inp["dir"],
+                 checkpoint_every=5)
+    state = t.init_state(_params(t, inp["params"]))
+    t.train(iter(inp["batches"]), len(inp["batches"]), state)
+    state2, resumed = restore_or_init(_trainer(inp, {"stage": 2}),
+                                      inp["dir"])
+    trees = [state["params"], state["opt_state"]["mu"],
+             state["opt_state"]["nu"]]
+    return {"whole": _whole(trees), "resumed": resumed,
+            "coord": tuple(t.mesh.get_coordinate()),
+            "blocks": _blocks(trees),
+            "restored": _blocks([state2["params"],
+                                 state2["opt_state"]["mu"],
+                                 state2["opt_state"]["nu"]])}
 
 
 def main() -> None:
